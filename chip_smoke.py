@@ -1,0 +1,471 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure (no phase's error is
+caught):
+
+  1. device  — the card's name and power limit (nvidia-smi);
+  2. build   — nvcc builds every kernel source of the main path from the
+               checkout (``src/repro_torch/kernels/csrc``);
+  3. parity  — each kernel against its plain PyTorch version on the
+               card, bf16 and f32, at the main path's full width
+               (H=32, H_kv=8, D=128, P=16), on strided per-layer views
+               of a page pool as the engine passes them;
+  4. serve   — ``repro_torch.launch.serve.build_engine`` on full-width
+               qwen3-8b (36 layers, bf16 weights drawn on the card from
+               a seed), a seeded trace of 8 requests; the launch
+               counters, zeroed just before, must equal n_layers x the
+               prefill and decode steps of the run; the same trace
+               again with ``torch.profiler`` on two windows of ticks
+               for where the device time goes; then the smoke config in f32 on the card must give
+               the same greedy streams with the kernels as with the
+               plain versions;
+  5. timing  — each kernel, its plain version and
+               ``scaled_dot_product_attention`` on pre-gathered K/V (a
+               yardstick the port never calls) with CUDA events, the L2
+               flushed before each launch, at the phase-3 shapes.
+
+It prints a ``{"kernels": [...]}`` line, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the repository's ``src/`` beside it, it exits
+non-zero and prints no result.  It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# full width of the main path (qwen3-8b): heads, KV heads, head dim,
+# page tokens; the parity/timing batch
+H, HKV, D, P = 32, 8, 128, 16
+B = 8
+DECODE_LENS = [0, 1, 9, 16, 100, 256, 512, 777]    # 0, mid-page, full pages
+WINDOW = 64
+WIN_START = [0, 5, 16, 100, 250, 37, 448, 0]       # mid-page starts
+WIN_NTOK = [64, 64, 30, 64, 1, 64, 64, 0]          # padded, inactive rows
+N_SLOTS = 64                                       # 1024 tokens of table
+# tolerances against the plain version: f32 differs only by summation
+# order (online vs dense softmax); bf16 inputs are the same bits on both
+# sides and both accumulate in f32, so the gap is the final bf16
+# rounding of outputs |o| < 4 (one bf16 ulp there is <= 1.6e-2)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+HBM_BYTES_S = 3.35e12                              # H100 SXM data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+SERVE_TRACE = dict(n_requests=8, rate=8.0, seed=0,
+                   prompt_short=(64, 257), prompt_long=(257, 513),
+                   long_frac=0.25, out_short=(32, 65), out_long=(32, 65))
+
+
+def fail(msg: str) -> None:
+    print(f"CHIP_SMOKE_FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------------
+# inputs at the main path's shapes
+# ----------------------------------------------------------------------
+def make_pool(gen, dtype, dev):
+    """A (n_pages, 2, 2, P, H_kv, D) pool; the kernels get the strided
+    per-layer views pool[:, 0, 1] / pool[:, 1, 1], as the engine passes
+    pool[:, 0|1, li].  Page 0 (the null page) holds noise too."""
+    n_pages = B * N_SLOTS + 1
+    pool = torch.randn((n_pages, 2, 2, P, HKV, D), generator=gen,
+                       device=dev).to(dtype)
+    bt = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    return pool, bt.reshape(B, N_SLOTS).to(torch.int32)
+
+
+def null_pad(bt, tokens):
+    """Null-pad each row past the pages its tokens need (engine shape)."""
+    bt = bt.clone()
+    for b, n in enumerate(tokens):
+        bt[b, -(-n // P):] = 0
+    return bt.contiguous()
+
+
+def decode_case(dtype, dev, seed=1):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool, bt = make_pool(gen, dtype, dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    return q, pool[:, 0, 1], pool[:, 1, 1], null_pad(bt, DECODE_LENS), lens
+
+
+def prefill_case(dtype, dev, seed=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool, bt = make_pool(gen, dtype, dev)
+    q = torch.randn((B, WINDOW, H, D), generator=gen, device=dev).to(dtype)
+    start = torch.tensor(WIN_START, dtype=torch.int32, device=dev)
+    n_tok = torch.tensor(WIN_NTOK, dtype=torch.int32, device=dev)
+    need = [s + n for s, n in zip(WIN_START, WIN_NTOK)]
+    return (q, pool[:, 0, 1], pool[:, 1, 1], null_pad(bt, need), start,
+            n_tok)
+
+
+# ----------------------------------------------------------------------
+# phase 3: parity
+# ----------------------------------------------------------------------
+def parity(pa, dev) -> dict:
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        q, kp, vp, bt, lens = decode_case(dtype, dev)
+        if kp.is_contiguous():
+            fail("parity must run on a strided pool view")
+        out = pa.paged_decode_attention(q, kp, vp, bt, lens)
+        ref = pa.paged_decode_attention_ref(q, kp, vp, bt, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= TOL[dtype]:
+            fail(f"decode {tag}: max |kernel - plain| {err} > {TOL[dtype]}")
+        if out[0].abs().max().item() != 0.0:
+            fail(f"decode {tag}: length-0 row is not exactly zero")
+        errs[("paged_decode_attention", tag)] = err
+
+        q, kp, vp, bt, start, n_tok = prefill_case(dtype, dev)
+        out = pa.paged_prefill_attention(q, kp, vp, bt, start, n_tok)
+        ref = pa.paged_prefill_attention_ref(q, kp, vp, bt, start, n_tok)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= TOL[dtype]:
+            fail(f"prefill {tag}: max |kernel - plain| {err} > {TOL[dtype]}")
+        pad = torch.arange(WINDOW, device=dev)[None] >= n_tok[:, None]
+        if out[pad].abs().max().item() != 0.0:
+            fail(f"prefill {tag}: padded/inactive rows are not exactly zero")
+        errs[("paged_prefill_attention", tag)] = err
+        print(f"parity {tag}: decode max_err="
+              f"{errs[('paged_decode_attention', tag)]:.3e} prefill "
+              f"max_err={err:.3e} (tol {TOL[dtype]})", flush=True)
+    return errs
+
+
+# ----------------------------------------------------------------------
+# phase 4: serve
+# ----------------------------------------------------------------------
+def serve_full(pa, dev):
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    t0 = time.monotonic()
+    eng, cfg = build_engine("qwen3-8b", config="full", dtype="bf16",
+                            device=dev, page_tokens=P, n_pages=512,
+                            max_batch=B, prefill_chunk=64,
+                            attn_impl="kernel", seed=0)
+    torch.cuda.synchronize()
+    print(f"serve: qwen3-8b full width, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; bf16 "
+          f"weights {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+          f"card, init {time.monotonic() - t0:.1f} s", flush=True)
+    tcfg = TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE)
+    # warm-up on a throwaway trace (cuBLAS handles, the kernels' first
+    # launches), then a clean measured run on the same engine
+    eng.run(make_requests(TrafficConfig(
+        vocab=cfg.vocab, **{**SERVE_TRACE, "n_requests": 2, "seed": 99})))
+    eng.reset_metrics()
+    reqs = make_requests(tcfg)
+
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(pa.LAUNCHES)
+
+    m = eng.metrics()
+    if len(done) != len(reqs):
+        fail(f"serve: {len(done)} of {len(reqs)} requests finished")
+    for r in done:
+        if len(r.out) != r.max_new or not all(0 <= t < cfg.vocab
+                                              for t in r.out):
+            fail(f"serve: request {r.rid} produced {r.out}")
+    want = {"paged_prefill_attention": cfg.n_layers * m["steps"]["prefill"],
+            "paged_decode_attention": cfg.n_layers * m["steps"]["decode"]}
+    if launches != want or min(launches.values()) == 0:
+        fail(f"serve: kernel launches {launches} != n_layers x steps {want}")
+    prompts = [r.n_prompt for r in reqs]
+    print(f"serve: {len(done)} requests, prompts {min(prompts)}-"
+          f"{max(prompts)} tokens, {m['tokens_out']} tokens out, "
+          f"{m['steps']['prefill']} prefill steps, {m['steps']['decode']} "
+          f"decode steps, launches {launches}", flush=True)
+    print("serve metrics: " + json.dumps(
+        {k: m[k] for k in ("requests", "tokens_out", "span_s",
+                           "throughput_tok_s", "ttft_p50_s", "ttft_p99_s",
+                           "decode_p50_s", "decode_p99_s", "latency_p50_s",
+                           "latency_p99_s", "ticks", "steps")}), flush=True)
+    profile_serve(eng, make_requests(tcfg))
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _kind(name: str) -> str:
+    if "paged_" in name:
+        return "paged attention (ours)"
+    low = name.lower()
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul (cuBLAS)"
+    if "sort" in low:
+        return "sort (sampler)"
+    return "elementwise/reduce/copy"
+
+
+def _window(eng, tick, n_ticks):
+    """Profile up to ``n_ticks`` engine ticks: device time by kernel and
+    by kind, and the device's busy share of the window's wall time (a
+    lower bound: the profiler adds host time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps0 = dict(eng.steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n_ticks):
+            if not eng.sched.has_work():
+                break
+            eng.tick(tick)
+            tick += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kinds: dict = {}
+    per: list = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        per.append((us, e.count, e.key))
+        kinds[_kind(e.key)] = kinds.get(_kind(e.key), 0.0) + us
+    busy_ms = sum(kinds.values()) / 1e3
+    return tick, {
+        "steps": {k: eng.steps[k] - steps0[k] for k in steps0},
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "by_kind_ms": {k: v / 1e3 for k, v in sorted(
+            kinds.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"name": n[:80], "calls": c, "ms": us / 1e3}
+                        for us, c, n in sorted(per, reverse=True)[:6]],
+    }
+
+
+def profile_serve(eng, reqs) -> None:
+    """Where the time of the same trace goes, on the same engine: all
+    requests submitted at once, then ten profiled ticks while prompts
+    are prefilling (prefill + decode steps) and ten once every prompt is
+    done (decode steps only)."""
+    eng.reset_metrics()
+    for r in reqs:
+        eng.submit(r)
+    tick, mixed = _window(eng, 0, 10)
+    while eng.sched.has_work() and any(
+            r.is_prefilling() for r in [*eng.sched.running,
+                                        *eng.sched.waiting]):
+        eng.tick(tick)
+        tick += 1
+    tick, decode = _window(eng, tick, 10)
+    while eng.sched.has_work():
+        eng.tick(tick)
+        tick += 1
+    print("profile: " + json.dumps({"prefill_and_decode_ticks": mixed,
+                                    "decode_only_ticks": decode}),
+          flush=True)
+
+
+def serve_smoke_streams(dev):
+    """Kernel vs plain attention on the smoke config in f32 on the card:
+    identical greedy streams (the reference's acceptance bar)."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import Request
+
+    streams = {}
+    for impl in ("kernel", "ref"):
+        eng, cfg = build_engine("qwen3-8b", config="smoke", dtype="f32",
+                                device=dev, page_tokens=4, n_pages=32,
+                                max_batch=3, prefill_chunk=3,
+                                attn_impl=impl, seed=0)
+        prompts = [list(range(3, 9)), list(range(4, 10)), [7, 3, 99, 12]]
+        done = eng.run([Request(rid=i, prompt=p, max_new=5)
+                        for i, p in enumerate(prompts)], clock="tick")
+        streams[impl] = {r.rid: list(r.out) for r in done}
+    if streams["kernel"] != streams["ref"]:
+        fail(f"smoke streams differ: kernel {streams['kernel']} vs plain "
+             f"{streams['ref']}")
+    print(f"serve smoke f32: kernel streams == plain streams "
+          f"{streams['kernel']}", flush=True)
+
+
+# ----------------------------------------------------------------------
+# phase 5: timing
+# ----------------------------------------------------------------------
+def time_ms(fn, dev, iters=20) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, each after an L2
+    flush (a 256 MB write), by CUDA events around each call.  A ~1 ms
+    device spin before the first event lets the host enqueue the whole
+    call first, so host-side launch cost does not show as device time."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def gathered(kp, vp, bt, s):
+    """Contiguous (B, H_kv, s, D) K/V gathered through the block table."""
+    bl = bt.long()
+    kc = kp[bl].reshape(B, -1, HKV, D)[:, :s].transpose(1, 2).contiguous()
+    vc = vp[bl].reshape(B, -1, HKV, D)[:, :s].transpose(1, 2).contiguous()
+    return kc, vc
+
+
+def timing(pa, dev, launches, errs) -> list:
+    import torch.nn.functional as F
+
+    dt = torch.bfloat16
+    isz = torch.tensor([], dtype=dt).element_size()
+    rows = []
+
+    q, kp, vp, bt, lens = decode_case(dt, dev)
+    s = max(DECODE_LENS)
+    kc, vc = gathered(kp, vp, bt, s)
+    mask = (torch.arange(s, device=dev)[None] < lens[:, None])[:, None, None]
+    qs = q[:, :, None]
+    ntok = sum(DECODE_LENS)
+    nbytes = (2 * q.numel() * isz + ntok * HKV * D * isz * 2
+              + bt.numel() * 4 + lens.numel() * 4)
+    flops = 4 * ntok * H * D
+    rows.append(dict(
+        name="paged_decode_attention",
+        fn=lambda: pa.paged_decode_attention(q, kp, vp, bt, lens),
+        plain=lambda: pa.paged_decode_attention_ref(q, kp, vp, bt, lens),
+        lib=lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
+                                                   enable_gqa=True),
+        nbytes=nbytes, flops=flops, replaces="src/repro/kernels/"
+        "paged_attention.py:216 (paged_decode_attention, body "
+        "_paged_kernel :126)"))
+
+    q2, kp2, vp2, bt2, start, n_tok = prefill_case(dt, dev)
+    s2 = max(a + n for a, n in zip(WIN_START, WIN_NTOK))
+    kc2, vc2 = gathered(kp2, vp2, bt2, s2)
+    j = torch.arange(WINDOW, device=dev)[None]
+    lim = torch.where(j < n_tok[:, None], start[:, None] + j + 1,
+                      torch.zeros_like(j))
+    mask2 = (torch.arange(s2, device=dev)[None, None] < lim[:, :, None])
+    mask2 = mask2[:, None]
+    qt = q2.transpose(1, 2)
+    seen = sum(a + n for a, n in zip(WIN_START, WIN_NTOK) if n)
+    nbytes2 = (2 * q2.numel() * isz + seen * HKV * D * isz * 2
+               + bt2.numel() * 4 + 2 * B * 4)
+    flops2 = sum(4 * (a + jj + 1) * H * D
+                 for a, n in zip(WIN_START, WIN_NTOK) for jj in range(n))
+    rows.append(dict(
+        name="paged_prefill_attention",
+        fn=lambda: pa.paged_prefill_attention(q2, kp2, vp2, bt2, start,
+                                              n_tok),
+        plain=lambda: pa.paged_prefill_attention_ref(q2, kp2, vp2, bt2,
+                                                     start, n_tok),
+        lib=lambda: F.scaled_dot_product_attention(qt, kc2, vc2,
+                                                   attn_mask=mask2,
+                                                   enable_gqa=True),
+        nbytes=nbytes2, flops=flops2, replaces="src/repro/kernels/"
+        "paged_attention.py:358 (paged_prefill_attention, body "
+        "_prefill_kernel :227)"))
+
+    out = []
+    for r in rows:
+        ms = time_ms(r["fn"], dev)
+        plain_ms = time_ms(r["plain"], dev)
+        lib_ms = time_ms(r["lib"], dev)
+        bound_s = max(r["nbytes"] / HBM_BYTES_S, r["flops"] / PEAK_FLOPS[dt])
+        by = "bytes" if r["nbytes"] / HBM_BYTES_S >= r["flops"] / \
+            PEAK_FLOPS[dt] else "operations"
+        err = max(errs[(r["name"], "bf16")], errs[(r["name"], "f32")])
+        out.append({
+            "name": r["name"], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": r["replaces"], "launches": launches[r["name"]],
+            "max_abs_err": err, "max_err": err,
+            "max_err_bf16": errs[(r["name"], "bf16")],
+            "max_err_f32": errs[(r["name"], "f32")],
+            "tol": {"bf16": TOL[torch.bfloat16], "f32": TOL[torch.float32]},
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": lib_ms,
+            "bound_bytes": r["nbytes"], "bound_flops": r["flops"],
+        })
+        print(f"timing {r['name']} (bf16): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_s * 1e3:.4f} ms ({by})", flush=True)
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: no repro_torch package under {SRC}",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa
+
+    # a reference states and sets its matmul precision: full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_all = time.monotonic()
+
+    card = card_line()
+    print(f"device: {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    t0 = time.monotonic()
+    build.build(pa.SOURCE)
+    print(f"build: {pa.SOURCE} in {time.monotonic() - t0:.1f} s", flush=True)
+    print(build.BUILD_LOG.get(pa.SOURCE, "(library already built)").strip(),
+          flush=True)
+
+    errs = parity(pa, dev)
+    launches = serve_full(pa, dev)
+    serve_smoke_streams(dev)
+    kernels = timing(pa, dev, launches, errs)
+
+    print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

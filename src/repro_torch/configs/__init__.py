@@ -1,0 +1,31 @@
+"""Architecture configs the port serves — one module per architecture.
+
+``get(name)`` returns the exact published config; ``get_smoke(name)``
+returns a reduced same-family config for CPU tests.  Only the archs
+whose family the port runs are here; the others arrive with their
+family.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ("qwen3_8b",)
+
+_ALIASES = {"qwen3-8b": "qwen3_8b"}
+
+
+def canon(name: str) -> str:
+    key = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if key not in ARCHS:
+        raise NotImplementedError(
+            f"repro_torch has no config for {name!r} yet (ported: "
+            f"{', '.join(ARCHS)}); other archs arrive with their family")
+    return key
+
+
+def get(name: str):
+    return importlib.import_module(f"{__name__}.{canon(name)}").config()
+
+
+def get_smoke(name: str):
+    return importlib.import_module(f"{__name__}.{canon(name)}").smoke_config()

@@ -1,0 +1,264 @@
+"""The symmetric heap allocator (POSH paper §3.1, §4.1).
+
+The counterpart of ``repro.core.heap``.  POSH's central object is the
+per-PE *symmetric heap*: every allocation is collective, so any object
+lives at the **same offset on every PE** (Fact 1) and a remote address
+is ``heap_remote + (addr_local - heap_local)`` (Corollary 1).  What is
+kept here is the allocator — a linear symmetric address space with
+first-fit allocation, alignment (``shmemalign``), coalescing free,
+``shrealloc`` and offset-based address resolution — which is host-side
+Python and gives the same offsets as the reference for the same
+allocation sequence.  The tensors themselves belong to their users
+(the paged KV cache makes its pool on the serving device).
+
+The ``team`` is kept as the tuple of axis names it was given; the
+multi-rank team queries arrive with the multi-rank slice of the port.
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+TeamAxes = Union[str, Sequence[str]]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or anything numpy understands."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    return n * dtype.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class SymHandle:
+    """A symmetric object: same shape, dtype and *offset* on every PE."""
+
+    name: str
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    offset: int          # byte offset in the symmetric address space
+    nbytes: int
+    align: int = 0       # alignment the object was allocated with
+                         # (0 = heap default); realloc's move path
+                         # re-places with the same guarantee
+
+    @property
+    def addr(self) -> int:
+        """The symmetric 'address' — identical on every PE (Fact 1)."""
+        return self.offset
+
+
+@dataclasses.dataclass
+class _Block:
+    offset: int
+    nbytes: int
+    free: bool
+    name: Optional[str] = None
+
+
+class SymmetricHeap:
+    """Host-side symmetric allocator."""
+
+    DEFAULT_ALIGN = 512  # bytes; the reference's default, kept so that
+                         # offsets agree with it
+
+    def __init__(self, team: TeamAxes = ("data", "model"),
+                 capacity_bytes: int = 1 << 40):
+        self.team = (team,) if isinstance(team, str) else tuple(team)
+        self.capacity = int(capacity_bytes)
+        self._blocks: list[_Block] = [_Block(0, self.capacity, True)]
+        self.registry: dict[str, SymHandle] = {}
+        # sorted (offset, handle) index over live objects: resolve() is
+        # a bisect, not a registry scan
+        self._sorted_offsets: list[int] = []
+        self._sorted_handles: list[SymHandle] = []
+
+    # ------------------------------------------------------------------
+    # allocation — shmalloc / shmemalign / shfree (§4.1.1)
+    # ------------------------------------------------------------------
+    def alloc(self, name: str, shape, dtype,
+              align: int | None = None) -> SymHandle:
+        """Symmetric allocation: every PE makes this same call with the
+        same arguments (the OpenSHMEM requirement, paper §4.1.1)."""
+        if name in self.registry:
+            raise ValueError(f"symmetric object '{name}' already allocated")
+        align = align or self.DEFAULT_ALIGN
+        if align & (align - 1):
+            raise ValueError(f"alignment must be a power of two, got {align}")
+        shape = tuple(int(d) for d in shape)
+        dtype = torch_dtype(dtype)
+        need = max(_nbytes(shape, dtype), 1)
+        for i, blk in enumerate(self._blocks):
+            if not blk.free:
+                continue
+            start = _align_up(blk.offset, align)
+            pad = start - blk.offset
+            if blk.nbytes >= pad + need:
+                self._carve(i, pad, need, name)
+                h = SymHandle(name, shape, dtype, start, need, align)
+                self.registry[name] = h
+                j = bisect.bisect_left(self._sorted_offsets, start)
+                self._sorted_offsets.insert(j, start)
+                self._sorted_handles.insert(j, h)
+                return h
+        raise MemoryError(
+            f"symmetric heap exhausted: need {need}B aligned {align} "
+            f"(capacity {self.capacity}B)")
+
+    def free(self, handle_or_name) -> None:
+        """``shfree`` — symmetric deallocation with coalescing."""
+        name = handle_or_name.name if isinstance(handle_or_name, SymHandle) \
+            else handle_or_name
+        h = self.registry.pop(name, None)
+        if h is None:
+            raise KeyError(f"no symmetric object named '{name}'")
+        j = bisect.bisect_left(self._sorted_offsets, h.offset)
+        del self._sorted_offsets[j]
+        del self._sorted_handles[j]
+        for blk in self._blocks:
+            if blk.name == name:
+                blk.free, blk.name = True, None
+                break
+        self._coalesce()
+
+    def realloc(self, handle_or_name, shape, dtype=None,
+                align: int | None = None) -> Optional[SymHandle]:
+        """``shrealloc`` (§4.1.1): resize a live symmetric object.
+
+        Keeps the offset whenever the resize fits in place — shrink
+        splits the block, grow absorbs a free right neighbour — and
+        otherwise frees and re-allocates first-fit (the same
+        deterministic move on every PE, so the offset stays symmetric).
+        Size 0 frees the block and returns ``None``.  Contents are the
+        caller's to carry over."""
+        name = handle_or_name.name if isinstance(handle_or_name, SymHandle) \
+            else handle_or_name
+        old = self.registry.get(name)
+        if old is None:
+            raise KeyError(f"no symmetric object named '{name}'")
+        if isinstance(shape, (int, np.integer)):
+            shape = (int(shape),)
+        shape = tuple(int(d) for d in shape)
+        if shape and int(np.prod(shape, dtype=np.int64)) == 0:
+            self.free(name)
+            return None
+        dtype = old.dtype if dtype is None else torch_dtype(dtype)
+        # validate BEFORE any mutation: a bad argument must not be able
+        # to lose the object
+        align = align or old.align or None
+        if align is not None and align & (align - 1):
+            raise ValueError(f"alignment must be a power of two, got {align}")
+        need = max(_nbytes(shape, dtype), 1)
+        i = next(k for k, blk in enumerate(self._blocks) if blk.name == name)
+        blk = self._blocks[i]
+
+        # a STRONGER explicit align than the current offset satisfies
+        # rules out resizing in place
+        in_place_ok = old.offset % (align or self.DEFAULT_ALIGN) == 0
+
+        if in_place_ok and need <= blk.nbytes:       # in place (shrink/equal)
+            rest = blk.nbytes - need
+            blk.nbytes = need
+            if rest:
+                self._blocks.insert(i + 1,
+                                    _Block(blk.offset + need, rest, True))
+                self._coalesce()
+            return self._replace_handle(old, shape, dtype, old.offset, need,
+                                        align)
+
+        nxt = self._blocks[i + 1] if i + 1 < len(self._blocks) else None
+        grow = need - blk.nbytes
+        if in_place_ok and grow > 0 and nxt is not None and nxt.free \
+                and nxt.nbytes >= grow:              # absorb neighbour
+            blk.nbytes = need
+            nxt.offset += grow
+            nxt.nbytes -= grow
+            if nxt.nbytes == 0:
+                del self._blocks[i + 1]
+            return self._replace_handle(old, shape, dtype, old.offset, need,
+                                        align)
+
+        # move: free then first-fit alloc under the same name
+        self.free(name)
+        try:
+            return self.alloc(name, shape, dtype, align=align)
+        except MemoryError:
+            # a failed realloc must neither lose nor move the object
+            self._alloc_at(old)
+            raise
+
+    def _alloc_at(self, h: SymHandle) -> None:
+        """Re-carve a just-freed extent at its original offset."""
+        for i, blk in enumerate(self._blocks):
+            if (blk.free and blk.offset <= h.offset
+                    and h.offset + h.nbytes <= blk.offset + blk.nbytes):
+                self._carve(i, h.offset - blk.offset, h.nbytes, h.name)
+                self.registry[h.name] = h
+                j = bisect.bisect_left(self._sorted_offsets, h.offset)
+                self._sorted_offsets.insert(j, h.offset)
+                self._sorted_handles.insert(j, h)
+                return
+        raise AssertionError(
+            f"extent of '{h.name}' not free during realloc restore")
+
+    def _replace_handle(self, old: SymHandle, shape, dtype, offset: int,
+                        nbytes: int, align) -> SymHandle:
+        """Swap the registry/index entry for a resized-in-place object."""
+        j = bisect.bisect_left(self._sorted_offsets, old.offset)
+        del self._sorted_offsets[j]
+        del self._sorted_handles[j]
+        h = SymHandle(old.name, shape, dtype, offset, nbytes, align or 0)
+        self.registry[old.name] = h
+        j = bisect.bisect_left(self._sorted_offsets, offset)
+        self._sorted_offsets.insert(j, offset)
+        self._sorted_handles.insert(j, h)
+        return h
+
+    def _carve(self, i: int, pad: int, need: int, name: str) -> None:
+        blk = self._blocks[i]
+        pieces = []
+        if pad:
+            pieces.append(_Block(blk.offset, pad, True))
+        pieces.append(_Block(blk.offset + pad, need, False, name))
+        rest = blk.nbytes - pad - need
+        if rest:
+            pieces.append(_Block(blk.offset + pad + need, rest, True))
+        self._blocks[i:i + 1] = pieces
+
+    def _coalesce(self) -> None:
+        out: list[_Block] = []
+        for blk in self._blocks:
+            if out and out[-1].free and blk.free:
+                out[-1].nbytes += blk.nbytes
+            else:
+                out.append(blk)
+        self._blocks = out
+
+    # ------------------------------------------------------------------
+    # Corollary 1 — offset-based remote addressing
+    # ------------------------------------------------------------------
+    def addr_of(self, name: str) -> int:
+        """Symmetric address of an object (same on every PE, Fact 1)."""
+        return self.registry[name].offset
+
+    def resolve(self, addr: int) -> tuple[SymHandle, int]:
+        """Symmetric address -> (object, byte offset), by bisection."""
+        j = bisect.bisect_right(self._sorted_offsets, addr) - 1
+        if j >= 0:
+            h = self._sorted_handles[j]
+            if h.offset <= addr < h.offset + h.nbytes:
+                return h, addr - h.offset
+        raise KeyError(f"address {addr} not inside any symmetric object")
+
+
+def _align_up(x: int, a: int) -> int:
+    return (x + a - 1) & ~(a - 1)

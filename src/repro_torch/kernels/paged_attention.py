@@ -1,0 +1,307 @@
+"""Paged attention through a block table: CUDA kernels for Hopper, their
+plain PyTorch versions, and the wrappers that pick between them.
+
+The serving engine keeps the KV cache as fixed-size pages of the
+symmetric heap's pool; a sequence's cache is a *block table* of page
+ids.  Two kernels (``csrc/paged_attention.cu``, CUDA C++ for
+``sm_90a``) compute attention directly against that layout:
+
+  * ``paged_decode_attention`` replaces the Pallas kernel
+    ``repro.kernels.paged_attention.paged_decode_attention`` (body
+    ``_paged_kernel``): one decode step, grid (sequence, KV head,
+    split of the sequence's tokens), then a merge over the splits.
+  * ``paged_prefill_attention`` replaces
+    ``repro.kernels.paged_attention.paged_prefill_attention`` (body
+    ``_prefill_kernel``): a whole chunked-prefill window, grid
+    (sequence, q block, KV head), each row with its own causal bound.
+
+What bounds them on an H100 is bytes: the K/V pages each sequence has
+filled, read once per KV head (decode at 8 sequences of 512 tokens
+reads ~16.8 MB per layer in bf16, ~5 us at 3.35 TB/s), against 4 flops
+per K/V element.  The design: the walk stops at the last valid token
+(the TPU grid visits all ``n_slots`` table slots — 256 at
+``max_seq=4096``, P=16); the per-layer K/V is read IN PLACE as a
+strided view of the whole ``(n_pages, 2, L, P, H_kv, D)`` pool (the
+page stride is a kernel argument; a ``.contiguous()`` here would copy
+the pool twice per layer per tick); decode splits each sequence's
+tokens over ``decode_splits`` blocks and 8 warps per block so that the
+grid fills the card and many loads are in flight, then merges the
+partial softmax states in a second small kernel; the prefill window
+gives each warp up to 8 score rows.  Tensor cores (wgmma), TMA and
+shared-memory staging are for the PRs that make them fast.
+
+Semantics are the reference's to the constant: ``NEG_INF = -1e30``,
+p re-masked after the exp, denominator ``max(l, 1e-30)``, ``sm_scale =
+1/sqrt(D)``, f32 accumulation; a decode row of length 0 and a window
+row ``j >= n_tok`` are exact zeros.
+
+The wrappers take the plain version for CPU tensors — only there.  For
+a CUDA tensor they launch the kernel or raise; nothing falls back.
+``LAUNCHES`` counts kernel launches per wrapper (plain integers; one
+per call, the decode split/merge pair counting once), so a run can show
+that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import torch
+
+from . import build
+
+NEG_INF = -1e30
+SOURCE = "paged_attention.cu"
+# q-block rows of the prefill window kernel, see choose_block
+BLOCK_Q = 16
+# limits of the kernels (checked against the library's own at launch)
+MAX_HEAD_DIM = 256
+MAX_GROUP = 8
+MAX_WINDOW_ROWS = 64
+# decode blocks per SM the split aims at, and the most splits
+DECODE_BLOCKS_PER_SM = 4
+MAX_DECODE_SPLITS = 16
+
+LAUNCHES = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_ARGTYPES = {
+    "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _L, _L, _F, _I, _P],
+    "paged_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _L, _L, _F, _I, _P],
+}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def choose_block(window: int, group: int = 1) -> int:
+    """Prefill-window q-block rows on the H100.
+
+    A block has 8 warps of up to 8 score rows each (64 rows = window rows
+    x the GQA group).  At qwen3-8b's group of 4 that is 16 window rows —
+    also the row count of one wgmma tile, for the tensor-core version to
+    come — and at the main path's window (B=8, C=64, H_kv=8) a grid of
+    8 x 4 x 8 = 256 blocks of ~120 registers per thread, two per SM of
+    the 132.  Shorter windows take one block of exactly their rows."""
+    return max(1, min(BLOCK_Q, int(window), MAX_WINDOW_ROWS // int(group)))
+
+
+_SMS: dict = {}
+
+
+def decode_splits(device: torch.device, batch: int, kv_heads: int) -> int:
+    """Blocks each sequence's decode tokens are split over: enough that
+    ``batch x kv_heads x splits`` gives every SM ~4 blocks of 8 warps
+    (the split point inside a sequence follows its length)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    want = -(-DECODE_BLOCKS_PER_SM * _SMS[idx] // max(batch * kv_heads, 1))
+    return max(1, min(MAX_DECODE_SPLITS, want))
+
+
+# ======================================================================
+# plain versions: gather the pages, dense masked softmax in f32
+# ======================================================================
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):
+    """q (B, H, D); k/v_pages (n_pages, P, H_kv, D); block_tables
+    (B, n_slots) int; lengths (B,) int -> (B, H, D) in q's dtype."""
+    b, h, d = q.shape
+    _, page_tokens, hkv, _ = k_pages.shape
+    group = h // hkv
+    s_max = block_tables.shape[1] * page_tokens
+    sm_scale = 1.0 / math.sqrt(d)
+    bt = block_tables.long()
+    kc = k_pages[bt].reshape(b, s_max, hkv, d).float()
+    vc = v_pages[bt].reshape(b, s_max, hkv, d).float()
+    qg = q.reshape(b, hkv, group, d).float()
+    sc = torch.einsum("bhgd,bshd->bhgs", qg, kc) * sm_scale
+    cols = torch.arange(s_max, device=q.device)
+    valid = (cols[None, :] < lengths.long()[:, None])[:, None, None, :]
+    sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    p = torch.where(valid, p, torch.zeros_like(p))
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, vc)
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, start,
+                                n_tok):
+    """q (B, C, H, D): row j of sequence b sits at position
+    ``start[b] + j`` and attends to the first ``start[b] + j + 1``
+    paged tokens; rows ``j >= n_tok[b]`` are exactly zero."""
+    b, c, h, d = q.shape
+    _, page_tokens, hkv, _ = k_pages.shape
+    group = h // hkv
+    s_max = block_tables.shape[1] * page_tokens
+    sm_scale = 1.0 / math.sqrt(d)
+    bt = block_tables.long()
+    kc = k_pages[bt].reshape(b, s_max, hkv, d).float()
+    vc = v_pages[bt].reshape(b, s_max, hkv, d).float()
+    qg = q.reshape(b, c, hkv, group, d).float()
+    sc = torch.einsum("bchgd,bshd->bchgs", qg, kc) * sm_scale
+    j = torch.arange(c, device=q.device)[None]
+    pos = start.long()[:, None] + j                                # (B, C)
+    lens = torch.where(j < n_tok.long()[:, None], pos + 1,
+                       torch.zeros_like(pos))
+    cols = torch.arange(s_max, device=q.device)
+    valid = (cols[None, None] < lens[:, :, None])[:, :, None, None, :]
+    sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    p = torch.where(valid, p, torch.zeros_like(p))
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bchgs,bshd->bchgd", p, vc)
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(b, c, h, d).to(q.dtype)
+
+
+# ======================================================================
+# wrappers
+# ======================================================================
+def _kernel(name: str, dtype: torch.dtype):
+    lib = build.load(SOURCE)
+    fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        limits = (lib.paged_attention_max_head_dim(),
+                  lib.paged_attention_max_group(),
+                  lib.paged_attention_max_window_rows())
+        if limits != (MAX_HEAD_DIM, MAX_GROUP, MAX_WINDOW_ROWS):
+            raise RuntimeError(f"kernel library limits {limits} differ from "
+                               f"the wrapper's")
+    return fn
+
+
+def _check(q, k_pages, v_pages, block_tables, ints, q_dims: int):
+    """Validate what the CUDA kernels take; raise on anything else."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the paged-attention kernels run on CUDA tensors, "
+                         f"got {q.device}")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables),
+                    *((f"int arg {i}", t) for i, t in enumerate(ints))):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if q.dtype not in _SUFFIX:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"q {q.dtype}, k_pages {k_pages.dtype}, v_pages "
+                        f"{v_pages.dtype}: the kernel takes one dtype")
+    if q.dim() != q_dims or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous {q_dims}-d tensor, got "
+                         f"shape {tuple(q.shape)} strides {q.stride()}")
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"k/v pages must be (n_pages, P, H_kv, D), got "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    _, page_tokens, hkv, d = k_pages.shape
+    inner = (hkv * d, d, 1)
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.stride()[1:] != inner:
+            raise ValueError(
+                f"{name}: each page must be contiguous (P, H_kv, D) with "
+                f"strides {inner}, got {t.stride()[1:]} (pages may sit any "
+                f"stride apart)")
+    h = q.shape[-2]
+    if q.shape[-1] != d or h % hkv:
+        raise ValueError(f"q heads/dim {tuple(q.shape[-2:])} do not fit "
+                         f"pages with H_kv={hkv}, D={d}")
+    if d > MAX_HEAD_DIM or h // hkv > MAX_GROUP:
+        raise ValueError(f"kernel takes head_dim <= {MAX_HEAD_DIM} and GQA "
+                         f"group <= {MAX_GROUP}, got D={d}, group={h // hkv}")
+    b = q.shape[0]
+    if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
+            or block_tables.shape[0] != b or not block_tables.is_contiguous()):
+        raise ValueError("block_tables must be a contiguous (B, n_slots) "
+                         "int32 tensor")
+    for t in ints:
+        if t.dtype != torch.int32 or t.shape != (b,) or not t.is_contiguous():
+            raise ValueError("lengths/start/n_tok must be contiguous (B,) "
+                             "int32 tensors")
+    return b, h, hkv, d, page_tokens, block_tables.shape[1]
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """One decode step of attention through a block table.
+
+    q (B, H, D); k/v_pages (n_pages, P, H_kv, D), each page contiguous,
+    pages any stride apart (a per-layer view of the pool); block_tables
+    (B, n_slots) int32; lengths (B,) int32 (0 = inactive -> zero row).
+    Token t of sequence b lives in page ``block_tables[b, t // P]``."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          lengths)
+    b, h, hkv, d, page_tokens, n_slots = _check(
+        q, k_pages, v_pages, block_tables, (lengths,), q_dims=3)
+    sm_scale = 1.0 / math.sqrt(d)
+    fn = _kernel("paged_decode_attention", q.dtype)
+    splits = decode_splits(q.device, b, hkv)
+    out = torch.empty_like(q)
+    # per-split partial softmax states, merged by the second kernel
+    m_part = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((b, h, splits, d), dtype=torch.float32,
+                           device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 block_tables.data_ptr(), lengths.data_ptr(),
+                 m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+                 out.data_ptr(), b, h, hkv, d, page_tokens, n_slots,
+                 k_pages.stride(0), v_pages.stride(0), sm_scale, splits,
+                 stream)
+    _raise_on(err, "paged_decode_attention")
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor,
+                            block_tables: torch.Tensor, start: torch.Tensor,
+                            n_tok: torch.Tensor) -> torch.Tensor:
+    """Chunk-window attention through the block table.
+
+    q (B, C, H, D): row j of sequence b sits at position ``start[b] + j``
+    and attends to the first ``start[b] + j + 1`` paged tokens (the
+    window's K/V already written); rows ``j >= n_tok[b]`` are exactly
+    zero.  Pages as in :func:`paged_decode_attention`; the q-block rows
+    come from :func:`choose_block`."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
+                                           start, n_tok)
+    b, h, hkv, d, page_tokens, n_slots = _check(
+        q, k_pages, v_pages, block_tables, (start, n_tok), q_dims=4)
+    c = q.shape[1]
+    sm_scale = 1.0 / math.sqrt(d)
+    block_q = choose_block(c, h // hkv)
+    fn = _kernel("paged_prefill_attention", q.dtype)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 block_tables.data_ptr(), start.data_ptr(), n_tok.data_ptr(),
+                 out.data_ptr(), b, c, h, hkv, d, page_tokens, n_slots,
+                 k_pages.stride(0), v_pages.stride(0), sm_scale, block_q,
+                 stream)
+    _raise_on(err, "paged_prefill_attention")
+    LAUNCHES["paged_prefill_attention"] += 1
+    return out

@@ -1,0 +1,185 @@
+"""repro_torch paged attention: the plain PyTorch versions against the
+JAX reference's oracles (``paged_decode_attention_ref`` /
+``paged_prefill_attention_ref``) and its Pallas kernels in interpret
+mode, over the reference's own parity corpus (mid-page starts, full
+final pages, padded and inactive rows, the verify shape, GQA/MQA,
+f32/bf16, length 0 — the cases of ``test_torch_cuda.py``, which holds
+the CUDA kernels against the same plain versions on the GPU); and the
+wrapper's device routing.
+
+Tolerances: f32 1e-5 (the same masked softmax in f32, summed in another
+order); bf16 3e-2 (the reference's own bf16 window tolerance: both
+sides read the same bf16 inputs, accumulate in f32 and round the output
+to bf16 once).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import paged_attention as jpa
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
+from test_torch_cuda import (DECODE_CASES, TDT, WINDOW_CASES, _close, _i32,
+                             _paged_case, _to_torch)
+
+torch.set_num_threads(2)
+
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_plain_matches_jax_oracle(case, dt):
+    q, kp, vp, bt, lens = DECODE_CASES[case]()
+    want = jpa.paged_decode_attention_ref(
+        jnp.asarray(q, JDT[dt]), jnp.asarray(kp, JDT[dt]),
+        jnp.asarray(vp, JDT[dt]), jnp.asarray(bt), jnp.asarray(lens))
+    got = pa.paged_decode_attention(_to_torch(q, dt), _to_torch(kp, dt),
+                                    _to_torch(vp, dt), _i32(bt), _i32(lens))
+    assert got.dtype == TDT[dt]
+    _close(got, want, dt, case)
+    for b in np.flatnonzero(lens == 0):      # inactive -> exact zeros
+        assert float(got[b].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", ["mixed_lengths", "gqa_6_2"])
+def test_decode_plain_matches_pallas_kernel_interpret(case):
+    q, kp, vp, bt, lens = DECODE_CASES[case]()
+    want = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lens), interpret=True)
+    got = pa.paged_decode_attention_ref(_to_torch(q), _to_torch(kp),
+                                        _to_torch(vp), _i32(bt), _i32(lens))
+    _close(got, want, "f32", case)
+
+
+def test_decode_reads_strided_pool_view():
+    """The engine hands the kernels ``pool[:, 0|1, li]`` — a strided view
+    of the (n_pages, 2, L, P, kvh, dh) pool; the result must equal the
+    contiguous pages'."""
+    q, kp, vp, bt, lens = _paged_case(seed=7)
+    n_pages, P, hkv, d = kp.shape
+    pool = torch.zeros((n_pages, 2, 3, P, hkv, d))
+    pool[:, 0, 1] = _to_torch(kp)
+    pool[:, 1, 1] = _to_torch(vp)
+    kview, vview = pool[:, 0, 1], pool[:, 1, 1]
+    assert not kview.is_contiguous()
+    got = pa.paged_decode_attention(_to_torch(q), kview, vview, _i32(bt),
+                                    _i32(lens))
+    want = pa.paged_decode_attention(_to_torch(q), _to_torch(kp),
+                                     _to_torch(vp), _i32(bt), _i32(lens))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_prefill_plain_matches_jax_oracle(case, dt):
+    q, kp, vp, bt, start, n_tok = WINDOW_CASES[case]()
+    want = jpa.paged_prefill_attention_ref(
+        jnp.asarray(q, JDT[dt]), jnp.asarray(kp, JDT[dt]),
+        jnp.asarray(vp, JDT[dt]), jnp.asarray(bt), jnp.asarray(start),
+        jnp.asarray(n_tok))
+    got = pa.paged_prefill_attention(_to_torch(q, dt), _to_torch(kp, dt),
+                                     _to_torch(vp, dt), _i32(bt),
+                                     _i32(start), _i32(n_tok))
+    assert got.dtype == TDT[dt]
+    _close(got, want, dt, case)
+    pad = np.arange(q.shape[1])[None] >= n_tok[:, None]
+    assert np.all(got.float().numpy()[pad] == 0.0)    # exact zeros
+
+
+@pytest.mark.parametrize("case,block_q", [("midpage_starts_a", None),
+                                          ("padded_and_inactive_rows", None),
+                                          ("ragged_window_13", 8)])
+def test_prefill_plain_matches_pallas_kernel_interpret(case, block_q):
+    q, kp, vp, bt, start, n_tok = WINDOW_CASES[case]()
+    want = jpa.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(start), jnp.asarray(n_tok), block_q=block_q,
+        interpret=True)
+    got = pa.paged_prefill_attention_ref(_to_torch(q), _to_torch(kp),
+                                         _to_torch(vp), _i32(bt),
+                                         _i32(start), _i32(n_tok))
+    _close(got, want, "f32", case)
+
+
+def test_prefill_window_matches_per_position_decode():
+    """The window equals C per-position decode calls (same mask, same
+    scale), padded rows zero — in the port, on its own plain versions."""
+    rng = np.random.RandomState(5)
+    B, C, H, Hkv, D, P, n_pages = 3, 4, 4, 2, 16, 4, 10
+    q = _to_torch(rng.randn(B, C, H, D))
+    kp = _to_torch(rng.randn(n_pages, P, Hkv, D))
+    vp = _to_torch(rng.randn(n_pages, P, Hkv, D))
+    bt = _i32([[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 9]])
+    start, n_tok = _i32([0, 4, 2]), _i32([4, 3, 0])
+    out = ops.paged_prefill_attention(q, kp, vp, bt, start, n_tok,
+                                      impl="kernel")
+    for b in range(B):
+        for j in range(C):
+            if j >= int(n_tok[b]):
+                assert float(out[b, j].abs().max()) == 0.0
+                continue
+            lens = torch.zeros(B, dtype=torch.int32)
+            lens[b] = int(start[b]) + j + 1
+            ref = ops.paged_attention(q[:, j].contiguous(), kp, vp, bt, lens,
+                                      impl="ref")
+            torch.testing.assert_close(out[b, j], ref[b], atol=1e-6,
+                                       rtol=1e-6)
+
+
+# ======================================================================
+# wrapper routing
+# ======================================================================
+def test_wrappers_use_plain_version_only_for_cpu_tensors(monkeypatch):
+    """CPU tensors take the plain version without touching the build or
+    the launch counters; any other device goes to the kernel path, which
+    raises for a non-CUDA tensor — it never falls back to the plain
+    version."""
+    q, kp, vp, bt, lens = _paged_case()
+    before = dict(pa.LAUNCHES)
+    monkeypatch.setattr(pa.build, "load", lambda *a: pytest.fail(
+        "CPU tensors must not build or load the CUDA library"))
+    pa.paged_decode_attention(_to_torch(q), _to_torch(kp), _to_torch(vp),
+                              _i32(bt), _i32(lens))
+    assert pa.LAUNCHES == before
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(pa, "paged_decode_attention_ref", no_plain)
+    monkeypatch.setattr(pa, "paged_prefill_attention_ref", no_plain)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pa.paged_decode_attention(torch.empty(3, 4, 16, **meta),
+                                  torch.empty(10, 4, 2, 16, **meta),
+                                  torch.empty(10, 4, 2, 16, **meta),
+                                  torch.empty(3, 3, dtype=torch.int32, **meta),
+                                  torch.empty(3, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pa.paged_prefill_attention(torch.empty(3, 8, 4, 16, **meta),
+                                   torch.empty(10, 4, 2, 16, **meta),
+                                   torch.empty(10, 4, 2, 16, **meta),
+                                   torch.empty(3, 3, dtype=torch.int32,
+                                               **meta),
+                                   torch.empty(3, dtype=torch.int32, **meta),
+                                   torch.empty(3, dtype=torch.int32, **meta))
+
+
+def test_ops_impl_switch_validates():
+    q, kp, vp, bt, lens = (_to_torch(a) if a.dtype == np.float32 else _i32(a)
+                           for a in _paged_case())
+    with pytest.raises(ValueError, match="impl"):
+        ops.paged_attention(q, kp, vp, bt, lens, impl="flash")
+    torch.testing.assert_close(ops.paged_attention(q, kp, vp, bt, lens),
+                               ops.paged_attention(q, kp, vp, bt, lens,
+                                                   impl="ref"))
+
+
+def test_choose_block_fits_the_warps_rows():
+    assert [pa.choose_block(w, 4) for w in (1, 3, 16, 64, 4096)] == \
+        [1, 3, 16, 16, 16]
+    assert pa.choose_block(64, 8) == 8 and pa.choose_block(64, 1) == 16
+    for g in range(1, pa.MAX_GROUP + 1):
+        assert pa.choose_block(64, g) * g <= pa.MAX_WINDOW_ROWS

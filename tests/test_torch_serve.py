@@ -1,0 +1,349 @@
+"""repro_torch serving host side and end to end, against the JAX
+reference on the same inputs: heap offsets, ``PagedKVCache`` grants,
+``truncate`` and block tables, FCFS scheduler plans, traffic traces,
+and the token streams of the whole engine (the port on the CPU, the
+reference with ``attn_impl="ref"``) for the same ``from_jax`` weights
+and requests — greedy and sampled, across prefill chunkings.  Plus the
+device contract (no GPU -> raise) and the explicit refusals of what
+later slices bring.
+
+Host bookkeeping and token streams must be EQUAL; nothing here has a
+tolerance.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro import serve as jserve
+from repro.core.heap import SymmetricHeap as JHeap
+from repro.models import registry
+from repro.parallel.ctx import ParallelCtx
+from repro_torch import configs, serve
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core.heap import SymmetricHeap
+from repro_torch.launch import serve as launch
+from repro_torch.weights import from_jax
+
+torch.set_num_threads(2)
+
+PROMPTS = [list(range(3, 9)), list(range(4, 10)), [7, 3, 99, 12]]
+
+
+# ======================================================================
+# heap, KV cache, scheduler, traffic: same inputs, same decisions
+# ======================================================================
+def _blocks(heap):
+    return [(b.offset, b.nbytes, b.free, b.name) for b in heap._blocks]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_heap_offsets_match_reference(seed):
+    rng = np.random.RandomState(seed)
+    ours, ref = SymmetricHeap(("data",), 1 << 22), JHeap(("data",), 1 << 22)
+    live = []
+    for step in range(60):
+        op = rng.randint(3) if live else 0
+        if op == 0:
+            name = f"o{step}"
+            shape = (int(rng.randint(1, 300)), int(rng.randint(1, 5)))
+            dtype = [np.float32, np.int8, np.float64][rng.randint(3)]
+            align = [None, 64, 4096][rng.randint(3)]
+            a = ours.alloc(name, shape, dtype, align=align)
+            b = ref.alloc(name, shape, dtype, align=align)
+            assert (a.offset, a.nbytes) == (b.offset, b.nbytes)
+            live.append(name)
+        elif op == 1:
+            name = live.pop(rng.randint(len(live)))
+            ours.free(name)
+            ref.free(name)
+        else:
+            name = live[rng.randint(len(live))]
+            shape = (int(rng.randint(0, 600)),)
+            a = ours.realloc(name, shape, np.float32)
+            b = ref.realloc(name, shape, np.float32)
+            if b is None:
+                assert a is None
+                live.remove(name)
+            else:
+                assert (a.offset, a.nbytes) == (b.offset, b.nbytes)
+        assert _blocks(ours) == _blocks(ref)
+    for name in live:
+        assert ours.resolve(ours.addr_of(name)) == (ours.registry[name], 0)
+
+
+def _kv_pair(n_pages=12, page_tokens=4):
+    geo = dict(n_layers=2, kv_heads=2, head_dim=4, n_pages=n_pages,
+               page_tokens=page_tokens)
+    return (serve.PagedKVCache(SymmetricHeap(("data",), 1 << 24), **geo),
+            jserve.PagedKVCache(JHeap(("data",), 1 << 24), **geo))
+
+
+def test_kv_cache_grants_truncate_and_block_tables_match():
+    ours, ref = _kv_pair()
+    assert ours.handle.shape == ref.handle.shape == (12, 2, 2, 4, 2, 4)
+    assert ours.handle.offset == ref.handle.offset
+    script = [("alloc", "a", 6), ("alloc", "b", 9), ("ensure", "a", 11),
+              ("truncate", "b", 5), ("alloc", "c", 3), ("free", "a", 0),
+              ("alloc", "d", 13), ("ensure", "c", 16), ("truncate", "d", 0),
+              ("ensure", "d", 7), ("alloc", "e", 40), ("free", "c", 0)]
+    for op, sid, n in script:
+        if op == "alloc":
+            assert ours.alloc_seq(sid, n) == ref.alloc_seq(sid, n)
+        elif op == "ensure":
+            assert ours.ensure(sid, n) == ref.ensure(sid, n)
+        elif op == "truncate":
+            assert ours.truncate(sid, n) == ref.truncate(sid, n)
+        else:
+            ours.free_seq(sid)
+            ref.free_seq(sid)
+        assert ours.tables == ref.tables, (op, sid)
+        assert ours._free == ref._free, (op, sid)
+        sids = sorted(ours.tables) + [None]
+        np.testing.assert_array_equal(ours.block_table(sids, 6),
+                                      ref.block_table(sids, 6))
+    assert 0 not in ours._free                     # null page never granted
+    assert ours.stats["rewound_pages"] == ref.stats["rewound_pages"]
+
+
+@pytest.mark.parametrize("n_pages,chunk,tick_tokens",
+                         [(40, 4, 0), (9, 3, 5), (7, 2, 0)])
+def test_scheduler_plans_match_reference(n_pages, chunk, tick_tokens):
+    """Drive both schedulers through the same trace (prefill chunks,
+    decode tokens, finishes, and — with a tight pool — preemptions):
+    every tick's plan and every request's progress must be equal."""
+    ours_kv, ref_kv = _kv_pair(n_pages=n_pages, page_tokens=4)
+    kw = dict(max_batch=3, max_seq=48, prefill_chunk=chunk,
+              tick_tokens=tick_tokens)
+    ours = serve.FCFSScheduler(ours_kv, **kw)
+    ref = jserve.FCFSScheduler(ref_kv, **kw)
+    rng = np.random.RandomState(n_pages)
+    specs = [(list(rng.randint(0, 100, rng.randint(2, 14))),
+              int(rng.randint(2, 9))) for _ in range(7)]
+    reqs = ([serve.Request(rid=i, prompt=p, max_new=m)
+             for i, (p, m) in enumerate(specs)],
+            [jserve.Request(rid=i, prompt=p, max_new=m)
+             for i, (p, m) in enumerate(specs)])
+    for a, b in zip(*reqs):
+        ours.submit(a)
+        ref.submit(b)
+    preempted = 0
+    for tick in range(200):
+        if not ref.has_work():
+            break
+        pa_, pb = ours.tick(tick), ref.tick(tick)
+        assert [r.rid for r in pa_.admitted] == [r.rid for r in pb.admitted]
+        assert [r.rid for r in pa_.preempted] == [r.rid for r in pb.preempted]
+        assert [(r.rid, n) for r, n in pa_.prefill] == \
+            [(r.rid, n) for r, n in pb.prefill]
+        preempted += len(pb.preempted)
+        for sched, plan, is_ref in ((ours, pa_, False), (ref, pb, True)):
+            chunked = {r.rid for r, _ in plan.prefill}
+            for r, n in plan.prefill:
+                sched.note_chunk(r, n, 42 + r.rid, tick)
+            for r in list(sched.running):
+                if r.rid not in chunked and not r.is_prefilling():
+                    sched.advance(r, 7, tick)
+                if not r.is_prefilling() and r.finished():
+                    if is_ref:
+                        sched.finish(r, tick, register_prefix=False)
+                    else:
+                        sched.finish(r, tick)
+        assert ours_kv.tables == ref_kv.tables
+        assert [(r.rid, r.n_done, r.out) for r in ours.running] == \
+            [(r.rid, r.n_done, r.out) for r in ref.running]
+    assert not ours.has_work() and not ref.has_work()
+    assert ours.stats["preempted"] == ref.stats["preempted"] == preempted
+    if n_pages == 7:
+        assert preempted > 0, "the tight pool must exercise eviction"
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    dict(n_requests=20, rate=3.0, seed=5, temperature=0.8, top_k=4,
+         top_p=0.9, greedy_frac=0.5),
+    dict(n_requests=12, seed=9, interactive_frac=0.5, batch_frac=0.25,
+         deadline_interactive=0.5, deadline_batch=2.0, n_tenants=3,
+         prompt_short=(64, 257), prompt_long=(257, 513),
+         out_short=(32, 65), out_long=(32, 65), vocab=151936),
+])
+def test_traffic_traces_identical_to_reference(kw):
+    fields = ("rid", "prompt", "max_new", "t_arrive", "priority",
+              "deadline", "tenant")
+    ours = serve.make_requests(serve.TrafficConfig(**kw))
+    ref = jserve.make_requests(jserve.TrafficConfig(**kw))
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        assert [getattr(a, f) for f in fields] == \
+            [getattr(b, f) for f in fields]
+        assert dataclasses.asdict(a.sampling) == dataclasses.asdict(b.sampling)
+
+
+# ======================================================================
+# end to end: the port's engine on the CPU vs the JAX engine
+# ======================================================================
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = jconfigs.get_smoke("qwen3-8b")
+    ctx = ParallelCtx(dp_size=1, tp_size=1, sp=False, remat=False,
+                      param_dtype=jnp.float32, compute_dtype=jnp.float32)
+    jparams = registry.build(jcfg).init(jax.random.PRNGKey(0), jcfg, ctx)
+    return (jcfg, ctx, jparams, configs.get_smoke("qwen3-8b"),
+            from_jax(jax.tree.map(np.asarray, jparams)))
+
+
+def _reqs(mod, specs):
+    return [mod.Request(rid=i, prompt=list(p), max_new=m, **kw)
+            for i, (p, m, kw) in enumerate(specs)]
+
+
+def _jax_streams(weights, specs, **scfg_kw):
+    jcfg, ctx, jparams, _, _ = weights
+    kw = dict(page_tokens=4, n_pages=32, max_batch=3, max_seq=32,
+              attn_impl="ref")
+    kw.update(scfg_kw)
+    eng = jserve.ServeEngine(jparams, jcfg, ctx, jserve.ServeConfig(**kw))
+    done = eng.run(_reqs(jserve, specs), clock="tick")
+    return {r.rid: list(r.out) for r in done}
+
+
+def _port_run(weights, specs, **scfg_kw):
+    cfg, params = weights[3], weights[4]
+    kw = dict(page_tokens=4, n_pages=32, max_batch=3, max_seq=32,
+              attn_impl="kernel")
+    kw.update(scfg_kw)
+    eng = serve.ServeEngine(params, cfg, serve.ServeConfig(**kw),
+                            device="cpu")
+    done = eng.run(_reqs(serve, specs), clock="tick")
+    return ({r.rid: list(r.out) for r in done},
+            {r.rid: list(r.prefill_chunks) for r in done}, eng)
+
+
+GREEDY_SPECS = [(p, 5, {}) for p in PROMPTS]
+
+
+@pytest.fixture(scope="module")
+def jax_greedy(weights):
+    """The reference's streams: the whole prompt in one chunk."""
+    return _jax_streams(weights, GREEDY_SPECS, prefill_chunk=16)
+
+
+@pytest.mark.parametrize("attn_impl", ["kernel", "ref"])
+def test_engine_greedy_streams_equal_jax_engine(weights, jax_greedy,
+                                                attn_impl):
+    streams, _, eng = _port_run(weights, GREEDY_SPECS, prefill_chunk=16,
+                                attn_impl=attn_impl)
+    assert streams == jax_greedy
+    assert eng.steps["prefill"] > 0 and eng.steps["decode"] > 0
+
+
+@pytest.mark.parametrize("chunk,tick_tokens",
+                         [(1, 0), (2, 0), (3, 0), (3, 4), (5, 7)])
+def test_engine_streams_invariant_to_prefill_chunking(weights, jax_greedy,
+                                                      chunk, tick_tokens):
+    """Any (prefill_chunk, tick_tokens) gives the reference's monolithic
+    streams — chunks that end mid-page (prompt 6 over 4-token pages,
+    chunk 3) and the first decode right after one included."""
+    streams, chunks, _ = _port_run(weights, GREEDY_SPECS,
+                                   prefill_chunk=chunk,
+                                   tick_tokens=tick_tokens)
+    assert streams == jax_greedy
+    assert all(max(c) <= chunk for c in chunks.values())
+    if (chunk, tick_tokens) == (3, 0):
+        assert chunks[0] == [3, 3]
+
+
+def test_engine_sampled_streams_equal_jax_engine(weights):
+    """Greedy and sampled requests in one batch: the threefry draws keyed
+    (seed, rid, position) give the reference's streams."""
+    sp = dict(temperature=0.9, top_k=5, top_p=0.9)
+    specs = [([5, 17, 42] * 4, 8, {}),
+             ([5, 17, 42] * 3, 8, {"sampling": sp}),
+             ([7, 3, 99, 12], 8, {"sampling": dict(temperature=1.3)})]
+    jspecs = [(p, m, {"sampling": jserve.SamplingParams(**kw["sampling"])}
+               if kw else {}) for p, m, kw in specs]
+    tspecs = [(p, m, {"sampling": serve.SamplingParams(**kw["sampling"])}
+               if kw else {}) for p, m, kw in specs]
+    want = _jax_streams(weights, jspecs, n_pages=48, max_seq=48,
+                        sample_seed=11)
+    got, _, _ = _port_run(weights, tspecs, n_pages=48, max_seq=48,
+                          sample_seed=11)
+    assert got == want
+
+
+def test_engine_preempted_request_eventually_completes(weights):
+    specs = [(list(range(2 + i, 10 + i)), 8, {}) for i in range(3)]
+    tight, _, eng = _port_run(weights, specs, n_pages=8)
+    assert eng.sched.stats["preempted"] > 0
+    roomy, _, _ = _port_run(weights, specs, n_pages=32)
+    assert tight == roomy
+
+
+def test_engine_metrics_and_page_writes(weights):
+    """Every request's pages hold its K/V: after a run, re-attending the
+    last written position through the engine's own pool reproduces the
+    decode step (pages written in place, page 0 excluded)."""
+    _, _, eng = _port_run(weights, GREEDY_SPECS, prefill_chunk=4)
+    m = eng.metrics()
+    assert m["requests"] == 3 and m["tokens_out"] == 15
+    assert m["steps"]["prefill"] + m["steps"]["decode"] <= m["ticks"] * 2
+    assert eng.kv.n_free() == eng.kv.n_pages - 1     # all pages returned
+    assert float(eng.pool[1:].abs().sum()) > 0       # pages were written
+
+
+# ======================================================================
+# device contract and the slices still to come
+# ======================================================================
+def test_build_engine_without_device_raises_when_cuda_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.build_engine(config="smoke")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.build_engine(config="smoke", device="cuda")
+    eng, cfg = launch.build_engine(config="smoke", dtype="f32", device="cpu",
+                                   page_tokens=4, n_pages=16, max_batch=2,
+                                   prefill_chunk=4)
+    assert eng.device.type == "cpu" and cfg.n_layers == 2
+
+
+@pytest.mark.parametrize("what", ["spec_k", "slo", "prefix_keep", "moe",
+                                  "disagg", "router_amo", "cli_hot_swap",
+                                  "cli_slo"])
+def test_later_slices_raise_not_implemented(what):
+    small = dict(config="smoke", dtype="f32", device="cpu", page_tokens=4,
+                 n_pages=16, max_batch=2, prefill_chunk=4)
+    cli = ["--config", "smoke", "--device", "cpu", "--dtype", "f32"]
+    with pytest.raises(NotImplementedError):
+        if what == "spec_k":
+            launch.build_engine(spec_k=2, **small)
+        elif what == "slo":
+            launch.build_engine(slo=object(), **small)
+        elif what == "prefix_keep":
+            launch.build_engine(prefix_keep=True, **small)
+        elif what == "disagg":
+            launch.build_engine(disagg="1+1", **small)
+        elif what == "router_amo":
+            launch.build_engine(router="amo", **small)
+        elif what == "cli_hot_swap":
+            launch.main(cli + ["--hot-swap"])
+        elif what == "cli_slo":
+            launch.main(cli + ["--slo", "0.5+0.25"])
+        else:
+            cfg = dataclasses.replace(configs.get_smoke("qwen3-8b"),
+                                      family="moe",
+                                      moe=MoEConfig(num_experts=4, top_k=2,
+                                                    expert_ff=32))
+            serve.ServeEngine({}, cfg, serve.ServeConfig(), device="cpu")
+
+
+def test_cli_serves_smoke_config_on_cpu(capsys):
+    launch.main(["--config", "smoke", "--device", "cpu", "--dtype", "f32",
+                 "--requests", "3", "--page-tokens", "4", "--n-pages", "32",
+                 "--max-batch", "2", "--prefill-chunk", "4", "--trace"])
+    out = capsys.readouterr().out
+    assert "arch=qwen3-8b-smoke device=cpu" in out
+    assert '"requests": 3' in out
