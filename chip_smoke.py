@@ -7,38 +7,67 @@ Phases, each of which exits non-zero on failure (no phase's error is
 caught):
 
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds every kernel source of the main path from the
-               checkout (``src/repro_torch/kernels/csrc``);
+  2. build   — nvcc builds every kernel source from the checkout
+               (``src/repro_torch/kernels/csrc``), one nvcc per source,
+               all started together;
   3. parity  — each kernel against its plain PyTorch version on the
-               card, bf16 and f32, at the main path's full width
-               (H=32, H_kv=8, D=128, P=16), on strided per-layer views
-               of a page pool as the engine passes them;
+               card: the paged-attention kernels in bf16 and f32 at the
+               serving path's full width (H=32, H_kv=8, D=128, P=16), on
+               strided per-layer views of a page pool as the engine
+               passes them; the copy engine bit for bit on random bits
+               (NaNs included) in f32/bf16/int8/int32 at the comm path's
+               largest staged payload (8 PEs x 8 MiB), ragged and
+               misaligned; the combine kernel bit for bit for
+               sum/prod/max/min in f32/bf16/int32 with NaNs at the same
+               shape; and the pallas backend equal to posh in bf16;
   4. serve   — ``repro_torch.launch.serve.build_engine`` on full-width
                qwen3-8b (36 layers, bf16 weights drawn on the card from
-               a seed), a seeded trace of 8 requests; the launch
-               counters, zeroed just before, must equal n_layers x the
-               prefill and decode steps of the run; the same trace
-               again with ``torch.profiler`` on two windows of ticks
-               for where the device time goes; then the smoke config in f32 on the card must give
-               the same greedy streams with the kernels as with the
-               plain versions;
-  5. timing  — each kernel, its plain version and
-               ``scaled_dot_product_attention`` on pre-gathered K/V (a
-               yardstick the port never calls) with CUDA events, the L2
-               flushed before each launch, at the phase-3 shapes.
+               a seed), a seeded trace of 8 requests; the paged-attention
+               launch counters, zeroed just before, must equal n_layers x
+               the prefill and decode steps of the run; the same trace
+               again with ``torch.profiler`` on two windows of ticks for
+               where the device time goes; then the smoke config in f32
+               on the card must give the same greedy streams with the
+               kernels as with the plain versions;
+  5. comm    — ``repro_torch.launch.comm_bench`` on the card: one team
+               of 8 PEs, every collective under each algorithm, then the
+               main path: psum, all_gather, psum_scatter, all_to_all and
+               pbroadcast through communicators of the xla/posh/pallas
+               backends at 256 B to 64 MiB per PE, then the copy-variant
+               sweep.  The bench fails unless pallas equals posh bit for
+               bit, posh matches xla, and each pallas call launched the
+               copy kernel once per round at or above the stock
+               threshold.  The launch counters are zeroed just before the
+               main path and read just after: the copy kernel's count
+               must equal the staged rounds of every call made there,
+               and the combine kernel, which no collective calls, must
+               show none.  One line per op: us/call and GB/s; then 10
+               psums per backend at 64 KiB and 64 MiB per PE under the
+               profiler (device busy share, kernels by kind).
+               ``--comm-out FILE`` writes the bench dict there;
+  6. timing  — each kernel, its plain version, a library yardstick the
+               port never calls (``scaled_dot_product_attention`` on
+               pre-gathered K/V; ``x.clone()``; ``torch.add``) and its
+               bound, with CUDA events, the L2 flushed before each
+               launch, at the phase-3 shapes.
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power
+``launches`` in the kernels line is each kernel's count from its main
+path (serve for the paged-attention kernels, the communicator calls for
+the copy engine; 0 for ``combine_blocked``, which is reached only
+through ``ops.combine``).  It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -60,6 +89,10 @@ N_SLOTS = 64                                       # 1024 tokens of table
 # rounding of outputs |o| < 4 (one bf16 ulp there is <= 1.6e-2)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 HBM_BYTES_S = 3.35e12                              # H100 SXM data sheet
+# the comm path: 8 PEs; its largest staged payload, the ring chunk of a
+# 64 MiB-per-PE psum: 8 x 8 MiB of f32
+N_PE = 8
+STAGED = (N_PE, 2 << 20)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SERVE_TRACE = dict(n_requests=8, rate=8.0, seed=0,
@@ -157,6 +190,94 @@ def parity(pa, dev) -> dict:
     return errs
 
 
+def _bits(n_bytes, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (n_bytes,), dtype=torch.uint8, generator=g,
+                         device=dev)
+
+
+def _same_bytes(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _same_bits(got, want) -> bool:
+    """Equal bit for bit (so -0.0 is not +0.0), save where both are NaN:
+    which NaN an operation returns is not specified."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    same = (got.view(bits) == want.view(bits)) | (got.isnan() & want.isnan())
+    return bool(same.all())
+
+
+def comm_kernel_parity(sc, rc, dev) -> dict:
+    """The copy engine and the combine kernel against their plain
+    versions, bit for bit (the copy is an identity; the combine is one
+    IEEE operation per element, bf16 rounded once, as PyTorch does);
+    then the pallas backend against posh in bf16."""
+    from repro_torch import comm as C
+    from repro_torch.launch import comm_bench as cb
+
+    err = {"copy_blocked": 0.0, "combine_blocked": 0.0}
+    n = STAGED[0] * STAGED[1]
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(STAGED, generator=g, device=dev)
+    for variant in sc.VARIANTS:                  # finite values: an error
+        d = sc.copy_blocked(x, variant) - sc.copy_blocked_ref(x, variant)
+        err["copy_blocked"] = max(err["copy_blocked"], d.abs().max().item())
+    for dtype in (torch.float32, torch.bfloat16, torch.int8, torch.int32):
+        item = torch.empty((), dtype=dtype).element_size()
+        x = _bits(n * item, dev, 1).view(dtype).view(STAGED)
+        ragged = _bits(N_PE * 4099 * item, dev, 2).view(dtype).view(N_PE, -1)
+        odd = _bits(n * item + 64, dev, 3)[3:3 + n * item]   # misaligned
+        for variant in sc.VARIANTS:
+            for t in (x, ragged, odd):
+                got = sc.copy_blocked(t, variant)
+                if not _same_bytes(got, sc.copy_blocked_ref(t, variant)):
+                    fail(f"copy_blocked {variant} {dtype} {tuple(t.shape)}: "
+                         "not the plain version's bytes")
+    torch.cuda.synchronize()
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        a = torch.randn(STAGED, generator=g, device=dev) * 3
+        b = torch.randn(STAGED, generator=g, device=dev) * 3
+        if dtype == torch.int32:
+            a, b = (a * 1000).to(dtype), (b * 1000).to(dtype)
+        else:
+            a.view(-1)[::97] = float("nan")
+            b.view(-1)[::89] = float("nan")
+            a, b = a.to(dtype), b.to(dtype)
+        for op in ("sum", "prod", "max", "min"):
+            for x, y in ((a, b), (a.view(-1)[1:], b.view(-1)[1:])):
+                got = rc.combine_blocked(x, y, op)
+                want = rc.combine_blocked_ref(x, y, op)
+                if not _same_bits(got, want):
+                    fail(f"combine_blocked {op} {dtype}: differs from the "
+                         "plain version")
+                got, want = got.double(), want.double()
+                fin = want.isfinite() & got.isfinite()
+                err["combine_blocked"] = max(
+                    err["combine_blocked"],
+                    (got[fin] - want[fin]).abs().max().item())
+    torch.cuda.synchronize()
+    posh = C.make_communicator("pe", size=N_PE, backend="posh")
+    pal = C.make_communicator("pe", size=N_PE, backend="pallas")
+    for elems in (64, 8200, 1 << 18):
+        x = torch.randn((N_PE, elems), generator=g, device=dev).to(
+            torch.bfloat16)
+        for op in cb.COMM_OPS:
+            if not torch.equal(cb.comm_call(pal, op, x),
+                               cb.comm_call(posh, op, x)):
+                fail(f"pallas != posh in bf16: {op} at {elems} elements")
+    print("parity comm kernels: copy_blocked bit-exact (4 dtypes x 5 "
+          "variants x aligned/ragged/misaligned), combine_blocked bit-exact "
+          "(4 ops x f32/bf16/int32, NaNs, misaligned), pallas == posh in "
+          f"bf16; max |kernel - plain| {err}", flush=True)
+    return err
+
+
 # ----------------------------------------------------------------------
 # phase 4: serve
 # ----------------------------------------------------------------------
@@ -219,6 +340,12 @@ def serve_full(pa, dev):
 def _kind(name: str) -> str:
     if "paged_" in name:
         return "paged attention (ours)"
+    # ours are (anonymous namespace)::copy_kernel / ::combine_kernel<...>;
+    # PyTorch's own copies are ...::direct_copy_kernel_cuda
+    if "::copy_kernel(" in name:
+        return "copy engine (ours)"
+    if "::combine_kernel<" in name:
+        return "combine (ours)"
     low = name.lower()
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
@@ -227,21 +354,16 @@ def _kind(name: str) -> str:
     return "elementwise/reduce/copy"
 
 
-def _window(eng, tick, n_ticks):
-    """Profile up to ``n_ticks`` engine ticks: device time by kernel and
-    by kind, and the device's busy share of the window's wall time (a
-    lower bound: the profiler adds host time)."""
+def _profiled(run, top: int = 6) -> dict:
+    """Run ``run()`` under the profiler: device time by kernel and by
+    kind, and the device's busy share of the wall time (a lower bound:
+    the profiler adds host time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = dict(eng.steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(n_ticks):
-            if not eng.sched.has_work():
-                break
-            eng.tick(tick)
-            tick += 1
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     kinds: dict = {}
@@ -253,15 +375,31 @@ def _window(eng, tick, n_ticks):
         per.append((us, e.count, e.key))
         kinds[_kind(e.key)] = kinds.get(_kind(e.key), 0.0) + us
     busy_ms = sum(kinds.values()) / 1e3
-    return tick, {
-        "steps": {k: eng.steps[k] - steps0[k] for k in steps0},
+    return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "by_kind_ms": {k: v / 1e3 for k, v in sorted(
             kinds.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"name": n[:80], "calls": c, "ms": us / 1e3}
-                        for us, c, n in sorted(per, reverse=True)[:6]],
+                        for us, c, n in sorted(per, reverse=True)[:top]],
     }
+
+
+def _window(eng, tick, n_ticks):
+    """Profile up to ``n_ticks`` engine ticks (see ``_profiled``)."""
+    steps0 = dict(eng.steps)
+
+    def run():
+        nonlocal tick
+        for _ in range(n_ticks):
+            if not eng.sched.has_work():
+                break
+            eng.tick(tick)
+            tick += 1
+
+    out = _profiled(run)
+    return tick, {"steps": {k: eng.steps[k] - steps0[k] for k in steps0},
+                  **out}
 
 
 def profile_serve(eng, reqs) -> None:
@@ -311,7 +449,90 @@ def serve_smoke_streams(dev):
 
 
 # ----------------------------------------------------------------------
-# phase 5: timing
+# phase 5: comm
+# ----------------------------------------------------------------------
+def comm_phase(sc, rc, dev, out_path=None) -> dict:
+    """The comm path, 8 PEs on the card, through comm_bench (which checks
+    every cell it times); returns the kernels' launch counts on the main
+    path, the communicator calls."""
+    from repro_torch.launch import comm_bench as cb
+
+    t0 = time.monotonic()
+    reps = 10
+    results = cb.schedule_rows(dev, cb.SIZES, reps, quiet=True)
+    sc.reset_launches()
+    rc.reset_launches()
+    torch.cuda.synchronize()
+    brows, checks = cb.backend_rows(dev, cb.SIZES, reps, quiet=True)
+    torch.cuda.synchronize()
+    launches = {"copy_blocked": sc.LAUNCHES["copy_blocked"],
+                "combine_blocked": rc.LAUNCHES["combine_blocked"]}
+    results += brows + cb.copy_rows(dev, cb.COPY_SIZES, reps, quiet=True)
+    bench = cb.assemble(dev, results, checks, cb.SIZES, cb.COPY_SIZES, reps)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(bench, f, indent=1)
+    if any(c["copy_launches"] != c["expected_launches"] for c in checks):
+        fail("comm: copy launches differ from the staged rounds")
+    # each (op, size) ran once checked, then 2 warm-up and ``reps`` timed
+    # calls per backend: only the pallas calls launch the copy kernel
+    staged = sum(c["copy_launches"] for c in checks)
+    if launches["copy_blocked"] == 0 or \
+            launches["copy_blocked"] != staged * (1 + 2 + reps):
+        fail(f"comm: copy launches {launches['copy_blocked']} on the path "
+             f"!= staged rounds {staged} x {1 + 2 + reps} calls")
+    if launches["combine_blocked"]:
+        fail(f"comm: the combine kernel ran {launches['combine_blocked']} "
+             "times; no collective calls it")
+    rows = {(r["op"], r["algo"], r["nbytes"]): r for r in bench["results"]}
+    for op in cb.COMM_OPS:
+        cells = []
+        for nb in sorted({r["nbytes"] for r in bench["results"]
+                          if r["op"] == op}):
+            algo = next(c["algo"] for c in bench["checks"]
+                        if c["op"] == op and c["nbytes"] == nb)
+            per = " ".join(
+                f"{b} {rows[(op, 'backend:' + b, nb)]['us_per_call']:.1f}us/"
+                f"{rows[(op, 'backend:' + b, nb)]['bytes_per_s'] / 1e9:.2f}GB/s"
+                for b in ("xla", "posh", "pallas"))
+            cells.append(f"{nb}B[{algo}] {per}")
+        print(f"comm {op}: " + " | ".join(cells), flush=True)
+    per = " | ".join(
+        f"{r['algo']}@{r['nbytes']}B {r['us_per_call']:.1f}us/"
+        f"{r['bytes_per_s'] / 1e9:.2f}GB/s"
+        for r in bench["results"] if r["op"] == "symm_copy"
+        and r["nbytes"] == max(cb.COPY_SIZES))
+    print(f"comm symm_copy: {per}", flush=True)
+    comm_profile(dev)
+    print(f"comm: {len(bench['results'])} rows, {len(bench['checks'])} "
+          f"checked cells (pallas == posh bit for bit, posh vs xla, "
+          f"{staged} staged kernel copies == staged rounds), launches "
+          f"{launches}, tuned thresholds {bench['tuned_thresholds']}, "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return launches
+
+
+def comm_profile(dev) -> None:
+    """Where a psum's time goes: 10 calls of each backend at 64 KiB and
+    64 MiB per PE under the profiler (after the launch counters are
+    read, so these calls count nowhere)."""
+    from repro_torch import comm as C
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(7)
+    for nbytes in (64 << 10, 64 << 20):
+        x = torch.randn((N_PE, nbytes // 4), generator=g, device=dev)
+        for b in ("xla", "posh", "pallas"):
+            c = C.make_communicator("pe", size=N_PE, backend=b)
+            c.psum(x)
+            out[f"psum {b} {nbytes}B x10"] = _profiled(
+                lambda: [c.psum(x) for _ in range(10)], top=3)
+        del x
+    print("comm profile: " + json.dumps(out), flush=True)
+
+
+# ----------------------------------------------------------------------
+# phase 6: timing
 # ----------------------------------------------------------------------
 def time_ms(fn, dev, iters=20) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, each after an L2
@@ -423,7 +644,62 @@ def timing(pa, dev, launches, errs) -> list:
     return out
 
 
-def main() -> int:
+def comm_timing(sc, rc, dev, launches, errs) -> list:
+    """The copy engine and the combine kernel at the comm path's largest
+    staged payload (8 PEs x 8 MiB of f32): kernel, plain version,
+    library call (``x.clone()`` / ``torch.add``) and bound."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(STAGED, generator=g, device=dev)
+    y = torch.randn(STAGED, generator=g, device=dev)
+    nbytes = x.numel() * x.element_size()
+    # the variant the pallas stager picks for this payload (one PE's)
+    variant = sc.choose_variant(x[0].numel() * x.element_size(), x.dtype)
+    rows = [dict(name="copy_blocked", source="symm_copy.cu",
+                 fn=lambda: sc.copy_blocked(x, variant),
+                 plain=lambda: sc.copy_blocked_ref(x, variant),
+                 lib=lambda: x.clone(), nbytes=2 * nbytes, flops=0,
+                 replaces="src/repro/kernels/symm_copy.py:101 (copy_blocked, "
+                 "pl.pallas_call :126, body _copy_kernel :97)"),
+            dict(name="combine_blocked", source="reduce_combine.cu",
+                 fn=lambda: rc.combine_blocked(x, y, "sum"),
+                 plain=lambda: rc.combine_blocked_ref(x, y, "sum"),
+                 lib=lambda: torch.add(x, y), nbytes=3 * nbytes,
+                 flops=x.numel(),
+                 replaces="src/repro/kernels/reduce_combine.py:37 "
+                 "(combine_blocked, pl.pallas_call :57, body "
+                 "_combine_kernel :33)")]
+    out = []
+    for r in rows:
+        ms = time_ms(r["fn"], dev)
+        plain_ms = time_ms(r["plain"], dev)
+        lib_ms = time_ms(r["lib"], dev)
+        t_bytes = r["nbytes"] / HBM_BYTES_S
+        t_ops = r["flops"] / PEAK_FLOPS[torch.float32]
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        out.append({
+            "name": r["name"], "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{r['source']}",
+            "replaces": r["replaces"], "launches": launches[r["name"]],
+            "max_abs_err": errs[r["name"]], "tol": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms,
+            "bound_bytes": r["nbytes"], "bound_flops": r["flops"],
+            "shape": list(STAGED), "dtype": "float32",
+            "copy_variant": variant,
+        })
+        print(f"timing {r['name']} (f32 {STAGED}, copy variant {variant}): "
+              f"kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by})", flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--comm-out", default=None,
+                    help="write the comm phase's bench JSON here")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -435,6 +711,8 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import reduce_combine as rc
+    from repro_torch.kernels import symm_copy as sc
 
     # a reference states and sets its matmul precision: full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -448,15 +726,22 @@ def main() -> int:
           flush=True)
 
     t0 = time.monotonic()
-    build.build(pa.SOURCE)
-    print(f"build: {pa.SOURCE} in {time.monotonic() - t0:.1f} s", flush=True)
-    print(build.BUILD_LOG.get(pa.SOURCE, "(library already built)").strip(),
+    sources = (pa.SOURCE, sc.SOURCE, rc.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as ex:     # one nvcc per source
+        list(ex.map(build.build, sources))
+    print(f"build: {', '.join(sources)} in {time.monotonic() - t0:.1f} s",
           flush=True)
+    for src in sources:
+        print(build.BUILD_LOG.get(src, f"{src}: library already built")
+              .strip(), flush=True)
 
     errs = parity(pa, dev)
+    comm_errs = comm_kernel_parity(sc, rc, dev)
     launches = serve_full(pa, dev)
     serve_smoke_streams(dev)
-    kernels = timing(pa, dev, launches, errs)
+    comm_launches = comm_phase(sc, rc, dev, args.comm_out)
+    kernels = timing(pa, dev, launches, errs) + \
+        comm_timing(sc, rc, dev, comm_launches, comm_errs)
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

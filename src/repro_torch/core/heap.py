@@ -8,22 +8,30 @@ kept here is the allocator — a linear symmetric address space with
 first-fit allocation, alignment (``shmemalign``), coalescing free,
 ``shrealloc`` and offset-based address resolution — which is host-side
 Python and gives the same offsets as the reference for the same
-allocation sequence.  The tensors themselves belong to their users
-(the paged KV cache makes its pool on the serving device).
+allocation sequence.
 
-The ``team`` is kept as the tuple of axis names it was given; the
-multi-rank team queries arrive with the multi-rank slice of the port.
+Heap *state* — the tensors — is a plain dict ``name -> tensor`` with the
+team's PE axis first, ``(n_pe, *shape)``: every PE's copy of every
+symmetric object on one device (``zeros_state``; ``state_from_numpy``
+carries a JAX heap state across).  Users that own their own tensors (the
+paged KV cache makes its pool on the serving device) use the allocator
+alone.  ``scratch`` is the Lemma-1 temporary allocation the ring
+all-reduce makes inside the collective, and ``fingerprint`` the registry
+digest the tests check it against.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import Optional, Sequence, Union
+import hashlib
+from contextlib import contextmanager
+from typing import Iterator, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 TeamAxes = Union[str, Sequence[str]]
+HeapState = dict  # name -> (n_pe, *shape) tensor
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -77,6 +85,7 @@ class SymmetricHeap:
         self.capacity = int(capacity_bytes)
         self._blocks: list[_Block] = [_Block(0, self.capacity, True)]
         self.registry: dict[str, SymHandle] = {}
+        self._scratch_seq = 0
         # sorted (offset, handle) index over live objects: resolve() is
         # a bisect, not a registry scan
         self._sorted_offsets: list[int] = []
@@ -113,6 +122,10 @@ class SymmetricHeap:
         raise MemoryError(
             f"symmetric heap exhausted: need {need}B aligned {align} "
             f"(capacity {self.capacity}B)")
+
+    def align_alloc(self, name, shape, dtype, align) -> SymHandle:
+        """``shmemalign`` (§4.1.1)."""
+        return self.alloc(name, shape, dtype, align=align)
 
     def free(self, handle_or_name) -> None:
         """``shfree`` — symmetric deallocation with coalescing."""
@@ -258,6 +271,81 @@ class SymmetricHeap:
             if h.offset <= addr < h.offset + h.nbytes:
                 return h, addr - h.offset
         raise KeyError(f"address {addr} not inside any symmetric object")
+
+    # ------------------------------------------------------------------
+    # state — the tensors, every PE's copy on one device
+    # ------------------------------------------------------------------
+    def zeros_state(self, n_pe: int, device=None) -> HeapState:
+        """Every live object zeroed, ``(n_pe, *shape)`` on ``device``
+        (the card unless the CPU is asked for)."""
+        from ..device import resolve
+        dev = resolve(device)
+        return {h.name: torch.zeros((int(n_pe),) + h.shape, dtype=h.dtype,
+                                    device=dev)
+                for h in self.registry.values()}
+
+    # ------------------------------------------------------------------
+    # Lemma 1 — temporary scratch inside collectives
+    # ------------------------------------------------------------------
+    @contextmanager
+    def scratch(self, shape, dtype, tag: str = "scratch"
+                ) -> Iterator[SymHandle]:
+        """Temporary symmetric allocation used inside a collective.
+        Lemma 1 (paper §4.5.3): it does not break heap symmetry provided
+        it is released before the collective returns, which the context
+        manager enforces (the registry fingerprint is unchanged after)."""
+        name = f"__{tag}_{len(self.registry)}_{self._scratch_counter()}"
+        h = self.alloc(name, shape, dtype)
+        try:
+            yield h
+        finally:
+            self.free(h)
+
+    def _scratch_counter(self) -> int:
+        """Per-instance sequence, so two heaps give the same names."""
+        self._scratch_seq += 1
+        return self._scratch_seq
+
+    # ------------------------------------------------------------------
+    def fingerprint(self) -> str:
+        """Stable digest of the registry (names, shapes, dtypes,
+        offsets).  Dtypes are spelled as numpy spells them, so the same
+        allocation sequence gives the reference's digest."""
+        m = hashlib.sha256()
+        for name in sorted(self.registry):
+            h = self.registry[name]
+            m.update(f"{name}:{h.shape}:{_np_name(h.dtype)}:{h.offset}"
+                     .encode())
+        return m.hexdigest()
+
+    def used_bytes(self) -> int:
+        return sum(b.nbytes for b in self._blocks if not b.free)
+
+    def frag_blocks(self) -> int:
+        return sum(1 for b in self._blocks if b.free)
+
+
+def _np_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def state_from_numpy(state_np: Mapping, device=None) -> HeapState:
+    """A heap state of numpy arrays with the PE axis first (a JAX heap
+    state gathered to the host, ``bfloat16`` included) -> the port's
+    state of tensors on ``device`` (the card unless the CPU is asked
+    for)."""
+    from ..device import resolve
+    dev = resolve(device)
+    out = {}
+    for name, a in state_np.items():
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":        # numpy has no bf16 of its own
+            t = torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.copy())
+        out[name] = t.to(dev)
+    return out
 
 
 def _align_up(x: int, a: int) -> int:

@@ -1,3 +1,3 @@
 """Hand-written Hopper kernels, their plain PyTorch versions and
-wrappers (``paged_attention``), the nvcc build (``build``) and the
-public entry points (``ops``)."""
+wrappers (``paged_attention``, ``symm_copy``, ``reduce_combine``), the
+nvcc build (``build``) and the public entry points (``ops``)."""

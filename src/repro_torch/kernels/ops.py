@@ -1,16 +1,32 @@
-"""Public entry points over the paged-attention kernels, with the
-reference's ``impl`` switch.
+"""Public entry points over the port's kernels (counterpart of
+``repro.kernels.ops``).
 
-``impl="kernel"`` calls the kernel wrapper (the CUDA kernel for a CUDA
-tensor; the plain version only for a CPU tensor); ``impl="ref"`` calls
-the plain PyTorch version on any device.  The two are numerically
-interchangeable within the tolerances the tests state.
+Each calls a kernel wrapper: the CUDA kernel for a CUDA tensor, the
+plain version only for a CPU tensor.  The paged-attention entry points
+keep the reference's ``impl`` switch (``impl="ref"`` calls the plain
+PyTorch version on any device; the two are numerically interchangeable
+within the tolerances the tests state).
 """
 from __future__ import annotations
 
 from . import paged_attention as _pa
+from . import reduce_combine as _rc
+from . import symm_copy as _sc
 
 PAGED_ATTN_IMPLS = ("kernel", "ref")
+COPY_VARIANTS = tuple(["stock", "auto"] + list(_sc.VARIANTS))
+COMBINE_VARIANTS = tuple(_rc.VARIANTS)
+
+
+def symm_copy(x, variant: str = _sc.DEFAULT_VARIANT):
+    """The copy engine: ``variant`` may be a block name, "stock" (bare
+    copy) or "auto" (size/dtype dispatch on ``x``'s bytes)."""
+    return _sc.copy(x, variant)
+
+
+def combine(a, b, op: str = "sum", variant: str = _rc.DEFAULT_VARIANT):
+    """Elementwise ``op(a, b)`` (sum/prod/max/min) by the combine kernel."""
+    return _rc.combine_blocked(a, b, op, variant)
 
 
 def _check_impl(impl: str) -> None:

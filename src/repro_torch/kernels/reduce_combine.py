@@ -1,0 +1,114 @@
+"""reduce_combine — the elementwise combine of the ring reductions: a CUDA
+kernel for Hopper, its plain PyTorch version and the wrapper.
+
+``combine_blocked(a, b, op)`` is ``op(a, b)`` elementwise for ``sum``,
+``prod``, ``max`` and ``min``; it replaces the Pallas kernel
+``repro.kernels.reduce_combine.combine_blocked`` (body
+``_combine_kernel``) and raises ``ValueError`` on the same mismatches
+(shape, dtype, unknown op).  The variant's block is the tile one CUDA
+block combines per step of its grid-stride loop (``csrc/
+reduce_combine.cu``, which says what bounds the kernel).  The kernel
+takes float32, bfloat16 and int32 — bf16 computed in f32 and rounded
+once, max/min propagating NaN, as PyTorch does.
+
+The wrapper takes the plain version only for a CPU tensor; for a CUDA
+tensor it launches the kernel or raises.  ``LAUNCHES`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+SOURCE = "reduce_combine.cu"
+
+_OPS = {
+    "sum": torch.add,
+    "prod": torch.mul,
+    "max": torch.maximum,
+    "min": torch.minimum,
+}
+_OP_CODE = {"sum": 0, "prod": 1, "max": 2, "min": 3}
+
+VARIANTS: dict[str, tuple[int, int]] = {
+    "vmem_8x128": (8, 128),
+    "vmem_64x256": (64, 256),
+    "vmem_256x256": (256, 256),
+}
+DEFAULT_VARIANT = "vmem_64x256"
+
+# grid cap, as the copy engine's
+MAX_BLOCKS = 132 * 16
+
+LAUNCHES = {"combine_blocked": 0}
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int32: "i32"}
+_FNS: dict = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES["combine_blocked"] = 0
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, op: str, variant: str) -> None:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise ValueError(f"operand mismatch: {tuple(a.shape)}/{a.dtype} vs "
+                         f"{tuple(b.shape)}/{b.dtype}")
+    if op not in _OPS:
+        raise ValueError(f"unknown combine op '{op}'")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown combine variant {variant!r} "
+                         f"(choose from {sorted(VARIANTS)})")
+
+
+def combine_blocked_ref(a: torch.Tensor, b: torch.Tensor, op: str = "sum",
+                        variant: str = DEFAULT_VARIANT) -> torch.Tensor:
+    """The plain version: the PyTorch elementwise op."""
+    _check(a, b, op, variant)
+    return _OPS[op](a, b)
+
+
+def _kernel(dtype: torch.dtype):
+    fn = _FNS.get(dtype)
+    if fn is None:
+        fn = getattr(build.load(SOURCE), f"combine_{_SUFFIX[dtype]}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[dtype] = fn
+    return fn
+
+
+def combine_blocked(a: torch.Tensor, b: torch.Tensor, op: str = "sum",
+                    variant: str = DEFAULT_VARIANT) -> torch.Tensor:
+    """Elementwise ``op(a, b)``: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    _check(a, b, op, variant)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return combine_blocked_ref(a, b, op, variant)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"combine_blocked runs on CUDA tensors of one "
+                         f"device, got {a.device} and {b.device}")
+    if a.dtype not in _SUFFIX:
+        raise TypeError(f"the combine kernel takes float32, bfloat16 or "
+                        f"int32, got {a.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("combine_blocked takes contiguous operands")
+    out = torch.empty_like(a, memory_format=torch.contiguous_format)
+    n = a.numel()
+    if n == 0:
+        return out
+    r, c = VARIANTS[variant]
+    fn = _kernel(a.dtype)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _OP_CODE[op],
+                 r * c, MAX_BLOCKS, stream)
+    if err != 0:
+        raise RuntimeError(f"combine_blocked kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["combine_blocked"] += 1
+    return out

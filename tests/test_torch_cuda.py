@@ -204,3 +204,147 @@ def test_cuda_kernel_path_never_runs_plain_versions(cuda_device,
     assert pa.LAUNCHES == {
         "paged_decode_attention": cfg.n_layers * eng.steps["decode"],
         "paged_prefill_attention": cfg.n_layers * eng.steps["prefill"]}
+
+
+# ======================================================================
+# the copy engine and the combine kernel, and the pallas backend
+# ======================================================================
+from repro_torch import comm as C  # noqa: E402
+from repro_torch.kernels import reduce_combine as rc  # noqa: E402
+from repro_torch.kernels import symm_copy as sc  # noqa: E402
+from repro_torch.launch import comm_bench as cb  # noqa: E402
+
+COPY_DTYPES = [torch.float32, torch.bfloat16, torch.int8, torch.int32]
+
+
+def _random_bits(n_bytes, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, 256, (n_bytes,), dtype=torch.uint8,
+                         generator=g).to(device)
+
+
+def _same_bytes(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("variant", sorted(sc.VARIANTS))
+@pytest.mark.parametrize("dtype", COPY_DTYPES, ids=str)
+def test_cuda_copy_kernel_matches_plain(cuda_device, dtype, variant):
+    """Bit-exact on random bits (NaNs included), for sizes around the
+    16-byte vector and the tiles, a 2-D shape, and misaligned views (the
+    byte path)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for n in (1, 3, 4, 5, 31, 127, 4099, (1 << 20) + 3):
+        x = _random_bits(n * item, cuda_device, n).view(dtype)
+        n0 = sc.LAUNCHES["copy_blocked"]
+        got = sc.copy_blocked(x, variant)
+        assert sc.LAUNCHES["copy_blocked"] == n0 + 1
+        torch.cuda.synchronize()
+        assert got.data_ptr() != x.data_ptr()
+        assert _same_bytes(got, sc.copy_blocked_ref(x, variant)), n
+    x2 = _random_bits(33 * 37 * item, cuda_device, 7).view(dtype).view(33, 37)
+    assert _same_bytes(sc.copy_blocked(x2, variant), x2)
+    base = _random_bits(5000 * item + 64, cuda_device, 9).view(torch.uint8)
+    for off in (1, 3, item, 16 + item):             # misaligned starts
+        v = base[off:off + 4999 * item].view(dtype) if off % item == 0 \
+            else base[off:off + 4999]
+        assert v.data_ptr() % 16 != 0
+        assert _same_bytes(sc.copy_blocked(v, variant), v.clone())
+    torch.cuda.synchronize()
+
+
+def _same_bits(got, want):
+    """Equal bit for bit (so -0.0 is not +0.0), save where both are NaN:
+    which NaN an operation returns is not specified."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    same = (got.view(bits) == want.view(bits)) | (got.isnan() & want.isnan())
+    return bool(same.all())
+
+
+@pytest.mark.parametrize("op", ["sum", "prod", "max", "min"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+def test_cuda_combine_kernel_matches_plain(cuda_device, op, dtype):
+    g = torch.Generator(device="cpu").manual_seed(11)
+    for shape in ((1,), (7,), (4097,), (33, 37), (1 << 20,)):
+        a = torch.randn(shape, generator=g) * 3
+        b = torch.randn(shape, generator=g) * 3
+        if dtype == torch.int32:
+            a, b = (a * 1000).to(dtype), (b * 1000).to(dtype)
+        else:
+            a.view(-1)[::5] = float("nan")          # NaN must propagate
+            b.view(-1)[::7] = float("nan")
+            a.view(-1)[1::11] = -0.0
+            a, b = a.to(dtype), b.to(dtype)
+        a, b = a.to(cuda_device), b.to(cuda_device)
+        views = [(a, b)]
+        if a.numel() > 1:                                 # misaligned
+            views.append((a.view(-1)[1:], b.view(-1)[1:]))
+        for x, y in views:
+            n0 = rc.LAUNCHES["combine_blocked"]
+            got = rc.combine_blocked(x, y, op)
+            assert rc.LAUNCHES["combine_blocked"] == n0 + 1
+            want = rc.combine_blocked_ref(x, y, op)
+            torch.cuda.synchronize()
+            assert _same_bits(got, want), (op, shape)
+
+
+def test_cuda_combine_raises_on_what_it_does_not_take(cuda_device):
+    f = torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError):
+        rc.combine_blocked(f, torch.zeros(9, device=cuda_device))
+    with pytest.raises(ValueError):
+        rc.combine_blocked(f, f, "xor")
+    with pytest.raises(TypeError):
+        rc.combine_blocked(f.double(), f.double())
+    with pytest.raises(ValueError):
+        sc.copy_blocked(torch.zeros(8, 8, device=cuda_device).t())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_pallas_backend_equals_posh(cuda_device, dtype):
+    """On the card the copy engine is an identity: every communicator op
+    gives the posh result bit for bit, on both sides of every
+    threshold."""
+    posh = C.make_communicator("pe", size=8, backend="posh")
+    pal = C.make_communicator("pe", size=8, backend="pallas")
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    for elems in (64, 1024, 4096, 8200, 1 << 18):
+        x = torch.randn((8, elems), generator=g, device=cuda_device).to(dtype)
+        for op in cb.COMM_OPS:
+            assert torch.equal(cb.comm_call(pal, op, x),
+                               cb.comm_call(posh, op, x)), (op, elems)
+        m = x.reshape(8, 8, -1)
+        assert torch.equal(pal.all_gather(m, axis=1, tiled=False),
+                           posh.all_gather(m, axis=1, tiled=False))
+
+
+def test_cuda_pallas_backend_never_takes_the_plain_copy(cuda_device,
+                                                        monkeypatch):
+    """The trap: with the plain copy replaced by a raise, the pallas
+    backend on CUDA tensors runs, and the copy kernel's count rises by
+    exactly the staged rounds at or above the stock threshold."""
+    def trap(*a, **k):
+        raise AssertionError("the plain copy ran on the CUDA comm path")
+
+    monkeypatch.setattr(sc, "copy_blocked_ref", trap)
+    pal = C.make_communicator("pe", size=8, backend="pallas")
+    x = torch.randn((8, 1 << 18), device=cuda_device)     # 1 MiB per PE
+    for op in cb.COMM_OPS:
+        pal.reset_stats()
+        n0 = sc.LAUNCHES["copy_blocked"]
+        cb.comm_call(pal, op, x)
+        torch.cuda.synchronize()
+        (algo,) = pal.stats()[op]["algos"]
+        want = cb.expected_copy_launches(op, algo, 8, 1 << 18, x.dtype)
+        assert want > 0
+        assert sc.LAUNCHES["copy_blocked"] - n0 == want, (op, algo)
+    pal.reset_stats()
+    n0 = sc.LAUNCHES["copy_blocked"]
+    pal.psum(x)
+    assert sc.LAUNCHES["copy_blocked"] - n0 == 2 * (8 - 1)    # ring psum

@@ -1,7 +1,9 @@
-"""repro_torch stands alone: importing the package and every submodule,
-and ``chip_smoke.py``, pulls in no JAX and nothing of the JAX package
-``repro`` — checked by a clean subprocess's ``sys.modules`` and by an
-AST scan of every import statement."""
+"""repro_torch stands alone: importing the package and every submodule
+(the serving slice and the communication library: core, comm, the copy
+and combine kernels, comm_bench), and ``chip_smoke.py``, pulls in no
+JAX and nothing of the JAX package ``repro`` — checked by a clean
+subprocess's ``sys.modules`` and by an AST scan of every import
+statement."""
 import ast
 import os
 import subprocess
@@ -50,7 +52,20 @@ def test_every_module_imports_without_jax_or_repro():
                        text=True, env=env, cwd=ROOT, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    assert len(_modules()) >= 20
+    assert len(_modules()) >= 40
+
+
+def test_the_comm_slice_is_covered():
+    """The communication library's modules are among those imported and
+    scanned above (a module left out of the walk would go unchecked)."""
+    want = {"repro_torch.core." + m for m in (
+        "teams", "safety", "heap", "p2p", "collectives", "ordering",
+        "signals", "atomics")} | {
+        "repro_torch.comm", "repro_torch.comm.communicator",
+        "repro_torch.comm.pallas_backend", "repro_torch.kernels.symm_copy",
+        "repro_torch.kernels.reduce_combine", "repro_torch.kernels.ops",
+        "repro_torch.launch.comm_bench"}
+    assert want <= set(_modules())
 
 
 @pytest.mark.parametrize("path", _sources(),

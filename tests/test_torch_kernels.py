@@ -183,3 +183,162 @@ def test_choose_block_fits_the_warps_rows():
     assert pa.choose_block(64, 8) == 8 and pa.choose_block(64, 1) == 16
     for g in range(1, pa.MAX_GROUP + 1):
         assert pa.choose_block(64, g) * g <= pa.MAX_WINDOW_ROWS
+
+
+# ======================================================================
+# the copy engine (symm_copy) and the combine (reduce_combine)
+# ======================================================================
+from repro.kernels import reduce_combine as jrc  # noqa: E402
+from repro.kernels import symm_copy as jsc  # noqa: E402
+from repro_torch.kernels import reduce_combine as rc  # noqa: E402
+from repro_torch.kernels import symm_copy as sc  # noqa: E402
+
+COPY_DT = {"f32": (jnp.float32, torch.float32),
+           "bf16": (jnp.bfloat16, torch.bfloat16),
+           "int8": (jnp.int8, torch.int8),
+           "int32": (jnp.int32, torch.int32)}
+
+
+def _pair(a, dt):
+    """The same values as a JAX array and a torch tensor of ``dt``."""
+    jdt, tdt = COPY_DT[dt]
+    if dt in ("int8", "int32"):
+        a = np.round(a * 40).astype(np.int8 if dt == "int8" else np.int32)
+        return jnp.asarray(a), torch.from_numpy(a.copy())
+    return (jnp.asarray(a, jnp.float32).astype(jdt),
+            torch.from_numpy(a.astype(np.float32)).to(tdt))
+
+
+def _np_of(t):
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _jnp_of(a):
+    return np.asarray(a.astype(jnp.float32) if a.dtype == jnp.bfloat16
+                      else a)
+
+
+# sizes: one element, a ragged row, past one tile, several column panels
+# (the last only for the small blocks: interpret mode walks every tile)
+COPY_CASES = [(v, dt, n) for v in sorted(sc.VARIANTS)
+              for dt in sorted(COPY_DT) for n in (1, 127, 4099)] + \
+             [(v, dt, 70001) for v in ("vmem_8x128", "vmem_32x128")
+              for dt in ("f32", "int8")]
+
+
+@pytest.mark.parametrize("variant,dt,n", COPY_CASES,
+                         ids=[f"{v}-{d}-{n}" for v, d, n in COPY_CASES])
+def test_copy_plain_matches_pallas_copy_blocked(variant, dt, n):
+    a = np.random.RandomState(n).randn(n).astype(np.float32)
+    shape = (n,) if n % 7 else (7, n // 7)
+    ja, ta = _pair(a.reshape(shape), dt)
+    want = jsc.copy_blocked(ja, variant, interpret=True)
+    got = sc.copy_blocked(ta, variant)
+    assert got.dtype == ta.dtype and tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_array_equal(_np_of(got), _jnp_of(want))
+    assert got.data_ptr() != ta.data_ptr()
+
+
+def test_copy_variant_dispatch_matches_reference():
+    """block_shape and choose_variant give the reference's answers over a
+    grid of sizes and dtypes (so dispatch and bench rows match)."""
+    for dt in COPY_DT:
+        jdt, tdt = COPY_DT[dt]
+        for v in sc.VARIANTS:
+            assert sc.block_shape(v, tdt) == jsc.block_shape(v, jdt), (v, dt)
+        for nb in (0, 1, 1023, 1024, 2047, 2048, 4095, 4096, 4097,
+                   32 << 10, (32 << 10) + 1, 256 << 10, (256 << 10) + 1,
+                   1 << 20, (1 << 20) + 1, 8 << 20, (8 << 20) + 1, 1 << 30):
+            assert sc.choose_variant(nb, tdt) == jsc.choose_variant(nb, jdt), \
+                (nb, dt)
+    assert sc.VARIANTS == jsc.VARIANTS
+    assert sc.DEFAULT_VARIANT == jsc.DEFAULT_VARIANT
+    assert ops.COPY_VARIANTS == ("stock", "auto") + tuple(jsc.VARIANTS)
+    assert ops.COMBINE_VARIANTS == tuple(jrc.VARIANTS)
+
+
+def test_copy_front_door_dispatch():
+    """"auto" sends payloads under one minimal tile to the bare copy and
+    the rest to the blocked copy; "stock" never reaches the kernel
+    wrapper."""
+    calls = []
+    orig = sc.copy_blocked
+    try:
+        sc.copy_blocked = lambda x, v: calls.append(v) or orig(x, v)
+        small, big = torch.arange(1023.0), torch.arange(1024.0)
+        assert torch.equal(sc.copy(small), small) and calls == []
+        assert torch.equal(ops.symm_copy(big, "auto"), big)
+        assert calls == ["vmem_8x128"]
+        assert torch.equal(ops.symm_copy(big, "stock"), big)
+        assert calls == ["vmem_8x128"]
+    finally:
+        sc.copy_blocked = orig
+    with pytest.raises(ValueError, match="unknown copy variant"):
+        sc.copy_blocked(big, "vmem_1x1")
+
+
+COMBINE_CASES = [(op, dt) for op in ("sum", "prod", "max", "min")
+                 for dt in ("f32", "bf16", "int32")]
+
+
+@pytest.mark.parametrize("op,dt", COMBINE_CASES,
+                         ids=[f"{o}-{d}" for o, d in COMBINE_CASES])
+def test_combine_plain_matches_pallas_combine_blocked(op, dt):
+    rng = np.random.RandomState(3)
+    a, b = rng.randn(2, 33, 37).astype(np.float32)
+    ja, ta = _pair(a, dt)
+    jb, tb = _pair(b, dt)
+    want = jrc.combine_blocked(ja, jb, op, interpret=True)
+    got = ops.combine(ta, tb, op)
+    assert got.dtype == ta.dtype
+    np.testing.assert_array_equal(_np_of(got), _jnp_of(want))
+
+
+def test_combine_propagates_nan_like_the_reference():
+    a = np.array([1.0, np.nan, 2.0, -0.0, np.nan], np.float32)
+    b = np.array([np.nan, 3.0, 1.0, 0.0, np.nan], np.float32)
+    for op in ("max", "min", "sum"):
+        want = jrc.combine_blocked(jnp.asarray(a), jnp.asarray(b), op,
+                                   interpret=True)
+        got = rc.combine_blocked(torch.from_numpy(a), torch.from_numpy(b), op)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_combine_raises_on_the_reference_mismatches():
+    f = torch.zeros(4, 3)
+    for bad in [(f, torch.zeros(3, 4), "sum"),
+                (f, torch.zeros(4, 3, dtype=torch.bfloat16), "sum"),
+                (f, f, "xor")]:
+        with pytest.raises(ValueError):
+            rc.combine_blocked(*bad)
+        with pytest.raises(ValueError):
+            jrc.combine_blocked(jnp.zeros(tuple(bad[0].shape)),
+                                jnp.zeros(tuple(bad[1].shape),
+                                          jnp.bfloat16
+                                          if bad[1].dtype == torch.bfloat16
+                                          else jnp.float32),
+                                bad[2], interpret=True)
+
+
+def test_copy_and_combine_route_by_device(monkeypatch):
+    """CPU tensors take the plain versions without building or counting;
+    any other device goes to the kernel path, which raises for a
+    non-CUDA tensor — never the plain version."""
+    monkeypatch.setattr(sc.build, "load", lambda *a: pytest.fail(
+        "CPU tensors must not build or load the CUDA library"))
+    before = (dict(sc.LAUNCHES), dict(rc.LAUNCHES))
+    x = torch.arange(5000.0)
+    assert torch.equal(sc.copy_blocked(x, "vmem_8x128"), x)
+    assert torch.equal(rc.combine_blocked(x, x, "sum"), 2 * x)
+    assert (sc.LAUNCHES, rc.LAUNCHES) == before
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(sc, "copy_blocked_ref", no_plain)
+    monkeypatch.setattr(rc, "combine_blocked_ref", no_plain)
+    m = torch.empty(5000, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sc.copy_blocked(m, "vmem_8x128")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rc.combine_blocked(m, m, "sum")
