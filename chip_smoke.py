@@ -45,16 +45,38 @@ caught):
                psums per backend at 64 KiB and 64 MiB per PE under the
                profiler (device busy share, kernels by kind).
                ``--comm-out FILE`` writes the bench dict there;
-  6. timing  — each kernel, its plain version, a library yardstick the
+  6. train   — ``repro_torch.launch.train.build_trainer`` on full-width
+               gemma-2b (18 layers, f32 parameters and compute, AdamW,
+               weights drawn on the card from a seed), sequences of
+               4096 tokens, global batch 8 in 8 microbatches, 3 steps:
+               per-step loss, seconds, tokens/s and peak memory; the
+               flash launch counter, zeroed just before, must equal the
+               count predicted in PERF.md (18 layers x 8 microbatches x
+               3 steps x 2, the recompute under remat included); then
+               one more step under the profiler; then gemma-2b-smoke and
+               qwen3-8b-smoke in f32 on the card must give the same
+               3-step losses with the flash kernel as with the plain
+               forward;
+  7. timing  — each kernel, its plain version, a library yardstick the
                port never calls (``scaled_dot_product_attention`` on
-               pre-gathered K/V; ``x.clone()``; ``torch.add``) and its
-               bound, with CUDA events, the L2 flushed before each
-               launch, at the phase-3 shapes.
+               pre-gathered K/V, or causal with GQA for the flash kernel;
+               ``x.clone()``; ``torch.add``) and its bound, with CUDA
+               events, the L2 flushed before each launch, at the
+               phase-3 shapes (the flash kernel at the training shape, in
+               f32 as the trainer runs it and in bf16).
+
+Phase 3 also holds the flash-attention kernel against its plain version
+in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
+training path's full width (B=1, H=8, H_kv=1, T=S=4096, D=256, causal),
+at D=128 with a group of 4, at a sliding window of 96 over a ragged
+T=S=1000 and without the causal mask; and the autograd path (kernel
+forward, plain backward) against the all-plain path on the grads.
 
 ``launches`` in the kernels line is each kernel's count from its main
 path (serve for the paged-attention kernels, the communicator calls for
-the copy engine; 0 for ``combine_blocked``, which is reached only
-through ``ops.combine``).  It prints a ``{"kernels": [...]}`` line, the card's name and power
+the copy engine, the gemma-2b training steps for the flash kernel; 0
+for ``combine_blocked``, which is reached only through ``ops.combine``).
+It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.  It imports nothing of JAX.
@@ -63,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -94,6 +117,18 @@ HBM_BYTES_S = 3.35e12                              # H100 SXM data sheet
 N_PE = 8
 STAGED = (N_PE, 2 << 20)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# the training path's attention: gemma-2b, one sequence of 4096 tokens
+FLASH_FULL = dict(b=1, h=8, hkv=1, t=4096, s=4096, d=256)
+# the other parity shapes: D=128 with a GQA group of 4; a sliding window
+# of 96 over a ragged T=S=1000; no causal mask
+FLASH_CASES = [(FLASH_FULL, dict(causal=True)),
+               (dict(b=2, h=8, hkv=2, t=512, s=512, d=128), dict(causal=True)),
+               (dict(b=1, h=4, hkv=1, t=1000, s=1000, d=256),
+                dict(causal=True, window=96)),
+               (dict(b=1, h=4, hkv=4, t=777, s=777, d=128),
+                dict(causal=False))]
+TRAIN = dict(arch="gemma-2b", global_batch=8, microbatches=8, steps=3)
 
 SERVE_TRACE = dict(n_requests=8, rate=8.0, seed=0,
                    prompt_short=(64, 257), prompt_long=(257, 513),
@@ -188,6 +223,72 @@ def parity(pa, dev) -> dict:
               f"{errs[('paged_decode_attention', tag)]:.3e} prefill "
               f"max_err={err:.3e} (tol {TOL[dtype]})", flush=True)
     return errs
+
+
+def flash_inputs(shape, dtype, dev, seed=11):
+    """q as the model hands it over: a (B, H, T, D) view of a (B, T, H,
+    D) tensor; k, v contiguous (B, H_kv, S, D)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, hkv, t, s, d = (shape[k] for k in ("b", "h", "hkv", "t", "s", "d"))
+    q = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=g, device=dev).to(dtype)
+    return q.transpose(1, 2), k, v
+
+
+def flash_parity(fa, dev) -> dict:
+    """The flash kernel against its plain version, output and lse."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        worst = 0.0
+        for shape, opts in FLASH_CASES:
+            q, k, v = flash_inputs(shape, dtype, dev)
+            out, lse = fa.flash_attention(q, k, v, **opts)
+            ref, ref_lse = fa.flash_attention_ref(q, k, v, **opts)
+            torch.cuda.synchronize()
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            if not err <= TOL[dtype]:
+                fail(f"flash {tag} {shape} {opts}: max |kernel - plain| "
+                     f"{err} > {TOL[dtype]}")
+            worst = max(worst, err)
+            del q, k, v, out, lse, ref, ref_lse
+        errs[tag] = worst
+    torch.cuda.empty_cache()
+    print(f"parity flash_attention: max |kernel - plain| over out and lse, "
+          f"{len(FLASH_CASES)} shapes: f32 {errs['f32']:.3e} (tol "
+          f"{TOL[torch.float32]}), bf16 {errs['bf16']:.3e} (tol "
+          f"{TOL[torch.bfloat16]})", flush=True)
+    return errs
+
+
+def flash_autograd_parity(fa, dev) -> float:
+    """blocked_attention with the kernel forward (one launch) and the
+    plain blocked backward against the all-plain path: output and
+    q/k/v grads, f32, gemma's head shape, ragged T."""
+    from repro_torch.models.flash import blocked_attention
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    shapes = ((1, 300, 8, 256), (1, 300, 1, 256), (1, 300, 1, 256))
+    base = [torch.randn(sh, generator=g, device=dev) for sh in shapes]
+    dout = torch.randn(shapes[0], generator=g, device=dev)
+    res = {}
+    for impl in ("kernel", "ref"):
+        q, k, v = (x.clone().requires_grad_(True) for x in base)
+        n = fa.LAUNCHES["flash_attention"]
+        out = blocked_attention(q, k, v, block_q=128, block_kv=64, impl=impl)
+        if fa.LAUNCHES["flash_attention"] != n + (impl == "kernel"):
+            fail("autograd: the kernel path did not launch the kernel once")
+        out.backward(dout)
+        res[impl] = [out.detach(), q.grad, k.grad, v.grad]
+    err = max((a - b).abs().max().item()
+              for a, b in zip(res["kernel"], res["ref"]))
+    if not err <= TOL[torch.float32]:
+        fail(f"autograd: kernel path vs plain path max err {err}")
+    print(f"parity flash autograd (kernel fwd + plain bwd vs plain, f32): "
+          f"max err over out/dq/dk/dv {err:.3e}", flush=True)
+    return err
 
 
 def _bits(n_bytes, dev, seed):
@@ -340,6 +441,8 @@ def serve_full(pa, dev):
 def _kind(name: str) -> str:
     if "paged_" in name:
         return "paged attention (ours)"
+    if "flash_fwd_kernel" in name:
+        return "flash attention (ours)"
     # ours are (anonymous namespace)::copy_kernel / ::combine_kernel<...>;
     # PyTorch's own copies are ...::direct_copy_kernel_cuda
     if "::copy_kernel(" in name:
@@ -532,7 +635,93 @@ def comm_profile(dev) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 6: timing
+# phase 6: train
+# ----------------------------------------------------------------------
+def train_full(fa, dev) -> int:
+    """Full-width gemma-2b training steps through build_trainer; returns
+    the flash launches of the measured steps."""
+    from repro_torch.launch.train import build_trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    tr = build_trainer(TRAIN["arch"], global_batch=TRAIN["global_batch"],
+                       microbatches=TRAIN["microbatches"], device=dev, seed=0)
+    torch.cuda.synchronize()
+    cfg = tr.cfg
+    n_params = sum(p.numel() for p in tr.state["params"]["embed"].values())
+    n_params += sum(p.numel() for blk in tr.state["params"]["blocks"]
+                    for sub in blk.values() for p in sub.values())
+    print(f"train: {cfg.name} full width, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.act}), vocab {cfg.vocab}, "
+          f"{n_params / 1e9:.3f} B params f32; seq {cfg.max_seq}, global "
+          f"batch {TRAIN['global_batch']} in {TRAIN['microbatches']} "
+          f"microbatches; state {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB, init {time.monotonic() - t0:.1f} s", flush=True)
+    tokens = TRAIN["global_batch"] * cfg.max_seq
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    steps = []
+    for s in range(TRAIN["steps"]):
+        m = tr.step(s)
+        m["tokens_per_s"] = tokens / m["seconds"]
+        m["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        steps.append(m)
+        print(f"train step {s}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} {m['seconds']:.2f} s "
+              f"{m['tokens_per_s']:.0f} tok/s peak "
+              f"{m['max_memory_allocated_gb']:.2f} GB", flush=True)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    want = cfg.n_layers * TRAIN["microbatches"] * TRAIN["steps"] * 2
+    if launches != want:
+        fail(f"train: flash launches {launches} != predicted {want} "
+             f"(layers x microbatches x steps x 2 under remat)")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in steps):
+        fail(f"train: non-finite loss or grad norm {steps}")
+    # 0.02-scale tied embeddings give near-uniform logits: ln(vocab) at init
+    if not abs(steps[0]["loss"] - math.log(cfg.vocab)) < 0.5:
+        fail(f"train: initial loss {steps[0]['loss']} is not near "
+             f"ln(vocab) = {math.log(cfg.vocab):.3f}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if peak >= 80.0:
+        fail(f"train: peak memory {peak:.2f} GB")
+    print("train metrics: " + json.dumps({
+        "steps": steps, "flash_launches": launches,
+        "flash_launches_predicted": want, "peak_memory_gb": peak}),
+        flush=True)
+    prof = _profiled(lambda: tr.step(TRAIN["steps"]), top=8)
+    print("train profile (one step): " + json.dumps(prof), flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_smoke_parity(dev) -> None:
+    """Smoke configs in f32 on the card: 3 steps with the flash kernel
+    and with the plain forward give the same losses (rtol 1e-5: the two
+    forwards differ only by summation order)."""
+    from repro_torch.launch.train import build_trainer
+
+    for arch in ("gemma-2b", "qwen3-8b"):
+        losses = {}
+        for impl in ("kernel", "ref"):
+            tr = build_trainer(arch, smoke=True, microbatches=2, device=dev,
+                               attn_impl=impl)
+            losses[impl] = [tr.step(s)["loss"] for s in range(3)]
+        worst = max(abs(a - b) / abs(b)
+                    for a, b in zip(losses["kernel"], losses["ref"]))
+        if not worst <= 1e-5:
+            fail(f"train smoke {arch}: kernel losses {losses['kernel']} vs "
+                 f"plain {losses['ref']}")
+        print(f"train smoke {arch} f32: kernel losses {losses['kernel']} == "
+              f"plain {losses['ref']} (max rel diff {worst:.2e})", flush=True)
+
+
+# ----------------------------------------------------------------------
+# phase 7: timing
 # ----------------------------------------------------------------------
 def time_ms(fn, dev, iters=20) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, each after an L2
@@ -695,6 +884,53 @@ def comm_timing(sc, rc, dev, launches, errs) -> list:
     return out
 
 
+def flash_timing(fa, dev, launches, errs) -> dict:
+    """The flash kernel at the training shape: kernel, plain version,
+    SDPA (causal, GQA) and bound, in f32 (the trainer's dtype, the row's
+    main numbers) and bf16."""
+    import torch.nn.functional as F
+
+    f = FLASH_FULL
+    b, h, t, d = f["b"], f["h"], f["t"], f["d"]
+    flops = 4 * b * h * d * t * (t + 1) // 2           # causal: QK^T and PV
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:89 "
+           "(flash_attention, pl.pallas_call :132, body _flash_kernel :29)",
+           "launches": launches, "max_abs_err": max(errs.values()),
+           "max_err_f32": errs["f32"], "max_err_bf16": errs["bf16"],
+           "tol": {"bf16": TOL[torch.bfloat16], "f32": TOL[torch.float32]},
+           "shape": f, "bound_flops": flops}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v = flash_inputs(f, dtype, dev)
+        qc = q.contiguous()
+        isz = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + b * h * t * 4
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), dev)
+        plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                          causal=True), dev)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, k, v, is_causal=True, enable_gqa=True), dev)
+        t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        vals = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": by, "bound_bytes": nbytes}
+        if dtype == torch.float32:
+            row.update(vals)
+            row["kernel_ms"] = ms
+        row.update({f"{k_}_{tag}": v_ for k_, v_ in vals.items()})
+        print(f"timing flash_attention ({tag}, B={b} H={h} H_kv={f['hkv']} "
+              f"T=S={t} D={d} causal): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}; {flops:.3e} flops, {nbytes} bytes)",
+              flush=True)
+        del q, k, v, qc
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--comm-out", default=None,
@@ -710,6 +946,7 @@ def main(argv=None) -> int:
         return 3
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import reduce_combine as rc
     from repro_torch.kernels import symm_copy as sc
@@ -726,7 +963,7 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.monotonic()
-    sources = (pa.SOURCE, sc.SOURCE, rc.SOURCE)
+    sources = (pa.SOURCE, sc.SOURCE, rc.SOURCE, fa.SOURCE)
     with ThreadPoolExecutor(len(sources)) as ex:     # one nvcc per source
         list(ex.map(build.build, sources))
     print(f"build: {', '.join(sources)} in {time.monotonic() - t0:.1f} s",
@@ -736,12 +973,17 @@ def main(argv=None) -> int:
               .strip(), flush=True)
 
     errs = parity(pa, dev)
+    flash_errs = flash_parity(fa, dev)
+    flash_autograd_parity(fa, dev)
     comm_errs = comm_kernel_parity(sc, rc, dev)
     launches = serve_full(pa, dev)
     serve_smoke_streams(dev)
     comm_launches = comm_phase(sc, rc, dev, args.comm_out)
+    flash_launches = train_full(fa, dev)
+    train_smoke_parity(dev)
     kernels = timing(pa, dev, launches, errs) + \
-        comm_timing(sc, rc, dev, comm_launches, comm_errs)
+        comm_timing(sc, rc, dev, comm_launches, comm_errs) + \
+        [flash_timing(fa, dev, flash_launches, flash_errs)]
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

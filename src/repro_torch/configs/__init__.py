@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen3_8b",)
+ARCHS = ("gemma_2b", "qwen3_8b")
 
-_ALIASES = {"qwen3-8b": "qwen3_8b"}
+_ALIASES = {"gemma-2b": "gemma_2b", "qwen3-8b": "qwen3_8b"}
 
 
 def canon(name: str) -> str:

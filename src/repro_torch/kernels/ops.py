@@ -9,6 +9,7 @@ within the tolerances the tests state).
 """
 from __future__ import annotations
 
+from . import flash_attention as _fa
 from . import paged_attention as _pa
 from . import reduce_combine as _rc
 from . import symm_copy as _sc
@@ -27,6 +28,14 @@ def symm_copy(x, variant: str = _sc.DEFAULT_VARIANT):
 def combine(a, b, op: str = "sum", variant: str = _rc.DEFAULT_VARIANT):
     """Elementwise ``op(a, b)`` (sum/prod/max/min) by the combine kernel."""
     return _rc.combine_blocked(a, b, op, variant)
+
+
+def attention(q, k, v, causal: bool = True, window=None, sm_scale=None):
+    """Blocked causal/windowed GQA attention: q (B, H, T, D), k/v
+    (B, H_kv, S, D) -> (B, H, T, D).  The kernel keeps its own tiles, so
+    the reference's ``block_q``/``block_kv`` have no counterpart here."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               sm_scale=sm_scale)[0]
 
 
 def _check_impl(impl: str) -> None:

@@ -1,14 +1,15 @@
-"""Shared building blocks: initializer, RMS norm, RoPE.
+"""Shared building blocks: initializer, RMS norm, RoPE, activations.
 
-The counterparts of ``repro.models.common`` that the dense serving path
-uses.  Norms and rotations compute in f32 and cast back to the input
-dtype, as the JAX functions do.
+The counterparts of ``repro.models.common`` that the dense serving and
+training paths use.  Norms and rotations compute in f32 and cast back to
+the input dtype, as the JAX functions do.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def ninit(gen: torch.Generator, shape, scale: Optional[float] = None,
@@ -30,6 +31,16 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     return out.to(x.dtype)
 
 
+def norm_apply(kind: str, params: dict, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """The reference's ``norm_apply``: the dense family's norm is RMS;
+    layer norm belongs to the encoder-decoder family, not ported yet."""
+    if kind != "rms":
+        raise NotImplementedError(
+            f"norm {kind!r} arrives with the encoder-decoder slice")
+    return rmsnorm(params["scale"], x, eps)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
@@ -47,3 +58,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     xf1, xf2 = x[..., : dh // 2].float(), x[..., dh // 2:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    """``gelu`` (tanh approximation, as ``jax.nn.gelu``), ``silu`` and
+    ``relu2`` (squared ReLU), by the reference's names."""
+    return {"gelu": _gelu, "silu": F.silu,
+            "relu2": lambda x: torch.square(F.relu(x))}[name]

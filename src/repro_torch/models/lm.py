@@ -1,10 +1,15 @@
-"""Decoder-only LM parameters for the dense family, and the decode MLP.
+"""Decoder-only LM for the dense family: parameters, forward, loss, and
+the decode MLP.
 
-The counterpart of ``repro.models.lm.init`` (dense branch) and
-``lm._decode_mlp``.  Parameters are a plain nested dict with the JAX
-pytree's keys; per-layer weights are stacked on a leading layer axis as
-in the JAX pytree, and ``layer(blocks, li)`` takes one layer's views
-(the Python loop over layers replaces ``jax.lax.scan``).
+The counterpart of ``repro.models.lm`` (dense branch): ``init``,
+``_dense_block_apply``, ``forward``, ``loss_fn`` and ``_decode_mlp``.
+Parameters are a plain nested dict with the JAX pytree's keys; per-layer
+weights are stacked on a leading layer axis as in the JAX pytree, and
+``layer(blocks, li)`` takes one layer's views (the Python loop over
+layers replaces ``jax.lax.scan``).  ``unstack`` turns the stacked blocks
+into a list of per-layer dicts of views — the form the trainer
+differentiates, so each layer's gradient is its own tensor; every
+function here takes either form.
 
 Init draws from an explicit ``torch.Generator`` with the reference's
 distributions: matrices normal with scale ``1/sqrt(fan_in)``, the
@@ -15,9 +20,14 @@ packages hand the JAX weights over through ``repro_torch.weights``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .common import ninit
-from .mlp import mlp_apply
+from .attention import self_attention
+from .common import ninit, norm_apply
+from .embed import embed_lookup, lm_head_loss
+from .mlp import is_glu, mlp_apply
+
+ACTS = ("swiglu", "geglu", "relu2", "gelu")
 
 
 def _block_shapes(cfg) -> dict:
@@ -28,8 +38,11 @@ def _block_shapes(cfg) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = {"scale": (dh,)}
         attn["k_norm"] = {"scale": (dh,)}
+    mlp = {"wu": (d, ff), "wd": (ff, d)}
+    if is_glu(cfg.act):
+        mlp["wg"] = (d, ff)
     return {"ln1": {"scale": (d,)}, "attn": attn, "ln2": {"scale": (d,)},
-            "mlp": {"wu": (d, ff), "wd": (ff, d), "wg": (d, ff)}}
+            "mlp": mlp}
 
 
 def _fill(shapes, n_layers, gen, dtype, device):
@@ -57,7 +70,7 @@ def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
         raise NotImplementedError(
             f"repro_torch lm.init builds the dense family; {cfg.family!r} "
             f"arrives in a later slice")
-    if cfg.act != "swiglu":
+    if cfg.act not in ACTS:
         raise NotImplementedError(f"act {cfg.act!r} not ported")
     v, d = cfg.padded_vocab(1), cfg.d_model
     params = {"embed": {"table": ninit(gen, (v, d), scale=0.02, dtype=dtype,
@@ -71,10 +84,80 @@ def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
     return params
 
 
-def layer(blocks: dict, li: int) -> dict:
-    """Layer ``li``'s parameters as views into the stacked tensors."""
+def layer(blocks, li: int) -> dict:
+    """Layer ``li``'s parameters: views into the stacked tensors, or the
+    entry of a per-layer list."""
+    if isinstance(blocks, list):
+        return blocks[li]
     return {k: layer(v, li) if isinstance(v, dict) else v[li]
             for k, v in blocks.items()}
+
+
+def n_blocks(blocks) -> int:
+    if isinstance(blocks, list):
+        return len(blocks)
+    leaf = blocks
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+def unstack(params: dict) -> dict:
+    """The same parameters with ``blocks`` as a list of per-layer dicts of
+    views into the stacked tensors (no copy)."""
+    out = dict(params)
+    out["blocks"] = [layer(params["blocks"], li)
+                     for li in range(n_blocks(params["blocks"]))]
+    return out
+
+
+# ======================================================================
+# forward and loss
+# ======================================================================
+def _dense_block_apply(p: dict, x: torch.Tensor, ctx, cfg,
+                       causal: bool = True) -> torch.Tensor:
+    h = self_attention(p["attn"], norm_apply("rms", p["ln1"], x), ctx, cfg,
+                       causal=causal, window=cfg.swa_window)
+    x = x + h
+    m = mlp_apply(p["mlp"], norm_apply("rms", p["ln2"], x).to(
+        ctx.compute_dtype), cfg)
+    return x + m
+
+
+def forward(params: dict, ids: torch.Tensor, ctx, cfg) -> torch.Tensor:
+    """ids (b, t) -> final hidden states (b, t, d).  With ``ctx.remat``
+    each layer runs under ``torch.utils.checkpoint`` — its activations
+    are recomputed in the backward, as the reference's checkpointed
+    ``_scan`` body — so a layer's forward runs twice per step."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"repro_torch runs the dense family; {cfg.family!r} arrives in a "
+            f"later slice")
+    x = embed_lookup(params["embed"], ids, ctx.compute_dtype)
+    blocks = params["blocks"]
+    for li in range(n_blocks(blocks)):
+        p = layer(blocks, li)
+        if ctx.remat:
+            x = checkpoint(_dense_block_apply, p, x, ctx, cfg,
+                           use_reentrant=False)
+        else:
+            x = _dense_block_apply(p, x, ctx, cfg)
+    return norm_apply("rms", params["ln_f"], x)
+
+
+def loss_fn(params: dict, batch: dict, ctx, cfg,
+            for_grad: bool = False) -> torch.Tensor:
+    """batch {'tokens': (b, t+1)} -> mean next-token CE.  The head is the
+    embedding table when ``cfg.tie_embeddings``.  At dp = tp = 1 the
+    reference's single-seed mask and DP mean are identities, so
+    ``for_grad`` changes nothing; it is kept for the reference's
+    signature."""
+    del for_grad
+    tokens = batch["tokens"]
+    ids, targets = tokens[:, :-1], tokens[:, 1:]
+    x = forward(params, ids, ctx, cfg)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return lm_head_loss(head, x, targets, ctx)
 
 
 def _decode_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -5,7 +5,9 @@ arrays — e.g. ``jax.tree.map(np.asarray, params)`` — and returns the
 port's nested parameter dict with the same keys (``embed.table``,
 ``head.table``, ``ln_f.scale``, ``blocks.{ln1,ln2}.scale``,
 ``blocks.attn.{wq,wk,wv,wo,q_norm,k_norm}``, ``blocks.mlp.{wu,wg,wd}``,
-per-layer leaves stacked on a leading layer axis).  Both packages then
+per-layer leaves stacked on a leading layer axis).  Whatever the JAX
+tree holds is converted: tied embeddings (gemma) come without ``head``,
+a plain-activation MLP (relu2, gelu) without ``wg``.  Both packages then
 compute the same function, which is how the tests hold one against the
 other.  It takes numpy, never JAX arrays, so this module needs no JAX.
 """

@@ -1,7 +1,10 @@
 """repro_torch on the GPU: the CUDA paged-attention kernels against
 their plain PyTorch versions over the reference's parity corpus
 (mid-page starts, full final pages, padded and inactive rows, the verify
-shape, GQA/MQA, f32/bf16, length 0), and the engine's kernel path.
+shape, GQA/MQA, f32/bf16, length 0), and the engine's kernel path; the
+copy and combine kernels and the pallas backend; the flash-attention
+kernel against its plain version, the autograd path through it, and
+smoke-config training with it.
 
 Every test here needs a CUDA GPU and skips without one (the kernels are
 CUDA C++ with no CPU mode); on the H100 host:
@@ -138,6 +141,38 @@ WINDOW_CASES = {
     "gqa_6_2": lambda: _window_case(132, 2, 8, 6, 2, 16, 8, 3),
     "mha_4_4": lambda: _window_case(114, 2, 8, 4, 4, 16, 8, 3),
 }
+
+
+# ======================================================================
+# flash attention: q (B, H, T, D), k/v (B, H_kv, S, D)
+# ======================================================================
+def _flash_case(seed, b, h, hkv, t, s, d):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, h, t, d).astype(np.float32),
+            rng.randn(b, hkv, s, d).astype(np.float32),
+            rng.randn(b, hkv, s, d).astype(np.float32))
+
+
+# name -> (shape args, attention options).  The first five are the
+# reference's own cases (``tests/test_kernels.py``); the rest reach what
+# the training path adds: gemma-2b's head dim 256 with a GQA group of 8,
+# windowed rows whose first KV tiles are all masked, a ragged T that is
+# no multiple of any tile, and a query range placed by q_offset with the
+# columns cut at kv_len.
+FLASH_CASES = {
+    "causal_gqa": ((0, 2, 4, 2, 128, 128, 64), dict(causal=True)),
+    "mqa_ragged_100": ((1, 1, 8, 1, 100, 100, 32), dict(causal=True)),
+    "noncausal_mha": ((2, 2, 4, 4, 128, 128, 64), dict(causal=False)),
+    "window_96": ((3, 1, 4, 2, 256, 256, 64), dict(causal=True, window=96)),
+    "d128": ((4, 1, 2, 2, 64, 64, 128), dict(causal=True)),
+    "gemma_d256_mqa_8": ((5, 1, 8, 1, 200, 200, 256), dict(causal=True)),
+    "window_40_first_tiles_masked": ((6, 1, 4, 1, 230, 230, 64),
+                                     dict(causal=True, window=40)),
+    "q_offset_kv_len": ((7, 2, 4, 2, 48, 160, 64),
+                        dict(causal=True, q_offset=100, kv_len=140)),
+}
+REF_FLASH_CASES = ("causal_gqa", "mqa_ragged_100", "noncausal_mha",
+                   "window_96", "d128")
 
 
 # ======================================================================
@@ -348,3 +383,102 @@ def test_cuda_pallas_backend_never_takes_the_plain_copy(cuda_device,
     n0 = sc.LAUNCHES["copy_blocked"]
     pal.psum(x)
     assert sc.LAUNCHES["copy_blocked"] - n0 == 2 * (8 - 1)    # ring psum
+
+
+# ======================================================================
+# the flash-attention kernel and the training path
+# ======================================================================
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import flash as mflash  # noqa: E402
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_cuda_flash_kernel_matches_plain(cuda_device, case, dt):
+    """Output and log-sum-exp against the dense plain version.  The q/out
+    views are strided (the model's (b, t, h, d) layout)."""
+    shape, opts = FLASH_CASES[case]
+    q, k, v = (_to_torch(a, dt).to(cuda_device)
+               for a in _flash_case(*shape))
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)    # (b, t, h, d) store
+    n = fa.LAUNCHES["flash_attention"]
+    out, lse = fa.flash_attention(q, k, v, **opts)
+    assert fa.LAUNCHES["flash_attention"] == n + 1
+    assert out.stride() == q.stride()
+    want, want_lse = fa.flash_attention_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    _close(out.cpu(), want.cpu().float().numpy(), dt, case)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=TOL[dt], rtol=TOL[dt], err_msg=case)
+
+
+def test_cuda_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
+    q = torch.randn(1, 2, 8, 16, device=cuda_device)
+    k = torch.randn(1, 1, 8, 16, device=cuda_device)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.randn(1, 1, 8, 320, device=cuda_device)
+        fa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q[..., ::2], k[..., ::2], k[..., ::2])
+    k2 = torch.randn(1, 2, 8, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="GQA"):
+        fa.flash_attention(torch.randn(1, 3, 8, 16, device=cuda_device), k2,
+                           k2)
+
+
+@pytest.mark.parametrize("opts", [dict(causal=True),
+                                  dict(causal=True, window=24),
+                                  dict(causal=False)],
+                         ids=["causal", "window", "noncausal"])
+def test_cuda_autograd_kernel_path_matches_plain_path(cuda_device, opts):
+    """blocked_attention with the kernel forward (and the plain blocked
+    backward) against the all-plain path: outputs and q/k/v grads (f32;
+    the two forwards differ only by summation order)."""
+    rng = np.random.RandomState(8)
+    b, t, h, hkv, d = 2, 150, 8, 2, 64
+    base = [torch.from_numpy(rng.randn(*sh).astype(np.float32))
+            .to(cuda_device) for sh in ((b, t, h, d), (b, t, hkv, d),
+                                        (b, t, hkv, d))]
+    dout = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)) \
+        .to(cuda_device)
+    res = {}
+    for impl in ("kernel", "ref"):
+        q, k, v = (x.clone().requires_grad_(True) for x in base)
+        n = fa.LAUNCHES["flash_attention"]
+        out = mflash.blocked_attention(q, k, v, block_q=64, block_kv=32,
+                                       impl=impl, **opts)
+        assert fa.LAUNCHES["flash_attention"] == n + (impl == "kernel")
+        out.backward(dout)
+        res[impl] = [out.detach(), q.grad, k.grad, v.grad]
+    for got, want in zip(res["kernel"], res["ref"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _smoke_losses(arch, impl, device, steps=3):
+    from repro_torch.launch.train import build_trainer
+    tr = build_trainer(arch, smoke=True, device=device, attn_impl=impl,
+                       microbatches=2)
+    return [tr.step(s)["loss"] for s in range(steps)]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b"])
+def test_cuda_smoke_training_kernel_equals_plain(cuda_device, arch,
+                                                 monkeypatch):
+    """Three smoke-config steps on the card with the kernel forward and
+    with the plain one: the same losses (f32; 1e-5 relative covers the
+    forwards' summation order).  On the kernel path the plain forward is
+    booby-trapped, and each layer's forward launches the kernel twice
+    per microbatch (once more in the recompute under remat)."""
+    plain = _smoke_losses(arch, "ref", cuda_device)
+
+    def trap(*a, **k):
+        raise AssertionError("the plain flash forward ran on the CUDA path")
+
+    monkeypatch.setattr(fa, "flash_attention_ref", trap)
+    monkeypatch.setattr(mflash, "_chunk_fwd", trap)
+    fa.reset_launches()
+    kernel = _smoke_losses(arch, "kernel", cuda_device)
+    assert fa.LAUNCHES["flash_attention"] == 2 * 2 * 3 * 2  # L x mb x steps x 2
+    np.testing.assert_allclose(kernel, plain, rtol=1e-5)

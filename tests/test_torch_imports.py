@@ -1,6 +1,8 @@
 """repro_torch stands alone: importing the package and every submodule
-(the serving slice and the communication library: core, comm, the copy
-and combine kernels, comm_bench), and ``chip_smoke.py``, pulls in no
+(the serving slice, the communication library: core, comm, the copy
+and combine kernels, comm_bench, and the training slice: the flash
+kernel, flash/lm/registry, parallel, data, train, the train launcher),
+and ``chip_smoke.py``, pulls in no
 JAX and nothing of the JAX package ``repro`` — checked by a clean
 subprocess's ``sys.modules`` and by an AST scan of every import
 statement."""
@@ -65,6 +67,17 @@ def test_the_comm_slice_is_covered():
         "repro_torch.comm.pallas_backend", "repro_torch.kernels.symm_copy",
         "repro_torch.kernels.reduce_combine", "repro_torch.kernels.ops",
         "repro_torch.launch.comm_bench"}
+    assert want <= set(_modules())
+
+
+def test_the_training_slice_is_covered():
+    want = {"repro_torch.kernels.flash_attention", "repro_torch.models.flash",
+            "repro_torch.models.registry", "repro_torch.parallel",
+            "repro_torch.parallel.ctx", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.train",
+            "repro_torch.train.optimizer", "repro_torch.train.grad",
+            "repro_torch.train.step", "repro_torch.train.tree",
+            "repro_torch.configs.gemma_2b", "repro_torch.launch.train"}
     assert want <= set(_modules())
 
 

@@ -20,7 +20,8 @@ import torch
 from repro.kernels import paged_attention as jpa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
-from test_torch_cuda import (DECODE_CASES, TDT, WINDOW_CASES, _close, _i32,
+from test_torch_cuda import (DECODE_CASES, FLASH_CASES, REF_FLASH_CASES, TDT,
+                             WINDOW_CASES, _close, _flash_case, _i32,
                              _paged_case, _to_torch)
 
 torch.set_num_threads(2)
@@ -342,3 +343,129 @@ def test_copy_and_combine_route_by_device(monkeypatch):
         sc.copy_blocked(m, "vmem_8x128")
     with pytest.raises(ValueError, match="CUDA tensors"):
         rc.combine_blocked(m, m, "sum")
+
+
+# ======================================================================
+# flash attention: the plain version against the Pallas kernel
+# (interpret mode) and the blocked model attention against JAX's, grads
+# included.  Tolerances are the reference's own: 2e-5 for the kernel
+# (f32), 2e-2 in bf16, 5e-4 for blocked attention and its grads.
+# ======================================================================
+import jax  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models import flash as jflash  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import flash as mflash  # noqa: E402
+
+
+@pytest.mark.parametrize("case", REF_FLASH_CASES)
+def test_flash_plain_matches_pallas_kernel_interpret(case):
+    shape, opts = FLASH_CASES[case]
+    q, k, v = _flash_case(*shape)
+    want = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          block_q=64, block_kv=64, **opts)
+    out, lse = fa.flash_attention(_to_torch(q), _to_torch(k), _to_torch(v),
+                                  **opts)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    # the log-sum-exp against the reference's blocked forward's
+    b, h, t, d = q.shape
+    hkv = k.shape[1]
+    _, jlse = jflash._flash_chunk_fwd_impl(
+        jnp.asarray(q.transpose(0, 2, 1, 3).reshape(b, t, hkv, h // hkv, d)),
+        jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), d ** -0.5, opts["causal"],
+        opts.get("window"), k.shape[2], 32, False, 0)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(jlse).reshape(b, h, t),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_plain_dtypes_match_pallas(dt):
+    q, k, v = _flash_case(9, 1, 4, 2, 64, 64, 32)
+    want = jops.attention(*(jnp.asarray(a, JDT[dt]) for a in (q, k, v)),
+                          block_q=32, block_kv=32)
+    out = ops.attention(*(_to_torch(a, dt) for a in (q, k, v)))
+    assert out.dtype == TDT[dt]
+    tol = 2e-2 if dt == "bf16" else 2e-5
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_wrapper_routes_by_device(monkeypatch):
+    """CPU tensors take the plain version without building or counting;
+    any other device goes to the kernel path, which raises for a
+    non-CUDA tensor — never the plain version."""
+    monkeypatch.setattr(fa.build, "load", lambda *a: pytest.fail(
+        "CPU tensors must not build or load the CUDA library"))
+    q, k, v = (_to_torch(a) for a in _flash_case(10, 1, 2, 1, 8, 8, 16))
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_attention(q, k, v)
+    assert fa.LAUNCHES == before and lse.shape == (1, 2, 8)
+    assert torch.equal(ops.attention(q, k, v), out)
+
+    def no_plain(*a, **k_):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_ref", no_plain)
+    m = torch.empty(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention(m, m[:, :1], m[:, :1])
+
+
+# (b, t, h, hkv, d), options, block_q, block_kv
+BLOCKED_CASES = {
+    "causal_gqa": ((1, 96, 4, 2, 32), dict(causal=True), 32, 32),
+    "mqa": ((2, 64, 4, 1, 32), dict(causal=True), 32, 16),
+    "window_24": ((1, 80, 4, 2, 16), dict(causal=True, window=24), 16, 16),
+    "noncausal": ((1, 64, 4, 4, 16), dict(causal=False), 32, 16),
+    "ragged_t_70": ((1, 70, 4, 2, 16), dict(causal=True), 32, 32),
+    "q_offset_kv_len": ((1, 24, 4, 2, 16),
+                        dict(causal=True, q_offset=40, kv_len=56), 16, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKED_CASES))
+def test_blocked_attention_and_grads_match_jax(case):
+    """The port's blocked attention (plain forward on the CPU, blocked
+    FlashAttention-2 backward) against JAX's ``blocked_attention`` and
+    its custom VJP, on loss = sum(out * w)."""
+    (b, t, h, hkv, d), opts, bq, bk = BLOCKED_CASES[case]
+    s = t + opts.get("q_offset", 0)
+    rng = np.random.RandomState(12)
+    q = rng.randn(b, t, h, d).astype(np.float32)
+    k = rng.randn(b, s, hkv, d).astype(np.float32)
+    v = rng.randn(b, s, hkv, d).astype(np.float32)
+    w = rng.randn(b, t, h, d).astype(np.float32)
+
+    @jax.jit
+    def jfwd_bwd(q_, k_, v_, w_):
+        o, vjp = jax.vjp(lambda a, b_, c: jflash.blocked_attention(
+            a, b_, c, block_q=bq, block_kv=bk, **opts), q_, k_, v_)
+        return (o, *vjp(w_))
+
+    jout, *jg = jfwd_bwd(*(jnp.asarray(a) for a in (q, k, v, w)))
+    tq, tk, tv = (_to_torch(a).requires_grad_(True) for a in (q, k, v))
+    out = mflash.blocked_attention(tq, tk, tv, block_q=bq, block_kv=bk,
+                                   **opts)
+    (out * _to_torch(w)).sum().backward()
+    for got, want in zip((out, tq.grad, tk.grad, tv.grad), (jout, *jg)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=5e-4, atol=5e-4, err_msg=case)
+
+
+def test_blocked_attention_impls_agree_on_cpu():
+    """On CPU tensors ``impl="kernel"`` takes the plain forward, so both
+    impls give the same bits; an unknown impl raises."""
+    rng = np.random.RandomState(13)
+    q, k, v = (_to_torch(rng.randn(1, 40, 4, 16)),
+               _to_torch(rng.randn(1, 40, 2, 16)),
+               _to_torch(rng.randn(1, 40, 2, 16)))
+    a = mflash.blocked_attention(q, k, v, block_q=16, block_kv=16)
+    r = mflash.blocked_attention(q, k, v, block_q=16, block_kv=16, impl="ref")
+    assert torch.equal(a, r)
+    with pytest.raises(ValueError, match="impl"):
+        mflash.blocked_attention(q, k, v, impl="pallas")
