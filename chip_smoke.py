@@ -9,7 +9,10 @@ caught):
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds every kernel source from the checkout
                (``src/repro_torch/kernels/csrc``), one nvcc per source,
-               all started together;
+               all started together; then one line per kernel of what
+               ``-Xptxas -v`` reports (registers, static shared memory,
+               spills) and the dynamic shared memory of the redesigned
+               attention kernels at their path's head dim;
   3. parity  — each kernel against its plain PyTorch version on the
                card: the paged-attention kernels in bf16 and f32 at the
                serving path's full width (H=32, H_kv=8, D=128, P=16), on
@@ -63,7 +66,10 @@ caught):
                ``x.clone()``; ``torch.add``) and its bound, with CUDA
                events, the L2 flushed before each launch, at the
                phase-3 shapes (the flash kernel at the training shape, in
-               f32 as the trainer runs it and in bf16).
+               f32 as the trainer runs it and in bf16; paged prefill in
+               bf16, the serving dtype, and in f32 beside it); each row
+               with its achieved TFLOP/s and GB/s and its share of the
+               bound (bound ms / kernel ms).
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -87,6 +93,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -186,6 +193,74 @@ def prefill_case(dtype, dev, seed=2):
     need = [s + n for s, n in zip(WIN_START, WIN_NTOK)]
     return (q, pool[:, 0, 1], pool[:, 1, 1], null_pad(bt, need), start,
             n_tok)
+
+
+# ----------------------------------------------------------------------
+# phase 2: what ptxas reports per kernel
+# ----------------------------------------------------------------------
+def _kernel_name(mangled: str) -> str:
+    """``..._20flash_fwd_f32_kernelILi256EEEv...`` ->
+    ``flash_fwd_f32_kernel<256>``: the length-prefixed name that ends in
+    ``_kernel``, with its int and type template arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group(0)
+        for i in range(len(digits)):
+            name = mangled[m.end():m.end() + int(digits[i:])]
+            if name.endswith("_kernel") and name.isidentifier():
+                tail = mangled[m.end() + len(name):]
+                targs = re.match(r"I(.*?E)Ev", tail)
+                args = [t.group(1) or ("bf16" if "bfloat16" in t.group(0)
+                                       else "f32")
+                        for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f",
+                                             targs.group(1) if targs else "")]
+                return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_rows(log: str) -> list:
+    """One dict per kernel of an ``nvcc -Xptxas -v`` log."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1)), "registers": None,
+                   "static_smem": 0, "spill_stores": 0, "spill_loads": 0}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
+def print_resources(fa, pa) -> None:
+    """Registers, shared memory and spills of every kernel built, and
+    the dynamic shared memory of the redesigned attention kernels at
+    their path's head dim."""
+    from repro_torch.kernels import build
+
+    for src, log in sorted(build.BUILD_LOG.items()):
+        for r in ptxas_rows(log):
+            print(f"ptxas {src}: {r['kernel']}: {r['registers']} registers, "
+                  f"{r['static_smem']} B static smem, spill stores "
+                  f"{r['spill_stores']} B / loads {r['spill_loads']} B",
+                  flush=True)
+    flib, plib = build.load(fa.SOURCE), build.load(pa.SOURCE)
+    print(f"dynamic smem per block: flash_fwd_f32_kernel<256> "
+          f"{flib.flash_attention_smem_bytes_f32(FLASH_FULL['d'])} B, "
+          f"flash_fwd_bf16_kernel<256> "
+          f"{flib.flash_attention_smem_bytes_bf16(FLASH_FULL['d'])} B, "
+          f"paged_prefill_mma_kernel<{D}> "
+          f"{plib.paged_prefill_smem_bytes_bf16(D)} B (of 232448)",
+          flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -441,7 +516,7 @@ def serve_full(pa, dev):
 def _kind(name: str) -> str:
     if "paged_" in name:
         return "paged attention (ours)"
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "flash attention (ours)"
     # ours are (anonymous namespace)::copy_kernel / ::combine_kernel<...>;
     # PyTorch's own copies are ...::direct_copy_kernel_cuda
@@ -745,6 +820,18 @@ def time_ms(fn, dev, iters=20) -> float:
     return total / iters
 
 
+def rates(ms: float, nbytes: int, flops: int, bound_ms: float) -> dict:
+    """Achieved rates of a kernel time and its share of the bound."""
+    return {"achieved_tflop_s": flops / (ms * 1e-3) / 1e12,
+            "achieved_gb_s": nbytes / (ms * 1e-3) / 1e9,
+            "bound_share": bound_ms / ms}
+
+
+def rate_text(r: dict) -> str:
+    return (f"{r['achieved_tflop_s']:.2f} TFLOP/s, {r['achieved_gb_s']:.1f} "
+            f"GB/s, {100 * r['bound_share']:.1f}% of the bound")
+
+
 def gathered(kp, vp, bt, s):
     """Contiguous (B, H_kv, s, D) K/V gathered through the block table."""
     bl = bt.long()
@@ -779,6 +866,65 @@ def timing(pa, dev, launches, errs) -> list:
         "paged_attention.py:216 (paged_decode_attention, body "
         "_paged_kernel :126)"))
 
+    rows.append(dict(name="paged_prefill_attention",
+                     **prefill_timing_case(pa, dev, dt),
+                     replaces="src/repro/kernels/paged_attention.py:358 "
+                     "(paged_prefill_attention, body _prefill_kernel :227)"))
+
+    out = []
+    for r in rows:
+        ms = time_ms(r["fn"], dev)
+        plain_ms = time_ms(r["plain"], dev)
+        lib_ms = time_ms(r["lib"], dev)
+        bound_ms, by = bound_of(r["nbytes"], r["flops"], dt)
+        err = max(errs[(r["name"], "bf16")], errs[(r["name"], "f32")])
+        got = rates(ms, r["nbytes"], r["flops"], bound_ms)
+        out.append({
+            "name": r["name"], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": r["replaces"], "launches": launches[r["name"]],
+            "max_abs_err": err, "max_err": err,
+            "max_err_bf16": errs[(r["name"], "bf16")],
+            "max_err_f32": errs[(r["name"], "f32")],
+            "tol": {"bf16": TOL[torch.bfloat16], "f32": TOL[torch.float32]},
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+            "bound_bytes": r["nbytes"], "bound_flops": r["flops"], **got,
+        })
+        print(f"timing {r['name']} (bf16): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
+    # the f32 prefill body beside the bf16 one, same shape
+    f = prefill_timing_case(pa, dev, torch.float32)
+    ms, plain_ms, lib_ms = (time_ms(f[k], dev) for k in ("fn", "plain", "lib"))
+    bound_ms, by = bound_of(f["nbytes"], f["flops"], torch.float32)
+    got = rates(ms, f["nbytes"], f["flops"], bound_ms)
+    out[-1].update({"ms_f32": ms, "plain_ms_f32": plain_ms,
+                    "library_ms_f32": lib_ms, "bound_ms_f32": bound_ms,
+                    "bound_by_f32": by, "bound_bytes_f32": f["nbytes"],
+                    **{f"{k}_f32": v for k, v in got.items()}})
+    print(f"timing paged_prefill_attention (f32): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}); {rate_text(got)}", flush=True)
+    return out
+
+
+def bound_of(nbytes: int, flops: int, dtype) -> tuple:
+    """(bound ms, "bytes" | "operations"): the larger of bytes over the
+    memory rate and operations over the dtype's peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def prefill_timing_case(pa, dev, dt) -> dict:
+    """The prefill window at the parity shape in ``dt``: the kernel, its
+    plain version and SDPA on pre-gathered K/V with the window's mask,
+    and the bytes and flops of its bound (each K/V token a row sees read
+    once, q read and out written once)."""
+    import torch.nn.functional as F
+
+    isz = torch.tensor([], dtype=dt).element_size()
     q2, kp2, vp2, bt2, start, n_tok = prefill_case(dt, dev)
     s2 = max(a + n for a, n in zip(WIN_START, WIN_NTOK))
     kc2, vc2 = gathered(kp2, vp2, bt2, s2)
@@ -789,12 +935,7 @@ def timing(pa, dev, launches, errs) -> list:
     mask2 = mask2[:, None]
     qt = q2.transpose(1, 2)
     seen = sum(a + n for a, n in zip(WIN_START, WIN_NTOK) if n)
-    nbytes2 = (2 * q2.numel() * isz + seen * HKV * D * isz * 2
-               + bt2.numel() * 4 + 2 * B * 4)
-    flops2 = sum(4 * (a + jj + 1) * H * D
-                 for a, n in zip(WIN_START, WIN_NTOK) for jj in range(n))
-    rows.append(dict(
-        name="paged_prefill_attention",
+    return dict(
         fn=lambda: pa.paged_prefill_attention(q2, kp2, vp2, bt2, start,
                                               n_tok),
         plain=lambda: pa.paged_prefill_attention_ref(q2, kp2, vp2, bt2,
@@ -802,35 +943,10 @@ def timing(pa, dev, launches, errs) -> list:
         lib=lambda: F.scaled_dot_product_attention(qt, kc2, vc2,
                                                    attn_mask=mask2,
                                                    enable_gqa=True),
-        nbytes=nbytes2, flops=flops2, replaces="src/repro/kernels/"
-        "paged_attention.py:358 (paged_prefill_attention, body "
-        "_prefill_kernel :227)"))
-
-    out = []
-    for r in rows:
-        ms = time_ms(r["fn"], dev)
-        plain_ms = time_ms(r["plain"], dev)
-        lib_ms = time_ms(r["lib"], dev)
-        bound_s = max(r["nbytes"] / HBM_BYTES_S, r["flops"] / PEAK_FLOPS[dt])
-        by = "bytes" if r["nbytes"] / HBM_BYTES_S >= r["flops"] / \
-            PEAK_FLOPS[dt] else "operations"
-        err = max(errs[(r["name"], "bf16")], errs[(r["name"], "f32")])
-        out.append({
-            "name": r["name"], "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": r["replaces"], "launches": launches[r["name"]],
-            "max_abs_err": err, "max_err": err,
-            "max_err_bf16": errs[(r["name"], "bf16")],
-            "max_err_f32": errs[(r["name"], "f32")],
-            "tol": {"bf16": TOL[torch.bfloat16], "f32": TOL[torch.float32]},
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": lib_ms,
-            "bound_bytes": r["nbytes"], "bound_flops": r["flops"],
-        })
-        print(f"timing {r['name']} (bf16): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{bound_s * 1e3:.4f} ms ({by})", flush=True)
-    return out
+        nbytes=(2 * q2.numel() * isz + seen * HKV * D * isz * 2
+                + bt2.numel() * 4 + 2 * B * 4),
+        flops=sum(4 * (a + jj + 1) * H * D
+                  for a, n in zip(WIN_START, WIN_NTOK) for jj in range(n)))
 
 
 def comm_timing(sc, rc, dev, launches, errs) -> list:
@@ -862,10 +978,8 @@ def comm_timing(sc, rc, dev, launches, errs) -> list:
         ms = time_ms(r["fn"], dev)
         plain_ms = time_ms(r["plain"], dev)
         lib_ms = time_ms(r["lib"], dev)
-        t_bytes = r["nbytes"] / HBM_BYTES_S
-        t_ops = r["flops"] / PEAK_FLOPS[torch.float32]
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_ms, by = bound_of(r["nbytes"], r["flops"], torch.float32)
+        got = rates(ms, r["nbytes"], r["flops"], bound_ms)
         out.append({
             "name": r["name"], "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{r['source']}",
@@ -875,12 +989,12 @@ def comm_timing(sc, rc, dev, launches, errs) -> list:
             "bound_by": by, "library_ms": lib_ms,
             "bound_bytes": r["nbytes"], "bound_flops": r["flops"],
             "shape": list(STAGED), "dtype": "float32",
-            "copy_variant": variant,
+            "copy_variant": variant, **got,
         })
         print(f"timing {r['name']} (f32 {STAGED}, copy variant {variant}): "
               f"kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({by})", flush=True)
+              f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
     return out
 
 
@@ -912,11 +1026,11 @@ def flash_timing(fa, dev, launches, errs) -> dict:
                                                           causal=True), dev)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qc, k, v, is_causal=True, enable_gqa=True), dev)
-        t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, by = bound_of(nbytes, flops, dtype)
+        got = rates(ms, nbytes, flops, bound_ms)
         vals = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bound_ms, "bound_by": by, "bound_bytes": nbytes}
+                "bound_ms": bound_ms, "bound_by": by, "bound_bytes": nbytes,
+                **got}
         if dtype == torch.float32:
             row.update(vals)
             row["kernel_ms"] = ms
@@ -924,8 +1038,8 @@ def flash_timing(fa, dev, launches, errs) -> dict:
         print(f"timing flash_attention ({tag}, B={b} H={h} H_kv={f['hkv']} "
               f"T=S={t} D={d} causal): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({by}; {flops:.3e} flops, {nbytes} bytes)",
-              flush=True)
+              f"{bound_ms:.4f} ms ({by}; {flops:.3e} flops, {nbytes} bytes); "
+              f"{rate_text(got)}", flush=True)
         del q, k, v, qc
     torch.cuda.empty_cache()
     return row
@@ -969,8 +1083,9 @@ def main(argv=None) -> int:
     print(f"build: {', '.join(sources)} in {time.monotonic() - t0:.1f} s",
           flush=True)
     for src in sources:
-        print(build.BUILD_LOG.get(src, f"{src}: library already built")
-              .strip(), flush=True)
+        if src not in build.BUILD_LOG:
+            print(f"{src}: library already built", flush=True)
+    print_resources(fa, pa)
 
     errs = parity(pa, dev)
     flash_errs = flash_parity(fa, dev)

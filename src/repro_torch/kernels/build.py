@@ -3,11 +3,11 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes), under ``build/repro_torch_kernels/`` at
-the root of the checkout, in a directory named by a hash of the source
-and the flags — an edited source builds anew, an unchanged one loads
-the library already there.  The library is written under a temporary
-name and renamed into place, so two processes building at once cannot
-load a half-written file.
+the root of the checkout, in a directory named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags — an edited source or
+header builds anew, an unchanged one loads the library already there.
+The library is written under a temporary name and renamed into place,
+so two processes building at once cannot load a half-written file.
 """
 from __future__ import annotations
 
@@ -38,9 +38,11 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_ROOT / digest / (Path(source).stem + ".so")
 
 

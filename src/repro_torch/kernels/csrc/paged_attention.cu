@@ -3,14 +3,15 @@
 // Replaces the two Pallas TPU kernels of src/repro/kernels/paged_attention.py:
 //   paged_decode_attention   (body _paged_kernel)   -> paged_decode_split_kernel
 //                                                      + paged_decode_combine_kernel
-//   paged_prefill_attention  (body _prefill_kernel) -> paged_prefill_kernel
+//   paged_prefill_attention  (body _prefill_kernel) -> paged_prefill_mma_kernel (bf16)
+//                                                      paged_prefill_kernel (f32)
 //
 // Semantics are the reference's to the constant: scores scaled by
 // sm_scale, an online softmax in f32, NEG_INF = -1e30 as the empty
 // running max, masked (out-of-range) tokens contributing exactly zero —
-// they are never visited, which is the re-masked p = 0 of the
-// reference — and the output divided by max(l, 1e-30).  A decode row of
-// length 0 and a window row j >= n_tok come out as exact zeros.
+// the re-masked p = 0 of the reference — and the output divided by
+// max(l, 1e-30).  A decode row of length 0 and a window row j >= n_tok
+// come out as exact zeros.
 //
 // What bounds them on an H100: bytes.  Decode reads each K/V token of
 // a (sequence, KV head) once and does 4 flops per element (~2 per byte
@@ -29,26 +30,51 @@
 //     the S partials (the flash-decoding split);
 //   * a lane owns head dims d = lane + 32 i, so a warp's load of one
 //     token's K or V row is contiguous.
-// The prefill window gives each warp up to 8 score rows (window row x
-// query head of the block's KV head) with their own causal bounds; the
-// warps of a block walk the same pages, so K/V comes from L1/L2 after
-// the first warp.  Tensor cores (wgmma), TMA and shared-memory staging
-// are for the PRs that make these fast.
+//
+// The prefill window in bf16 (the serving path's dtype) is a tile design
+// on the tensor cores, so that each K/V byte is moved once per block and
+// the products stay off the critical path:
+//   * a block owns one (sequence, KV head) and up to 64 score rows —
+//     window rows x the query heads of its KV head (16 x 4 at qwen3-8b),
+//     four 16-row mma tiles, one per warp;
+//   * it walks the context in tiles of 64 tokens, gathered through the
+//     block table (page ids read by the kernel, the per-layer pool view
+//     read in place through the page strides, a page size that does not
+//     divide the tile handled token by token) with 16-byte cp.async
+//     copies into a two-stage ring of XOR-swizzled shared-memory tiles,
+//     and stops at the last token any of its rows can see;
+//   * S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, f32
+//     accumulate) fed by ldmatrix; the online softmax runs on the
+//     fragments, each row masked at its own causal limit start + j + 1,
+//     and P stays in registers as the A operand of P V.
+// At chip_smoke's timing shape (8 sequences, 64-row windows, contexts to
+// 512, bf16) it takes 0.044 ms on an NVIDIA H100 80GB HBM3 at 700 W, 9%
+// of its byte bound: what holds it now is the latency of the dependent
+// chain of tiles per block, not bytes (PERF.md).
+// f32 keeps the first body, paged_prefill_kernel (a warp per 8 score
+// rows, token by token on the CUDA cores): it is the smoke configs'
+// parity path, not the serving path.  The wrapper picks the body by dtype, a fixed dispatch.
 //
 // C interface for ctypes: every function returns cudaGetLastError() of
 // its launches as an int (0 = success).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper_util.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int WARPS = 8;                 // warps per block, both kernels
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = 8;         // prefill score rows per warp
 constexpr int COMBINE_THREADS = 128;
+constexpr int PF_ROWS = 64;              // bf16 prefill: score rows per block
+constexpr int PF_TOKENS = 64;            // bf16 prefill: context tokens per tile
+constexpr int PF_THREADS = 128;          // 4 warps x 16 rows
+constexpr int VEC_BYTES = 16;
+static_assert(PF_ROWS == WARPS * ROWS_PER_WARP, "both prefill bodies take 64 rows");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -313,6 +339,191 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// prefill window, bf16, tensor cores: grid (B, ceil(C / block_q), H_kv),
+// PF_THREADS threads.  Rows as in paged_prefill_kernel (R = rows x group
+// <= PF_ROWS); warp w owns score rows 16 w .. 16 w + 15.  DP: the head
+// dim padded to 64 / 128 / 256 (zeros past D in shared memory).
+// ---------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(PF_THREADS)
+paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const int32_t* __restrict__ block_tables,
+                         const int32_t* __restrict__ starts, const int32_t* __restrict__ n_toks,
+                         __nv_bfloat16* __restrict__ out, int C, int H, int Hkv, int D, int P,
+                         int n_slots, int64_t k_page_stride, int64_t v_page_stride,
+                         float sm_scale, int block_q) {
+  using bf16 = __nv_bfloat16;
+  constexpr int VEC = VEC_BYTES / sizeof(bf16);
+  constexpr int CH = DP / VEC;           // 16-byte chunks per row (power of two)
+  constexpr int KSTEPS = DP / 16;
+  constexpr int NT = PF_TOKENS / 8;      // score n-tiles of a warp
+  constexpr int DT = DP / 8;             // output n-tiles of a warp
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);     // PF_ROWS x DP, swizzled
+  bf16* Ks = Qs + PF_ROWS * DP;                  // 2 stages x PF_TOKENS x DP
+  bf16* Vs = Ks + 2 * PF_TOKENS * DP;
+  __shared__ int lim_s[PF_ROWS];                 // row r sees tokens < lim_s[r],
+                                                 // within the table's reach
+  __shared__ int64_t qoff_s[PF_ROWS];            // row r's offset in q and out
+
+  const int b = blockIdx.x, q0 = blockIdx.y * block_q, h = blockIdx.z;
+  const int group = H / Hkv;
+  const int R = min(block_q, C - q0) * group;
+  const int start = starts[b], ntok = n_toks[b];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+
+  if (tid < PF_ROWS) {
+    const int j = q0 + tid / group, gg = tid % group;
+    lim_s[tid] = (tid < R && j < ntok) ? min(start + j + 1, n_slots * P) : 0;
+    qoff_s[tid] = (((int64_t)b * C + j) * H + (int64_t)h * group + gg) * D;
+  }
+  __syncthreads();
+  // the last token any row of the block sees, within the table's reach
+  const int last_row = min(q0 + block_q, ntok) - 1;
+  const int walk = last_row >= q0 ? min(start + last_row + 1, n_slots * P) : 0;
+  const int n_tiles = (walk + PF_TOKENS - 1) / PF_TOKENS;
+
+  const int32_t* bt = block_tables + (int64_t)b * n_slots;
+  const int64_t tok_stride = (int64_t)Hkv * D;
+  auto stage_kv = [&](int kt, int stage) {
+    bf16* kd = Ks + stage * PF_TOKENS * DP;
+    bf16* vd = Vs + stage * PF_TOKENS * DP;
+#pragma unroll
+    for (int i = tid; i < PF_TOKENS * CH; i += PF_THREADS) {
+      const int r = i / CH, c = i % CH, d = c * VEC, t = kt * PF_TOKENS + r;
+      const bool ok = t < walk && d < D;
+      int64_t ko = 0, vo = 0;
+      if (ok) {
+        const int64_t page = bt[t / P];
+        const int64_t in_page = (int64_t)(t % P) * tok_stride + (int64_t)h * D + d;
+        ko = page * k_page_stride + in_page;
+        vo = page * v_page_stride + in_page;
+      }
+      const int bytes = ok ? min(VEC_BYTES, (D - d) * (int)sizeof(bf16)) : 0;
+      cp_async16(kd + swz<DP>(r, c), k + ko, bytes);
+      cp_async16(vd + swz<DP>(r, c), v + vo, bytes);
+    }
+  };
+#pragma unroll
+  for (int i = tid; i < PF_ROWS * CH; i += PF_THREADS) {
+    const int r = i / CH, c = i % CH, d = c * VEC;
+    const bool ok = lim_s[r] > 0 && d < D;
+    cp_async16(Qs + swz<DP>(r, c), ok ? q + qoff_s[r] + d : q,
+               ok ? min(VEC_BYTES, (D - d) * (int)sizeof(bf16)) : 0);
+  }
+  if (n_tiles > 0) stage_kv(0, 0);
+  cp_async_commit();
+
+  const int ra = warp * 16 + g, rb = ra + 8;
+  const int lim_a = lim_s[ra], lim_b = lim_s[rb];
+  const int warp_walk = __reduce_max_sync(0xffffffffu, max(lim_a, lim_b));
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // rows ra, rb; base 2
+  const float scale2 = sm_scale * LOG2E;
+
+  for (int kt = 0, stage = 0; kt < n_tiles; ++kt, stage ^= 1) {
+    const int t0 = kt * PF_TOKENS;
+    if (kt + 1 < n_tiles) stage_kv(kt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                  // tile kt (and Q) have landed
+    __syncthreads();
+    if (t0 < warp_walk) {
+      const bf16* Kt = Ks + stage * PF_TOKENS * DP;
+      const bf16* Vt = Vs + stage * PF_TOKENS * DP;
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, Qs + swz<DP>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, Kt + swz<DP>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                       kk * 2 + ((lane >> 3) & 1)));
+          mma_bf16_16816(s[2 * np], a, kb[0], kb[1]);
+          mma_bf16_16816(s[2 * np + 1], a, kb[2], kb[3]);
+        }
+      }
+      // each row masked at its own causal limit; p re-masked to 0
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = t0 + j * 8 + tig * 2 + (e & 1);
+          s[j][e] = t < (e < 2 ? lim_a : lim_b) ? s[j][e] * scale2 : NEG_INF;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      const float mn0 = fmaxf(m[0], quad_max(mx0)), mn1 = fmaxf(m[1], quad_max(mx1));
+      const float al0 = exp2f(m[0] - mn0), al1 = exp2f(m[1] - mn1);
+      m[0] = mn0;
+      m[1] = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = t0 + j * 8 + tig * 2 + (e & 1);
+          const bool ok = t < (e < 2 ? lim_a : lim_b);
+          s[j][e] = ok ? exp2f(s[j][e] - (e < 2 ? mn0 : mn1)) : 0.f;
+        }
+        ps0 += s[j][0] + s[j][1];
+        ps1 += s[j][2] + s[j][3];
+      }
+      l[0] = l[0] * al0 + ps0;
+      l[1] = l[1] * al1 + ps1;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        acc[j][0] *= al0;
+        acc[j][1] *= al0;
+        acc[j][2] *= al1;
+        acc[j][3] *= al1;
+      }
+#pragma unroll
+      for (int c = 0; c < PF_TOKENS / 16; ++c) {
+        const uint32_t pa[4] = {pack_bf16x2(s[2 * c][0], s[2 * c][1]),
+                                pack_bf16x2(s[2 * c][2], s[2 * c][3]),
+                                pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]),
+                                pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < DT / 2; ++dp) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, Vt + swz<DP>(c * 16 + (lane & 15), dp * 2 + (lane >> 4)));
+          mma_bf16_16816(acc[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16_16816(acc[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();                     // this stage is free for tile kt + 2
+  }
+  cp_async_wait<0>();
+
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  // rows j >= n_tok (lim 0) are written as exact zeros
+  const float inv0 = lim_a > 0 ? 1.f / fmaxf(l0, 1e-30f) : 0.f;
+  const float inv1 = lim_b > 0 ? 1.f / fmaxf(l1, 1e-30f) : 0.f;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int d = j * 8 + tig * 2;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e < 2 ? ra : rb;
+      if (r < R && d + (e & 1) < D)
+        out[qoff_s[r] + d + (e & 1)] = __float2bfloat16(acc[j][e] * (e < 2 ? inv0 : inv1));
+    }
+  }
+}
+
 template <typename K>
 int allow_smem(K kernel, size_t bytes) {
   if (bytes > 48 * 1024) {
@@ -407,6 +618,43 @@ int launch_prefill(const void* q, const void* k, const void* v, const void* bt,
                                  n_slots, kps, vps, sc, block_q, st);
 }
 
+constexpr size_t prefill_mma_smem_bytes(int dp) {
+  return (size_t)(PF_ROWS + 4 * PF_TOKENS) * dp * sizeof(__nv_bfloat16);
+}
+
+template <int DP>
+int launch_prefill_mma_dp(const void* q, const void* k, const void* v, const void* bt,
+                          const void* starts, const void* ntoks, void* out, int B, int C,
+                          int H, int Hkv, int D, int P, int n_slots, long long kps,
+                          long long vps, float sc, int block_q, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const size_t bytes = prefill_mma_smem_bytes(DP);
+  auto kernel = paged_prefill_mma_kernel<DP>;
+  int err = allow_smem(kernel, bytes);
+  if (err) return err;
+  dim3 grid(B, (C + block_q - 1) / block_q, Hkv);
+  kernel<<<grid, PF_THREADS, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int32_t*)bt,
+      (const int32_t*)starts, (const int32_t*)ntoks, (bf16*)out, C, H, Hkv, D, P, n_slots,
+      kps, vps, sc, block_q);
+  return (int)cudaGetLastError();
+}
+
+int launch_prefill_mma(const void* q, const void* k, const void* v, const void* bt,
+                       const void* starts, const void* ntoks, void* out, int B, int C, int H,
+                       int Hkv, int D, int P, int n_slots, long long kps, long long vps,
+                       float sc, int block_q, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 64)
+    return launch_prefill_mma_dp<64>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                     n_slots, kps, vps, sc, block_q, st);
+  if (D <= 128)
+    return launch_prefill_mma_dp<128>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                      n_slots, kps, vps, sc, block_q, st);
+  return launch_prefill_mma_dp<256>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                    n_slots, kps, vps, sc, block_q, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -415,6 +663,15 @@ extern "C" {
 int paged_attention_max_head_dim() { return 256; }
 int paged_attention_max_group() { return 8; }
 int paged_attention_max_window_rows() { return WARPS * ROWS_PER_WARP; }
+// the bf16 prefill body: score rows per block, context tokens per tile,
+// and the 16-byte copies its q and page rows must be aligned for
+int paged_prefill_tile_rows_bf16() { return PF_ROWS; }
+int paged_prefill_tile_tokens_bf16() { return PF_TOKENS; }
+int paged_attention_vector_bytes() { return VEC_BYTES; }
+// dynamic shared memory of a bf16 prefill launch at head dim D
+int paged_prefill_smem_bytes_bf16(int D) {
+  return (int)prefill_mma_smem_bytes(D <= 64 ? 64 : D <= 128 ? 128 : 256);
+}
 
 // m_part, l_part: (B, H, S) f32 and acc_part: (B, H, S, D) f32 scratch
 // the wrapper allocates.
@@ -451,15 +708,15 @@ int paged_prefill_attention_f32(const void* q, const void* k, const void* v,
                                stream);
 }
 
+// bf16: paged_prefill_mma_kernel; f32: paged_prefill_kernel (fixed by dtype).
 int paged_prefill_attention_bf16(const void* q, const void* k, const void* v,
                                  const void* bt, const void* starts,
                                  const void* ntoks, void* out, int B, int C, int H,
                                  int Hkv, int D, int P, int n_slots,
                                  long long k_page_stride, long long v_page_stride,
                                  float sm_scale, int block_q, void* stream) {
-  return launch_prefill<__nv_bfloat16>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D,
-                                       P, n_slots, k_page_stride, v_page_stride,
-                                       sm_scale, block_q, stream);
+  return launch_prefill_mma(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P, n_slots,
+                            k_page_stride, v_page_stride, sm_scale, block_q, stream);
 }
 
 }  // extern "C"

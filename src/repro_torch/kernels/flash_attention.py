@@ -15,15 +15,26 @@ row ``i`` at position ``q_offset + i`` (0 is the Pallas kernel) and
 
 The kernel (``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``) is
 bound by operations: at the training shape (q (1, 8, 4096, 256), k/v
-(1, 1, 4096, 256), causal, f32) it does 6.9e10 flops on 40 MB.  In f32
-it runs on the CUDA cores, since TF32 would change the numbers.  Grid
-(B*H, q tiles of 64 rows); each block walks the KV sequence in tiles of
-32 rows staged through shared memory, skipping whole tiles outside the
-causal or window range; a thread keeps a 4-row register tile of scores
-and of the output, and one running max and sum per row.  The ragged
-edges are masked in the kernel (no pad copies) and every tensor comes
-with its strides, so the model's ``(b, t, h, d)`` layout is read and
-written in place.  See the source for the rest.
+(1, 1, 4096, 256), causal, f32) it does 6.9e10 flops on 40 MB.  It has
+one body per dtype, each with its own tiles (``TILES``, checked against
+the library's at load):
+
+  * f32, the training path, on the CUDA cores (TF32 would change the
+    numbers): q tiles of 64 rows, K and V tiles of 64 rows alternating
+    through a two-buffer ring of 16-byte ``cp.async`` copies, an 8 x 4
+    score and an 8 x 16 output register tile per thread;
+  * bf16 on the tensor cores (``mma.sync`` m16n8k16, f32 accumulate): q
+    tiles of 128 rows over 8 warps, a two-stage K/V ring of 64-row
+    tiles, the online softmax on the accumulator fragments and P kept in
+    registers as the A operand of P V.
+
+Both skip whole tiles outside the causal or window range and mask the
+ragged edges in the kernel (no pad copies); every tensor comes with its
+strides, so the model's ``(b, t, h, d)`` layout is read and written in
+place — as long as q, k and v start 16-byte aligned and their batch,
+head and row strides are multiples of 16 bytes, which the wrapper checks
+(``misalignment``) and raises on otherwise.  See the source for the
+rest.
 
 The plain version (``flash_attention_ref``) is the dense masked softmax
 of ``repro.kernels.ref.attention_ref`` in f32, plus the log-sum-exp.
@@ -46,7 +57,9 @@ NEG_INF = -1e30
 BIG = 3.0e37            # lse of a row with no valid column
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 256
-BLOCK_Q, BLOCK_KV = 64, 32      # the kernel's tiles (checked at load)
+VECTOR_BYTES = 16               # the kernels' global -> shared copies
+# (q rows, KV rows) of each body's tiles (checked at load)
+TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -104,17 +117,44 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _kernel(dtype: torch.dtype):
     lib = build.load(SOURCE)
-    fn = getattr(lib, f"flash_attention_{_SUFFIX[dtype]}")
+    sfx = _SUFFIX[dtype]
+    fn = getattr(lib, f"flash_attention_{sfx}")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         limits = (lib.flash_attention_max_head_dim(),
-                  lib.flash_attention_block_q(),
-                  lib.flash_attention_block_kv())
-        if limits != (MAX_HEAD_DIM, BLOCK_Q, BLOCK_KV):
+                  lib.flash_attention_vector_bytes(),
+                  getattr(lib, f"flash_attention_block_q_{sfx}")(),
+                  getattr(lib, f"flash_attention_block_kv_{sfx}")())
+        if limits != (MAX_HEAD_DIM, VECTOR_BYTES, *TILES[dtype]):
             raise RuntimeError(f"kernel library limits {limits} differ from "
-                               f"the wrapper's")
+                               f"the wrapper's for {dtype}")
     return fn
+
+
+def misalignment(x: torch.Tensor) -> Optional[str]:
+    """Why the kernels' 16-byte copies cannot stage ``x`` (its start, or
+    a stride of a dim longer than 1, not a multiple of 16 bytes), or None
+    when they can."""
+    item = x.element_size()
+    if x.data_ptr() % VECTOR_BYTES:
+        return f"starts {x.data_ptr() % VECTOR_BYTES} bytes past a " \
+               f"{VECTOR_BYTES}-byte boundary"
+    for dim, (n, st) in enumerate(zip(x.shape[:-1], x.stride()[:-1])):
+        if n > 1 and (st * item) % VECTOR_BYTES:
+            return f"dim {dim} has a stride of {st * item} bytes, not a " \
+                   f"multiple of {VECTOR_BYTES}"
+    return None
+
+
+def check_vectors(kernel: str, **tensors: torch.Tensor) -> None:
+    """Raise where ``kernel``'s 16-byte copies cannot stage a tensor."""
+    for name, x in tensors.items():
+        why = misalignment(x)
+        if why:
+            raise ValueError(f"{name} {tuple(x.shape)} strides {x.stride()}: "
+                             f"{why}; the {kernel} kernel stages rows in "
+                             f"{VECTOR_BYTES}-byte copies")
 
 
 def _check(q, k, v):
@@ -144,6 +184,7 @@ def _check(q, k, v):
         if x.stride(-1) != 1:
             raise ValueError(f"{name}: the head dim must be contiguous, got "
                              f"strides {x.stride()}")
+    check_vectors("flash", q=q, k=k, v=v)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -26,9 +26,17 @@ page stride is a kernel argument; a ``.contiguous()`` here would copy
 the pool twice per layer per tick); decode splits each sequence's
 tokens over ``decode_splits`` blocks and 8 warps per block so that the
 grid fills the card and many loads are in flight, then merges the
-partial softmax states in a second small kernel; the prefill window
-gives each warp up to 8 score rows.  Tensor cores (wgmma), TMA and
-shared-memory staging are for the PRs that make them fast.
+partial softmax states in a second small kernel.
+
+The prefill window has one body per dtype, a fixed dispatch (no
+fallback): bf16, the serving path's dtype, walks the context in tiles
+of 64 tokens gathered through the block table with 16-byte
+``cp.async`` copies into a two-stage shared-memory ring and runs both
+products on the tensor cores (``mma.sync``), up to 64 score rows
+(window rows x the query heads of one KV head) per block; so its q and
+page rows must start and step 16-byte aligned, which the wrapper checks
+(``check_vectors``).  f32 (the smoke configs' parity path) keeps the
+token-by-token CUDA-core body, a warp per 8 score rows.
 
 Semantics are the reference's to the constant: ``NEG_INF = -1e30``,
 p re-masked after the exp, denominator ``max(l, 1e-30)``, ``sm_scale =
@@ -48,6 +56,7 @@ import math
 import torch
 
 from . import build
+from .flash_attention import VECTOR_BYTES, check_vectors
 
 NEG_INF = -1e30
 SOURCE = "paged_attention.cu"
@@ -57,6 +66,8 @@ BLOCK_Q = 16
 MAX_HEAD_DIM = 256
 MAX_GROUP = 8
 MAX_WINDOW_ROWS = 64
+# the bf16 prefill body's tile: score rows per block, context tokens
+PREFILL_TILE_BF16 = (64, 64)
 # decode blocks per SM the split aims at, and the most splits
 DECODE_BLOCKS_PER_SM = 4
 MAX_DECODE_SPLITS = 16
@@ -84,12 +95,12 @@ def reset_launches() -> None:
 def choose_block(window: int, group: int = 1) -> int:
     """Prefill-window q-block rows on the H100.
 
-    A block has 8 warps of up to 8 score rows each (64 rows = window rows
-    x the GQA group).  At qwen3-8b's group of 4 that is 16 window rows —
-    also the row count of one wgmma tile, for the tensor-core version to
-    come — and at the main path's window (B=8, C=64, H_kv=8) a grid of
-    8 x 4 x 8 = 256 blocks of ~120 registers per thread, two per SM of
-    the 132.  Shorter windows take one block of exactly their rows."""
+    A block takes up to 64 score rows (window rows x the GQA group): in
+    bf16 four 16-row tensor-core tiles, one per warp; in f32 8 warps of 8
+    rows.  At qwen3-8b's group of 4 that is 16 window rows, and at the
+    main path's window (B=8, C=64, H_kv=8) a grid of 8 x 4 x 8 = 256
+    blocks (80 KB of shared memory each in bf16, two per SM of the 132).
+    Shorter windows take one block of exactly their rows."""
     return max(1, min(BLOCK_Q, int(window), MAX_WINDOW_ROWS // int(group)))
 
 
@@ -178,8 +189,12 @@ def _kernel(name: str, dtype: torch.dtype):
         fn.restype = ctypes.c_int
         limits = (lib.paged_attention_max_head_dim(),
                   lib.paged_attention_max_group(),
-                  lib.paged_attention_max_window_rows())
-        if limits != (MAX_HEAD_DIM, MAX_GROUP, MAX_WINDOW_ROWS):
+                  lib.paged_attention_max_window_rows(),
+                  lib.paged_attention_vector_bytes(),
+                  lib.paged_prefill_tile_rows_bf16(),
+                  lib.paged_prefill_tile_tokens_bf16())
+        if limits != (MAX_HEAD_DIM, MAX_GROUP, MAX_WINDOW_ROWS, VECTOR_BYTES,
+                      *PREFILL_TILE_BF16):
             raise RuntimeError(f"kernel library limits {limits} differ from "
                                f"the wrapper's")
     return fn
@@ -284,12 +299,16 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     and attends to the first ``start[b] + j + 1`` paged tokens (the
     window's K/V already written); rows ``j >= n_tok[b]`` are exactly
     zero.  Pages as in :func:`paged_decode_attention`; the q-block rows
-    come from :func:`choose_block`."""
+    come from :func:`choose_block`.  bf16 launches the tensor-core body
+    (q and page rows 16-byte aligned, else ``ValueError``), f32 the
+    CUDA-core one."""
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
                                            start, n_tok)
     b, h, hkv, d, page_tokens, n_slots = _check(
         q, k_pages, v_pages, block_tables, (start, n_tok), q_dims=4)
+    if q.dtype == torch.bfloat16:
+        check_vectors("bf16 prefill", q=q, k_pages=k_pages, v_pages=v_pages)
     c = q.shape[1]
     sm_scale = 1.0 / math.sqrt(d)
     block_q = choose_block(c, h // hkv)

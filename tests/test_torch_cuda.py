@@ -1,10 +1,12 @@
 """repro_torch on the GPU: the CUDA paged-attention kernels against
 their plain PyTorch versions over the reference's parity corpus
 (mid-page starts, full final pages, padded and inactive rows, the verify
-shape, GQA/MQA, f32/bf16, length 0), and the engine's kernel path; the
-copy and combine kernels and the pallas backend; the flash-attention
-kernel against its plain version, the autograd path through it, and
-smoke-config training with it.
+shape, GQA/MQA, f32/bf16, length 0) and the edges of the bf16 prefill
+kernel's tiles, and the engine's kernel path; the copy and combine
+kernels and the pallas backend; the flash-attention kernel against its
+plain version (its tile edges, the models' layouts, the 16-byte row
+check), the autograd path through it, and smoke-config training with
+it.
 
 Every test here needs a CUDA GPU and skips without one (the kernels are
 CUDA C++ with no CPU mode); on the H100 host:
@@ -18,7 +20,8 @@ plain versions against the JAX oracles on the CPU.
 Tolerances: f32 1e-5 (the same masked softmax in f32, summed in another
 order); bf16 3e-2 (the reference's own bf16 window tolerance: both
 sides read the same bf16 inputs, accumulate in f32 and round the output
-to bf16 once).
+to bf16 once; the tensor-core kernels also round the probabilities to
+bf16 for P V, which stays inside it, ``PERF.md``).
 """
 import numpy as np
 import pytest
@@ -143,6 +146,31 @@ WINDOW_CASES = {
 }
 
 
+# the edges of the bf16 prefill kernel's tiles (64 score rows x 64
+# tokens), at full head width: starts mid-page, n_tok partial and 0, C
+# below one slab, groups 1 / 4 / 8, contexts past one tile up to the
+# table's 1024 tokens, a page size (12) that does not divide the tile,
+# and rows whose positions run past the table (they see all of it)
+PREFILL_EDGE_CASES = {
+    "qwen_width_midpage_partial_idle": lambda: _window_case(
+        60, 4, 64, 32, 8, 128, 16, 64, start=[5, 100, 0, 937],
+        n_tok=[64, 30, 0, 23]),
+    "context_to_1024": lambda: _window_case(
+        61, 2, 16, 8, 2, 128, 16, 64, start=[1008, 999], n_tok=[16, 16]),
+    "c_below_one_slab_g8": lambda: _window_case(
+        62, 3, 3, 8, 1, 64, 16, 8, start=[70, 3, 0], n_tok=[3, 2, 1]),
+    "group_1_past_one_tile": lambda: _window_case(
+        63, 2, 32, 4, 4, 128, 16, 16, start=[200, 17], n_tok=[32, 5]),
+    "group_8_d256": lambda: _window_case(
+        64, 2, 16, 8, 1, 256, 16, 16, start=[130, 0], n_tok=[16, 9]),
+    "page_12_not_dividing_the_tile": lambda: _window_case(
+        65, 2, 16, 8, 2, 128, 12, 20, start=[100, 7], n_tok=[16, 11]),
+    "rows_past_the_tables_reach": lambda: _window_case(
+        66, 2, 16, 8, 2, 128, 16, 4, start=[60, 10], n_tok=[16, 16]),
+}
+PREFILL_GPU_CASES = {**WINDOW_CASES, **PREFILL_EDGE_CASES}
+
+
 # ======================================================================
 # flash attention: q (B, H, T, D), k/v (B, H_kv, S, D)
 # ======================================================================
@@ -174,6 +202,41 @@ FLASH_CASES = {
 REF_FLASH_CASES = ("causal_gqa", "mqa_ragged_100", "noncausal_mha",
                    "window_96", "d128")
 
+# the edges of the flash kernels' tiles (f32 64 x 64, bf16 128 x 64): T
+# and S no multiple of either, D = 64 / 128 / 256, GQA groups 1 / 4 / 8,
+# a window, q_offset with kv_len, and T below one tile
+FLASH_EDGE_CASES = {
+    "ragged_1000_d64_g4": ((20, 1, 4, 1, 1000, 1000, 64), dict(causal=True)),
+    "ragged_777_d128_g1_noncausal": ((21, 1, 2, 2, 777, 777, 128),
+                                     dict(causal=False)),
+    "ragged_1000_d256_g8": ((22, 1, 8, 1, 1000, 1000, 256),
+                            dict(causal=True)),
+    "window_300_d128_g4": ((23, 1, 8, 2, 1000, 1000, 128),
+                           dict(causal=True, window=300)),
+    "q_offset_kv_len_d256_g1": ((24, 1, 2, 2, 777, 1000, 256),
+                                dict(causal=True, q_offset=223, kv_len=950)),
+    "t_below_one_tile_d64_g8": ((25, 2, 8, 1, 37, 50, 64),
+                                dict(causal=False, kv_len=45)),
+}
+FLASH_GPU_CASES = {**FLASH_CASES, **FLASH_EDGE_CASES}
+
+# (H, H_kv, D) of each model whose attention reaches the flash kernel
+MODEL_HEADS = {"gemma-2b": (8, 1, 256), "qwen3-8b": (32, 8, 128),
+               "gemma-2b-smoke": (4, 1, 32), "qwen3-8b-smoke": (4, 2, 16)}
+
+
+def model_layout(heads, dt, device="cpu", t=130, seed=30):
+    """q, k, v as ``models/flash.py`` hands them to the kernel: (B, H, T,
+    D) / (B, H_kv, S, D) views of the projections' (b, t, h, d) tensors,
+    q through its (b, t, h_kv, g, d) grouping."""
+    h, hkv, d = heads
+    rng = np.random.RandomState(seed)
+    q, k, v = (_to_torch(rng.randn(1, t, n, d), dt).to(device)
+               for n in (h, hkv, hkv))
+    qg = q.reshape(1, t, hkv, h // hkv, d)
+    return (qg.reshape(1, t, h, d).transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2))
+
 
 # ======================================================================
 # on the GPU: the CUDA kernels against the plain versions
@@ -203,11 +266,16 @@ def test_cuda_decode_kernel_matches_plain(cuda_device, case, dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+@pytest.mark.parametrize("case", sorted(PREFILL_GPU_CASES))
 def test_cuda_prefill_kernel_matches_plain(cuda_device, case, dt):
-    q, kp, vp, bt, start, n_tok = _tensors(WINDOW_CASES[case](), dt,
+    """Both prefill bodies (bf16 tensor cores, f32 CUDA cores) over the
+    reference's corpus and the bf16 body's tile edges; padded and
+    inactive rows exactly 0."""
+    q, kp, vp, bt, start, n_tok = _tensors(PREFILL_GPU_CASES[case](), dt,
                                            cuda_device)
+    n = pa.LAUNCHES["paged_prefill_attention"]
     got = pa.paged_prefill_attention(q, kp, vp, bt, start, n_tok)
+    assert pa.LAUNCHES["paged_prefill_attention"] == n + 1
     want = pa.paged_prefill_attention_ref(q, kp, vp, bt, start, n_tok)
     torch.cuda.synchronize()
     _close(got.cpu(), want.cpu().float().numpy(), dt, case)
@@ -393,11 +461,12 @@ from repro_torch.models import flash as mflash  # noqa: E402
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("case", sorted(FLASH_GPU_CASES))
 def test_cuda_flash_kernel_matches_plain(cuda_device, case, dt):
-    """Output and log-sum-exp against the dense plain version.  The q/out
-    views are strided (the model's (b, t, h, d) layout)."""
-    shape, opts = FLASH_CASES[case]
+    """Output and log-sum-exp against the dense plain version, on the
+    reference's cases and the two bodies' tile edges.  The q/out views
+    are strided (the model's (b, t, h, d) layout)."""
+    shape, opts = FLASH_GPU_CASES[case]
     q, k, v = (_to_torch(a, dt).to(cuda_device)
                for a in _flash_case(*shape))
     q = q.transpose(1, 2).contiguous().transpose(1, 2)    # (b, t, h, d) store
@@ -410,6 +479,41 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, case, dt):
     _close(out.cpu(), want.cpu().float().numpy(), dt, case)
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
                                atol=TOL[dt], rtol=TOL[dt], err_msg=case)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("model", sorted(MODEL_HEADS))
+def test_cuda_flash_kernel_takes_the_models_layouts(cuda_device, model, dt):
+    """The strided views ``models/flash.py`` passes are taken in place."""
+    q, k, v = model_layout(MODEL_HEADS[model], dt, cuda_device)
+    assert not q.is_contiguous()
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    want, want_lse = fa.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _close(out.cpu(), want.cpu().float().numpy(), dt, model)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=TOL[dt], rtol=TOL[dt], err_msg=model)
+
+
+def test_cuda_kernels_raise_on_misaligned_rows(cuda_device):
+    """A start or a row stride the 16-byte copies cannot take raises
+    before any launch: flash in both dtypes, bf16 prefill."""
+    n = dict(fa.LAUNCHES), dict(pa.LAUNCHES)
+    for dt in (torch.float32, torch.bfloat16):
+        wide = torch.randn(1, 2, 8, 18, device=cuda_device).to(dt)
+        rows = wide[..., :16]                     # rows 72 / 36 bytes apart
+        flat = torch.randn(1 + 2 * 8 * 16, device=cuda_device).to(dt)
+        shifted = flat[1:].view(1, 2, 8, 16)
+        for q in (rows, shifted):
+            with pytest.raises(ValueError, match="16-byte"):
+                fa.flash_attention(q, q, q)
+    case = _tensors(WINDOW_CASES["gqa_4_1"](), "bf16", cuda_device)
+    q, kp, vp, bt, start, n_tok = case
+    pool = torch.zeros(kp.numel() + 4, dtype=kp.dtype, device=cuda_device)
+    odd = pool[4:].view(kp.shape)                 # starts 8 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_prefill_attention(q, odd, vp, bt, start, n_tok)
+    assert (dict(fa.LAUNCHES), dict(pa.LAUNCHES)) == n
 
 
 def test_cuda_flash_kernel_raises_on_what_it_does_not_take(cuda_device):

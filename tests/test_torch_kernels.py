@@ -20,9 +20,10 @@ import torch
 from repro.kernels import paged_attention as jpa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
-from test_torch_cuda import (DECODE_CASES, FLASH_CASES, REF_FLASH_CASES, TDT,
-                             WINDOW_CASES, _close, _flash_case, _i32,
-                             _paged_case, _to_torch)
+from test_torch_cuda import (DECODE_CASES, FLASH_CASES, MODEL_HEADS,
+                             REF_FLASH_CASES, TDT, WINDOW_CASES, _close,
+                             _flash_case, _i32, _paged_case, _to_torch,
+                             model_layout)
 
 torch.set_num_threads(2)
 
@@ -469,3 +470,141 @@ def test_blocked_attention_impls_agree_on_cpu():
     assert torch.equal(a, r)
     with pytest.raises(ValueError, match="impl"):
         mflash.blocked_attention(q, k, v, impl="pallas")
+
+
+# ======================================================================
+# the redesigned kernels' Python side: tiles and limits per dtype, the
+# 16-byte row check, and the prefill rows per block
+# ======================================================================
+def test_flash_tiles_per_dtype():
+    """f32 runs 64 x 64 tiles on the CUDA cores, bf16 128 x 64 on the
+    tensor cores: whole 16-row mma tiles and 16-deep k-steps."""
+    assert fa.TILES == {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
+    assert fa.MAX_HEAD_DIM == 256 and fa.VECTOR_BYTES == 16
+    assert all(n % 16 == 0 for n in fa.TILES[torch.bfloat16])
+
+
+def test_paged_prefill_tile_fits_the_window_rows():
+    rows, tokens = pa.PREFILL_TILE_BF16
+    assert rows == pa.MAX_WINDOW_ROWS and rows % 16 == 0 and tokens % 16 == 0
+    for g in range(1, pa.MAX_GROUP + 1):
+        for w in (1, 3, 16, 64, 4096):
+            assert 1 <= pa.choose_block(w, g) * g <= rows
+
+
+class _FakeFn:
+    """A stand-in for a ctypes function of the kernel library."""
+    argtypes = None
+    restype = None
+
+
+class _FakeLib:
+    def __init__(self, **values):
+        self._values = values
+        self._fns = {}
+
+    def __getattr__(self, name):
+        if name in self._values:
+            return lambda *a: self._values[name]
+        return self._fns.setdefault(name, _FakeFn())
+
+
+def _flash_lib(**over):
+    vals = dict(flash_attention_max_head_dim=256,
+                flash_attention_vector_bytes=16,
+                flash_attention_block_q_f32=64,
+                flash_attention_block_kv_f32=64,
+                flash_attention_block_q_bf16=128,
+                flash_attention_block_kv_bf16=64)
+    return _FakeLib(**{**vals, **over})
+
+
+@pytest.mark.parametrize("swap", [False, True], ids=["same", "swapped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_library_tiles_checked_per_dtype(monkeypatch, dtype, swap):
+    """The wrapper holds the library's tiles for the dtype it launches to
+    its own, and raises where they differ (here: the other dtype's)."""
+    sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    other = fa.TILES[torch.bfloat16 if dtype == torch.float32
+                     else torch.float32]
+    lib = _flash_lib(**({f"flash_attention_block_q_{sfx}": other[0]}
+                        if swap else {}))
+    monkeypatch.setattr(fa.build, "load", lambda source: lib)
+    if swap:
+        with pytest.raises(RuntimeError, match="limits"):
+            fa._kernel(dtype)
+    else:
+        fn = fa._kernel(dtype)
+        assert fn is getattr(lib, f"flash_attention_{sfx}")
+        assert fn.argtypes == fa._ARGTYPES
+
+
+@pytest.mark.parametrize("tile", [(64, 64), (64, 32)], ids=["same", "other"])
+def test_paged_library_tile_checked(monkeypatch, tile):
+    lib = _FakeLib(paged_attention_max_head_dim=256,
+                   paged_attention_max_group=8,
+                   paged_attention_max_window_rows=64,
+                   paged_attention_vector_bytes=16,
+                   paged_prefill_tile_rows_bf16=tile[0],
+                   paged_prefill_tile_tokens_bf16=tile[1])
+    monkeypatch.setattr(pa.build, "load", lambda source: lib)
+    if tile == pa.PREFILL_TILE_BF16:
+        pa._kernel("paged_prefill_attention", torch.bfloat16)
+    else:
+        with pytest.raises(RuntimeError, match="limits"):
+            pa._kernel("paged_prefill_attention", torch.bfloat16)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("model", sorted(MODEL_HEADS))
+def test_models_layouts_fit_the_16_byte_copies(model, dt):
+    """Every layout ``models/flash.py`` passes the flash kernel is one
+    its 16-byte copies take (the GPU test runs the same views)."""
+    q, k, v = model_layout(MODEL_HEADS[model], dt)
+    assert not q.is_contiguous()
+    assert [fa.misalignment(x) for x in (q, k, v)] == [None, None, None]
+
+
+def _misaligned(case, dtype):
+    if case == "row_stride":              # rows 72 / 36 bytes apart
+        return torch.zeros(2, 3, 8, 18, dtype=dtype)[..., :16], "dim 2"
+    if case == "head_stride":             # heads and rows 18 elements apart
+        x = torch.zeros(2, 8, 3, 18, dtype=dtype)[..., :16].transpose(1, 2)
+        return x, "dim 1"
+    if case == "start":
+        flat = torch.zeros(1 + 2 * 3 * 8 * 16, dtype=dtype)
+        return flat[1:].view(2, 3, 8, 16), "starts"
+    # odd strides on dims of size 1 are never stepped: fine
+    x = torch.zeros(400, dtype=dtype).as_strided((1, 1, 8, 16), (3, 5, 16, 1))
+    return x, None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["row_stride", "head_stride", "start",
+                                  "size_one_dims"])
+def test_misalignment_names_what_the_copies_cannot_take(case, dtype):
+    x, want = _misaligned(case, dtype)
+    why = fa.misalignment(x)
+    if want is None:
+        assert why is None
+    else:
+        assert why is not None and want in why
+
+
+@pytest.mark.parametrize("case", ["pool_view", "odd_start", "d12"])
+def test_bf16_prefill_checks_its_rows(case):
+    """The bf16 prefill body's q and page rows must be 16-byte aligned:
+    the engine's per-layer pool view is; an odd start or a head dim of
+    12 (24-byte rows) raises."""
+    d = 12 if case == "d12" else 128
+    pool = torch.zeros(5, 2, 2, 16, 2, d, dtype=torch.bfloat16)
+    kp, vp = pool[:, 0, 1], pool[:, 1, 1]
+    q = torch.zeros(2, 4, 4, d, dtype=torch.bfloat16)
+    if case == "odd_start":
+        kp = torch.zeros(kp.numel() + 1, dtype=torch.bfloat16)[1:].view(
+            kp.shape)
+    if case == "pool_view":
+        pa.check_vectors("bf16 prefill", q=q, k_pages=kp, v_pages=vp)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            pa.check_vectors("bf16 prefill", q=q, k_pages=kp, v_pages=vp)
