@@ -12,14 +12,18 @@ caught):
                all started together; then one line per kernel of what
                ``-Xptxas -v`` reports (registers, static shared memory,
                spills) and the dynamic shared memory of the redesigned
-               attention kernels at their path's head dim;
+               kernels (attention at their path's head dim, the copy
+               engine's ring);
   3. parity  — each kernel against its plain PyTorch version on the
                card: the paged-attention kernels in bf16 and f32 at the
                serving path's full width (H=32, H_kv=8, D=128, P=16), on
                strided per-layer views of a page pool as the engine
-               passes them; the copy engine bit for bit on random bits
-               (NaNs included) in f32/bf16/int8/int32 at the comm path's
-               largest staged payload (8 PEs x 8 MiB), ragged and
+               passes them, decode also at 8 sequences of 4096 tokens
+               (there also held to a share of the output's scale) and
+               twice (two calls must give the same bits); the copy
+               engine bit for bit on random bits
+               (NaNs included) in f32/bf16/int8/int32 at the ring chunk
+               of a 64 MiB-per-PE psum (8 PEs x 8 MiB), ragged and
                misaligned; the combine kernel bit for bit for
                sum/prod/max/min in f32/bf16/int32 with NaNs at the same
                shape; and the pallas backend equal to posh in bf16;
@@ -44,9 +48,11 @@ caught):
                main path and read just after: the copy kernel's count
                must equal the staged rounds of every call made there,
                and the combine kernel, which no collective calls, must
-               show none.  One line per op: us/call and GB/s; then 10
-               psums per backend at 64 KiB and 64 MiB per PE under the
-               profiler (device busy share, kernels by kind).
+               show none; the copy launches by staged payload (bytes,
+               dtype, variant) must add up to the count.  One line per
+               op: us/call and GB/s; then 10 psums per backend at 64 KiB
+               and 64 MiB per PE under the profiler (device busy share,
+               kernels by kind).
                ``--comm-out FILE`` writes the bench dict there;
   6. train   — ``repro_torch.launch.train.build_trainer`` on full-width
                gemma-2b (18 layers, f32 parameters and compute, AdamW,
@@ -67,9 +73,14 @@ caught):
                events, the L2 flushed before each launch, at the
                phase-3 shapes (the flash kernel at the training shape, in
                f32 as the trainer runs it and in bf16; paged prefill in
-               bf16, the serving dtype, and in f32 beside it); each row
-               with its achieved TFLOP/s and GB/s and its share of the
-               bound (bound ms / kernel ms).
+               bf16, the serving dtype, and in f32 beside it; bf16
+               decode also at 8 sequences of 4096 tokens, SDPA on the
+               gathered K/V its yardstick; the copy engine and ``clone``
+               also at the staged payloads 8 x 64 KiB and 8 x 1 MiB, and
+               at every payload the comm phase staged, summed as launches
+               x time, each payload's times printed); each row with its
+               achieved TFLOP/s and GB/s and
+               its share of the bound (bound ms / kernel ms).
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -113,16 +124,26 @@ WINDOW = 64
 WIN_START = [0, 5, 16, 100, 250, 37, 448, 0]       # mid-page starts
 WIN_NTOK = [64, 64, 30, 64, 1, 64, 64, 0]          # padded, inactive rows
 N_SLOTS = 64                                       # 1024 tokens of table
+# the long-context decode shape: the same heads, every sequence 4096
+# tokens (qwen3-8b's max_seq in the serving config's table)
+LONG_LEN, LONG_SLOTS = 4096, 256
 # tolerances against the plain version: f32 differs only by summation
 # order (online vs dense softmax); bf16 inputs are the same bits on both
 # sides and both accumulate in f32, so the gap is the final bf16
 # rounding of outputs |o| < 4 (one bf16 ulp there is <= 1.6e-2)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# at 4096 tokens the outputs shrink to |o| ~ 0.1 at most, under TOL; there
+# max |kernel - plain| is also held to this share of max |plain|, so a
+# merge that loses one of a sequence's 32 partitions fails
+SCALE_TOL = 2e-2
 HBM_BYTES_S = 3.35e12                              # H100 SXM data sheet
-# the comm path: 8 PEs; its largest staged payload, the ring chunk of a
-# 64 MiB-per-PE psum: 8 x 8 MiB of f32
+# the comm path: 8 PEs; the ring chunk of a 64 MiB-per-PE psum, 8 x 8 MiB
+# of f32 (the path also stages larger payloads, to 8 x 64 MiB, each timed
+# in the path's sum); and two smaller staged payloads of the path, 8 x 64
+# KiB and 8 x 1 MiB
 N_PE = 8
 STAGED = (N_PE, 2 << 20)
+STAGED_SMALL = [(N_PE, 16 << 10), (N_PE, 256 << 10)]
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # the training path's attention: gemma-2b, one sequence of 4096 tokens
@@ -157,15 +178,15 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 # inputs at the main path's shapes
 # ----------------------------------------------------------------------
-def make_pool(gen, dtype, dev):
+def make_pool(gen, dtype, dev, n_slots=N_SLOTS):
     """A (n_pages, 2, 2, P, H_kv, D) pool; the kernels get the strided
     per-layer views pool[:, 0, 1] / pool[:, 1, 1], as the engine passes
     pool[:, 0|1, li].  Page 0 (the null page) holds noise too."""
-    n_pages = B * N_SLOTS + 1
+    n_pages = B * n_slots + 1
     pool = torch.randn((n_pages, 2, 2, P, HKV, D), generator=gen,
                        device=dev).to(dtype)
     bt = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-    return pool, bt.reshape(B, N_SLOTS).to(torch.int32)
+    return pool, bt.reshape(B, n_slots).to(torch.int32)
 
 
 def null_pad(bt, tokens):
@@ -184,6 +205,16 @@ def decode_case(dtype, dev, seed=1):
     return q, pool[:, 0, 1], pool[:, 1, 1], null_pad(bt, DECODE_LENS), lens
 
 
+def decode_long_case(dtype, dev, seed=3):
+    """B sequences of LONG_LEN tokens each, on strided per-layer views
+    of a (n_pages, 2, 2, P, H_kv, D) pool."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool, bt = make_pool(gen, dtype, dev, LONG_SLOTS)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    lens = torch.full((B,), LONG_LEN, dtype=torch.int32, device=dev)
+    return q, pool[:, 0, 1], pool[:, 1, 1], bt, lens
+
+
 def prefill_case(dtype, dev, seed=2):
     gen = torch.Generator(device=dev).manual_seed(seed)
     pool, bt = make_pool(gen, dtype, dev)
@@ -200,21 +231,26 @@ def prefill_case(dtype, dev, seed=2):
 # ----------------------------------------------------------------------
 def _kernel_name(mangled: str) -> str:
     """``..._20flash_fwd_f32_kernelILi256EEEv...`` ->
-    ``flash_fwd_f32_kernel<256>``: the length-prefixed name that ends in
-    ``_kernel``, with its int and type template arguments."""
+    ``flash_fwd_f32_kernel<256>``: the last length-prefixed name that ends
+    in ``_kernel`` (the namespace's hash before it may hold digits too),
+    with its int and type template arguments."""
+    found = None
     for m in re.finditer(r"\d+", mangled):
         digits = m.group(0)
         for i in range(len(digits)):
             name = mangled[m.end():m.end() + int(digits[i:])]
-            if name.endswith("_kernel") and name.isidentifier():
-                tail = mangled[m.end() + len(name):]
-                targs = re.match(r"I(.*?E)Ev", tail)
-                args = [t.group(1) or ("bf16" if "bfloat16" in t.group(0)
-                                       else "f32")
-                        for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f",
-                                             targs.group(1) if targs else "")]
-                return name + (f"<{', '.join(args)}>" if args else "")
-    return mangled
+            if name.endswith("_kernel") and name.isidentifier() and \
+                    mangled[m.end() + len(name):m.end() + len(name) + 1] \
+                    in ("I", "E", "P", ""):
+                found = name, mangled[m.end() + len(name):]
+    if found is None:
+        return mangled
+    name, tail = found
+    targs = re.match(r"I(.*?E)Ev", tail)
+    args = [t.group(1) or ("bf16" if "bfloat16" in t.group(0) else "f32")
+            for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f",
+                                 targs.group(1) if targs else "")]
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def ptxas_rows(log: str) -> list:
@@ -241,10 +277,10 @@ def ptxas_rows(log: str) -> list:
     return rows
 
 
-def print_resources(fa, pa) -> None:
+def print_resources(fa, pa, sc) -> None:
     """Registers, shared memory and spills of every kernel built, and
-    the dynamic shared memory of the redesigned attention kernels at
-    their path's head dim."""
+    the dynamic shared memory of the redesigned kernels at their path's
+    head dim (the copy engine's: its ring)."""
     from repro_torch.kernels import build
 
     for src, log in sorted(build.BUILD_LOG.items()):
@@ -254,13 +290,16 @@ def print_resources(fa, pa) -> None:
                   f"{r['spill_stores']} B / loads {r['spill_loads']} B",
                   flush=True)
     flib, plib = build.load(fa.SOURCE), build.load(pa.SOURCE)
+    slib = build.load(sc.SOURCE)
     print(f"dynamic smem per block: flash_fwd_f32_kernel<256> "
           f"{flib.flash_attention_smem_bytes_f32(FLASH_FULL['d'])} B, "
           f"flash_fwd_bf16_kernel<256> "
           f"{flib.flash_attention_smem_bytes_bf16(FLASH_FULL['d'])} B, "
           f"paged_prefill_mma_kernel<{D}> "
-          f"{plib.paged_prefill_smem_bytes_bf16(D)} B (of 232448)",
-          flush=True)
+          f"{plib.paged_prefill_smem_bytes_bf16(D)} B, "
+          f"paged_decode_bf16_kernel<{D}> "
+          f"{plib.paged_decode_smem_bytes_bf16(D)} B, copy_bulk_kernel "
+          f"{slib.symm_copy_ring_bytes()} B (of 232448)", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -281,7 +320,21 @@ def parity(pa, dev) -> dict:
             fail(f"decode {tag}: max |kernel - plain| {err} > {TOL[dtype]}")
         if out[0].abs().max().item() != 0.0:
             fail(f"decode {tag}: length-0 row is not exactly zero")
-        errs[("paged_decode_attention", tag)] = err
+        q, kp, vp, bt, lens = decode_long_case(dtype, dev)
+        out = pa.paged_decode_attention(q, kp, vp, bt, lens)
+        ref = pa.paged_decode_attention_ref(q, kp, vp, bt, lens)
+        torch.cuda.synchronize()
+        long_err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if not long_err <= min(TOL[dtype], SCALE_TOL * scale):
+            fail(f"decode {tag} at {LONG_LEN} tokens: max |kernel - plain| "
+                 f"{long_err} > min({TOL[dtype]}, {SCALE_TOL} x max |plain| "
+                 f"{scale})")
+        if not torch.equal(out, pa.paged_decode_attention(q, kp, vp, bt,
+                                                          lens)):
+            fail(f"decode {tag}: two calls differ")
+        errs[("paged_decode_attention", tag)] = max(err, long_err)
+        del q, kp, vp, out, ref
 
         q, kp, vp, bt, start, n_tok = prefill_case(dtype, dev)
         out = pa.paged_prefill_attention(q, kp, vp, bt, start, n_tok)
@@ -295,7 +348,9 @@ def parity(pa, dev) -> dict:
             fail(f"prefill {tag}: padded/inactive rows are not exactly zero")
         errs[("paged_prefill_attention", tag)] = err
         print(f"parity {tag}: decode max_err="
-              f"{errs[('paged_decode_attention', tag)]:.3e} prefill "
+              f"{errs[('paged_decode_attention', tag)]:.3e} (timing shape and "
+              f"{LONG_LEN} tokens, there {long_err:.3e} against max |plain| "
+              f"{scale:.3e}; two calls equal) prefill "
               f"max_err={err:.3e} (tol {TOL[dtype]})", flush=True)
     return errs
 
@@ -520,7 +575,7 @@ def _kind(name: str) -> str:
         return "flash attention (ours)"
     # ours are (anonymous namespace)::copy_kernel / ::combine_kernel<...>;
     # PyTorch's own copies are ...::direct_copy_kernel_cuda
-    if "::copy_kernel(" in name:
+    if "::copy_kernel(" in name or "::copy_bulk_kernel(" in name:
         return "copy engine (ours)"
     if "::combine_kernel<" in name:
         return "combine (ours)"
@@ -645,6 +700,7 @@ def comm_phase(sc, rc, dev, out_path=None) -> dict:
     torch.cuda.synchronize()
     launches = {"copy_blocked": sc.LAUNCHES["copy_blocked"],
                 "combine_blocked": rc.LAUNCHES["combine_blocked"]}
+    by_payload = dict(sc.LAUNCHES_BY_PAYLOAD)
     results += brows + cb.copy_rows(dev, cb.COPY_SIZES, reps, quiet=True)
     bench = cb.assemble(dev, results, checks, cb.SIZES, cb.COPY_SIZES, reps)
     if out_path:
@@ -662,6 +718,12 @@ def comm_phase(sc, rc, dev, out_path=None) -> dict:
     if launches["combine_blocked"]:
         fail(f"comm: the combine kernel ran {launches['combine_blocked']} "
              "times; no collective calls it")
+    if sum(by_payload.values()) != launches["copy_blocked"]:
+        fail(f"comm: copy launches by payload {by_payload} do not add up to "
+             f"{launches['copy_blocked']}")
+    print("comm copy launches by staged payload (bytes, dtype, variant): "
+          + json.dumps(sorted([*k, n] for k, n in by_payload.items())),
+          flush=True)
     rows = {(r["op"], r["algo"], r["nbytes"]): r for r in bench["results"]}
     for op in cb.COMM_OPS:
         cells = []
@@ -687,7 +749,7 @@ def comm_phase(sc, rc, dev, out_path=None) -> dict:
           f"{staged} staged kernel copies == staged rounds), launches "
           f"{launches}, tuned thresholds {bench['tuned_thresholds']}, "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    return launches
+    return launches, by_payload
 
 
 def comm_profile(dev) -> None:
@@ -820,6 +882,17 @@ def time_ms(fn, dev, iters=20) -> float:
     return total / iters
 
 
+def timing_floor(dev) -> float:
+    """``time_ms`` of a one-element add: what the harness itself costs a
+    timed call (the launch and the events), which every small kernel's
+    time includes."""
+    one = torch.zeros(1, device=dev)
+    floor = time_ms(lambda: one.add_(1), dev)
+    print(f"timing floor: a one-element add takes {floor:.4f} ms by the "
+          f"same measure", flush=True)
+    return floor
+
+
 def rates(ms: float, nbytes: int, flops: int, bound_ms: float) -> dict:
     """Achieved rates of a kernel time and its share of the bound."""
     return {"achieved_tflop_s": flops / (ms * 1e-3) / 1e12,
@@ -894,6 +967,7 @@ def timing(pa, dev, launches, errs) -> list:
         print(f"timing {r['name']} (bf16): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
+    out[0].update(decode_long_timing(pa, dev))
     # the f32 prefill body beside the bf16 one, same shape
     f = prefill_timing_case(pa, dev, torch.float32)
     ms, plain_ms, lib_ms = (time_ms(f[k], dev) for k in ("fn", "plain", "lib"))
@@ -907,6 +981,41 @@ def timing(pa, dev, launches, errs) -> list:
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({by}); {rate_text(got)}", flush=True)
     return out
+
+
+def decode_long_timing(pa, dev) -> dict:
+    """bf16 decode at the long-context shape (B sequences of LONG_LEN
+    tokens): kernel, plain version, SDPA on the gathered K/V (every token
+    valid, so no mask) and the byte bound."""
+    import torch.nn.functional as F
+
+    dt = torch.bfloat16
+    q, kp, vp, bt, lens = decode_long_case(dt, dev)
+    kc, vc = gathered(kp, vp, bt, LONG_LEN)
+    qs = q[:, :, None]
+    isz = q.element_size()
+    nbytes = (2 * q.numel() * isz + B * LONG_LEN * HKV * D * isz * 2
+              + bt.numel() * 4 + lens.numel() * 4)
+    flops = 4 * B * LONG_LEN * H * D
+    ms = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, bt, lens), dev)
+    plain_ms = time_ms(lambda: pa.paged_decode_attention_ref(q, kp, vp, bt,
+                                                             lens), dev)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kc, vc, enable_gqa=True), dev)
+    bound_ms, by = bound_of(nbytes, flops, dt)
+    got = rates(ms, nbytes, flops, bound_ms)
+    print(f"timing paged_decode_attention (bf16, B={B} x {LONG_LEN} tokens): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({by}); {rate_text(got)}",
+          flush=True)
+    del q, kp, vp, kc, vc
+    torch.cuda.empty_cache()
+    return {"long_shape": {"b": B, "h": H, "hkv": HKV, "d": D, "p": P,
+                           "length": LONG_LEN},
+            "long_ms": ms, "long_plain_ms": plain_ms,
+            "long_library_ms": lib_ms, "long_bound_ms": bound_ms,
+            "long_bound_by": by, "long_bound_bytes": nbytes,
+            **{f"long_{k}": v for k, v in got.items()}}
 
 
 def bound_of(nbytes: int, flops: int, dtype) -> tuple:
@@ -949,10 +1058,12 @@ def prefill_timing_case(pa, dev, dt) -> dict:
                   for a, n in zip(WIN_START, WIN_NTOK) for jj in range(n)))
 
 
-def comm_timing(sc, rc, dev, launches, errs) -> list:
-    """The copy engine and the combine kernel at the comm path's largest
-    staged payload (8 PEs x 8 MiB of f32): kernel, plain version,
-    library call (``x.clone()`` / ``torch.add``) and bound."""
+def comm_timing(sc, rc, dev, launches, by_payload, errs) -> list:
+    """The copy engine and the combine kernel at the ring chunk of a 64
+    MiB-per-PE psum (8 PEs x 8 MiB of f32): kernel, plain version,
+    library call (``x.clone()`` / ``torch.add``) and bound; then the copy
+    and ``clone`` at the smaller staged payloads, and at every payload
+    the comm phase staged, priced by its launches there."""
     g = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(STAGED, generator=g, device=dev)
     y = torch.randn(STAGED, generator=g, device=dev)
@@ -995,7 +1106,54 @@ def comm_timing(sc, rc, dev, launches, errs) -> list:
               f"kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
+    del x, y
+    out[0]["smaller_payloads"] = [copy_row(sc, dev, shape)
+                                  for shape in STAGED_SMALL]
+    out[0].update(copy_path_cost(sc, dev, by_payload))
     return out
+
+
+def copy_row(sc, dev, shape) -> dict:
+    """The copy kernel and ``clone`` (timed in turns) at one staged f32
+    payload, with the variant the stager picks for it."""
+    x = torch.randn(shape, device=dev)
+    nbytes = x.numel() * x.element_size()
+    variant = sc.choose_variant(x[0].numel() * x.element_size(), x.dtype)
+    ms = time_ms(lambda: sc.copy_blocked(x, variant), dev)
+    clone_ms = time_ms(lambda: x.clone(), dev)
+    bound_ms, _ = bound_of(2 * nbytes, 0, torch.float32)
+    print(f"timing copy_blocked (f32 {tuple(shape)}, copy variant "
+          f"{variant}): kernel {ms:.4f} ms, clone {clone_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms", flush=True)
+    return {"shape": list(shape), "copy_variant": variant, "ms": ms,
+            "library_ms": clone_ms, "bound_ms": bound_ms}
+
+
+def copy_path_cost(sc, dev, by_payload) -> dict:
+    """Sum over the payloads the comm phase staged of launches x time, for
+    the copy kernel and for ``clone`` at the same payloads; each payload's
+    two times are printed and kept."""
+    kernel = clone = 0.0
+    rows = []
+    for (nbytes, dtype, variant), n in sorted(by_payload.items()):
+        x = torch.empty(nbytes // torch.empty((), dtype=getattr(
+            torch, dtype)).element_size(), dtype=getattr(torch, dtype),
+            device=dev)
+        ms = time_ms(lambda: sc.copy_blocked(x, variant), dev, 5)
+        clone_ms = time_ms(lambda: x.clone(), dev, 5)
+        kernel += n * ms
+        clone += n * clone_ms
+        rows.append({"bytes": nbytes, "dtype": dtype, "copy_variant": variant,
+                     "launches": n, "ms": ms, "library_ms": clone_ms})
+        print(f"timing copy_blocked at a staged payload of {nbytes} B "
+              f"({dtype}, {variant}, {n} launches): kernel {ms:.4f} ms, "
+              f"clone {clone_ms:.4f} ms", flush=True)
+        del x
+    print(f"timing copy_blocked on the comm path: {len(by_payload)} staged "
+          f"payloads, sum of launches x time: kernel {kernel:.3f} ms, clone "
+          f"{clone:.3f} ms at the same payloads", flush=True)
+    return {"path_payloads": rows, "path_ms": kernel,
+            "path_library_ms": clone}
 
 
 def flash_timing(fa, dev, launches, errs) -> dict:
@@ -1085,7 +1243,7 @@ def main(argv=None) -> int:
     for src in sources:
         if src not in build.BUILD_LOG:
             print(f"{src}: library already built", flush=True)
-    print_resources(fa, pa)
+    print_resources(fa, pa, sc)
 
     errs = parity(pa, dev)
     flash_errs = flash_parity(fa, dev)
@@ -1093,11 +1251,12 @@ def main(argv=None) -> int:
     comm_errs = comm_kernel_parity(sc, rc, dev)
     launches = serve_full(pa, dev)
     serve_smoke_streams(dev)
-    comm_launches = comm_phase(sc, rc, dev, args.comm_out)
+    comm_launches, comm_payloads = comm_phase(sc, rc, dev, args.comm_out)
     flash_launches = train_full(fa, dev)
     train_smoke_parity(dev)
+    timing_floor(dev)
     kernels = timing(pa, dev, launches, errs) + \
-        comm_timing(sc, rc, dev, comm_launches, comm_errs) + \
+        comm_timing(sc, rc, dev, comm_launches, comm_payloads, comm_errs) + \
         [flash_timing(fa, dev, flash_launches, flash_errs)]
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)

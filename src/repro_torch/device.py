@@ -7,6 +7,7 @@ it (``device="cpu"``), which is what the tests do.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional, Union
 
 import torch
@@ -32,3 +33,15 @@ def dtype_of(name: Optional[str]) -> torch.dtype:
     if name not in table:
         raise ValueError(f"dtype must be bf16 or f32, got {name!r}")
     return table[name]
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device):
+    what the kernels size their grids by."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

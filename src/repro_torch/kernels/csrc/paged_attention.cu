@@ -1,35 +1,60 @@
 // Paged attention through a block table, hand-written for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of src/repro/kernels/paged_attention.py:
-//   paged_decode_attention   (body _paged_kernel)   -> paged_decode_split_kernel
-//                                                      + paged_decode_combine_kernel
+//   paged_decode_attention   (body _paged_kernel)   -> paged_decode_bf16_kernel (bf16)
+//                                                      paged_decode_split_kernel
+//                                                      + paged_decode_combine_kernel (f32)
 //   paged_prefill_attention  (body _prefill_kernel) -> paged_prefill_mma_kernel (bf16)
 //                                                      paged_prefill_kernel (f32)
+// The wrapper picks the body by dtype, a fixed dispatch: bf16 is the
+// serving path's dtype, f32 the smoke configs' parity path.
 //
 // Semantics are the reference's to the constant: scores scaled by
-// sm_scale, an online softmax in f32, NEG_INF = -1e30 as the empty
-// running max, masked (out-of-range) tokens contributing exactly zero —
-// the re-masked p = 0 of the reference — and the output divided by
-// max(l, 1e-30).  A decode row of length 0 and a window row j >= n_tok
-// come out as exact zeros.
+// sm_scale, a softmax in f32, NEG_INF = -1e30 as the empty max, masked
+// (out-of-range) tokens contributing exactly zero — the re-masked p = 0
+// of the reference — and the output divided by max(l, 1e-30).  A decode
+// row of length 0 and a window row j >= n_tok come out as exact zeros;
+// a length past the table's reach n_slots * P is clamped to it.
 //
 // What bounds them on an H100: bytes.  Decode reads each K/V token of
 // a (sequence, KV head) once and does 4 flops per element (~2 per byte
 // in bf16), far under the ~295 flops per byte where the tensor cores
-// would become the limit.  The design follows from that:
-//   * the page walk stops at the sequence's last valid token (the TPU
-//     grid visits every one of the n_slots table slots);
-//   * the per-layer K/V is read IN PLACE as a strided view of the whole
-//     (n_pages, 2, L, P, H_kv, D) pool: the page stride is an argument;
-//   * page ids are read by the kernel itself (no scalar prefetch);
-//   * decode splits each sequence's tokens over S blocks (grid
-//     B x H_kv x S, S from the wrapper so the grid fills the card) and
-//     over the 8 warps of each block, token by token, so many loads are
-//     in flight; each warp keeps its rows' (m, l, acc) in registers, the
-//     warps merge in shared memory, and a second small kernel merges
-//     the S partials (the flash-decoding split);
-//   * a lane owns head dims d = lane + 32 i, so a warp's load of one
-//     token's K or V row is contiguous.
+// would become the limit.  Common to all bodies: the per-layer K/V is
+// read IN PLACE as a strided view of the whole (n_pages, 2, L, P, H_kv,
+// D) pool (the page stride is an argument), page ids are read by the
+// kernel itself (no scalar prefetch), and the walk stops at the last
+// valid token (the TPU grid visits every one of the n_slots table slots).
+//
+// Decode in bf16 (paged_decode_bf16_kernel), one launch per step:
+//   * fixed token partitions: a block of 8 warps owns DEC_TOKENS = 128
+//     tokens of one (sequence, KV head), all G query heads of that KV
+//     head; the grid is (H_kv, B, n_slots * P / 128), from the table and
+//     never from the lengths (the host reads no length), partition major,
+//     and a block past its sequence's length exits at once;
+//   * it reads its page ids beside the length, then puts all of its K
+//     and V rows in flight at once as 16-byte cp.async copies into
+//     XOR-swizzled shared memory (any page size; tokens past the length
+//     zero-filled), so a block pays one memory latency, not one per token;
+//   * S^T = K Q^T and O^T = V^T P^T run as mma.sync m16n8k16 (bf16 in, f32
+//     accumulate) with the tokens, then the head dims, as M and the <= 8
+//     query heads as N; one max and one sum per head over the partition,
+//     one exp per (token, head), no running rescale;
+//   * a sequence of one partition writes its output directly; otherwise
+//     every block writes its partial and takes a ticket of its (sequence,
+//     KV head) by an acq_rel atomic add; the block that draws the last
+//     ticket, whichever partition it holds, merges the partials in
+//     partition order, never in arrival order (so every call gives the
+//     same bits), and resets the ticket.  No block waits for another, so
+//     nothing rests on the order in which the hardware dispatches blocks.
+// Measured against the 64-token partition of 4 warps, other merge
+// batches and a merge by the last partition's block spinning on the
+// count by scripts/kernel_variants.py: the 128-token partition halves the
+// partials, the tickets and the merge's loads at long contexts (PERF.md).
+// Decode in f32 keeps the first design (paged_decode_split_kernel): each
+// sequence split over S blocks (S from the wrapper so the grid fills the
+// card) and 8 warps, token by token, a lane owning head dims lane + 32 i;
+// the warps merge in shared memory and a second kernel merges the S
+// partials (the flash-decoding split).
 //
 // The prefill window in bf16 (the serving path's dtype) is a tile design
 // on the tensor cores, so that each K/V byte is moved once per block and
@@ -74,20 +99,41 @@ constexpr int PF_ROWS = 64;              // bf16 prefill: score rows per block
 constexpr int PF_TOKENS = 64;            // bf16 prefill: context tokens per tile
 constexpr int PF_THREADS = 128;          // 4 warps x 16 rows
 constexpr int VEC_BYTES = 16;
+constexpr int DEC_TOKENS = 128;          // bf16 decode: tokens per partition
+constexpr int DEC_WARPS = DEC_TOKENS / 16;  // a 16-token score tile per warp
+constexpr int DEC_THREADS = DEC_WARPS * 32;
+constexpr int TOKEN_GROUPS = DEC_WARPS / 4;  // P V: 4 warps (head-dim quarters) per group
+constexpr int KT_PV = DEC_TOKENS / 16 / TOKEN_GROUPS;  // P V k-steps per warp
+constexpr int DEC_ROWS = 8;              // the mma's N: query heads of a KV head
+constexpr int PS_STRIDE = DEC_TOKENS + 8;  // P row stride: conflict-free B loads
+constexpr int MERGE_BATCH = 4;           // partitions a merging thread loads at once
+constexpr int DEC_BLOCKS_PER_SM = 3;     // what 64 KB of K/V stages (D = 128) allow
 static_assert(PF_ROWS == WARPS * ROWS_PER_WARP, "both prefill bodies take 64 rows");
+static_assert(TOKEN_GROUPS == 1 || TOKEN_GROUPS == 2, "64 or 128 tokens per partition");
+static_assert(DEC_THREADS >= DEC_TOKENS, "a thread per token computes its offsets");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Sum each of N per-lane partials over the warp.  The N butterflies are
 // interleaved so their shuffles overlap instead of forming one long
 // dependent chain per row.
+// The old value of *p, after adding v (acquire and release, GPU scope).
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// Four outputs a * inv, rounded to bf16, to 8-byte aligned p.
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* p, float4 a, float inv) {
+  uint2 v = make_uint2(pack_bf16x2(a.x * inv, a.y * inv), pack_bf16x2(a.z * inv, a.w * inv));
+  *reinterpret_cast<uint2*>(p) = v;
+}
+
 template <int N>
 __device__ __forceinline__ void warp_sum_rows(float (&x)[N]) {
 #pragma unroll
@@ -247,6 +293,331 @@ paged_decode_combine_kernel(const float* __restrict__ m_part, const float* __res
     }
     out[row * D + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
   }
+}
+
+// ---------------------------------------------------------------------
+// decode, bf16: grid (H_kv, B, n_parts), DEC_THREADS threads; partition
+// major, so every sequence's first partitions are in the first wave.
+// Block (h, b, part) takes tokens [part * DEC_TOKENS, (part + 1) *
+// DEC_TOKENS) of sequence b for the G query heads of KV head h; the grid
+// comes from the table (n_parts = ceil(n_slots * P / DEC_TOKENS)), and a
+// block past its sequence's n_p = ceil(length / DEC_TOKENS) partitions
+// exits at once.  Both products run as mma.sync m16n8k16 with the tokens (and
+// then the head dims) as M and the G <= 8 query heads as N:
+//   S^T = K Q^T   warp w: tokens 16 w .. 16 w + 15, all head dims;
+//   O^T = V^T P^T warp w: head dims w DP / 4 .. (w + 1) DP / 4 - 1, all
+//                 the partition's tokens, P from shared memory.
+// A sequence of one partition writes its normalised output; otherwise
+// each block writes its partial (m, l, acc) and takes a ticket of the
+// (sequence, KV head); the block that draws the last one merges the
+// partials in partition order and resets the ticket.
+// ---------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
+paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const int32_t* __restrict__ block_tables,
+                         const int32_t* __restrict__ lengths, float* __restrict__ m_part,
+                         float* __restrict__ l_part, float* __restrict__ acc_part,
+                         int* __restrict__ tickets, __nv_bfloat16* __restrict__ out, int H,
+                         int Hkv, int D, int P, int n_slots, int64_t k_page_stride,
+                         int64_t v_page_stride, float sm_scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int VEC = VEC_BYTES / sizeof(bf16);
+  constexpr int CH = DP / VEC;           // 16-byte chunks per row
+  constexpr int KSTEPS = DP / 16;        // k-steps of S^T = K Q^T
+  constexpr int MT = DP / 64;            // 16-dim m-tiles of O^T per warp
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);     // DEC_TOKENS x DP, swizzled
+  bf16* Vs = Ks + DEC_TOKENS * DP;
+  __shared__ __align__(16) bf16 Ps[DEC_ROWS * PS_STRIDE];   // P: heads x tokens
+  __shared__ int64_t koff_s[DEC_TOKENS], voff_s[DEC_TOKENS];  // -1: masked
+  __shared__ float red_m[DEC_WARPS][DEC_ROWS], red_l[DEC_WARPS][DEC_ROWS];
+
+  const int h = blockIdx.x, b = blockIdx.y, part = blockIdx.z;
+  const int n_parts = gridDim.z;
+  const int group = H / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int reach = n_slots * P;
+  const int t0 = part * DEC_TOKENS;
+  // the partition's page ids are read beside the length: one latency
+  int page = 0;
+  if (tid < DEC_TOKENS && t0 + tid < reach)
+    page = block_tables[(int64_t)b * n_slots + (t0 + tid) / P];
+  const int length = min(lengths[b], reach);     // the table's reach
+  const int n_p = max(0, (length + DEC_TOKENS - 1) / DEC_TOKENS);
+  bf16* ob = out + ((int64_t)b * H + (int64_t)h * group) * D;
+  if (part >= n_p) {
+    if (n_p == 0 && part == 0)                   // length 0: exact zeros
+      for (int i = tid; i < group * D; i += DEC_THREADS) ob[i] = __float2bfloat16(0.f);
+    return;
+  }
+  if (tid < DEC_TOKENS) {
+    const int t = t0 + tid;
+    const int64_t in_page = (int64_t)(t % P) * Hkv * D + (int64_t)h * D;
+    koff_s[tid] = t < length ? page * k_page_stride + in_page : -1;
+    voff_s[tid] = t < length ? page * v_page_stride + in_page : -1;
+  }
+  // q as the B operand: b0 = q[g][16 kk + 2 tig, +1], b1 = the same + 8
+  // (heads past the group and dims past D are zero)
+  uint32_t qb[KSTEPS][2];
+  const bf16* qrow = q + ((int64_t)b * H + (int64_t)h * group + g) * D;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const int d = kk * 16 + 2 * tig;
+    qb[kk][0] = g < group && d < D ? *reinterpret_cast<const uint32_t*>(qrow + d) : 0u;
+    qb[kk][1] = g < group && d + 8 < D ? *reinterpret_cast<const uint32_t*>(qrow + d + 8) : 0u;
+  }
+  __syncthreads();
+  // every K and V copy of the partition in flight before the first score;
+  // tokens past the length and dims past D are zero-filled
+  auto stage = [&](bf16* dst, const bf16* src, const int64_t* off) {
+#pragma unroll
+    for (int i = tid; i < DEC_TOKENS * CH; i += DEC_THREADS) {
+      const int r = i / CH, c = i % CH, d = c * VEC;
+      const int64_t o = off[r];
+      const bool ok = o >= 0 && d < D;
+      cp_async16(dst + swz<DP>(r, c), ok ? src + o + d : src, ok ? VEC_BYTES : 0);
+    }
+    cp_async_commit();
+  };
+  stage(Ks, k, koff_s);
+  stage(Vs, v, voff_s);
+  cp_async_wait<1>();                    // K has landed
+  __syncthreads();
+
+  // S^T: rows = tokens 16 w + g (s[0], s[1]) and + 8 (s[2], s[3]); cols =
+  // heads 2 tig, 2 tig + 1
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, Ks + swz<DP>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+    mma_bf16_16816(s, a, qb[kk][0], qb[kk][1]);
+  }
+  // one max and one sum per head over the partition, base 2; p re-masked
+  const float scale2 = sm_scale * LOG2E;
+  const bool va = t0 + warp * 16 + g < length, vb = t0 + warp * 16 + g + 8 < length;
+  s[0] = va ? s[0] * scale2 : NEG_INF;
+  s[1] = va ? s[1] * scale2 : NEG_INF;
+  s[2] = vb ? s[2] * scale2 : NEG_INF;
+  s[3] = vb ? s[3] * scale2 : NEG_INF;
+  float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  if (g == 0) {
+    red_m[warp][2 * tig] = mx0;
+    red_m[warp][2 * tig + 1] = mx1;
+  }
+  __syncthreads();
+  float m0 = NEG_INF, m1 = NEG_INF;              // finite: token t0 is valid
+#pragma unroll
+  for (int w = 0; w < DEC_WARPS; ++w) {
+    m0 = fmaxf(m0, red_m[w][2 * tig]);
+    m1 = fmaxf(m1, red_m[w][2 * tig + 1]);
+  }
+  const float p0 = va ? exp2f(s[0] - m0) : 0.f, p1 = va ? exp2f(s[1] - m1) : 0.f;
+  const float p2 = vb ? exp2f(s[2] - m0) : 0.f, p3 = vb ? exp2f(s[3] - m1) : 0.f;
+  float ls0 = p0 + p2, ls1 = p1 + p3;
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    ls0 += __shfl_xor_sync(0xffffffffu, ls0, o);
+    ls1 += __shfl_xor_sync(0xffffffffu, ls1, o);
+  }
+  if (g == 0) {
+    red_l[warp][2 * tig] = ls0;
+    red_l[warp][2 * tig + 1] = ls1;
+  }
+  {
+    bf16* pr = Ps + 2 * tig * PS_STRIDE + warp * 16 + g;
+    pr[0] = __float2bfloat16(p0);
+    pr[PS_STRIDE] = __float2bfloat16(p1);
+    pr[8] = __float2bfloat16(p2);
+    pr[PS_STRIDE + 8] = __float2bfloat16(p3);
+  }
+  cp_async_wait<0>();                    // V has landed
+  __syncthreads();
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int w = 0; w < DEC_WARPS; ++w) {
+    l0 += red_l[w][2 * tig];
+    l1 += red_l[w][2 * tig + 1];
+  }
+
+  // O^T: rows = head dims dw + 16 mt + g (o[mt][0..1]) and + 8 (o[mt][2..3]);
+  // cols = heads 2 tig, 2 tig + 1.  Warp w takes the head dims of quarter
+  // w % 4 over token group w / 4; with two token groups the second
+  // group's sums are added to the first's through shared memory (the K
+  // stage, free now), in that order
+  const int tg = warp / 4;
+  uint32_t pb[KT_PV][2];
+#pragma unroll
+  for (int kt = 0; kt < KT_PV; ++kt) {
+    const bf16* pr = Ps + g * PS_STRIDE + (tg * KT_PV + kt) * 16 + 2 * tig;
+    pb[kt][0] = *reinterpret_cast<const uint32_t*>(pr);
+    pb[kt][1] = *reinterpret_cast<const uint32_t*>(pr + 8);
+  }
+  const int dw = (warp % 4) * (DP / 4);
+  float o[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    o[mt][0] = o[mt][1] = o[mt][2] = o[mt][3] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT_PV; ++kt) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, Vs + swz<DP>((tg * KT_PV + kt) * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                        (dw + mt * 16) / VEC + ((lane >> 3) & 1)));
+      mma_bf16_16816(o[mt], a, pb[kt][0], pb[kt][1]);
+    }
+  }
+  if (TOKEN_GROUPS == 2) {
+    float* half = reinterpret_cast<float*>(smem4) + ((warp % 4) * 32 + lane) * MT * 4;
+    if (tg == 1) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) half[mt * 4 + e] = o[mt][e];
+    }
+    __syncthreads();
+    if (tg == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][e] += half[mt * 4 + e];
+    }
+  }
+
+  if (n_p == 1) {                        // the whole sequence: normalise
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = dw + mt * 16 + g + (e >> 1) * 8, row = 2 * tig + (e & 1);
+        if (tg == 0 && row < group && d < D)
+          ob[row * D + d] = __float2bfloat16(o[mt][e] * ((e & 1) ? inv1 : inv0));
+      }
+    }
+    return;
+  }
+  // the partial of (b, h, part): rows (b, h, part, head) of m/l, x D of acc
+  const int64_t bh = (int64_t)b * Hkv + h;
+  const int64_t prow = (bh * n_parts + part) * group;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = dw + mt * 16 + g + (e >> 1) * 8, row = 2 * tig + (e & 1);
+      if (tg == 0 && row < group && d < D) acc_part[(prow + row) * D + d] = o[mt][e];
+    }
+  }
+  if (warp == 0 && g == 0) {
+    if (2 * tig < group) {
+      m_part[prow + 2 * tig] = m0;
+      l_part[prow + 2 * tig] = l0;
+    }
+    if (2 * tig + 1 < group) {
+      m_part[prow + 2 * tig + 1] = m1;
+      l_part[prow + 2 * tig + 1] = l1;
+    }
+  }
+  // the ticket: after the block's barrier thread 0 adds one (release:
+  // the block's partial is visible first; acquire: so are those of the
+  // blocks counted before it).  The block that draws n_p - 1 arrived last
+  // and merges; the others end.
+  __shared__ int last_s;
+  __syncthreads();
+  if (tid == 0) last_s = atom_add_acq_rel(tickets + bh, 1) == n_p - 1;
+  __syncthreads();
+  if (!last_s) return;
+  // merge the n_p partials.  Thread t takes 4-dim column t % C' (C' = the
+  // C columns, at most DEC_THREADS) over the r = t / C' -th of Q =
+  // DEC_THREADS / C' contiguous ranges of partitions, in partition order,
+  // MERGE_BATCH partitions' m, l and acc loads in flight together, its
+  // running (M, L, A) rescaled when a batch raises M; the Q ranges are then
+  // combined in order through shared memory (the K stage).  The same bits
+  // on every call.
+  const int64_t base = bh * n_parts * group;
+  const int C = group * D / 4, Cp = min(C, DEC_THREADS), Q = DEC_THREADS / Cp;
+  const int rg = tid / Cp, col = tid % Cp;   // range, column
+  float* slot = reinterpret_cast<float*>(smem4);   // (M, L, A) per (range, column)
+  if (rg < Q) {
+    const int ja = rg * n_p / Q, jb = (rg + 1) * n_p / Q;
+    for (int cc = col; cc < C; cc += Cp) {
+      const int i = cc * 4, row = i / D;
+      const float* mp = m_part + base + row;     // partition j: mp[j * group]
+      const float* lp = l_part + base + row;
+      const float* ap = acc_part + (base + row) * D + (i - row * D);   // ap[j * group * D]
+      float M = NEG_INF, L = 0.f;
+      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j0 = ja; j0 < jb; j0 += MERGE_BATCH) {
+        float mj[MERGE_BATCH], lj[MERGE_BATCH];
+        float4 aj[MERGE_BATCH];
+#pragma unroll
+        for (int u = 0; u < MERGE_BATCH; ++u) {
+          const int j = min(j0 + u, jb - 1);     // past the range: weight 0 below
+          mj[u] = __ldcg(mp + j * group);
+          lj[u] = __ldcg(lp + j * group);
+          aj[u] = __ldcg(reinterpret_cast<const float4*>(ap + (int64_t)j * group * D));
+        }
+        float mb = M;
+#pragma unroll
+        for (int u = 0; u < MERGE_BATCH; ++u) mb = fmaxf(mb, mj[u]);
+        const float r = exp2f(M - mb);           // 0 on the first batch
+        L *= r;
+        A.x *= r;
+        A.y *= r;
+        A.z *= r;
+        A.w *= r;
+#pragma unroll
+        for (int u = 0; u < MERGE_BATCH; ++u) {
+          const float cj = j0 + u < jb ? exp2f(mj[u] - mb) : 0.f;
+          L = fmaf(cj, lj[u], L);
+          A.x = fmaf(cj, aj[u].x, A.x);
+          A.y = fmaf(cj, aj[u].y, A.y);
+          A.z = fmaf(cj, aj[u].z, A.z);
+          A.w = fmaf(cj, aj[u].w, A.w);
+        }
+        M = mb;
+      }
+      if (Q == 1) {
+        store_bf16x4(ob + i, A, 1.f / fmaxf(L, 1e-30f));
+      } else {                                   // C = Cp: one column per thread
+        float* sl = slot + (rg * Cp + col) * 6;
+        sl[0] = M;
+        sl[1] = L;
+        sl[2] = A.x;
+        sl[3] = A.y;
+        sl[4] = A.z;
+        sl[5] = A.w;
+      }
+    }
+  }
+  if (Q > 1) {
+    __syncthreads();
+    if (rg == 0) {
+      float M = NEG_INF;
+      for (int r = 0; r < Q; ++r) M = fmaxf(M, slot[(r * Cp + col) * 6]);
+      float L = 0.f;
+      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = 0; r < Q; ++r) {              // an empty range: M = NEG_INF, weight 0
+        const float* sl = slot + (r * Cp + col) * 6;
+        const float c = exp2f(sl[0] - M);
+        L = fmaf(c, sl[1], L);
+        A.x = fmaf(c, sl[2], A.x);
+        A.y = fmaf(c, sl[3], A.y);
+        A.z = fmaf(c, sl[4], A.z);
+        A.w = fmaf(c, sl[5], A.w);
+      }
+      store_bf16x4(ob + col * 4, A, 1.f / fmaxf(L, 1e-30f));
+    }
+  }
+  if (tid == 0) tickets[bh] = 0;         // ready for the next call
 }
 
 // ---------------------------------------------------------------------
@@ -587,6 +958,28 @@ int launch_decode(const void* q, const void* k, const void* v, const void* bt,
                                 n_slots, kps, vps, sc, S, st);
 }
 
+constexpr size_t decode_bf16_smem_bytes(int dp) {
+  return (size_t)2 * DEC_TOKENS * dp * sizeof(__nv_bfloat16);
+}
+
+template <int DP>
+int launch_decode_bf16_dp(const void* q, const void* k, const void* v, const void* bt,
+                          const void* lens, void* mp, void* lp, void* ap, void* tickets,
+                          void* out, int B, int H, int Hkv, int D, int P, int n_slots,
+                          long long kps, long long vps, float sc, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const size_t bytes = decode_bf16_smem_bytes(DP);
+  auto kernel = paged_decode_bf16_kernel<DP>;
+  int err = allow_smem(kernel, bytes);
+  if (err) return err;
+  const int n_parts = (n_slots * P + DEC_TOKENS - 1) / DEC_TOKENS;
+  kernel<<<dim3(Hkv, B, n_parts), DEC_THREADS, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int32_t*)bt,
+      (const int32_t*)lens, (float*)mp, (float*)lp, (float*)ap, (int*)tickets, (bf16*)out, H,
+      Hkv, D, P, n_slots, kps, vps, sc);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int NV>
 int launch_prefill_nv(const void* q, const void* k, const void* v, const void* bt,
                       const void* starts, const void* ntoks, void* out, int B, int C, int H,
@@ -673,8 +1066,16 @@ int paged_prefill_smem_bytes_bf16(int D) {
   return (int)prefill_mma_smem_bytes(D <= 64 ? 64 : D <= 128 ? 128 : 256);
 }
 
-// m_part, l_part: (B, H, S) f32 and acc_part: (B, H, S, D) f32 scratch
-// the wrapper allocates.
+// the bf16 decode body: tokens per partition, and its dynamic shared
+// memory at head dim D
+int paged_decode_partition_tokens_bf16() { return DEC_TOKENS; }
+int paged_decode_smem_bytes_bf16(int D) {
+  return (int)decode_bf16_smem_bytes(D <= 64 ? 64 : D <= 128 ? 128 : 256);
+}
+
+// f32: paged_decode_split_kernel + paged_decode_combine_kernel.  m_part,
+// l_part: (B, H, S) f32 and acc_part: (B, H, S, D) f32 scratch from the
+// wrapper's cache.
 int paged_decode_attention_f32(const void* q, const void* k, const void* v,
                                const void* bt, const void* lens, void* m_part,
                                void* l_part, void* acc_part, void* out, int B, int H,
@@ -686,15 +1087,28 @@ int paged_decode_attention_f32(const void* q, const void* k, const void* v,
                               stream);
 }
 
+// bf16: paged_decode_bf16_kernel, one launch.  m_part, l_part: (B, H_kv,
+// n_parts, G) f32, acc_part: (B, H_kv, n_parts, G, D) f32 scratch, and
+// tickets: (B, H_kv) int32, zero before the first call (each call leaves
+// them zero); all from the wrapper's cache.
 int paged_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 const void* bt, const void* lens, void* m_part,
-                                void* l_part, void* acc_part, void* out, int B, int H,
-                                int Hkv, int D, int P, int n_slots,
+                                void* l_part, void* acc_part, void* tickets, void* out,
+                                int B, int H, int Hkv, int D, int P, int n_slots,
                                 long long k_page_stride, long long v_page_stride,
-                                float sm_scale, int S, void* stream) {
-  return launch_decode<__nv_bfloat16>(q, k, v, bt, lens, m_part, l_part, acc_part, out, B,
-                                      H, Hkv, D, P, n_slots, k_page_stride, v_page_stride,
-                                      sm_scale, S, stream);
+                                float sm_scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 64)
+    return launch_decode_bf16_dp<64>(q, k, v, bt, lens, m_part, l_part, acc_part, tickets,
+                                     out, B, H, Hkv, D, P, n_slots, k_page_stride,
+                                     v_page_stride, sm_scale, st);
+  if (D <= 128)
+    return launch_decode_bf16_dp<128>(q, k, v, bt, lens, m_part, l_part, acc_part, tickets,
+                                      out, B, H, Hkv, D, P, n_slots, k_page_stride,
+                                      v_page_stride, sm_scale, st);
+  return launch_decode_bf16_dp<256>(q, k, v, bt, lens, m_part, l_part, acc_part, tickets,
+                                    out, B, H, Hkv, D, P, n_slots, k_page_stride,
+                                    v_page_stride, sm_scale, st);
 }
 
 int paged_prefill_attention_f32(const void* q, const void* k, const void* v,

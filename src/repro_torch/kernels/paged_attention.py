@@ -8,8 +8,10 @@ ids.  Two kernels (``csrc/paged_attention.cu``, CUDA C++ for
 
   * ``paged_decode_attention`` replaces the Pallas kernel
     ``repro.kernels.paged_attention.paged_decode_attention`` (body
-    ``_paged_kernel``): one decode step, grid (sequence, KV head,
-    split of the sequence's tokens), then a merge over the splits.
+    ``_paged_kernel``): one decode step.  In bf16 one launch, grid
+    (KV head, sequence, 128-token partition) from the block table's
+    reach, the partials merged in the same launch; in f32 a split of
+    each sequence's tokens over blocks, then a merge kernel.
   * ``paged_prefill_attention`` replaces
     ``repro.kernels.paged_attention.paged_prefill_attention`` (body
     ``_prefill_kernel``): a whole chunked-prefill window, grid
@@ -23,10 +25,23 @@ per K/V element.  The design: the walk stops at the last valid token
 ``max_seq=4096``, P=16); the per-layer K/V is read IN PLACE as a
 strided view of the whole ``(n_pages, 2, L, P, H_kv, D)`` pool (the
 page stride is a kernel argument; a ``.contiguous()`` here would copy
-the pool twice per layer per tick); decode splits each sequence's
-tokens over ``decode_splits`` blocks and 8 warps per block so that the
-grid fills the card and many loads are in flight, then merges the
-partial softmax states in a second small kernel.
+the pool twice per layer per tick).
+
+Decode has one body per dtype, a fixed dispatch.  bf16, the serving
+dtype: fixed partitions of ``DECODE_TOKENS`` tokens per (sequence, KV
+head), each block staging its partition's K/V rows with 16-byte
+``cp.async`` copies (so q and page rows must start and step 16-byte
+aligned, ``check_vectors``) and running both products on the tensor
+cores; the grid is H_kv x B x ``decode_partitions(n_slots, P)``, fixed
+by the table, so the host never reads ``lengths`` (no sync in the
+decode step); every block of a (sequence, KV head) writes its partial
+and takes a ticket, and the block that draws the last ticket merges the
+partials in partition order (the same bits on every call; no block
+waits for another).  f32 (the smoke configs' parity path) keeps the first design:
+each sequence's tokens split over ``decode_splits`` blocks of 8 warps,
+then a merge kernel.  Both take their scratch (partials, tickets) from
+a cache per device and stream (``_scratch``), not from a fresh
+allocation per call.
 
 The prefill window has one body per dtype, a fixed dispatch (no
 fallback): bf16, the serving path's dtype, walks the context in tiles
@@ -56,6 +71,7 @@ import math
 import torch
 
 from . import build
+from ..device import sm_count
 from .flash_attention import VECTOR_BYTES, check_vectors
 
 NEG_INF = -1e30
@@ -68,9 +84,11 @@ MAX_GROUP = 8
 MAX_WINDOW_ROWS = 64
 # the bf16 prefill body's tile: score rows per block, context tokens
 PREFILL_TILE_BF16 = (64, 64)
-# decode blocks per SM the split aims at, and the most splits
+# f32 decode: blocks per SM the split aims at, and the most splits
 DECODE_BLOCKS_PER_SM = 4
 MAX_DECODE_SPLITS = 16
+# bf16 decode: tokens per partition
+DECODE_TOKENS = 128
 
 LAUNCHES = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
 
@@ -79,8 +97,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
-    "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _L, _L, _F, _I, _P],
+    "paged_decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _L, _L, _F, _I, _P],
+    "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _L, _L, _F, _P],
     "paged_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _L, _L, _F, _I, _P],
 }
@@ -104,19 +124,42 @@ def choose_block(window: int, group: int = 1) -> int:
     return max(1, min(BLOCK_Q, int(window), MAX_WINDOW_ROWS // int(group)))
 
 
-_SMS: dict = {}
-
-
 def decode_splits(device: torch.device, batch: int, kv_heads: int) -> int:
-    """Blocks each sequence's decode tokens are split over: enough that
-    ``batch x kv_heads x splits`` gives every SM ~4 blocks of 8 warps
+    """f32 decode: blocks each sequence's tokens are split over, enough
+    that ``batch x kv_heads x splits`` gives every SM ~4 blocks of 8 warps
     (the split point inside a sequence follows its length)."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    want = -(-DECODE_BLOCKS_PER_SM * _SMS[idx] // max(batch * kv_heads, 1))
+    want = -(-DECODE_BLOCKS_PER_SM * sm_count(device)
+             // max(batch * kv_heads, 1))
     return max(1, min(MAX_DECODE_SPLITS, want))
+
+
+def decode_partitions(n_slots: int, page_tokens: int) -> int:
+    """Partitions of the bf16 decode grid per (sequence, KV head): the
+    table's reach in ``DECODE_TOKENS``-token pieces, whatever the
+    lengths (the grid is fixed without reading them)."""
+    return -(-n_slots * page_tokens // DECODE_TOKENS)
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, stream: int, name: str, numel: int,
+             dtype=torch.float32) -> torch.Tensor:
+    """A kernel's scratch buffer, cached per (device, stream, name) and
+    grown when a call needs more.  The decode tickets start at zero, and
+    each launch leaves them zero."""
+    key = (device.index, stream, name)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.zeros(max(numel, 1), dtype=dtype, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def _partials(device, stream: int, rows: int, d: int) -> tuple:
+    """Pointers to the cached (m, l, acc) partials of ``rows`` rows."""
+    return tuple(_scratch(device, stream, name, n).data_ptr()
+                 for name, n in (("m", rows), ("l", rows), ("acc", rows * d)))
 
 
 # ======================================================================
@@ -183,9 +226,10 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, start,
 # ======================================================================
 def _kernel(name: str, dtype: torch.dtype):
     lib = build.load(SOURCE)
-    fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
+    full = f"{name}_{_SUFFIX[dtype]}"
+    fn = getattr(lib, full)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES.get(full, _ARGTYPES.get(name))
         fn.restype = ctypes.c_int
         limits = (lib.paged_attention_max_head_dim(),
                   lib.paged_attention_max_group(),
@@ -197,6 +241,10 @@ def _kernel(name: str, dtype: torch.dtype):
                       *PREFILL_TILE_BF16):
             raise RuntimeError(f"kernel library limits {limits} differ from "
                                f"the wrapper's")
+        if full == "paged_decode_attention_bf16" and \
+                lib.paged_decode_partition_tokens_bf16() != DECODE_TOKENS:
+            raise RuntimeError("kernel library's decode partition differs "
+                               "from the wrapper's")
     return fn
 
 
@@ -261,29 +309,37 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     q (B, H, D); k/v_pages (n_pages, P, H_kv, D), each page contiguous,
     pages any stride apart (a per-layer view of the pool); block_tables
     (B, n_slots) int32; lengths (B,) int32 (0 = inactive -> zero row).
-    Token t of sequence b lives in page ``block_tables[b, t // P]``."""
+    Token t of sequence b lives in page ``block_tables[b, t // P]``.
+    bf16 launches the partitioned tensor-core body (q and page rows
+    16-byte aligned, else ``ValueError``), f32 the split CUDA-core one."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           lengths)
     b, h, hkv, d, page_tokens, n_slots = _check(
         q, k_pages, v_pages, block_tables, (lengths,), q_dims=3)
+    if q.dtype == torch.bfloat16:
+        check_vectors("bf16 decode", q=q, k_pages=k_pages, v_pages=v_pages)
     sm_scale = 1.0 / math.sqrt(d)
     fn = _kernel("paged_decode_attention", q.dtype)
-    splits = decode_splits(q.device, b, hkv)
     out = torch.empty_like(q)
-    # per-split partial softmax states, merged by the second kernel
-    m_part = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b, h, splits, d), dtype=torch.float32,
-                           device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 block_tables.data_ptr(), lengths.data_ptr(),
-                 m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-                 out.data_ptr(), b, h, hkv, d, page_tokens, n_slots,
-                 k_pages.stride(0), v_pages.stride(0), sm_scale, splits,
-                 stream)
+        ins = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+               block_tables.data_ptr(), lengths.data_ptr())
+        dims = (b, h, hkv, d, page_tokens, n_slots, k_pages.stride(0),
+                v_pages.stride(0), sm_scale)
+        if q.dtype == torch.bfloat16:
+            # partial (m, l, acc) per (sequence, KV head, partition, head)
+            rows = b * h * decode_partitions(n_slots, page_tokens)
+            tickets = _scratch(q.device, stream, "tickets", b * hkv,
+                               torch.int32)
+            err = fn(*ins, *_partials(q.device, stream, rows, d),
+                     tickets.data_ptr(), out.data_ptr(), *dims, stream)
+        else:
+            # partial (m, l, acc) per (sequence, head, split)
+            splits = decode_splits(q.device, b, hkv)
+            err = fn(*ins, *_partials(q.device, stream, b * h * splits, d),
+                     out.data_ptr(), *dims, splits, stream)
     _raise_on(err, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     return out

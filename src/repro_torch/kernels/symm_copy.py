@@ -7,9 +7,13 @@ spot of every put/get.  The reference's variants are VMEM block shapes
 of a Pallas copy; the port keeps their names, the same size/dtype ladder
 (``choose_variant``) and the same block shapes (``block_shape``), so that
 dispatch and bench rows match the reference's one to one.  On the card
-the block becomes the tile one CUDA block copies per step of its
-grid-stride loop (``csrc/symm_copy.cu``, which says what bounds the
-kernel and what its design does about it).
+the block becomes the tile one CUDA block copies per step of its loop
+over the payload (``csrc/symm_copy.cu``, which says what bounds the
+kernel and what its design does about it): when source and destination
+share their alignment modulo 16, Hopper's bulk copy engine (TMA) moves
+the aligned bulk through a shared-memory ring, one block per SM
+(``copy_plan`` cuts the payload into head, bulk and tail and sizes the
+grid); otherwise a byte-by-byte path.
 
   * ``copy_blocked`` — the kernel wrapper; replaces the Pallas kernel
     ``repro.kernels.symm_copy.copy_blocked`` (body ``_copy_kernel``).
@@ -22,16 +26,19 @@ kernel and what its design does about it).
 
 ``copy_blocked`` takes the plain version only for a CPU tensor; for a
 CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts the
-kernel's launches.
+kernel's launches, and ``LAUNCHES_BY_PAYLOAD`` the same launches by
+(bytes, dtype, variant), so that a run can price its copies.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from . import build
 from ..core.heap import torch_dtype
+from ..device import sm_count
 
 SOURCE = "symm_copy.cu"
 
@@ -63,15 +70,21 @@ _LADDER_TOP = "vmem_512x512"
 # panelization, kept in the plain version)
 _MAX_COL_PANELS = 8
 
-# grid cap of the kernel: 16 blocks of 256 threads per SM of the H100's
-# 132; the grid-stride loop covers larger payloads
+# grid cap of the byte path: 16 blocks of 256 threads per SM of the
+# H100's 132; its grid-stride loop covers larger payloads
 MAX_BLOCKS = 132 * 16
+# the bulk path: bytes of a stage of each block's shared-memory ring (the
+# most one bulk copy moves), and the alignment bulk copies need
+STAGE_BYTES = 32 * 1024
+BULK_ALIGN = 16
 
 LAUNCHES = {"copy_blocked": 0}
+LAUNCHES_BY_PAYLOAD: Counter = Counter()     # (nbytes, dtype, variant) -> n
 
 
 def reset_launches() -> None:
     LAUNCHES["copy_blocked"] = 0
+    LAUNCHES_BY_PAYLOAD.clear()
 
 
 def _itemsize(dtype) -> int:
@@ -120,18 +133,39 @@ def copy_blocked_ref(x: torch.Tensor, variant: str = DEFAULT_VARIANT
     return out.reshape(-1)[:n].reshape(x.shape)
 
 
-_FN = None
+def copy_plan(src: int, dst: int, nbytes: int, tile_bytes: int,
+              sms: int) -> tuple:
+    """How the kernel copies ``nbytes`` (> 0) from address ``src`` to
+    ``dst``: ``("bulk", head, n_bulk, grid)`` when the two share their
+    alignment modulo 16 (and there are at least 32 bytes) — bytes [head,
+    head + n_bulk) 16-byte aligned on both sides through the bulk copy
+    engine, the fewer than 16 bytes before and after by block 0, one
+    block per SM at most — else ``("bytes", 0, 0, grid)``."""
+    n_tiles = -(-nbytes // tile_bytes)
+    if (src - dst) % BULK_ALIGN or nbytes < 2 * BULK_ALIGN:
+        return "bytes", 0, 0, min(n_tiles, MAX_BLOCKS)
+    head = -src % BULK_ALIGN
+    n_bulk = (nbytes - head) // BULK_ALIGN * BULK_ALIGN
+    return "bulk", head, n_bulk, min(-(-n_bulk // tile_bytes), sms)
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = build.load(SOURCE).symm_copy
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_FNS: dict = {}
+
+
+def _kernel(path: str):
+    if path not in _FNS:
+        lib = build.load(SOURCE)
+        if lib.symm_copy_stage_bytes() != STAGE_BYTES:
+            raise RuntimeError("kernel library's stage bytes differ from "
+                               "the wrapper's")
+        fn = getattr(lib, f"symm_copy_{path}")
+        ll = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ll,
+                       *((ll, ll) if path == "bulk" else ()), ll,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[path] = fn
+    return _FNS[path]
 
 
 def copy_blocked(x: torch.Tensor, variant: str = DEFAULT_VARIANT
@@ -154,15 +188,21 @@ def copy_blocked(x: torch.Tensor, variant: str = DEFAULT_VARIANT
     if nbytes == 0:
         return out
     r, c = block_shape(variant, x.dtype)
-    fn = _kernel()
+    tile = r * c * x.element_size()
+    path, head, n_bulk, grid = copy_plan(x.data_ptr(), out.data_ptr(),
+                                         nbytes, tile, sm_count(x.device))
+    fn = _kernel(path)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), nbytes,
-                 r * c * x.element_size(), MAX_BLOCKS, stream)
+        bulk = (head, n_bulk) if path == "bulk" else ()
+        err = fn(x.data_ptr(), out.data_ptr(), nbytes, *bulk, tile, grid,
+                 stream)
     if err != 0:
         raise RuntimeError(f"copy_blocked kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["copy_blocked"] += 1
+    LAUNCHES_BY_PAYLOAD[(nbytes, str(x.dtype).removeprefix("torch."),
+                         variant)] += 1
     return out
 
 

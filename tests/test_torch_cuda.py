@@ -21,7 +21,9 @@ Tolerances: f32 1e-5 (the same masked softmax in f32, summed in another
 order); bf16 3e-2 (the reference's own bf16 window tolerance: both
 sides read the same bf16 inputs, accumulate in f32 and round the output
 to bf16 once; the tensor-core kernels also round the probabilities to
-bf16 for P V, which stays inside it, ``PERF.md``).
+bf16 for P V, which stays inside it, ``PERF.md``).  bf16 decode is also
+held to 2e-2 of max |plain|: at 4096 tokens the outputs are smaller than
+3e-2, and a merge that lost a partition would pass the absolute bound.
 """
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from repro_torch.kernels import paged_attention as pa
 torch.set_num_threads(2)
 
 TOL = {"f32": 1e-5, "bf16": 3e-2}
+SCALE_TOL = 2e-2
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 PROMPTS = [list(range(3, 9)), list(range(4, 10)), [7, 3, 99, 12]]
 
@@ -103,6 +106,50 @@ DECODE_CASES = {
     "gqa_6_2": lambda: _paged_case(seed=62, H=6, Hkv=2),
     "mha_4_4": lambda: _paged_case(seed=44, H=4, Hkv=4),
 }
+
+
+# the edges of the bf16 decode kernel's partitions (pa.DECODE_TOKENS
+# tokens), at full head width (H=32, H_kv=8, D=128 unless named):
+# sequences over several partitions with a ragged last one; lengths that
+# are exact multiples of the partition beside 0 and 1; a page size (12)
+# that does not divide it; a 4096-token context; lengths past the
+# table's reach (clamped); GQA groups 8 and 1 at head dims 256 and 64
+def _decode_pool(seed, lens, P=16, slots=64, H=32, Hkv=8, D=128, layers=1):
+    """q, a (n_pages, 2, layers, P, H_kv, D) page pool as the engine keeps
+    it, block tables and lengths."""
+    rng = np.random.RandomState(seed)
+    B = len(lens)
+    n_pages = B * slots + 1
+    q = rng.randn(B, H, D).astype(np.float32)
+    pool = rng.randn(n_pages, 2, layers, P, Hkv, D).astype(np.float32)
+    bt = rng.permutation(np.arange(1, n_pages)).reshape(B, slots) \
+        .astype(np.int32)
+    return q, pool, bt, np.array(lens, np.int32)
+
+
+def _decode_full(seed, lens, **kw):
+    q, pool, bt, lens = _decode_pool(seed, lens, **kw)
+    return q, pool[:, 0, 0], pool[:, 1, 0], bt, lens
+
+
+_T = pa.DECODE_TOKENS
+DECODE_EDGE_CASES = {
+    "several_partitions_ragged_last": lambda: _decode_full(
+        80, [3 * _T + 5, 2 * _T + 2, _T + 1, 200]),
+    "exact_partition_multiples_0_1": lambda: _decode_full(
+        81, [_T, 2 * _T, 0, 1, 4 * _T]),
+    "page_12_not_dividing_the_partition": lambda: _decode_full(
+        82, [100, 37, 250, 12], P=12, slots=24),
+    "long_context_4096": lambda: _decode_full(
+        83, [4096, 4095], slots=256),
+    "lengths_past_the_tables_reach": lambda: _decode_full(
+        84, [2000, 5, 1024, 1025], slots=64),
+    "group_8_d256": lambda: _decode_full(
+        85, [300, 64, 1], H=8, Hkv=1, D=256, slots=24),
+    "group_1_d64": lambda: _decode_full(
+        86, [129, 7], H=4, Hkv=4, D=64, slots=12),
+}
+DECODE_GPU_CASES = {**DECODE_CASES, **DECODE_EDGE_CASES}
 
 
 # ======================================================================
@@ -252,15 +299,22 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+@pytest.mark.parametrize("case", sorted(DECODE_GPU_CASES))
 def test_cuda_decode_kernel_matches_plain(cuda_device, case, dt):
-    q, kp, vp, bt, lens = _tensors(DECODE_CASES[case](), dt, cuda_device)
+    """Both decode bodies (bf16 partitions on the tensor cores, f32
+    splits on the CUDA cores) over the reference's corpus and the bf16
+    body's partition edges; length-0 rows exactly 0."""
+    q, kp, vp, bt, lens = _tensors(DECODE_GPU_CASES[case](), dt, cuda_device)
     n = pa.LAUNCHES["paged_decode_attention"]
     got = pa.paged_decode_attention(q, kp, vp, bt, lens)
     assert pa.LAUNCHES["paged_decode_attention"] == n + 1
     want = pa.paged_decode_attention_ref(q, kp, vp, bt, lens)
     torch.cuda.synchronize()
     _close(got.cpu(), want.cpu().float().numpy(), dt, case)
+    if dt == "bf16":
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        assert err <= SCALE_TOL * scale, (case, err, scale)
     for b in torch.nonzero(lens == 0).flatten().tolist():
         assert float(got[b].abs().max()) == 0.0
 
@@ -282,6 +336,38 @@ def test_cuda_prefill_kernel_matches_plain(cuda_device, case, dt):
     pad = torch.arange(q.shape[1], device=cuda_device)[None] \
         >= n_tok[:, None]
     assert torch.all(got[pad] == 0)
+
+
+def test_cuda_decode_kernel_same_bits_on_every_call(cuda_device):
+    """Sequences over several partitions, merged by whichever block comes
+    last: two calls give identical bits (the merge runs in partition
+    order and each call leaves the tickets at zero), on the strided
+    per-layer view of a three-layer pool, and match the plain version."""
+    q, pool, bt, lens = _tensors(_decode_pool(
+        87, [777, 4096, 65, 0, 1, 512], slots=256, layers=3), "bf16",
+        cuda_device)
+    kp, vp = pool[:, 0, 2], pool[:, 1, 2]
+    assert not kp.is_contiguous() and kp.stride(0) == 2 * 3 * 16 * 8 * 128
+    first = pa.paged_decode_attention(q, kp, vp, bt, lens)
+    second = pa.paged_decode_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    want = pa.paged_decode_attention_ref(q, kp, vp, bt, lens)
+    _close(first.cpu(), want.cpu().float().numpy(), "bf16")
+    assert float(first[3].abs().max()) == 0.0
+
+
+def test_cuda_decode_raises_on_misaligned_bf16_rows(cuda_device):
+    """The bf16 decode kernel stages rows in 16-byte copies: a page pool
+    that starts off a 16-byte boundary raises before any launch."""
+    q, kp, vp, bt, lens = _tensors(_decode_full(88, [70, 3]), "bf16",
+                                   cuda_device)
+    n = dict(pa.LAUNCHES)
+    pool = torch.zeros(kp.numel() + 4, dtype=kp.dtype, device=cuda_device)
+    odd = pool[4:].view(kp.shape)                 # starts 8 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_decode_attention(q, odd, vp, bt, lens)
+    assert dict(pa.LAUNCHES) == n
 
 
 def test_cuda_kernel_path_never_runs_plain_versions(cuda_device,
@@ -355,6 +441,41 @@ def test_cuda_copy_kernel_matches_plain(cuda_device, dtype, variant):
         assert v.data_ptr() % 16 != 0
         assert _same_bytes(sc.copy_blocked(v, variant), v.clone())
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("variant", sorted(sc.VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8], ids=str)
+def test_cuda_copy_bulk_edges_match_plain(cuda_device, dtype, variant):
+    """The bulk copy engine's edges, bit-exact: sizes at and around one
+    ring stage and one tile, a size no multiple of 16, a source on a
+    16-byte but not 128-byte boundary, and a payload larger than grid x
+    ring (every block takes several laps)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    r, c = sc.block_shape(variant, dtype)
+    tile, stage = r * c * item, sc.STAGE_BYTES
+    sizes = sorted({n for base in (stage, tile) for n in
+                    (base - 16, base, base + 16, base + item)})
+    sizes += [100000 * item + 3 * item, 40 * (1 << 20) + 5 * item]
+    base = _random_bits(max(sizes) + 256, cuda_device, 17)
+    for nbytes in sizes:
+        for off in (0, 16):                  # 0 or 16 mod 128, co-aligned
+            x = base[off:off + nbytes].view(dtype)
+            assert x.data_ptr() % 16 == 0
+            out = torch.empty_like(x)
+            plan = sc.copy_plan(x.data_ptr(), out.data_ptr(), nbytes, tile,
+                                torch.cuda.get_device_properties(
+                                    cuda_device).multi_processor_count)
+            assert plan[0] == "bulk" and plan[2] >= nbytes - 15
+            key = (nbytes, str(dtype).removeprefix("torch."), variant)
+            n0 = sc.LAUNCHES_BY_PAYLOAD[key]
+            got = sc.copy_blocked(x, variant)
+            assert sc.LAUNCHES_BY_PAYLOAD[key] == n0 + 1
+            torch.cuda.synchronize()
+            assert _same_bytes(got, sc.copy_blocked_ref(x, variant)), \
+                (nbytes, off)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ring = sc.build.load(sc.SOURCE).symm_copy_ring_bytes()
+    assert max(sizes) > sms * ring           # more than grid x ring
 
 
 def _same_bits(got, want):

@@ -187,6 +187,36 @@ def test_choose_block_fits_the_warps_rows():
         assert pa.choose_block(64, g) * g <= pa.MAX_WINDOW_ROWS
 
 
+def _partition_tokens(part, length, n_slots, page_tokens):
+    """The tokens block ``part`` of the bf16 decode kernel takes for a
+    sequence of ``length`` (the kernel's walk: the length clamped to the
+    table's reach, DECODE_TOKENS a block, none past the length)."""
+    length = max(0, min(length, n_slots * page_tokens))
+    t0 = part * pa.DECODE_TOKENS
+    return range(t0, max(t0, min(t0 + pa.DECODE_TOKENS, length)))
+
+
+@pytest.mark.parametrize("page_tokens,n_slots", [(16, 64), (16, 256),
+                                                  (12, 20), (1, 70)])
+def test_decode_partitions_cover_every_token_once(page_tokens, n_slots):
+    """The bf16 decode grid comes from the table alone, and its blocks
+    take every token of every sequence exactly once: lengths 0 and 1,
+    around the partition and the table's reach, and past the reach
+    (clamped), for page sizes that do and do not divide the partition."""
+    reach = n_slots * page_tokens
+    parts = pa.decode_partitions(n_slots, page_tokens)
+    assert (parts - 1) * pa.DECODE_TOKENS < reach <= parts * pa.DECODE_TOKENS
+    tok = pa.DECODE_TOKENS
+    for length in sorted({-3, 0, 1, tok - 1, tok, tok + 1, 3 * tok + 5,
+                          reach - 1, reach, reach + 1, 4 * reach}):
+        seen = [t for p in range(parts) for t in
+                _partition_tokens(p, length, n_slots, page_tokens)]
+        assert seen == list(range(max(0, min(length, reach)))), length
+        active = [p for p in range(parts) if
+                  _partition_tokens(p, length, n_slots, page_tokens)]
+        assert active == list(range(-(-max(0, min(length, reach)) // tok)))
+
+
 # ======================================================================
 # the copy engine (symm_copy) and the combine (reduce_combine)
 # ======================================================================
@@ -257,6 +287,61 @@ def test_copy_variant_dispatch_matches_reference():
     assert sc.DEFAULT_VARIANT == jsc.DEFAULT_VARIANT
     assert ops.COPY_VARIANTS == ("stock", "auto") + tuple(jsc.VARIANTS)
     assert ops.COMBINE_VARIANTS == tuple(jrc.VARIANTS)
+
+
+def _bulk_chunks(block, grid, n_bulk, tile_bytes):
+    """(offset in the bulk, bytes) of each chunk block ``block`` of the
+    copy kernel moves, in its order (the kernel's walk: tiles ``block``,
+    ``block + grid``, ..., each in chunks of at most a ring stage)."""
+    out = []
+    for t0 in range(block * tile_bytes, n_bulk, grid * tile_bytes):
+        t1 = min(t0 + tile_bytes, n_bulk)
+        out += [(off, min(sc.STAGE_BYTES, t1 - off))
+                for off in range(t0, t1, sc.STAGE_BYTES)]
+    return out
+
+
+COPY_PLAN_CASES = [(v, dt) for v in sorted(sc.VARIANTS)
+                   for dt in ("f32", "int8")]
+
+
+@pytest.mark.parametrize("variant,dt", COPY_PLAN_CASES,
+                         ids=[f"{v}-{d}" for v, d in COPY_PLAN_CASES])
+def test_copy_plan_moves_every_byte_once(variant, dt):
+    """copy_plan and the blocks' chunks (the kernel's walk) move every
+    byte exactly once: the head and tail under 16
+    bytes, the bulk in 16-byte aligned chunks of at most a ring stage,
+    one block per SM at most and none idle; pointers not co-aligned
+    modulo 16, and payloads under 32 bytes, take the byte path."""
+    tdt = COPY_DT[dt][1]
+    r, c = sc.block_shape(variant, tdt)
+    tile = r * c * torch.empty((), dtype=tdt).element_size()
+    sms = 132
+    for nbytes in (1, 31, 32, 4099, tile - 16, tile + 3, 3 * sc.STAGE_BYTES,
+                   sms * tile + 17, 40 * (1 << 20) + 5):
+        for src, dst in ((4096, 8192), (4096 + 16, 8192), (4096 + 5, 8192 + 5),
+                         (4096 + 3, 8192)):
+            path, head, n_bulk, grid = sc.copy_plan(src, dst, nbytes, tile,
+                                                    sms)
+            n_tiles = -(-nbytes // tile)
+            if (src - dst) % 16 or nbytes < 32:
+                assert (path, head, n_bulk) == ("bytes", 0, 0)
+                assert grid == min(n_tiles, sc.MAX_BLOCKS)
+                continue
+            assert path == "bulk" and (src + head) % 16 == 0
+            assert head < 16 and 0 <= nbytes - head - n_bulk < 16
+            assert 1 <= grid <= min(sms, -(-n_bulk // tile))
+            chunks = []
+            for blk in range(grid):
+                mine = _bulk_chunks(blk, grid, n_bulk, tile)
+                assert mine, (nbytes, blk)
+                chunks += mine
+            end = 0                          # sorted, they tile the bulk
+            for off, size in sorted(chunks):
+                assert off == end and off % 16 == 0 and size % 16 == 0
+                assert 0 < size <= sc.STAGE_BYTES
+                end = off + size
+            assert end == n_bulk, (nbytes, src)
 
 
 def test_copy_front_door_dispatch():
