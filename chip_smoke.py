@@ -13,7 +13,8 @@ caught):
                ``-Xptxas -v`` reports (registers, static shared memory,
                spills) and the dynamic shared memory of the redesigned
                kernels (attention at their path's head dim, the copy
-               engine's ring);
+               engine's ring), and the blocks per SM of the f32 prefill
+               body and the combine kernel;
   3. parity  — each kernel against its plain PyTorch version on the
                card: the paged-attention kernels in bf16 and f32 at the
                serving path's full width (H=32, H_kv=8, D=128, P=16), on
@@ -26,16 +27,26 @@ caught):
                of a 64 MiB-per-PE psum (8 PEs x 8 MiB), ragged and
                misaligned; the combine kernel bit for bit for
                sum/prod/max/min in f32/bf16/int32 with NaNs at the same
-               shape; and the pallas backend equal to posh in bf16;
+               shape, misaligned, at a ragged length and below one
+               vector; and the pallas backend equal to posh in bf16;
   4. serve   — ``repro_torch.launch.serve.build_engine`` on full-width
                qwen3-8b (36 layers, bf16 weights drawn on the card from
                a seed), a seeded trace of 8 requests; the paged-attention
                launch counters, zeroed just before, must equal n_layers x
                the prefill and decode steps of the run; the same trace
                again with ``torch.profiler`` on two windows of ticks for
-               where the device time goes; then the smoke config in f32
-               on the card must give the same greedy streams with the
-               kernels as with the plain versions;
+               where the device time goes; then, that engine freed,
+               qwen3-8b at full width in f32 (the reference's serving
+               dtype; f32 weights drawn on the card): the first prefill
+               chunk's and first decode step's logits through the
+               kernels must agree with the plain versions' within 1e-3 x
+               max |logit|, and a seeded trace (the same 8 requests,
+               outputs cut to 16-32 tokens) must launch the f32 bodies
+               n_layers x its prefill and decode steps and the bf16
+               bodies never (tok/s, wall time, peak memory printed);
+               then the smoke config in f32 on the card must give the
+               same greedy streams with the kernels as with the plain
+               versions;
   5. comm    — ``repro_torch.launch.comm_bench`` on the card: one team
                of 8 PEs, every collective under each algorithm, then the
                main path: psum, all_gather, psum_scatter, all_to_all and
@@ -72,10 +83,11 @@ caught):
                ``x.clone()``; ``torch.add``) and its bound, with CUDA
                events, the L2 flushed before each launch, at the
                phase-3 shapes (the flash kernel at the training shape, in
-               f32 as the trainer runs it and in bf16; paged prefill in
-               bf16, the serving dtype, and in f32 beside it; bf16
-               decode also at 8 sequences of 4096 tokens, SDPA on the
-               gathered K/V its yardstick; the copy engine and ``clone``
+               f32 as the trainer runs it and in bf16; paged decode and
+               prefill in bf16, the port's default serving dtype, and in
+               f32 beside it; bf16 decode also at 8 sequences of 4096
+               tokens, SDPA on the gathered K/V its yardstick; the copy
+               engine and ``clone``
                also at the staged payloads 8 x 64 KiB and 8 x 1 MiB, and
                at every payload the comm phase staged, summed as launches
                x time, each payload's times printed); each row with its
@@ -90,7 +102,8 @@ T=S=1000 and without the causal mask; and the autograd path (kernel
 forward, plain backward) against the all-plain path on the grads.
 
 ``launches`` in the kernels line is each kernel's count from its main
-path (serve for the paged-attention kernels, the communicator calls for
+path (the bf16 serve run for the paged-attention kernels, with
+``launches_f32`` from the f32 serve run, the communicator calls for
 the copy engine, the gemma-2b training steps for the flash kernel; 0
 for ``combine_blocked``, which is reached only through ``ops.combine``).
 It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -161,6 +174,12 @@ TRAIN = dict(arch="gemma-2b", global_batch=8, microbatches=8, steps=3)
 SERVE_TRACE = dict(n_requests=8, rate=8.0, seed=0,
                    prompt_short=(64, 257), prompt_long=(257, 513),
                    long_frac=0.25, out_short=(32, 65), out_long=(32, 65))
+# the f32 serve run (the reference's serving dtype): the same 8 requests
+# with their outputs cut to 16-32 tokens, so the phase stays near 30 s
+SERVE_TRACE_F32 = {**SERVE_TRACE, "out_short": (16, 33), "out_long": (16, 33)}
+# first-step logits of the kernel path against the plain path, as a share
+# of max |logit| (f32: the two differ by summation order only)
+LOGIT_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -247,8 +266,8 @@ def _kernel_name(mangled: str) -> str:
         return mangled
     name, tail = found
     targs = re.match(r"I(.*?E)Ev", tail)
-    args = [t.group(1) or ("bf16" if "bfloat16" in t.group(0) else "f32")
-            for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f",
+    args = [t.group(1) or {"f": "f32", "i": "i32"}.get(t.group(0), "bf16")
+            for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f|i",
                                  targs.group(1) if targs else "")]
     return name + (f"<{', '.join(args)}>" if args else "")
 
@@ -277,10 +296,11 @@ def ptxas_rows(log: str) -> list:
     return rows
 
 
-def print_resources(fa, pa, sc) -> None:
-    """Registers, shared memory and spills of every kernel built, and
-    the dynamic shared memory of the redesigned kernels at their path's
-    head dim (the copy engine's: its ring)."""
+def print_resources(fa, pa, sc, rc) -> None:
+    """Registers, shared memory and spills of every kernel built, the
+    dynamic shared memory of the redesigned kernels at their path's head
+    dim (the copy engine's: its ring), and the blocks per SM of the f32
+    prefill body and the combine kernel."""
     from repro_torch.kernels import build
 
     for src, log in sorted(build.BUILD_LOG.items()):
@@ -290,16 +310,29 @@ def print_resources(fa, pa, sc) -> None:
                   f"{r['spill_stores']} B / loads {r['spill_loads']} B",
                   flush=True)
     flib, plib = build.load(fa.SOURCE), build.load(pa.SOURCE)
-    slib = build.load(sc.SOURCE)
+    slib, rlib = build.load(sc.SOURCE), build.load(rc.SOURCE)
+    pf32 = (f"paged_prefill_f32_kernel<{D}, "
+            f"{plib.paged_prefill_tile_tokens_f32(D)}>")
     print(f"dynamic smem per block: flash_fwd_f32_kernel<256> "
           f"{flib.flash_attention_smem_bytes_f32(FLASH_FULL['d'])} B, "
           f"flash_fwd_bf16_kernel<256> "
           f"{flib.flash_attention_smem_bytes_bf16(FLASH_FULL['d'])} B, "
           f"paged_prefill_mma_kernel<{D}> "
-          f"{plib.paged_prefill_smem_bytes_bf16(D)} B, "
+          f"{plib.paged_prefill_smem_bytes_bf16(D)} B, {pf32} "
+          f"{plib.paged_prefill_smem_bytes_f32(D)} B, "
           f"paged_decode_bf16_kernel<{D}> "
           f"{plib.paged_decode_smem_bytes_bf16(D)} B, copy_bulk_kernel "
           f"{slib.symm_copy_ring_bytes()} B (of 232448)", flush=True)
+    blocks = plib.paged_prefill_blocks_per_sm_f32(D)
+    if blocks < 1:
+        fail(f"{pf32}: no block fits an SM ({blocks})")
+    print(f"blocks per SM: {pf32} {blocks} of "
+          f"{pa.PREFILL_GROUPS_F32 * 128} threads "
+          f"({pa.PREFILL_GROUPS_F32} token groups); combine_kernel<f32, sum, "
+          f"4> {rlib.combine_blocks_per_sm()} of {rlib.combine_threads()} "
+          f"threads resident, {rc.BLOCKS_PER_SM} launched per SM, "
+          f"{rlib.combine_unroll()} vector pairs in flight per thread",
+          flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -480,8 +513,13 @@ def comm_kernel_parity(sc, rc, dev) -> dict:
             a.view(-1)[::97] = float("nan")
             b.view(-1)[::89] = float("nan")
             a, b = a.to(dtype), b.to(dtype)
+        # whole, misaligned by one element, a length that is no multiple
+        # of the vectors in flight (128 threads x 4 pairs), below one vector
+        la, lb = a.view(-1), b.view(-1)
+        views = ((a, b), (la[1:], lb[1:]), (la[:1000003], lb[:1000003]),
+                 (la[:3], lb[:3]))
         for op in ("sum", "prod", "max", "min"):
-            for x, y in ((a, b), (a.view(-1)[1:], b.view(-1)[1:])):
+            for x, y in views:
                 got = rc.combine_blocked(x, y, op)
                 want = rc.combine_blocked_ref(x, y, op)
                 if not _same_bits(got, want):
@@ -504,7 +542,8 @@ def comm_kernel_parity(sc, rc, dev) -> dict:
                 fail(f"pallas != posh in bf16: {op} at {elems} elements")
     print("parity comm kernels: copy_blocked bit-exact (4 dtypes x 5 "
           "variants x aligned/ragged/misaligned), combine_blocked bit-exact "
-          "(4 ops x f32/bf16/int32, NaNs, misaligned), pallas == posh in "
+          "(4 ops x f32/bf16/int32, NaNs, misaligned, ragged, below one "
+          "vector), pallas == posh in "
           f"bf16; max |kernel - plain| {err}", flush=True)
     return err
 
@@ -566,6 +605,131 @@ def serve_full(pa, dev):
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+def serve_full_f32(pa, dev) -> dict:
+    """Full-width qwen3-8b served in f32, the reference's serving dtype:
+    first-step logits of the kernel path against the plain path, then a
+    seeded trace whose f32 paged-attention launches, zeroed just before,
+    must equal n_layers x the run's steps (and no bf16 body may run).
+    Returns the run's launches by (kernel, dtype)."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    eng, cfg = build_engine("qwen3-8b", config="full", dtype="f32",
+                            device=dev, page_tokens=P, n_pages=512,
+                            max_batch=B, prefill_chunk=64,
+                            attn_impl="kernel", seed=0)
+    torch.cuda.synchronize()
+    print(f"serve f32: qwen3-8b full width, {cfg.n_layers} layers; f32 "
+          f"weights and pool {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+          f"the card, init {time.monotonic() - t0:.1f} s", flush=True)
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE_F32))
+    first_step_logits(eng, cfg, reqs)
+
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    launches = dict(pa.LAUNCHES_BY_DTYPE)
+    m = eng.metrics()
+    if len(done) != len(reqs):
+        fail(f"serve f32: {len(done)} of {len(reqs)} requests finished")
+    for r in done:
+        if len(r.out) != r.max_new or not all(0 <= t < cfg.vocab
+                                              for t in r.out):
+            fail(f"serve f32: request {r.rid} produced {r.out}")
+    want = {(name, tag): 0 for name, tag in launches}
+    want[("paged_prefill_attention", "f32")] = \
+        cfg.n_layers * m["steps"]["prefill"]
+    want[("paged_decode_attention", "f32")] = \
+        cfg.n_layers * m["steps"]["decode"]
+    if launches != want or not (m["steps"]["prefill"] and
+                                m["steps"]["decode"]):
+        fail(f"serve f32: kernel launches {launches} != n_layers x steps "
+             f"{want}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"serve f32: {len(done)} requests, {m['tokens_out']} tokens out, "
+          f"{m['steps']['prefill']} prefill steps, {m['steps']['decode']} "
+          f"decode steps, f32 launches prefill "
+          f"{launches[('paged_prefill_attention', 'f32')]} decode "
+          f"{launches[('paged_decode_attention', 'f32')]} (bf16 bodies 0)",
+          flush=True)
+    print("serve f32 metrics: " + json.dumps(
+        {"wall_s": wall, "throughput_tok_s": m["throughput_tok_s"],
+         "tokens_out": m["tokens_out"], "peak_memory_gb": peak,
+         **{k: m[k] for k in ("span_s", "ttft_p50_s", "ttft_p99_s",
+                              "decode_p50_s", "decode_p99_s", "ticks",
+                              "steps")}}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def first_step_logits(eng, cfg, reqs) -> None:
+    """The first prefill chunk (64 tokens of each of the trace's first 8
+    prompts) and the first decode step after it, through the engine's
+    own trunks on its weights, once with the kernels and once with the
+    plain versions, each on a fresh pool: the logits must agree within
+    LOGIT_TOL x max |logit|.  (Full-width streams are not compared: a
+    greedy near-tie in f32 may flip with the summation order.)"""
+    import dataclasses
+
+    from repro_torch.models import embed as emb
+    from repro_torch.serve import engine as se
+
+    scfg, params = eng.scfg, eng.exec.params
+    dev = eng.device
+    c = scfg.prefill_chunk
+    prompts = [r.prompt[:c] for r in reqs[:scfg.max_batch]]
+    b = len(prompts)
+    ids = torch.zeros((b, c), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    ids = ids.to(dev)
+    n_tok = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                         device=dev)
+    start = torch.zeros_like(n_tok)
+    need = -(-(c + 1) // scfg.page_tokens)          # the window + one token
+    bt = torch.zeros((b, scfg.table_slots), dtype=torch.int32)
+    bt[:, :need] = 1 + torch.arange(b * need, dtype=torch.int32).view(b, need)
+    bt = bt.to(dev)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    rows = torch.arange(b, device=dev)
+    got = {}
+    for impl in ("kernel", "ref"):
+        sc2 = dataclasses.replace(scfg, attn_impl=impl)
+        pool = eng.exec.init_pool()
+        x, pool = se._make_window_forward(cfg, sc2)(params, pool, ids, start,
+                                                    n_tok, bt)
+        lp = emb.lm_head_logits(head, x[rows, n_tok.long() - 1]).float()
+        # both paths decode the token the kernel path's logits pick
+        tok = (lp if impl == "kernel" else got["kernel"][0]).argmax(-1)
+        x, pool = se._make_decode_forward(cfg, sc2)(
+            params, pool, tok.to(torch.int32), n_tok, bt, n_tok + 1)
+        got[impl] = (lp, emb.lm_head_logits(head, x).float())
+        del pool, x
+    torch.cuda.synchronize()
+    errs = []
+    for i, step in enumerate(("prefill", "decode")):
+        k, r = got["kernel"][i], got["ref"][i]
+        if not (torch.isfinite(k).all() and k.shape == (b, cfg.vocab)):
+            fail(f"serve f32: first {step} logits not finite of shape "
+                 f"({b}, {cfg.vocab})")
+        err = (k - r).abs().max().item()
+        scale = r.abs().max().item()
+        if not err <= LOGIT_TOL * scale:
+            fail(f"serve f32: first {step} logits, kernel vs plain max err "
+                 f"{err} > {LOGIT_TOL} x max |logit| {scale}")
+        errs.append(f"{step} {err:.3e} (max |logit| {scale:.3f})")
+    print(f"serve f32: first-step logits, kernel path vs plain path, max "
+          f"|diff|: {', '.join(errs)}; tol {LOGIT_TOL} x max |logit|",
+          flush=True)
 
 
 def _kind(name: str) -> str:
@@ -913,32 +1077,12 @@ def gathered(kp, vp, bt, s):
     return kc, vc
 
 
-def timing(pa, dev, launches, errs) -> list:
-    import torch.nn.functional as F
-
+def timing(pa, dev, launches, launches_f32, errs) -> list:
     dt = torch.bfloat16
-    isz = torch.tensor([], dtype=dt).element_size()
-    rows = []
-
-    q, kp, vp, bt, lens = decode_case(dt, dev)
-    s = max(DECODE_LENS)
-    kc, vc = gathered(kp, vp, bt, s)
-    mask = (torch.arange(s, device=dev)[None] < lens[:, None])[:, None, None]
-    qs = q[:, :, None]
-    ntok = sum(DECODE_LENS)
-    nbytes = (2 * q.numel() * isz + ntok * HKV * D * isz * 2
-              + bt.numel() * 4 + lens.numel() * 4)
-    flops = 4 * ntok * H * D
-    rows.append(dict(
-        name="paged_decode_attention",
-        fn=lambda: pa.paged_decode_attention(q, kp, vp, bt, lens),
-        plain=lambda: pa.paged_decode_attention_ref(q, kp, vp, bt, lens),
-        lib=lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
-                                                   enable_gqa=True),
-        nbytes=nbytes, flops=flops, replaces="src/repro/kernels/"
-        "paged_attention.py:216 (paged_decode_attention, body "
-        "_paged_kernel :126)"))
-
+    rows = [dict(name="paged_decode_attention",
+                 **decode_timing_case(pa, dev, dt),
+                 replaces="src/repro/kernels/paged_attention.py:216 "
+                 "(paged_decode_attention, body _paged_kernel :126)")]
     rows.append(dict(name="paged_prefill_attention",
                      **prefill_timing_case(pa, dev, dt),
                      replaces="src/repro/kernels/paged_attention.py:358 "
@@ -956,6 +1100,8 @@ def timing(pa, dev, launches, errs) -> list:
             "name": r["name"], "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": r["replaces"], "launches": launches[r["name"]],
+            "launches_bf16": launches[r["name"]],
+            "launches_f32": launches_f32[(r["name"], "f32")],
             "max_abs_err": err, "max_err": err,
             "max_err_bf16": errs[(r["name"], "bf16")],
             "max_err_f32": errs[(r["name"], "f32")],
@@ -968,18 +1114,22 @@ def timing(pa, dev, launches, errs) -> list:
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
     out[0].update(decode_long_timing(pa, dev))
-    # the f32 prefill body beside the bf16 one, same shape
-    f = prefill_timing_case(pa, dev, torch.float32)
-    ms, plain_ms, lib_ms = (time_ms(f[k], dev) for k in ("fn", "plain", "lib"))
-    bound_ms, by = bound_of(f["nbytes"], f["flops"], torch.float32)
-    got = rates(ms, f["nbytes"], f["flops"], bound_ms)
-    out[-1].update({"ms_f32": ms, "plain_ms_f32": plain_ms,
-                    "library_ms_f32": lib_ms, "bound_ms_f32": bound_ms,
-                    "bound_by_f32": by, "bound_bytes_f32": f["nbytes"],
-                    **{f"{k}_f32": v for k, v in got.items()}})
-    print(f"timing paged_prefill_attention (f32): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({by}); {rate_text(got)}", flush=True)
+    # the f32 bodies beside the bf16 ones, same shapes
+    for i, (name, case) in enumerate((
+            ("paged_decode_attention", decode_timing_case),
+            ("paged_prefill_attention", prefill_timing_case))):
+        f = case(pa, dev, torch.float32)
+        ms, plain_ms, lib_ms = (time_ms(f[k], dev)
+                                for k in ("fn", "plain", "lib"))
+        bound_ms, by = bound_of(f["nbytes"], f["flops"], torch.float32)
+        got = rates(ms, f["nbytes"], f["flops"], bound_ms)
+        out[i].update({"ms_f32": ms, "plain_ms_f32": plain_ms,
+                       "library_ms_f32": lib_ms, "bound_ms_f32": bound_ms,
+                       "bound_by_f32": by, "bound_bytes_f32": f["nbytes"],
+                       **{f"{k}_f32": v for k, v in got.items()}})
+        print(f"timing {name} (f32): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
     return out
 
 
@@ -1026,6 +1176,30 @@ def bound_of(nbytes: int, flops: int, dtype) -> tuple:
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def decode_timing_case(pa, dev, dt) -> dict:
+    """Decode at the parity shape in ``dt``: the kernel, its plain
+    version and SDPA on pre-gathered K/V with the lengths' mask, and the
+    bytes and flops of its bound (each valid K/V token read once per KV
+    head, q read and out written once)."""
+    import torch.nn.functional as F
+
+    isz = torch.tensor([], dtype=dt).element_size()
+    q, kp, vp, bt, lens = decode_case(dt, dev)
+    s = max(DECODE_LENS)
+    kc, vc = gathered(kp, vp, bt, s)
+    mask = (torch.arange(s, device=dev)[None] < lens[:, None])[:, None, None]
+    qs = q[:, :, None]
+    ntok = sum(DECODE_LENS)
+    return dict(
+        fn=lambda: pa.paged_decode_attention(q, kp, vp, bt, lens),
+        plain=lambda: pa.paged_decode_attention_ref(q, kp, vp, bt, lens),
+        lib=lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
+                                                   enable_gqa=True),
+        nbytes=(2 * q.numel() * isz + ntok * HKV * D * isz * 2
+                + bt.numel() * 4 + lens.numel() * 4),
+        flops=4 * ntok * H * D)
+
+
 def prefill_timing_case(pa, dev, dt) -> dict:
     """The prefill window at the parity shape in ``dt``: the kernel, its
     plain version and SDPA on pre-gathered K/V with the window's mask,
@@ -1070,13 +1244,14 @@ def comm_timing(sc, rc, dev, launches, by_payload, errs) -> list:
     nbytes = x.numel() * x.element_size()
     # the variant the pallas stager picks for this payload (one PE's)
     variant = sc.choose_variant(x[0].numel() * x.element_size(), x.dtype)
-    rows = [dict(name="copy_blocked", source="symm_copy.cu",
+    rows = [dict(name="copy_blocked", source="symm_copy.cu", variant=variant,
                  fn=lambda: sc.copy_blocked(x, variant),
                  plain=lambda: sc.copy_blocked_ref(x, variant),
                  lib=lambda: x.clone(), nbytes=2 * nbytes, flops=0,
                  replaces="src/repro/kernels/symm_copy.py:101 (copy_blocked, "
                  "pl.pallas_call :126, body _copy_kernel :97)"),
             dict(name="combine_blocked", source="reduce_combine.cu",
+                 variant=rc.DEFAULT_VARIANT,
                  fn=lambda: rc.combine_blocked(x, y, "sum"),
                  plain=lambda: rc.combine_blocked_ref(x, y, "sum"),
                  lib=lambda: torch.add(x, y), nbytes=3 * nbytes,
@@ -1100,9 +1275,9 @@ def comm_timing(sc, rc, dev, launches, by_payload, errs) -> list:
             "bound_by": by, "library_ms": lib_ms,
             "bound_bytes": r["nbytes"], "bound_flops": r["flops"],
             "shape": list(STAGED), "dtype": "float32",
-            "copy_variant": variant, **got,
+            "variant": r["variant"], **got,
         })
-        print(f"timing {r['name']} (f32 {STAGED}, copy variant {variant}): "
+        print(f"timing {r['name']} (f32 {STAGED}, variant {r['variant']}): "
               f"kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
@@ -1243,19 +1418,20 @@ def main(argv=None) -> int:
     for src in sources:
         if src not in build.BUILD_LOG:
             print(f"{src}: library already built", flush=True)
-    print_resources(fa, pa, sc)
+    print_resources(fa, pa, sc, rc)
 
     errs = parity(pa, dev)
     flash_errs = flash_parity(fa, dev)
     flash_autograd_parity(fa, dev)
     comm_errs = comm_kernel_parity(sc, rc, dev)
     launches = serve_full(pa, dev)
+    launches_f32 = serve_full_f32(pa, dev)
     serve_smoke_streams(dev)
     comm_launches, comm_payloads = comm_phase(sc, rc, dev, args.comm_out)
     flash_launches = train_full(fa, dev)
     train_smoke_parity(dev)
     timing_floor(dev)
-    kernels = timing(pa, dev, launches, errs) + \
+    kernels = timing(pa, dev, launches, launches_f32, errs) + \
         comm_timing(sc, rc, dev, comm_launches, comm_payloads, comm_errs) + \
         [flash_timing(fa, dev, flash_launches, flash_errs)]
 

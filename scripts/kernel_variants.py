@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time source variants of the port's hand-written kernels on the card.
 
-    python3 scripts/kernel_variants.py [--group attention|decode|copy ...]
+    python3 scripts/kernel_variants.py [--group attention|decode|copy|
+                                         prefill_f32|combine ...]
                                         [--out FILE]
 
 Each variant is the checkout's ``src/repro_torch/kernels/csrc`` with
@@ -32,6 +33,21 @@ chip_smoke's shapes.  The groups:
     payloads of the comm path (8 x 64 KiB, 8 x 1 MiB, 8 x 8 MiB), each
     with the variant the stager picks, and checked bit for bit.
 
+  * ``prefill_f32`` — the f32 paged prefill body: one token group
+    instead of two, tiles of 32 tokens, four groups of 32-token tiles,
+    blocks in grid order, and the body this design replaced (a warp per
+    8 score rows, token by token) restored as it was; timed at
+    chip_smoke's f32 timing window and at 8 windows
+    of 64 rows at positions 900-963, each beside its max |kernel -
+    plain|;
+  * ``combine`` — the combine's vector pairs in flight per thread (2, 8),
+    16 blocks per SM, blocks of 256 threads 4 per SM (with 4 or 8 pairs),
+    read-once loads and streaming stores in place of plain ones, and the
+    design this one replaced (one pair a thread, a block of 256 per tile
+    up to 16 per SM); timed beside ``torch.add`` at chip_smoke's 8 x 8
+    MiB f32 payload in the default variant, ``vmem_8x128`` and
+    ``vmem_256x256``, checked bit for bit.
+
 Every variant runs twice, the second pass in reverse order.  It records
 why the committed kernels are as they are; the kernels' own numbers come
 from ``chip_smoke.py``.  It exits 1 if a variant does not build or the
@@ -55,6 +71,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 FLASH, PAGED, COPY = "flash_attention.cu", "paged_attention.cu", "symm_copy.cu"
+COMBINE = "reduce_combine.cu"
 
 # -- attention: the flash kernel and the bf16 paged prefill ------------
 SCORE_LOOP = "#pragma unroll 2\n    for (int d = 0; d < DP; d += 4) {"
@@ -96,6 +113,183 @@ SPIN = ("  __syncthreads();\n"
         "    }\n"
         "  __syncthreads();\n")
 MERGE_WEIGHT = "const float cj = j0 + u < jb ? exp2f(mj[u] - mb) : 0.f;"
+
+# -- prefill_f32: the f32 paged prefill body ---------------------------
+PF32 = ("constexpr int PF32_TOKENS = 64;", "constexpr int PF32_GROUPS = 2;")
+PF32_ENTRY = ("  return launch_prefill_f32(q, k, v, bt, starts, ntoks, out, B, C, H, "
+              "Hkv, D, P, n_slots,\n")
+ALLOW_SMEM = "template <typename K>\nint allow_smem("
+# the f32 prefill body this design replaced (a warp per 8 score rows,
+# token by token), as it was: the before of the same call
+TOKEN_LOOP_PREFILL = r'''constexpr int ROWS_PER_WARP = 8;
+
+
+// ---------------------------------------------------------------------
+// prefill window: grid (B, ceil(C / block_q), H_kv).  The block owns
+// window rows [q0, q0 + block_q) x the group of query heads of KV head
+// h: R = rows * group score rows, row r -> window row q0 + r / group,
+// head h * group + r % group.  Warp w owns rows w, w + WARPS, ...  Row
+// j sits at position start + j and sees the first start + j + 1 paged
+// tokens; rows j >= n_tok see none and come out zero.
+// ---------------------------------------------------------------------
+template <typename T, int NV>
+__global__ void __launch_bounds__(THREADS)
+paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int32_t* __restrict__ block_tables,
+                     const int32_t* __restrict__ starts, const int32_t* __restrict__ n_toks,
+                     T* __restrict__ out, int C, int H, int Hkv, int D, int P, int n_slots,
+                     int64_t k_page_stride, int64_t v_page_stride, float sm_scale,
+                     int block_q) {
+  const int b = blockIdx.x, q0 = blockIdx.y * block_q, h = blockIdx.z;
+  const int group = H / Hkv;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int R = min(block_q, C - q0) * group;
+  const int start = starts[b], ntok = n_toks[b];
+
+  float qr[ROWS_PER_WARP][NV], acc[ROWS_PER_WARP][NV], m[ROWS_PER_WARP],
+      l[ROWS_PER_WARP];
+  int lim[ROWS_PER_WARP];
+  int64_t off[ROWS_PER_WARP];
+  int walk = 0;                                   // tokens this warp visits
+#pragma unroll
+  for (int k2 = 0; k2 < ROWS_PER_WARP; ++k2) {
+    const int r = warp + WARPS * k2;
+    const int j = q0 + r / group, g = r % group;
+    lim[k2] = (r < R && j < ntok) ? start + j + 1 : 0;
+    walk = max(walk, lim[k2]);
+    off[k2] = (((int64_t)b * C + j) * H + (int64_t)h * group + g) * D;
+    m[k2] = NEG_INF;
+    l[k2] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      int d = lane + 32 * i;
+      qr[k2][i] = (lim[k2] > 0 && d < D) ? to_f32(q[off[k2] + d]) : 0.f;
+      acc[k2][i] = 0.f;
+    }
+  }
+  const int32_t* bt = block_tables + (int64_t)b * n_slots;
+  const int64_t tok_stride = (int64_t)Hkv * D;
+  walk = min(walk, n_slots * P);
+  // software pipeline: the next token's K/V loads are in flight while
+  // this token's scores and updates run
+  float kr[NV], vr[NV], kn[NV], vn[NV];
+  auto fetch = [&](int tok, float (&kx)[NV], float (&vx)[NV]) {
+    const int64_t page = bt[tok / P];
+    const int64_t in_page = (int64_t)(tok % P) * tok_stride + (int64_t)h * D;
+    load_token<T, NV>(k, v, page * k_page_stride + in_page, page * v_page_stride + in_page,
+                      lane, D, kx, vx);
+  };
+  if (walk > 0) fetch(0, kr, vr);
+  for (int tok = 0; tok < walk; ++tok) {
+    if (tok + 1 < walk) fetch(tok + 1, kn, vn);
+    float part[ROWS_PER_WARP];
+#pragma unroll
+    for (int k2 = 0; k2 < ROWS_PER_WARP; ++k2) {
+      part[k2] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) part[k2] = fmaf(qr[k2][i], kr[i], part[k2]);
+    }
+    warp_sum_rows<ROWS_PER_WARP>(part);
+#pragma unroll
+    for (int k2 = 0; k2 < ROWS_PER_WARP; ++k2) {
+      if (tok < lim[k2])                          // warp-uniform
+        online_token<NV>(part[k2] * sm_scale, vr, m[k2], l[k2], acc[k2]);
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      kr[i] = kn[i];
+      vr[i] = vn[i];
+    }
+  }
+#pragma unroll
+  for (int k2 = 0; k2 < ROWS_PER_WARP; ++k2) {
+    const int r = warp + WARPS * k2;
+    if (r >= R) continue;
+    const float inv = 1.f / fmaxf(l[k2], 1e-30f);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      int d = lane + 32 * i;
+      if (d < D) out[off[k2] + d] = from_f32<T>(acc[k2][i] * inv);
+    }
+  }
+}
+
+
+template <typename T, int NV>
+int launch_prefill_nv(const void* q, const void* k, const void* v, const void* bt,
+                      const void* starts, const void* ntoks, void* out, int B, int C, int H,
+                      int Hkv, int D, int P, int n_slots, long long kps, long long vps,
+                      float sc, int block_q, cudaStream_t st) {
+  dim3 grid(B, (C + block_q - 1) / block_q, Hkv);
+  paged_prefill_kernel<T, NV><<<grid, THREADS, 0, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)bt, (const int32_t*)starts,
+      (const int32_t*)ntoks, (T*)out, C, H, Hkv, D, P, n_slots, kps, vps, sc, block_q);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_prefill_token_loop(const void* q, const void* k, const void* v, const void* bt,
+                   const void* starts, const void* ntoks, void* out, int B, int C, int H,
+                   int Hkv, int D, int P, int n_slots, long long kps, long long vps,
+                   float sc, int block_q, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 32)
+    return launch_prefill_nv<T, 1>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                   n_slots, kps, vps, sc, block_q, st);
+  if (D <= 64)
+    return launch_prefill_nv<T, 2>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                   n_slots, kps, vps, sc, block_q, st);
+  if (D <= 128)
+    return launch_prefill_nv<T, 4>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                   n_slots, kps, vps, sc, block_q, st);
+  return launch_prefill_nv<T, 8>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                 n_slots, kps, vps, sc, block_q, st);
+}
+
+'''
+PF32_ORDER = ("  const int b = lin % gridDim.x, h = lin / gridDim.x % gridDim.z;\n"
+              "  const int q0 = (gridDim.y - 1 - lin / (gridDim.x * gridDim.z)) "
+              "* block_q;\n")
+TOKEN_LOOP_ENTRY = ("  return launch_prefill_token_loop<float>(q, k, v, bt, starts, "
+                    "ntoks, out, B, C, H, Hkv, D, P, n_slots,\n")
+
+# -- combine: the elementwise combine ----------------------------------
+UNROLL = "constexpr int UNROLL = 4; "
+COMBINE_THREADS = "constexpr int THREADS = 128;"
+COMBINE_LOADS = "          x[u] = pa[j];\n          y[u] = pb[j];\n"
+COMBINE_STORE = "          po[j] = r;\n"
+COMBINE_PACK = "// n_units units of VEC elements, in tiles of tile_units units"
+# read-once loads (ld.global.nc.L1::no_allocate) and streaming stores
+# (st.global.cs) for the 16-byte units, the design's first build
+STREAM_IO = r'''template <typename P>
+__device__ __forceinline__ P load_once(const P* p) {
+  if constexpr (sizeof(P) == 16) {
+    uint4 r;
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+    return *reinterpret_cast<P*>(&r);
+  } else {
+    return *p;
+  }
+}
+
+template <typename P>
+__device__ __forceinline__ void store_stream(P* p, const P& x) {
+  if constexpr (sizeof(P) == 16) {
+    const uint4 r = *reinterpret_cast<const uint4*>(&x);
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(r.x),
+                 "r"(r.y), "r"(r.z), "r"(r.w) : "memory");
+  } else {
+    *p = x;
+  }
+}
+
+'''
+
+
+def _unroll(n: int) -> str:
+    return f"constexpr int UNROLL = {n}; "
+
 
 # -- copy: the copy engine ---------------------------------------------
 PAYLOADS = [(8, 16 << 10), (8, 256 << 10), (8, 2 << 20)]      # f32 elems
@@ -214,6 +408,49 @@ VARIANTS = {
             {PAGED: [(MERGE_WEIGHT, MERGE_WEIGHT.replace(
                 "j0 + u < jb", "j0 + u < jb && j0 + u > 0"))]}, {}),
     },
+    "prefill_f32": {
+        "committed": ({}, {}),
+        "one_token_group": (
+            {PAGED: [(PF32[1], "constexpr int PF32_GROUPS = 1;")]},
+            {"PREFILL_GROUPS_F32": 1}),
+        "tiles_of_32_tokens": (
+            {PAGED: [(PF32[0], "constexpr int PF32_TOKENS = 32;")]},
+            {"PREFILL_TOKENS_F32": {64: 32, 128: 32, 256: 32}}),
+        "four_groups_of_32_tokens": (
+            {PAGED: [(PF32[0], "constexpr int PF32_TOKENS = 32;"),
+                     (PF32[1], "constexpr int PF32_GROUPS = 4;")]},
+            {"PREFILL_TOKENS_F32": {64: 32, 128: 32, 256: 32},
+             "PREFILL_GROUPS_F32": 4}),
+        "blocks_in_grid_order": (
+            {PAGED: [(PF32_ORDER, "  const int b = blockIdx.x, h = blockIdx.z, "
+                                  "q0 = blockIdx.y * block_q;\n")]}, {}),
+        "replaced_token_loop": (
+            {PAGED: [(ALLOW_SMEM, TOKEN_LOOP_PREFILL + ALLOW_SMEM),
+                     (PF32_ENTRY, TOKEN_LOOP_ENTRY)]}, {}),
+    },
+    "combine": {
+        "committed": ({}, {}),
+        "unroll_2": ({COMBINE: [(UNROLL, _unroll(2))]}, {"UNROLL": 2}),
+        "unroll_8": ({COMBINE: [(UNROLL, _unroll(8))]}, {"UNROLL": 8}),
+        "blocks_per_sm_16": ({}, {"BLOCKS_PER_SM": 16}),
+        "blocks_of_256_threads_4_per_sm": (
+            {COMBINE: [(COMBINE_THREADS, "constexpr int THREADS = 256;")]},
+            {"THREADS": 256, "BLOCKS_PER_SM": 4}),
+        "blocks_of_256_threads_4_per_sm_unroll_8": (
+            {COMBINE: [(COMBINE_THREADS, "constexpr int THREADS = 256;"),
+                       (UNROLL, _unroll(8))]},
+            {"THREADS": 256, "BLOCKS_PER_SM": 4, "UNROLL": 8}),
+        "read_once_loads_streaming_stores": (
+            {COMBINE: [(COMBINE_PACK, STREAM_IO + COMBINE_PACK),
+                       (COMBINE_LOADS, "          x[u] = load_once(pa + j);\n"
+                                       "          y[u] = load_once(pb + j);\n"),
+                       (COMBINE_STORE, "          store_stream(po + j, r);\n")]},
+            {}),
+        "replaced_one_pair_a_thread_grid_by_tiles": (
+            {COMBINE: [(COMBINE_THREADS, "constexpr int THREADS = 256;"),
+                       (UNROLL, _unroll(1))]},
+            {"THREADS": 256, "UNROLL": 1, "BLOCKS_PER_SM": 16}),
+    },
     "copy": {
         "committed": ({}, {}),
         "ring_4x32KiB": ({COPY: [(RING, _ring(32, 4))]}, {}),
@@ -229,7 +466,8 @@ VARIANTS = {
                                        (LAUNCH, VECTOR_LAUNCH)]}, {}),
     },
 }
-SOURCES = {"attention": (FLASH, PAGED), "decode": (PAGED,), "copy": (COPY,)}
+SOURCES = {"attention": (FLASH, PAGED), "decode": (PAGED,), "copy": (COPY,),
+           "prefill_f32": (PAGED,), "combine": (COMBINE,)}
 
 
 def variant_dir(csrc: Path, group: str, name: str) -> Path:
@@ -290,6 +528,48 @@ def decode_row(cs, pa, dev, data) -> tuple:
     return row, ok
 
 
+def prefill_f32_row(cs, pa, dev, data) -> tuple:
+    row, ok = {}, True
+    for tag, (args, ref) in data.items():
+        got = pa.paged_prefill_attention(*args)
+        torch.cuda.synchronize()
+        row[f"{tag}_err"] = (got - ref).abs().max().item()
+        ok &= row[f"{tag}_err"] <= cs.TOL[torch.float32]
+        row[f"{tag}_ms"] = cs.time_ms(
+            lambda: pa.paged_prefill_attention(*args), dev)
+    return row, ok
+
+
+def prefill_f32_data(cs, pa, dev) -> dict:
+    """chip_smoke's f32 timing window, and 8 windows of 64 rows at
+    positions 900-963 (every block walks 15 tiles)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pool, bt = cs.make_pool(gen, torch.float32, dev)
+    q = torch.randn((cs.B, cs.WINDOW, cs.H, cs.D), generator=gen, device=dev)
+    full = torch.full((cs.B,), cs.WINDOW, dtype=torch.int32, device=dev)
+    cases = {"timing": cs.prefill_case(torch.float32, dev),
+             "long": (q, pool[:, 0, 1], pool[:, 1, 1], bt, full * 0 + 900,
+                      full)}
+    return {tag: (args, pa.paged_prefill_attention_ref(*args))
+            for tag, args in cases.items()}
+
+
+def combine_row(cs, rc, dev, xs) -> tuple:
+    row, ok = {}, True
+    x, y = xs
+    for variant in (rc.DEFAULT_VARIANT, "vmem_8x128", "vmem_256x256"):
+        got = rc.combine_blocked(x, y, "sum", variant)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32),
+                           torch.add(x, y).view(torch.int32))
+        row[f"{variant}_bit_exact"] = same
+        ok &= same
+        row[f"{variant}_ms"] = cs.time_ms(
+            lambda: rc.combine_blocked(x, y, "sum", variant), dev)
+        row[f"{variant}_add_ms"] = cs.time_ms(lambda: torch.add(x, y), dev)
+    return row, ok
+
+
 def copy_row(cs, sc, dev, xs) -> tuple:
     row, ok = {}, True
     for x in xs:
@@ -318,6 +598,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import reduce_combine as rc
     from repro_torch.kernels import symm_copy as sc
 
     dev = torch.device("cuda", 0)
@@ -326,17 +607,26 @@ def main(argv=None) -> int:
     csrc = build.CSRC
     saved = {"bf16_tiles": fa.TILES[torch.bfloat16],
              "DECODE_TOKENS": pa.DECODE_TOKENS,
-             "STAGE_BYTES": sc.STAGE_BYTES}
+             "STAGE_BYTES": sc.STAGE_BYTES,
+             "PREFILL_TOKENS_F32": pa.PREFILL_TOKENS_F32,
+             "PREFILL_GROUPS_F32": pa.PREFILL_GROUPS_F32,
+             "UNROLL": rc.UNROLL, "BLOCKS_PER_SM": rc.BLOCKS_PER_SM,
+             "THREADS": rc.THREADS}
 
     def settle(settings: dict) -> None:
         s = {**saved, **settings}
         fa.TILES[torch.bfloat16] = s["bf16_tiles"]
         pa.DECODE_TOKENS = s["DECODE_TOKENS"]
         sc.STAGE_BYTES = s["STAGE_BYTES"]
+        pa.PREFILL_TOKENS_F32 = s["PREFILL_TOKENS_F32"]
+        pa.PREFILL_GROUPS_F32 = s["PREFILL_GROUPS_F32"]
+        rc.UNROLL, rc.BLOCKS_PER_SM = s["UNROLL"], s["BLOCKS_PER_SM"]
+        rc.THREADS = s["THREADS"]
         build._LOADED.clear()
         sc._FNS.clear()
+        rc._FNS.clear()
 
-    rows, rc = [], 0
+    rows, status = [], 0
     for group in args.group:
         if group == "attention":
             data = {"flash": {}, "prefill": None}
@@ -354,6 +644,12 @@ def main(argv=None) -> int:
                 case = make(torch.bfloat16, dev)
                 data[tag] = (case, pa.paged_decode_attention_ref(*case))
             measure = partial(decode_row, cs, pa, dev, data)
+        elif group == "prefill_f32":
+            data = prefill_f32_data(cs, pa, dev)
+            measure = partial(prefill_f32_row, cs, pa, dev, data)
+        elif group == "combine":
+            data = [torch.randn(cs.STAGED, device=dev) for _ in range(2)]
+            measure = partial(combine_row, cs, rc, dev, data)
         else:
             data = [torch.randn(shape, device=dev) for shape in PAYLOADS]
             measure = partial(copy_row, cs, sc, dev, data)
@@ -368,12 +664,12 @@ def main(argv=None) -> int:
                         build.load(source)
                 except RuntimeError as e:        # a variant nvcc refuses
                     row["build_error"] = str(e)[-2000:]
-                    rc = 1
+                    status = 1
                 else:
                     got, ok = measure()
                     row.update(got, checks_pass=ok)
                     if name == "committed" and not ok:
-                        rc = 1
+                        status = 1
                 rows.append(row)
                 print(json.dumps(row), flush=True)
         del data, measure
@@ -385,7 +681,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "rows": rows}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "kernel_variants", ignore_errors=True)
-    return rc
+    return status
 
 
 if __name__ == "__main__":

@@ -100,25 +100,6 @@ struct Strides {              // elements; the last dim is contiguous
   long long qb, qh, qt, kb, kh, ks, vb, vh, vs, ob, oh, ot;
 };
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
 // Stage ROWS rows of a tile, row r read from src + r * stride, as 16-byte
 // cp.async chunks into shared memory (row-major with LD elements per row,
 // or XOR-swizzled when SWZ); rows >= valid and columns >= D are zero.

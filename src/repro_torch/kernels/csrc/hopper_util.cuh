@@ -1,5 +1,6 @@
 // Small device helpers shared by the port's attention kernels (sm_90a):
 // 16-byte cp.async with zero fill, ldmatrix, the bf16 mma.sync tile,
+// half-warp reductions and the float4 dot of the f32 register tiles,
 // quad reductions over accumulator fragments and the XOR swizzle of a
 // shared-memory tile of 16-byte chunks.
 #pragma once
@@ -54,6 +55,28 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Max / sum over the 16 threads of a half-warp: the column threads that
+// hold one row of the f32 bodies' register tiles.
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// acc + a . b, four fused multiply-adds
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
 }
 
 // Max / sum over the 4 threads of a quad: the threads that hold one

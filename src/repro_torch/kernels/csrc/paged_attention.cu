@@ -5,9 +5,11 @@
 //                                                      paged_decode_split_kernel
 //                                                      + paged_decode_combine_kernel (f32)
 //   paged_prefill_attention  (body _prefill_kernel) -> paged_prefill_mma_kernel (bf16)
-//                                                      paged_prefill_kernel (f32)
-// The wrapper picks the body by dtype, a fixed dispatch: bf16 is the
-// serving path's dtype, f32 the smoke configs' parity path.
+//                                                      paged_prefill_f32_kernel (f32)
+// The wrapper picks the body by dtype, a fixed dispatch.  Both dtypes
+// serve: bf16 is the port's default, f32 the reference's only serving
+// dtype (src/repro/launch/serve.py builds every engine in f32) and
+// `python -m repro_torch.launch.serve --dtype f32`.
 //
 // Semantics are the reference's to the constant: scores scaled by
 // sm_scale, a softmax in f32, NEG_INF = -1e30 as the empty max, masked
@@ -56,7 +58,7 @@
 // the warps merge in shared memory and a second kernel merges the S
 // partials (the flash-decoding split).
 //
-// The prefill window in bf16 (the serving path's dtype) is a tile design
+// The prefill window in bf16 (the port's default dtype) is a tile design
 // on the tensor cores, so that each K/V byte is moved once per block and
 // the products stay off the critical path:
 //   * a block owns one (sequence, KV head) and up to 64 score rows —
@@ -76,10 +78,35 @@
 // 512, bf16) it takes 0.044 ms on an NVIDIA H100 80GB HBM3 at 700 W, 9%
 // of its byte bound: what holds it now is the latency of the dependent
 // chain of tiles per block, not bytes (PERF.md).
-// f32 keeps the first body, paged_prefill_kernel (a warp per 8 score
-// rows, token by token on the CUDA cores): it is the smoke configs'
-// parity path, not the serving path.  The wrapper picks the body by dtype, a fixed dispatch.
 //
+// The prefill window in f32 (paged_prefill_f32_kernel) is the same tile
+// walk on the CUDA cores: TF32 stays off, the reference computes in f32.
+// An f32 window is bound by operations (4 flops per visible (row, token,
+// dim) against 67 TFLOP/s; ~1.5x its byte time at the timing shape), so
+// what matters is FMAs per shared-memory load and the length of the
+// chain a block walks:
+//   * the grid and rows are the bf16 body's (choose_block): a block owns
+//     one (sequence, KV head) and up to 64 score rows; Q is staged once;
+//     the last q block of every (sequence, KV head), whose rows see the
+//     most context, is dispatched first;
+//   * PF32_GROUPS token groups of 128 threads split the context: group g
+//     walks tiles g, g + 2, ... of PF32_TOKENS (32 at D = 256) tokens
+//     with its own (m, l, acc), so a long context is two chains, not one;
+//     group 0 merges the others' state at the end;
+//   * each group gathers its tiles through the block table (page ids read
+//     by the kernel, the pool view read in place, any page size) by
+//     16-byte cp.async into its own two-buffer ring, K tile kt landing
+//     while P V of the group's previous tile runs and V tile kt while the
+//     scores of tile kt run, and stops at the last token its rows see;
+//   * S = Q K^T and O += P V are per-thread register tiles (8 rows x 4
+//     columns of scores, 8 rows x 4 NV dims of output; the flash f32
+//     body's layout): 12 shared loads per 128 FMAs for the scores, 6 for
+//     P V; the online softmax runs once per row per tile, each row masked
+//     at its own causal limit, p re-masked to 0;
+//   * 203,776 B of dynamic shared memory at D = 128 (217,088 at 256): one
+//     block of 8 warps per SM.
+// Its q and page rows must start and step 16-byte aligned, as for bf16.
+
 // C interface for ctypes: every function returns cudaGetLastError() of
 // its launches as an int (0 = success).
 
@@ -91,11 +118,16 @@ using namespace hopper;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int WARPS = 8;                 // warps per block, both kernels
+constexpr int WARPS = 8;                 // f32 decode: warps per block
 constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = 8;         // prefill score rows per warp
 constexpr int COMBINE_THREADS = 128;
-constexpr int PF_ROWS = 64;              // bf16 prefill: score rows per block
+constexpr int PF_ROWS = 64;              // prefill: score rows per block (both bodies)
+constexpr int PF32_TOKENS = 64;          // f32 prefill: context tokens per tile (D <= 128)
+constexpr int PF32_TOKENS_D256 = 32;     // ... at D > 128, so two groups fit 227 KB
+constexpr int PF32_GROUPS = 2;           // f32 prefill: token groups per block
+constexpr int PF32_GROUP_THREADS = 128;  // a group: 8 row groups x 16 column threads
+constexpr int PF32_PAD = 4;              // floats of padding per shared row
+constexpr int PF32_LDP = PF_ROWS + PF32_PAD;  // P is stored column-major
 constexpr int PF_TOKENS = 64;            // bf16 prefill: context tokens per tile
 constexpr int PF_THREADS = 128;          // 4 warps x 16 rows
 constexpr int VEC_BYTES = 16;
@@ -108,7 +140,7 @@ constexpr int DEC_ROWS = 8;              // the mma's N: query heads of a KV hea
 constexpr int PS_STRIDE = DEC_TOKENS + 8;  // P row stride: conflict-free B loads
 constexpr int MERGE_BATCH = 4;           // partitions a merging thread loads at once
 constexpr int DEC_BLOCKS_PER_SM = 3;     // what 64 KB of K/V stages (D = 128) allow
-static_assert(PF_ROWS == WARPS * ROWS_PER_WARP, "both prefill bodies take 64 rows");
+static_assert(PF_ROWS == 8 * PF32_GROUP_THREADS / 16, "f32 prefill: 8 rows per row group");
 static_assert(TOKEN_GROUPS == 1 || TOKEN_GROUPS == 2, "64 or 128 tokens per partition");
 static_assert(DEC_THREADS >= DEC_TOKENS, "a thread per token computes its offsets");
 
@@ -621,91 +653,256 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
-// prefill window: grid (B, ceil(C / block_q), H_kv).  The block owns
-// window rows [q0, q0 + block_q) x the group of query heads of KV head
-// h: R = rows * group score rows, row r -> window row q0 + r / group,
-// head h * group + r % group.  Warp w owns rows w, w + WARPS, ...  Row
-// j sits at position start + j and sees the first start + j + 1 paged
-// tokens; rows j >= n_tok see none and come out zero.
+// prefill window, f32, CUDA cores: grid (B, ceil(C / block_q), H_kv),
+// PF32_GROUPS token groups of 128 threads.  The block owns window rows
+// [q0, q0 + block_q) x the group of query heads of KV head h: R = rows x
+// group <= PF_ROWS score rows, row r -> window row q0 + r / group, head
+// h * group + r % group.  Row j sits at position start + j and sees the
+// first start + j + 1 paged tokens (within the table's reach); rows
+// j >= n_tok see none and come out zero.  Token group g walks context
+// tiles g, g + PF32_GROUPS, ... of T tokens with its own state; thread
+// (ty, tx) of a group holds score rows ty * 8 .. +8 of columns tx + 16 j
+// and output dims tx * 4 + 64 j.  DP: the head dim padded to 64 / 128 /
+// 256 (zeros past D in shared memory).
 // ---------------------------------------------------------------------
-template <typename T, int NV>
-__global__ void __launch_bounds__(THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int32_t* __restrict__ block_tables,
-                     const int32_t* __restrict__ starts, const int32_t* __restrict__ n_toks,
-                     T* __restrict__ out, int C, int H, int Hkv, int D, int P, int n_slots,
-                     int64_t k_page_stride, int64_t v_page_stride, float sm_scale,
-                     int block_q) {
-  const int b = blockIdx.x, q0 = blockIdx.y * block_q, h = blockIdx.z;
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(PF32_GROUP_THREADS) : "memory");
+}
+
+template <int DP, int T>
+__global__ void __launch_bounds__(PF32_GROUPS * PF32_GROUP_THREADS, 1)
+paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int32_t* __restrict__ block_tables,
+                         const int32_t* __restrict__ starts, const int32_t* __restrict__ n_toks,
+                         float* __restrict__ out, int C, int H, int Hkv, int D, int P,
+                         int n_slots, int64_t k_page_stride, int64_t v_page_stride,
+                         float sm_scale, int block_q) {
+  constexpr int LD = DP + PF32_PAD;
+  constexpr int TN = T / 16;             // score columns per thread
+  constexpr int NV = DP / 64;            // float4 output groups per thread
+  constexpr int CH = DP / 4;             // 16-byte chunks per row
+  constexpr int GT = PF32_GROUP_THREADS;
+  static_assert(2 * T >= PF_ROWS, "a group's K and V tiles hold its partial output");
+  extern __shared__ float4 smem4[];
+  __shared__ int lim_s[PF_ROWS];         // row r sees tokens < lim_s[r]
+  __shared__ int64_t qoff_s[PF_ROWS];    // row r's offset in q and out
+
+  // blocks are dispatched in linear order: the last q block of every
+  // (sequence, KV head), whose rows see the most context, goes first
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int b = lin % gridDim.x, h = lin / gridDim.x % gridDim.z;
+  const int q0 = (gridDim.y - 1 - lin / (gridDim.x * gridDim.z)) * block_q;
   const int group = H / Hkv;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int R = min(block_q, C - q0) * group;
   const int start = starts[b], ntok = n_toks[b];
+  const int tid = threadIdx.x, grp = tid / GT, gtid = tid % GT;
+  const int tx = gtid & 15, ty = gtid >> 4;
+  float* Qs = reinterpret_cast<float*>(smem4);                        // PF_ROWS x LD
+  float* Ks = Qs + PF_ROWS * LD + grp * (2 * T * LD + T * PF32_LDP);  // T x LD
+  float* Vs = Ks + T * LD;                                            // T x LD
+  float* Pt = Vs + T * LD;                                            // Pt[col][row]
 
-  float qr[ROWS_PER_WARP][NV], acc[ROWS_PER_WARP][NV], m[ROWS_PER_WARP],
-      l[ROWS_PER_WARP];
-  int lim[ROWS_PER_WARP];
-  int64_t off[ROWS_PER_WARP];
-  int walk = 0;                                   // tokens this warp visits
-#pragma unroll
-  for (int k2 = 0; k2 < ROWS_PER_WARP; ++k2) {
-    const int r = warp + WARPS * k2;
-    const int j = q0 + r / group, g = r % group;
-    lim[k2] = (r < R && j < ntok) ? start + j + 1 : 0;
-    walk = max(walk, lim[k2]);
-    off[k2] = (((int64_t)b * C + j) * H + (int64_t)h * group + g) * D;
-    m[k2] = NEG_INF;
-    l[k2] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      int d = lane + 32 * i;
-      qr[k2][i] = (lim[k2] > 0 && d < D) ? to_f32(q[off[k2] + d]) : 0.f;
-      acc[k2][i] = 0.f;
-    }
+  if (tid < PF_ROWS) {
+    const int j = q0 + tid / group, gg = tid % group;
+    lim_s[tid] = (tid < R && j < ntok) ? min(start + j + 1, n_slots * P) : 0;
+    qoff_s[tid] = (((int64_t)b * C + j) * H + (int64_t)h * group + gg) * D;
   }
+  __syncthreads();
+  // the last token any row of the block sees, within the table's reach
+  const int last_row = min(q0 + block_q, ntok) - 1;
+  const int walk = last_row >= q0 ? min(start + last_row + 1, n_slots * P) : 0;
+  const int n_tiles = (walk + T - 1) / T;
+
   const int32_t* bt = block_tables + (int64_t)b * n_slots;
   const int64_t tok_stride = (int64_t)Hkv * D;
-  walk = min(walk, n_slots * P);
-  // software pipeline: the next token's K/V loads are in flight while
-  // this token's scores and updates run
-  float kr[NV], vr[NV], kn[NV], vn[NV];
-  auto fetch = [&](int tok, float (&kx)[NV], float (&vx)[NV]) {
-    const int64_t page = bt[tok / P];
-    const int64_t in_page = (int64_t)(tok % P) * tok_stride + (int64_t)h * D;
-    load_token<T, NV>(k, v, page * k_page_stride + in_page, page * v_page_stride + in_page,
-                      lane, D, kx, vx);
+  // tile kt of K or V, gathered through the block table; tokens past the
+  // walk and dims past D are zero
+  auto stage = [&](float* dst, const float* src, int64_t page_stride, int kt) {
+#pragma unroll 4
+    for (int i = gtid; i < T * CH; i += GT) {
+      const int r = i / CH, d = (i % CH) * 4, t = kt * T + r;
+      const bool ok = t < walk && d < D;
+      int64_t off = 0;
+      if (ok)
+        off = (int64_t)bt[t / P] * page_stride + (int64_t)(t % P) * tok_stride +
+              (int64_t)h * D + d;
+      cp_async16(dst + r * LD + d, src + off, ok ? VEC_BYTES : 0);
+    }
   };
-  if (walk > 0) fetch(0, kr, vr);
-  for (int tok = 0; tok < walk; ++tok) {
-    if (tok + 1 < walk) fetch(tok + 1, kn, vn);
-    float part[ROWS_PER_WARP];
+  for (int i = tid; i < PF_ROWS * CH; i += PF32_GROUPS * GT) {
+    const int r = i / CH, d = (i % CH) * 4;
+    const bool ok = lim_s[r] > 0 && d < D;
+    cp_async16(Qs + r * LD + d, ok ? q + qoff_s[r] + d : q, ok ? VEC_BYTES : 0);
+  }
+  cp_async_commit();
+  // ring of each group: K tile kt lands while P V of tile kt - G runs,
+  // V tile kt while the scores of tile kt run
+  if (grp < n_tiles) stage(Ks, k, k_page_stride, grp);
+  cp_async_commit();
+  if (grp < n_tiles) stage(Vs, v, v_page_stride, grp);
+  cp_async_commit();
+  cp_async_wait<2>();                    // Q has landed
+  __syncthreads();
+
+  int lim[8];
+  int seen_max = 0;
 #pragma unroll
-    for (int k2 = 0; k2 < ROWS_PER_WARP; ++k2) {
-      part[k2] = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    lim[i] = lim_s[ty * 8 + i];
+    seen_max = max(seen_max, lim[i]);
+  }
+  // the last token any of this warp's 16 rows sees (warp-uniform skip)
+  const int warp_walk = __reduce_max_sync(0xffffffffu, seen_max);
+  const float scale2 = sm_scale * LOG2E;
+  float m[8], l[8], acc[8][4 * NV];      // m in base 2; l this thread's share
 #pragma unroll
-      for (int i = 0; i < NV; ++i) part[k2] = fmaf(qr[k2][i], kr[i], part[k2]);
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * NV; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int kt = grp; kt < n_tiles; kt += PF32_GROUPS) {
+    const int t0 = kt * T;
+    const bool seen = t0 < warp_walk;
+    cp_async_wait<1>();                  // K tile kt has landed
+    group_sync(grp);
+    if (seen) {
+      float s[8][TN];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+      const float* qrow = Qs + ty * 8 * LD;
+      const float* krow = Ks + tx * LD;
+#pragma unroll 2
+      for (int d = 0; d < DP; d += 4) {
+        float4 kv[TN];
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(krow + j * 16 * LD + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(qrow + i * LD + d);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) s[i][j] = dot4(qv, kv[j], s[i][j]);
+        }
+      }
+      // each row masked at its own causal limit, once per tile; p re-masked
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] = t0 + tx + 16 * j < lim[i] ? s[i][j] * scale2 : NEG_INF;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        const float m_new = fmaxf(m[i], half_warp_max(mx));
+        const float alpha = exp2f(m[i] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const float p = t0 + tx + 16 * j < lim[i] ? exp2f(s[i][j] - m_new) : 0.f;
+          psum += p;
+          Pt[(tx + 16 * j) * PF32_LDP + ty * 8 + i] = p;
+        }
+        l[i] = l[i] * alpha + psum;
+        m[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < 4 * NV; ++j) acc[i][j] *= alpha;
+      }
     }
-    warp_sum_rows<ROWS_PER_WARP>(part);
+    group_sync(grp);                     // K buffer free, P complete
+    if (kt + PF32_GROUPS < n_tiles) stage(Ks, k, k_page_stride, kt + PF32_GROUPS);
+    cp_async_commit();
+    cp_async_wait<1>();                  // V tile kt has landed
+    group_sync(grp);
+    if (seen) {
+#pragma unroll 4
+      for (int c = 0; c < T; ++c) {
+        const float4 pa = *reinterpret_cast<const float4*>(Pt + c * PF32_LDP + ty * 8);
+        const float4 pb = *reinterpret_cast<const float4*>(Pt + c * PF32_LDP + ty * 8 + 4);
+        const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
 #pragma unroll
-    for (int k2 = 0; k2 < ROWS_PER_WARP; ++k2) {
-      if (tok < lim[k2])                          // warp-uniform
-        online_token<NV>(part[k2] * sm_scale, vr, m[k2], l[k2], acc[k2]);
+        for (int j = 0; j < NV; ++j) {
+          const float4 vv = *reinterpret_cast<const float4*>(Vs + c * LD + tx * 4 + 64 * j);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][4 * j + 0] = fmaf(p[i], vv.x, acc[i][4 * j + 0]);
+            acc[i][4 * j + 1] = fmaf(p[i], vv.y, acc[i][4 * j + 1]);
+            acc[i][4 * j + 2] = fmaf(p[i], vv.z, acc[i][4 * j + 2]);
+            acc[i][4 * j + 3] = fmaf(p[i], vv.w, acc[i][4 * j + 3]);
+          }
+        }
+      }
     }
+    group_sync(grp);                     // V buffer and P free
+    if (kt + PF32_GROUPS < n_tiles) stage(Vs, v, v_page_stride, kt + PF32_GROUPS);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      kr[i] = kn[i];
-      vr[i] = vn[i];
+  for (int i = 0; i < 8; ++i) l[i] = half_warp_sum(l[i]);
+
+  if (PF32_GROUPS > 1) {
+    // groups 1.. leave (m, l, acc) in their own K/V and P buffers; group 0
+    // merges them into its state
+    __syncthreads();
+    if (grp > 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = ty * 8 + i;
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+          *reinterpret_cast<float4*>(Ks + r * LD + tx * 4 + 64 * j) =
+              make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
+                          acc[i][4 * j + 3]);
+        if (tx == 0) {
+          Pt[r] = m[i];
+          Pt[PF_ROWS + r] = l[i];
+        }
+      }
+    }
+    __syncthreads();
+    if (grp > 0) return;
+#pragma unroll
+    for (int g = 1; g < PF32_GROUPS; ++g) {
+      const float* Ko = Qs + PF_ROWS * LD + g * (2 * T * LD + T * PF32_LDP);
+      const float* Po = Ko + 2 * T * LD;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = ty * 8 + i;
+        const float mo = Po[r], M = fmaxf(m[i], mo);
+        const float c0 = exp2f(m[i] - M), c1 = exp2f(mo - M);
+        l[i] = c0 * l[i] + c1 * Po[PF_ROWS + r];
+        m[i] = M;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const float4 o = *reinterpret_cast<const float4*>(Ko + r * LD + tx * 4 + 64 * j);
+          acc[i][4 * j + 0] = fmaf(c1, o.x, c0 * acc[i][4 * j + 0]);
+          acc[i][4 * j + 1] = fmaf(c1, o.y, c0 * acc[i][4 * j + 1]);
+          acc[i][4 * j + 2] = fmaf(c1, o.z, c0 * acc[i][4 * j + 2]);
+          acc[i][4 * j + 3] = fmaf(c1, o.w, c0 * acc[i][4 * j + 3]);
+        }
+      }
     }
   }
+
+  // rows j >= n_tok (lim 0) are written as exact zeros
 #pragma unroll
-  for (int k2 = 0; k2 < ROWS_PER_WARP; ++k2) {
-    const int r = warp + WARPS * k2;
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty * 8 + i;
     if (r >= R) continue;
-    const float inv = 1.f / fmaxf(l[k2], 1e-30f);
+    const float inv = lim[i] > 0 ? 1.f / fmaxf(l[i], 1e-30f) : 0.f;
+    float* orow = out + qoff_s[r];
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      int d = lane + 32 * i;
-      if (d < D) out[off[k2] + d] = from_f32<T>(acc[k2][i] * inv);
+    for (int j = 0; j < NV; ++j) {
+      const int d = tx * 4 + 64 * j;
+      if (d < D)
+        *reinterpret_cast<float4*>(orow + d) =
+            make_float4(acc[i][4 * j] * inv, acc[i][4 * j + 1] * inv,
+                        acc[i][4 * j + 2] * inv, acc[i][4 * j + 3] * inv);
     }
   }
 }
@@ -980,35 +1177,56 @@ int launch_decode_bf16_dp(const void* q, const void* k, const void* v, const voi
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NV>
-int launch_prefill_nv(const void* q, const void* k, const void* v, const void* bt,
-                      const void* starts, const void* ntoks, void* out, int B, int C, int H,
-                      int Hkv, int D, int P, int n_slots, long long kps, long long vps,
-                      float sc, int block_q, cudaStream_t st) {
+constexpr int pf32_tokens(int dp) { return dp >= 256 ? PF32_TOKENS_D256 : PF32_TOKENS; }
+
+constexpr size_t prefill_f32_smem_bytes(int dp) {
+  return ((size_t)PF_ROWS * (dp + PF32_PAD) +
+          (size_t)PF32_GROUPS * pf32_tokens(dp) * (2 * (dp + PF32_PAD) + PF32_LDP)) *
+         sizeof(float);
+}
+
+template <int DP>
+int launch_prefill_f32_dp(const void* q, const void* k, const void* v, const void* bt,
+                          const void* starts, const void* ntoks, void* out, int B, int C,
+                          int H, int Hkv, int D, int P, int n_slots, long long kps,
+                          long long vps, float sc, int block_q, cudaStream_t st) {
+  const size_t bytes = prefill_f32_smem_bytes(DP);
+  auto kernel = paged_prefill_f32_kernel<DP, pf32_tokens(DP)>;
+  int err = allow_smem(kernel, bytes);
+  if (err) return err;
   dim3 grid(B, (C + block_q - 1) / block_q, Hkv);
-  paged_prefill_kernel<T, NV><<<grid, THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)bt, (const int32_t*)starts,
-      (const int32_t*)ntoks, (T*)out, C, H, Hkv, D, P, n_slots, kps, vps, sc, block_q);
+  kernel<<<grid, PF32_GROUPS * PF32_GROUP_THREADS, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int32_t*)bt,
+      (const int32_t*)starts, (const int32_t*)ntoks, (float*)out, C, H, Hkv, D, P, n_slots,
+      kps, vps, sc, block_q);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_prefill(const void* q, const void* k, const void* v, const void* bt,
-                   const void* starts, const void* ntoks, void* out, int B, int C, int H,
-                   int Hkv, int D, int P, int n_slots, long long kps, long long vps,
-                   float sc, int block_q, void* stream) {
+template <int DP>
+int prefill_f32_occupancy() {
+  auto kernel = paged_prefill_f32_kernel<DP, pf32_tokens(DP)>;
+  const size_t bytes = prefill_f32_smem_bytes(DP);
+  int blocks = 0;
+  if (allow_smem(kernel, bytes) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, PF32_GROUPS * PF32_GROUP_THREADS, bytes) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+int launch_prefill_f32(const void* q, const void* k, const void* v, const void* bt,
+                       const void* starts, const void* ntoks, void* out, int B, int C, int H,
+                       int Hkv, int D, int P, int n_slots, long long kps, long long vps,
+                       float sc, int block_q, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 32)
-    return launch_prefill_nv<T, 1>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
-                                   n_slots, kps, vps, sc, block_q, st);
   if (D <= 64)
-    return launch_prefill_nv<T, 2>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
-                                   n_slots, kps, vps, sc, block_q, st);
+    return launch_prefill_f32_dp<64>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                     n_slots, kps, vps, sc, block_q, st);
   if (D <= 128)
-    return launch_prefill_nv<T, 4>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
-                                   n_slots, kps, vps, sc, block_q, st);
-  return launch_prefill_nv<T, 8>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
-                                 n_slots, kps, vps, sc, block_q, st);
+    return launch_prefill_f32_dp<128>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                      n_slots, kps, vps, sc, block_q, st);
+  return launch_prefill_f32_dp<256>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
+                                    n_slots, kps, vps, sc, block_q, st);
 }
 
 constexpr size_t prefill_mma_smem_bytes(int dp) {
@@ -1055,7 +1273,7 @@ extern "C" {
 // Limits the wrappers check before a launch.
 int paged_attention_max_head_dim() { return 256; }
 int paged_attention_max_group() { return 8; }
-int paged_attention_max_window_rows() { return WARPS * ROWS_PER_WARP; }
+int paged_attention_max_window_rows() { return PF_ROWS; }
 // the bf16 prefill body: score rows per block, context tokens per tile,
 // and the 16-byte copies its q and page rows must be aligned for
 int paged_prefill_tile_rows_bf16() { return PF_ROWS; }
@@ -1064,6 +1282,21 @@ int paged_attention_vector_bytes() { return VEC_BYTES; }
 // dynamic shared memory of a bf16 prefill launch at head dim D
 int paged_prefill_smem_bytes_bf16(int D) {
   return (int)prefill_mma_smem_bytes(D <= 64 ? 64 : D <= 128 ? 128 : 256);
+}
+// the f32 prefill body at head dim D: context tokens per tile, token
+// groups per block, and the dynamic shared memory of a launch
+int paged_prefill_tile_tokens_f32(int D) {
+  return pf32_tokens(D <= 64 ? 64 : D <= 128 ? 128 : 256);
+}
+int paged_prefill_token_groups_f32() { return PF32_GROUPS; }
+int paged_prefill_smem_bytes_f32(int D) {
+  return (int)prefill_f32_smem_bytes(D <= 64 ? 64 : D <= 128 ? 128 : 256);
+}
+// blocks of the f32 prefill body resident per SM at head dim D (its
+// registers and shared memory), or -1 on an error
+int paged_prefill_blocks_per_sm_f32(int D) {
+  return D <= 64 ? prefill_f32_occupancy<64>() : D <= 128 ? prefill_f32_occupancy<128>()
+                                                          : prefill_f32_occupancy<256>();
 }
 
 // the bf16 decode body: tokens per partition, and its dynamic shared
@@ -1117,12 +1350,11 @@ int paged_prefill_attention_f32(const void* q, const void* k, const void* v,
                                 int n_slots, long long k_page_stride,
                                 long long v_page_stride, float sm_scale, int block_q,
                                 void* stream) {
-  return launch_prefill<float>(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P,
-                               n_slots, k_page_stride, v_page_stride, sm_scale, block_q,
-                               stream);
+  return launch_prefill_f32(q, k, v, bt, starts, ntoks, out, B, C, H, Hkv, D, P, n_slots,
+                            k_page_stride, v_page_stride, sm_scale, block_q, stream);
 }
 
-// bf16: paged_prefill_mma_kernel; f32: paged_prefill_kernel (fixed by dtype).
+// bf16: paged_prefill_mma_kernel (the f32 entry above: paged_prefill_f32_kernel).
 int paged_prefill_attention_bf16(const void* q, const void* k, const void* v,
                                  const void* bt, const void* starts,
                                  const void* ntoks, void* out, int B, int C, int H,

@@ -14,13 +14,24 @@
 //
 // What bounds it on an H100: bytes.  One operation per element against
 // 3 * itemsize bytes moved (two reads, one write), so the least time is
-// 3 * bytes / 3.35 TB/s.  The design: 16-byte vector loads and stores
-// when all three pointers are 16-byte aligned (4 f32 / 8 bf16 / 4 int32
-// per vector) and element by element otherwise; the variant's (r, c)
-// block is the tile one block combines per iteration of a grid-stride
-// loop, as in the copy engine; the ragged edge is masked, not padded
-// (the reference pads both operands into panels and slices the result
-// back).  One launch per call, on the caller's stream.
+// 3 * bytes / 3.35 TB/s, and what reaches it is enough bytes in flight on
+// every SM for the whole call.  The design:
+//   * the grid is sized to the card, not to the work: the wrapper gives
+//     at most BLOCKS_PER_SM blocks of 128 threads per SM, what the SM
+//     holds at once (one block per tile when the call has fewer tiles),
+//     and each block walks the variant's tiles grid-stride;
+//     the variant's (r, c) block is still the tile one block covers per
+//     iteration, as in the reference;
+//   * inside a tile each thread keeps UNROLL independent 16-byte vector
+//     pairs in flight (4 f32 / 8 bf16 / 4 int32 each), all loads of a
+//     step issued before its first store (read-once L1::no_allocate loads
+//     and streaming .cs stores measured no faster: PERF.md);
+//   * when a pointer is not 16-byte aligned the same walk runs element by
+//     element (the wrapper says which); the ragged tail past the last
+//     whole vector (< one vector) is combined by block 0, masked, not
+//     padded (the reference pads both operands into panels and slices the
+//     result back).
+// One launch per call, on the caller's stream.
 //
 // C interface for ctypes: every function returns cudaGetLastError() of
 // its launch as an int (0 = success).
@@ -31,7 +42,8 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
+constexpr int UNROLL = 4;               // 16-byte vector pairs in flight per thread
 
 enum { OP_SUM = 0, OP_PROD = 1, OP_MAX = 2, OP_MIN = 3 };
 
@@ -70,8 +82,9 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-// n_units units of VEC elements, in tiles of tile_units units; block 0
-// also combines the tail elements [n_units * VEC, n) one per thread.
+// n_units units of VEC elements, in tiles of tile_units units, tiles
+// grid-stride over the blocks; block 0 also combines the tail elements
+// [n_units * VEC, n), fewer than one unit, one per thread.
 template <typename T, int OP, int VEC>
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ o,
@@ -84,12 +97,26 @@ combine_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long lo = t * tile_units;
     const long long hi = lo + tile_units < n_units ? lo + tile_units : n_units;
-    for (long long i = lo + threadIdx.x; i < hi; i += THREADS) {
-      const P x = pa[i], y = pb[i];
-      P r;
+    for (long long i = lo + threadIdx.x; i < hi; i += (long long)THREADS * UNROLL) {
+      P x[UNROLL], y[UNROLL];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) r.v[k] = op_apply<OP>(x.v[k], y.v[k]);
-      po[i] = r;
+      for (int u = 0; u < UNROLL; ++u) {
+        const long long j = i + (long long)u * THREADS;
+        if (j < hi) {
+          x[u] = pa[j];
+          y[u] = pb[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const long long j = i + (long long)u * THREADS;
+        if (j < hi) {
+          P r;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) r.v[k] = op_apply<OP>(x[u].v[k], y[u].v[k]);
+          po[j] = r;
+        }
+      }
     }
   }
   if (blockIdx.x == 0) {
@@ -99,38 +126,36 @@ combine_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__
 }
 
 template <typename T, int OP>
-int launch_op(const T* a, const T* b, T* o, long long n, long long tile, int max_blocks,
+int launch_op(const T* a, const T* b, T* o, long long n, long long tile, int vec, int grid,
               cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);
-  const bool vec = ((uintptr_t)a % 16 == 0) && ((uintptr_t)b % 16 == 0) &&
-                   ((uintptr_t)o % 16 == 0);
+  if (vec) {
+    if ((uintptr_t)a % 16 || (uintptr_t)b % 16 || (uintptr_t)o % 16)
+      return (int)cudaErrorMisalignedAddress;
+  }
   const int v = vec ? VEC : 1;
   const long long n_units = n / v, tile_units = tile / v > 0 ? tile / v : 1;
-  long long grid = (n_units + tile_units - 1) / tile_units;
-  if (grid > max_blocks) grid = max_blocks;
-  if (grid < 1) grid = 1;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
   if (vec) {
-    combine_kernel<T, OP, VEC><<<(unsigned)grid, THREADS, 0, st>>>(a, b, o, n, n_units,
-                                                                  tile_units);
+    combine_kernel<T, OP, VEC><<<grid, THREADS, 0, st>>>(a, b, o, n, n_units, tile_units);
   } else {
-    combine_kernel<T, OP, 1><<<(unsigned)grid, THREADS, 0, st>>>(a, b, o, n, n_units,
-                                                                tile_units);
+    combine_kernel<T, OP, 1><<<grid, THREADS, 0, st>>>(a, b, o, n, n_units, tile_units);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* a, const void* b, void* o, long long n, int op, long long tile,
-           int max_blocks, void* stream) {
+           int vec, int grid, void* stream) {
   const T* pa = (const T*)a;
   const T* pb = (const T*)b;
   T* po = (T*)o;
   cudaStream_t st = (cudaStream_t)stream;
   switch (op) {
-    case OP_SUM: return launch_op<T, OP_SUM>(pa, pb, po, n, tile, max_blocks, st);
-    case OP_PROD: return launch_op<T, OP_PROD>(pa, pb, po, n, tile, max_blocks, st);
-    case OP_MAX: return launch_op<T, OP_MAX>(pa, pb, po, n, tile, max_blocks, st);
-    case OP_MIN: return launch_op<T, OP_MIN>(pa, pb, po, n, tile, max_blocks, st);
+    case OP_SUM: return launch_op<T, OP_SUM>(pa, pb, po, n, tile, vec, grid, st);
+    case OP_PROD: return launch_op<T, OP_PROD>(pa, pb, po, n, tile, vec, grid, st);
+    case OP_MAX: return launch_op<T, OP_MAX>(pa, pb, po, n, tile, vec, grid, st);
+    case OP_MIN: return launch_op<T, OP_MIN>(pa, pb, po, n, tile, vec, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -140,18 +165,32 @@ int launch(const void* a, const void* b, void* o, long long n, int op, long long
 extern "C" {
 
 // out[i] = op(a[i], b[i]) for i < n (n > 0); op 0 sum, 1 prod, 2 max,
-// 3 min; tile is the variant's block in elements.
+// 3 min; tile is the variant's block in elements; vec 1 takes the
+// 16-byte path (all three pointers 16-byte aligned, else an error), 0
+// the element path; grid the blocks to launch (combine_grid).
 int combine_f32(const void* a, const void* b, void* o, long long n, int op, long long tile,
-                int max_blocks, void* stream) {
-  return launch<float>(a, b, o, n, op, tile, max_blocks, stream);
+                int vec, int grid, void* stream) {
+  return launch<float>(a, b, o, n, op, tile, vec, grid, stream);
 }
 int combine_bf16(const void* a, const void* b, void* o, long long n, int op,
-                 long long tile, int max_blocks, void* stream) {
-  return launch<__nv_bfloat16>(a, b, o, n, op, tile, max_blocks, stream);
+                 long long tile, int vec, int grid, void* stream) {
+  return launch<__nv_bfloat16>(a, b, o, n, op, tile, vec, grid, stream);
 }
 int combine_i32(const void* a, const void* b, void* o, long long n, int op, long long tile,
-                int max_blocks, void* stream) {
-  return launch<int>(a, b, o, n, op, tile, max_blocks, stream);
+                int vec, int grid, void* stream) {
+  return launch<int>(a, b, o, n, op, tile, vec, grid, stream);
+}
+// what the wrapper sizes its grid by: threads per block and the vector
+// pairs each thread keeps in flight
+int combine_threads() { return THREADS; }
+int combine_unroll() { return UNROLL; }
+// blocks of the f32 sum kernel's 16-byte path resident per SM, or -1
+int combine_blocks_per_sm() {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, combine_kernel<float, OP_SUM, 4>, THREADS, 0) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // extern "C"

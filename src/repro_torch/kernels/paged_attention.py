@@ -37,21 +37,23 @@ by the table, so the host never reads ``lengths`` (no sync in the
 decode step); every block of a (sequence, KV head) writes its partial
 and takes a ticket, and the block that draws the last ticket merges the
 partials in partition order (the same bits on every call; no block
-waits for another).  f32 (the smoke configs' parity path) keeps the first design:
+waits for another).  f32 keeps the first design:
 each sequence's tokens split over ``decode_splits`` blocks of 8 warps,
 then a merge kernel.  Both take their scratch (partials, tickets) from
 a cache per device and stream (``_scratch``), not from a fresh
 allocation per call.
 
 The prefill window has one body per dtype, a fixed dispatch (no
-fallback): bf16, the serving path's dtype, walks the context in tiles
-of 64 tokens gathered through the block table with 16-byte
-``cp.async`` copies into a two-stage shared-memory ring and runs both
-products on the tensor cores (``mma.sync``), up to 64 score rows
-(window rows x the query heads of one KV head) per block; so its q and
-page rows must start and step 16-byte aligned, which the wrapper checks
-(``check_vectors``).  f32 (the smoke configs' parity path) keeps the
-token-by-token CUDA-core body, a warp per 8 score rows.
+fallback), both a tile walk over the context gathered through the block
+table with 16-byte ``cp.async`` copies, up to 64 score rows (window
+rows x the query heads of one KV head) per block; so q and page rows
+must start and step 16-byte aligned, which the wrapper checks
+(``check_vectors``).  bf16 (the port's default) runs both products on
+the tensor cores (``mma.sync``) over tiles of 64 tokens; f32 (the
+reference's serving dtype) on the CUDA cores as per-thread register
+tiles, the context split over ``PREFILL_GROUPS_F32`` token groups of
+128 threads, each walking every other tile of ``PREFILL_TOKENS_F32``
+tokens with its own softmax state, merged at the end.
 
 Semantics are the reference's to the constant: ``NEG_INF = -1e30``,
 p re-masked after the exp, denominator ``max(l, 1e-30)``, ``sm_scale =
@@ -62,7 +64,8 @@ The wrappers take the plain version for CPU tensors — only there.  For
 a CUDA tensor they launch the kernel or raise; nothing falls back.
 ``LAUNCHES`` counts kernel launches per wrapper (plain integers; one
 per call, the decode split/merge pair counting once), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels; ``LAUNCHES_BY_DTYPE``
+splits the same counts by the body's dtype.
 """
 from __future__ import annotations
 
@@ -84,6 +87,11 @@ MAX_GROUP = 8
 MAX_WINDOW_ROWS = 64
 # the bf16 prefill body's tile: score rows per block, context tokens
 PREFILL_TILE_BF16 = (64, 64)
+# the f32 prefill body: context tokens per tile by padded head dim, token
+# groups of 128 threads per block, floats of padding per shared row
+PREFILL_TOKENS_F32 = {64: 64, 128: 64, 256: 32}
+PREFILL_GROUPS_F32 = 2
+_F32_PAD = 4
 # f32 decode: blocks per SM the split aims at, and the most splits
 DECODE_BLOCKS_PER_SM = 4
 MAX_DECODE_SPLITS = 16
@@ -91,6 +99,8 @@ MAX_DECODE_SPLITS = 16
 DECODE_TOKENS = 128
 
 LAUNCHES = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
+LAUNCHES_BY_DTYPE = {(name, tag): 0 for name in LAUNCHES
+                     for tag in ("f32", "bf16")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -108,18 +118,41 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_DTYPE[(name, _SUFFIX[dtype])] += 1
+
+
+def padded_dim(d: int) -> int:
+    """The head dim a kernel body is built for: 64, 128 or 256."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def prefill_f32_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of an f32 prefill block at head dim ``d``:
+    Q (64 score rows), then per token group a K and a V tile and the
+    tile's probabilities (column-major, 64 + pad rows), rows padded by 4
+    floats."""
+    dp = padded_dim(d)
+    t = PREFILL_TOKENS_F32[dp]
+    ld, ldp = dp + _F32_PAD, MAX_WINDOW_ROWS + _F32_PAD
+    return 4 * (MAX_WINDOW_ROWS * ld + PREFILL_GROUPS_F32 * t * (2 * ld + ldp))
 
 
 def choose_block(window: int, group: int = 1) -> int:
     """Prefill-window q-block rows on the H100.
 
     A block takes up to 64 score rows (window rows x the GQA group): in
-    bf16 four 16-row tensor-core tiles, one per warp; in f32 8 warps of 8
-    rows.  At qwen3-8b's group of 4 that is 16 window rows, and at the
-    main path's window (B=8, C=64, H_kv=8) a grid of 8 x 4 x 8 = 256
-    blocks (80 KB of shared memory each in bf16, two per SM of the 132).
+    bf16 four 16-row tensor-core tiles, one per warp; in f32 8 row
+    groups of 8 rows in each of its token groups.  At qwen3-8b's group
+    of 4 that is 16 window rows, and at the main path's window (B=8,
+    C=64, H_kv=8) a grid of 8 x 4 x 8 = 256 blocks (80 KB of shared
+    memory each in bf16, two per SM of the 132; 199 KB in f32, one).
     Shorter windows take one block of exactly their rows."""
     return max(1, min(BLOCK_Q, int(window), MAX_WINDOW_ROWS // int(group)))
 
@@ -245,6 +278,18 @@ def _kernel(name: str, dtype: torch.dtype):
                 lib.paged_decode_partition_tokens_bf16() != DECODE_TOKENS:
             raise RuntimeError("kernel library's decode partition differs "
                                "from the wrapper's")
+        if full == "paged_prefill_attention_f32":
+            got = ({dp: lib.paged_prefill_tile_tokens_f32(dp)
+                    for dp in PREFILL_TOKENS_F32},
+                   lib.paged_prefill_token_groups_f32(),
+                   {dp: lib.paged_prefill_smem_bytes_f32(dp)
+                    for dp in PREFILL_TOKENS_F32})
+            want = (PREFILL_TOKENS_F32, PREFILL_GROUPS_F32,
+                    {dp: prefill_f32_smem_bytes(dp)
+                     for dp in PREFILL_TOKENS_F32})
+            if got != want:
+                raise RuntimeError(f"kernel library's f32 prefill tiles "
+                                   f"{got} differ from the wrapper's {want}")
     return fn
 
 
@@ -341,7 +386,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             err = fn(*ins, *_partials(q.device, stream, b * h * splits, d),
                      out.data_ptr(), *dims, splits, stream)
     _raise_on(err, "paged_decode_attention")
-    LAUNCHES["paged_decode_attention"] += 1
+    _count("paged_decode_attention", q.dtype)
     return out
 
 
@@ -355,16 +400,16 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     and attends to the first ``start[b] + j + 1`` paged tokens (the
     window's K/V already written); rows ``j >= n_tok[b]`` are exactly
     zero.  Pages as in :func:`paged_decode_attention`; the q-block rows
-    come from :func:`choose_block`.  bf16 launches the tensor-core body
-    (q and page rows 16-byte aligned, else ``ValueError``), f32 the
-    CUDA-core one."""
+    come from :func:`choose_block`.  bf16 launches the tensor-core body,
+    f32 the CUDA-core one; both stage q and page rows in 16-byte copies
+    (rows not 16-byte aligned: ``ValueError``)."""
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
                                            start, n_tok)
     b, h, hkv, d, page_tokens, n_slots = _check(
         q, k_pages, v_pages, block_tables, (start, n_tok), q_dims=4)
-    if q.dtype == torch.bfloat16:
-        check_vectors("bf16 prefill", q=q, k_pages=k_pages, v_pages=v_pages)
+    check_vectors(f"{_SUFFIX[q.dtype]} prefill", q=q, k_pages=k_pages,
+                  v_pages=v_pages)
     c = q.shape[1]
     sm_scale = 1.0 / math.sqrt(d)
     block_q = choose_block(c, h // hkv)
@@ -378,5 +423,5 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                  k_pages.stride(0), v_pages.stride(0), sm_scale, block_q,
                  stream)
     _raise_on(err, "paged_prefill_attention")
-    LAUNCHES["paged_prefill_attention"] += 1
+    _count("paged_prefill_attention", q.dtype)
     return out

@@ -117,20 +117,19 @@ def _write_pages(pool, li, k, v, page, slot):
     pool[:, 1, li].index_put_(idx, v.to(pool.dtype))
 
 
-def make_decode_step(cfg, scfg: ServeConfig):
-    """One decode tick: (params, pool, tokens, pos, bt, lens, samp) ->
-    (next_tokens, pool).
+def _make_decode_forward(cfg, scfg: ServeConfig):
+    """The decode trunk: (params, pool, tokens, pos, bt, lens) -> (x,
+    pool), ``x`` (b, d_model) the final-norm hidden state of each slot's
+    token.
 
     tokens (b,) input token per slot; pos (b,) its position; bt
     (b, table_slots) int32 block tables; lens (b,) int32 valid tokens
-    AFTER this write (pos+1 for live slots, 0 for empty ones); samp the
-    ``sampling.batch_state`` arrays.
-    """
+    AFTER this write (pos+1 for live slots, 0 for empty ones)."""
     _check_supported(cfg, scfg)
     P = scfg.page_tokens
     cd = scfg.dtype
 
-    def step(params, pool, tokens, pos, bt, lens, samp):
+    def forward(params, pool, tokens, pos, bt, lens):
         x = emb.embed_lookup(params["embed"], tokens[:, None], cd)[:, 0]
         b = x.shape[0]
         page = bt.gather(1, (pos // P)[:, None].long())[:, 0]
@@ -146,7 +145,20 @@ def make_decode_step(cfg, scfg: ServeConfig):
             x = x + o.reshape(b, -1).to(cd) @ p["attn"]["wo"].to(cd)
             x = x + lm._decode_mlp(p["mlp"], rmsnorm(p["ln2"]["scale"], x),
                                    cfg)
-        x = rmsnorm(params["ln_f"]["scale"], x)
+        return rmsnorm(params["ln_f"]["scale"], x), pool
+
+    return forward
+
+
+def make_decode_step(cfg, scfg: ServeConfig):
+    """One decode tick: (params, pool, tokens, pos, bt, lens, samp) ->
+    (next_tokens, pool): the decode trunk, then the sampler (``samp``
+    the ``sampling.batch_state`` arrays)."""
+    forward = _make_decode_forward(cfg, scfg)
+    cd = scfg.dtype
+
+    def step(params, pool, tokens, pos, bt, lens, samp):
+        x, pool = forward(params, pool, tokens, pos, bt, lens)
         head = params["embed"] if cfg.tie_embeddings else params["head"]
         logits = emb.lm_head_logits(head, x.to(cd))
         nxt = sampling.sample_tokens(logits, samp, pos + 1,

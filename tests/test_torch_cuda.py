@@ -217,6 +217,36 @@ PREFILL_EDGE_CASES = {
 }
 PREFILL_GPU_CASES = {**WINDOW_CASES, **PREFILL_EDGE_CASES}
 
+# the edges of the f32 prefill body (token groups walking every other
+# tile of 64 tokens, 32 at D = 256): page sizes 5 and 48 that do not
+# divide the tile; an empty context (n_tok 0, and a window from position
+# 0); rows past the table's n_slots * P reach (clamped); GQA groups 1, 4
+# and 8; head dims 16 and 32 (the smoke configs), 128 (qwen3-8b) and 256;
+# windows shorter than choose_block's rows; contexts long enough for both
+# token groups to walk several tiles
+F32_PREFILL_CASES = {
+    "page_5_d128_g4": lambda: _window_case(
+        70, 2, 16, 32, 8, 128, 5, 60, start=[201, 7], n_tok=[16, 11]),
+    "page_48_d128_g4": lambda: _window_case(
+        71, 2, 16, 8, 2, 128, 48, 8, start=[300, 30], n_tok=[16, 9]),
+    "empty_context_d32": lambda: _window_case(
+        72, 3, 8, 8, 2, 32, 16, 4, start=[0, 0, 9], n_tok=[0, 5, 0]),
+    "rows_at_the_table_clamp": lambda: _window_case(
+        73, 2, 16, 8, 2, 128, 16, 4, start=[60, 48], n_tok=[16, 16]),
+    "group_1_d128": lambda: _window_case(
+        74, 2, 32, 4, 4, 128, 16, 32, start=[400, 3], n_tok=[32, 20]),
+    "group_8_d256_long": lambda: _window_case(
+        75, 2, 8, 8, 1, 256, 16, 48, start=[700, 61], n_tok=[8, 5]),
+    "d16_smoke_qwen": lambda: _window_case(
+        76, 3, 3, 4, 2, 16, 4, 8, start=[0, 5, 29], n_tok=[3, 2, 0]),
+    "d32_smoke_gemma": lambda: _window_case(
+        77, 2, 3, 4, 1, 32, 4, 8, start=[1, 28], n_tok=[3, 3]),
+    "window_below_the_block_g4": lambda: _window_case(
+        78, 3, 3, 32, 8, 128, 16, 16, start=[130, 0, 255], n_tok=[3, 1, 2]),
+    "qwen_width_to_1024": lambda: _window_case(
+        79, 2, 64, 32, 8, 128, 16, 64, start=[960, 333], n_tok=[64, 50]),
+}
+
 
 # ======================================================================
 # flash attention: q (B, H, T, D), k/v (B, H_kv, S, D)
@@ -336,6 +366,59 @@ def test_cuda_prefill_kernel_matches_plain(cuda_device, case, dt):
     pad = torch.arange(q.shape[1], device=cuda_device)[None] \
         >= n_tok[:, None]
     assert torch.all(got[pad] == 0)
+
+
+@pytest.mark.parametrize("case", sorted(F32_PREFILL_CASES))
+def test_cuda_prefill_f32_body_matches_plain(cuda_device, case):
+    """The f32 prefill body (CUDA cores, two token groups merged at the
+    end) at the edges of its tiles; padded and inactive rows exactly 0,
+    and only the f32 body's counter moves."""
+    q, kp, vp, bt, start, n_tok = _tensors(F32_PREFILL_CASES[case](), "f32",
+                                           cuda_device)
+    n = dict(pa.LAUNCHES_BY_DTYPE)
+    got = pa.paged_prefill_attention(q, kp, vp, bt, start, n_tok)
+    n[("paged_prefill_attention", "f32")] += 1
+    assert pa.LAUNCHES_BY_DTYPE == n
+    want = pa.paged_prefill_attention_ref(q, kp, vp, bt, start, n_tok)
+    torch.cuda.synchronize()
+    _close(got.cpu(), want.cpu().numpy(), "f32", case)
+    pad = torch.arange(q.shape[1], device=cuda_device)[None] \
+        >= n_tok[:, None]
+    assert torch.all(got[pad] == 0)
+
+
+def test_cuda_prefill_f32_reads_strided_pool_views(cuda_device):
+    """The engine hands the f32 body pool[:, 0|1, li] of a (n_pages, 2,
+    layers, P, H_kv, D) pool: pages a whole layer stack apart."""
+    rng = np.random.RandomState(80)
+    b, c, h, hkv, d, p, slots, layers = 3, 16, 32, 8, 128, 16, 16, 3
+    n_pages = b * slots + 1
+    q = _to_torch(rng.randn(b, c, h, d)).to(cuda_device)
+    pool = _to_torch(rng.randn(n_pages, 2, layers, p, hkv, d)).to(cuda_device)
+    bt = _i32(rng.permutation(np.arange(1, n_pages)).reshape(b, slots)) \
+        .to(cuda_device)
+    start = _i32([100, 0, 233]).to(cuda_device)
+    n_tok = _i32([16, 7, 0]).to(cuda_device)
+    kp, vp = pool[:, 0, 1], pool[:, 1, 1]
+    assert not kp.is_contiguous()
+    got = pa.paged_prefill_attention(q, kp, vp, bt, start, n_tok)
+    want = pa.paged_prefill_attention_ref(q, kp, vp, bt, start, n_tok)
+    torch.cuda.synchronize()
+    _close(got.cpu(), want.cpu().numpy(), "f32")
+    assert float(got[2].abs().max()) == 0.0
+
+
+def test_cuda_prefill_f32_raises_on_misaligned_rows(cuda_device):
+    """The f32 body stages rows in 16-byte copies too: a pool off a
+    16-byte boundary raises before any launch."""
+    q, kp, vp, bt, start, n_tok = _tensors(WINDOW_CASES["gqa_4_1"](), "f32",
+                                           cuda_device)
+    n = dict(pa.LAUNCHES)
+    pool = torch.zeros(kp.numel() + 1, device=cuda_device)
+    odd = pool[1:].view(kp.shape)                 # starts 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_prefill_attention(q, odd, vp, bt, start, n_tok)
+    assert dict(pa.LAUNCHES) == n
 
 
 def test_cuda_decode_kernel_same_bits_on_every_call(cuda_device):
@@ -516,6 +599,38 @@ def test_cuda_combine_kernel_matches_plain(cuda_device, op, dtype):
             want = rc.combine_blocked_ref(x, y, op)
             torch.cuda.synchronize()
             assert _same_bits(got, want), (op, shape)
+
+
+# lengths around the combine's step (128 threads x 4 vector pairs):
+# below one vector, one short of a step, a step and a few, no multiple
+COMBINE_LENGTHS = [3, 7, 1023, 4095, 4096 * 3 + 5, 65536 + 13, 1 << 20]
+
+
+@pytest.mark.parametrize("variant", sorted(rc.VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+def test_cuda_combine_edges_bit_exact(cuda_device, dtype, variant):
+    """Every op, bit for bit, at lengths that are no multiple of the
+    vectors in flight, below one vector, and 4 bytes off a 16-byte
+    boundary (the element path), with NaN in a, in b and in both."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    for n in COMBINE_LENGTHS:
+        a = torch.randn(n + 4, generator=g) * 3
+        b = torch.randn(n + 4, generator=g) * 3
+        if dtype == torch.int32:
+            a, b = (a * 1000).to(dtype), (b * 1000).to(dtype)
+        else:
+            a[::5] = float("nan")
+            b[::7] = float("nan")
+            a, b = a.to(dtype), b.to(dtype)
+        a, b = a.to(cuda_device), b.to(cuda_device)
+        shift = 4 // a.element_size()                 # 4 bytes
+        for x, y in ((a[:n], b[:n]), (a[shift:shift + n], b[shift:shift + n])):
+            for op in ("sum", "prod", "max", "min"):
+                got = rc.combine_blocked(x, y, op, variant)
+                want = rc.combine_blocked_ref(x, y, op, variant)
+                torch.cuda.synchronize()
+                assert _same_bits(got, want), (op, n, x.data_ptr() % 16)
 
 
 def test_cuda_combine_raises_on_what_it_does_not_take(cuda_device):

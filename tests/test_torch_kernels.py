@@ -407,6 +407,71 @@ def test_combine_raises_on_the_reference_mismatches():
                                 bad[2], interpret=True)
 
 
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+def test_combine_grid_is_sized_to_the_card(dtype, sms):
+    """BLOCKS_PER_SM blocks per SM (a multiple of the SM count) once the
+    call has that many of the variant's tiles, one per tile below that,
+    and one block for a call shorter than one vector."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    cap = rc.BLOCKS_PER_SM * sms
+    for variant, (r, c) in rc.VARIANTS.items():
+        for vector in (True, False):
+            vec = 16 // isz if vector else 1
+            for n in (1, 3, 7, 1023, 4097, 1 << 20, 8 * (2 << 20)):
+                grid = rc.combine_grid(n, isz, variant, vector, sms)
+                tiles = -(-(n // vec) // max(r * c // vec, 1))
+                assert grid == max(1, min(tiles, cap)), (variant, n, vector)
+                if tiles >= cap:
+                    assert grid % sms == 0
+    # on an H100: the timing payload's 1024 tiles (8 x 8 MiB f32, the
+    # default variant) fit the card at once, one block each; the
+    # 16384 tiles of vmem_8x128 take the card's 8 x 132 blocks
+    assert rc.combine_grid(8 * (2 << 20), 4, rc.DEFAULT_VARIANT, True,
+                           132) == 1024
+    assert rc.combine_grid(8 * (2 << 20), 4, "vmem_8x128", True, 132) \
+        == rc.BLOCKS_PER_SM * 132 == 1056
+
+
+@pytest.mark.parametrize("n,vector,variant", [
+    (3, True, "vmem_8x128"), (4096 * 3 + 5, True, "vmem_8x128"),
+    (65536 + 13, True, "vmem_64x256"), (70001, False, "vmem_64x256"),
+    (1 << 18, True, "vmem_256x256")])
+def test_combine_walk_covers_every_element_once(n, vector, variant):
+    """The kernel's walk, modelled: tiles grid-stride over the blocks,
+    each thread UNROLL vectors THREADS apart per step inside a tile, and
+    block 0 the tail of fewer than one vector; every element once."""
+    vec = 4 if vector else 1
+    r, c = rc.VARIANTS[variant]
+    tile_units = max(r * c // vec, 1)
+    n_units = n // vec
+    grid = rc.combine_grid(n, 4, variant, vector, 132)
+    seen = np.zeros(n, np.int64)
+    step = rc.THREADS * rc.UNROLL
+    tids = np.arange(rc.THREADS)
+    for blk in range(grid):
+        for t in range(blk, -(-n_units // tile_units), grid):
+            lo, hi = t * tile_units, min((t + 1) * tile_units, n_units)
+            for i in range(lo, hi, step):
+                for u in range(rc.UNROLL):
+                    j = i + tids + u * rc.THREADS
+                    for e in range(vec):
+                        np.add.at(seen, j[j < hi] * vec + e, 1)
+    tail = n_units * vec + tids
+    np.add.at(seen, tail[tail < n], 1)
+    assert (seen == 1).all()
+
+
+def test_combine_library_step_checked(monkeypatch):
+    """The wrapper holds the library's threads and unroll to its own."""
+    lib = _FakeLib(combine_threads=rc.THREADS, combine_unroll=rc.UNROLL + 1)
+    monkeypatch.setattr(rc.build, "load", lambda source: lib)
+    monkeypatch.setattr(rc, "_FNS", {})
+    with pytest.raises(RuntimeError, match="unroll"):
+        rc._kernel(torch.float32)
+
+
 def test_copy_and_combine_route_by_device(monkeypatch):
     """CPU tensors take the plain versions without building or counting;
     any other device goes to the kernel path, which raises for a
@@ -590,7 +655,8 @@ class _FakeLib:
 
     def __getattr__(self, name):
         if name in self._values:
-            return lambda *a: self._values[name]
+            v = self._values[name]
+            return v if callable(v) else (lambda *a: v)
         return self._fns.setdefault(name, _FakeFn())
 
 
@@ -638,6 +704,82 @@ def test_paged_library_tile_checked(monkeypatch, tile):
     else:
         with pytest.raises(RuntimeError, match="limits"):
             pa._kernel("paged_prefill_attention", torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_f32_prefill_tile_fits_a_block(d):
+    """The f32 prefill body's dynamic shared memory (Q, then per token
+    group a K and a V tile and the tile's P) fits one block beside its
+    static row tables (64 ints + 64 offsets), and each group's K and V
+    tiles can hold its partial output (64 score rows) for the merge."""
+    dp = pa.padded_dim(d)
+    assert dp >= d and dp in pa.PREFILL_TOKENS_F32
+    tokens = pa.PREFILL_TOKENS_F32[dp]
+    assert pa.prefill_f32_smem_bytes(d) + pa.MAX_WINDOW_ROWS * (4 + 8) \
+        <= 232448
+    assert 2 * tokens >= pa.MAX_WINDOW_ROWS and tokens % 16 == 0
+    assert pa.PREFILL_GROUPS_F32 * 128 <= 1024
+
+
+def test_f32_prefill_smem_pinned():
+    """The sizes chip_smoke reports beside the library's own: 203,776 B
+    at qwen3-8b's head dim, one block of 8 warps per SM."""
+    assert {d: pa.prefill_f32_smem_bytes(d) for d in (16, 64, 128, 256)} \
+        == {16: 121856, 64: 121856, 128: 203776, 256: 217088}
+    assert 2 * pa.prefill_f32_smem_bytes(128) > 232448
+
+
+def _paged_lib(**over):
+    vals = dict(paged_attention_max_head_dim=256,
+                paged_attention_max_group=8,
+                paged_attention_max_window_rows=64,
+                paged_attention_vector_bytes=16,
+                paged_prefill_tile_rows_bf16=64,
+                paged_prefill_tile_tokens_bf16=64,
+                paged_prefill_tile_tokens_f32=lambda dp:
+                pa.PREFILL_TOKENS_F32[dp],
+                paged_prefill_token_groups_f32=pa.PREFILL_GROUPS_F32,
+                paged_prefill_smem_bytes_f32=pa.prefill_f32_smem_bytes)
+    return _FakeLib(**{**vals, **over})
+
+
+@pytest.mark.parametrize("over", [
+    {}, {"paged_prefill_token_groups_f32": 1},
+    {"paged_prefill_tile_tokens_f32": lambda dp: 32},
+    {"paged_prefill_smem_bytes_f32": lambda dp: 1024}],
+    ids=["same", "groups", "tokens", "smem"])
+def test_paged_library_f32_tiles_checked(monkeypatch, over):
+    """The wrapper holds the f32 prefill library's tiles, token groups and
+    shared memory to its own at load, and raises where they differ."""
+    lib = _paged_lib(**over)
+    monkeypatch.setattr(pa.build, "load", lambda source: lib)
+    if not over:
+        fn = pa._kernel("paged_prefill_attention", torch.float32)
+        assert fn is lib.paged_prefill_attention_f32
+    else:
+        with pytest.raises(RuntimeError, match="f32 prefill tiles"):
+            pa._kernel("paged_prefill_attention", torch.float32)
+
+
+def test_launches_counted_by_dtype():
+    """Every wrapper's launches are also kept by the body's dtype, and
+    reset_launches clears both counts."""
+    assert set(pa.LAUNCHES_BY_DTYPE) == {(n, t) for n in pa.LAUNCHES
+                                         for t in ("f32", "bf16")}
+    saved = dict(pa.LAUNCHES), dict(pa.LAUNCHES_BY_DTYPE)
+    try:
+        pa._count("paged_prefill_attention", torch.float32)
+        pa._count("paged_decode_attention", torch.bfloat16)
+        assert pa.LAUNCHES_BY_DTYPE[("paged_prefill_attention", "f32")] \
+            == saved[1][("paged_prefill_attention", "f32")] + 1
+        assert pa.LAUNCHES["paged_decode_attention"] \
+            == saved[0]["paged_decode_attention"] + 1
+        pa.reset_launches()
+        assert not any(pa.LAUNCHES.values())
+        assert not any(pa.LAUNCHES_BY_DTYPE.values())
+    finally:
+        pa.LAUNCHES.update(saved[0])
+        pa.LAUNCHES_BY_DTYPE.update(saved[1])
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
