@@ -14,14 +14,16 @@ caught):
                spills) and the dynamic shared memory of the redesigned
                kernels (attention at their path's head dim, the copy
                engine's ring), and the blocks per SM of the f32 prefill
-               body and the combine kernel;
+               and decode bodies and the combine kernel (no block of an
+               f32 body fitting an SM fails);
   3. parity  — each kernel against its plain PyTorch version on the
                card: the paged-attention kernels in bf16 and f32 at the
                serving path's full width (H=32, H_kv=8, D=128, P=16), on
                strided per-layer views of a page pool as the engine
                passes them, decode also at 8 sequences of 4096 tokens
                (there also held to a share of the output's scale) and
-               twice (two calls must give the same bits); the copy
+               twice (two calls must give the same bits), f32 decode
+               within 1e-5; the copy
                engine bit for bit on random bits
                (NaNs included) in f32/bf16/int8/int32 at the ring chunk
                of a 64 MiB-per-PE psum (8 PEs x 8 MiB), ragged and
@@ -85,8 +87,8 @@ caught):
                phase-3 shapes (the flash kernel at the training shape, in
                f32 as the trainer runs it and in bf16; paged decode and
                prefill in bf16, the port's default serving dtype, and in
-               f32 beside it; bf16 decode also at 8 sequences of 4096
-               tokens, SDPA on the gathered K/V its yardstick; the copy
+               f32 beside it; decode in both dtypes also at 8 sequences
+               of 4096 tokens, SDPA on the gathered K/V its yardstick; the copy
                engine and ``clone``
                also at the staged payloads 8 x 64 KiB and 8 x 1 MiB, and
                at every payload the comm phase staged, summed as launches
@@ -145,6 +147,9 @@ LONG_LEN, LONG_SLOTS = 4096, 256
 # sides and both accumulate in f32, so the gap is the final bf16
 # rounding of outputs |o| < 4 (one bf16 ulp there is <= 1.6e-2)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# decode in f32 is held closer: its sums are over one token's head dim
+# and one partition's tokens, merged in partition order
+DECODE_TOL = {**TOL, torch.float32: 1e-5}
 # at 4096 tokens the outputs shrink to |o| ~ 0.1 at most, under TOL; there
 # max |kernel - plain| is also held to this share of max |plain|, so a
 # merge that loses one of a sequence's 32 partitions fails
@@ -216,9 +221,9 @@ def null_pad(bt, tokens):
     return bt.contiguous()
 
 
-def decode_case(dtype, dev, seed=1):
+def decode_case(dtype, dev, seed=1, n_slots=N_SLOTS):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    pool, bt = make_pool(gen, dtype, dev)
+    pool, bt = make_pool(gen, dtype, dev, n_slots)
     q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
     lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
     return q, pool[:, 0, 1], pool[:, 1, 1], null_pad(bt, DECODE_LENS), lens
@@ -300,7 +305,7 @@ def print_resources(fa, pa, sc, rc) -> None:
     """Registers, shared memory and spills of every kernel built, the
     dynamic shared memory of the redesigned kernels at their path's head
     dim (the copy engine's: its ring), and the blocks per SM of the f32
-    prefill body and the combine kernel."""
+    prefill and decode bodies and the combine kernel."""
     from repro_torch.kernels import build
 
     for src, log in sorted(build.BUILD_LOG.items()):
@@ -313,6 +318,8 @@ def print_resources(fa, pa, sc, rc) -> None:
     slib, rlib = build.load(sc.SOURCE), build.load(rc.SOURCE)
     pf32 = (f"paged_prefill_f32_kernel<{D}, "
             f"{plib.paged_prefill_tile_tokens_f32(D)}>")
+    pd32 = (f"paged_decode_f32_kernel<{D}, "
+            f"{plib.paged_decode_partition_tokens_f32(D)}, {H // HKV}>")
     print(f"dynamic smem per block: flash_fwd_f32_kernel<256> "
           f"{flib.flash_attention_smem_bytes_f32(FLASH_FULL['d'])} B, "
           f"flash_fwd_bf16_kernel<256> "
@@ -321,14 +328,18 @@ def print_resources(fa, pa, sc, rc) -> None:
           f"{plib.paged_prefill_smem_bytes_bf16(D)} B, {pf32} "
           f"{plib.paged_prefill_smem_bytes_f32(D)} B, "
           f"paged_decode_bf16_kernel<{D}> "
-          f"{plib.paged_decode_smem_bytes_bf16(D)} B, copy_bulk_kernel "
+          f"{plib.paged_decode_smem_bytes_bf16(D)} B, {pd32} "
+          f"{plib.paged_decode_smem_bytes_f32(D)} B, copy_bulk_kernel "
           f"{slib.symm_copy_ring_bytes()} B (of 232448)", flush=True)
     blocks = plib.paged_prefill_blocks_per_sm_f32(D)
-    if blocks < 1:
-        fail(f"{pf32}: no block fits an SM ({blocks})")
+    blocks_d32 = plib.paged_decode_blocks_per_sm_f32(D)
+    for name, n in ((pf32, blocks), (pd32, blocks_d32)):
+        if n < 1:
+            fail(f"{name}: no block fits an SM ({n})")
     print(f"blocks per SM: {pf32} {blocks} of "
           f"{pa.PREFILL_GROUPS_F32 * 128} threads "
-          f"({pa.PREFILL_GROUPS_F32} token groups); combine_kernel<f32, sum, "
+          f"({pa.PREFILL_GROUPS_F32} token groups); {pd32} {blocks_d32} of "
+          f"256 threads; combine_kernel<f32, sum, "
           f"4> {rlib.combine_blocks_per_sm()} of {rlib.combine_threads()} "
           f"threads resident, {rc.BLOCKS_PER_SM} launched per SM, "
           f"{rlib.combine_unroll()} vector pairs in flight per thread",
@@ -349,8 +360,9 @@ def parity(pa, dev) -> dict:
         ref = pa.paged_decode_attention_ref(q, kp, vp, bt, lens)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        if not err <= TOL[dtype]:
-            fail(f"decode {tag}: max |kernel - plain| {err} > {TOL[dtype]}")
+        if not err <= DECODE_TOL[dtype]:
+            fail(f"decode {tag}: max |kernel - plain| {err} > "
+                 f"{DECODE_TOL[dtype]}")
         if out[0].abs().max().item() != 0.0:
             fail(f"decode {tag}: length-0 row is not exactly zero")
         q, kp, vp, bt, lens = decode_long_case(dtype, dev)
@@ -359,10 +371,10 @@ def parity(pa, dev) -> dict:
         torch.cuda.synchronize()
         long_err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
-        if not long_err <= min(TOL[dtype], SCALE_TOL * scale):
+        if not long_err <= min(DECODE_TOL[dtype], SCALE_TOL * scale):
             fail(f"decode {tag} at {LONG_LEN} tokens: max |kernel - plain| "
-                 f"{long_err} > min({TOL[dtype]}, {SCALE_TOL} x max |plain| "
-                 f"{scale})")
+                 f"{long_err} > min({DECODE_TOL[dtype]}, {SCALE_TOL} x max "
+                 f"|plain| {scale})")
         if not torch.equal(out, pa.paged_decode_attention(q, kp, vp, bt,
                                                           lens)):
             fail(f"decode {tag}: two calls differ")
@@ -383,8 +395,8 @@ def parity(pa, dev) -> dict:
         print(f"parity {tag}: decode max_err="
               f"{errs[('paged_decode_attention', tag)]:.3e} (timing shape and "
               f"{LONG_LEN} tokens, there {long_err:.3e} against max |plain| "
-              f"{scale:.3e}; two calls equal) prefill "
-              f"max_err={err:.3e} (tol {TOL[dtype]})", flush=True)
+              f"{scale:.3e}; two calls equal; tol {DECODE_TOL[dtype]}) "
+              f"prefill max_err={err:.3e} (tol {TOL[dtype]})", flush=True)
     return errs
 
 
@@ -1106,6 +1118,7 @@ def timing(pa, dev, launches, launches_f32, errs) -> list:
             "max_err_bf16": errs[(r["name"], "bf16")],
             "max_err_f32": errs[(r["name"], "f32")],
             "tol": {"bf16": TOL[torch.bfloat16], "f32": TOL[torch.float32]},
+            "tol_decode_f32": DECODE_TOL[torch.float32],
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
             "bound_bytes": r["nbytes"], "bound_flops": r["flops"], **got,
@@ -1113,7 +1126,8 @@ def timing(pa, dev, launches, launches_f32, errs) -> list:
         print(f"timing {r['name']} (bf16): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
-    out[0].update(decode_long_timing(pa, dev))
+    for dt in (torch.bfloat16, torch.float32):
+        out[0].update(decode_long_timing(pa, dev, dt))
     # the f32 bodies beside the bf16 ones, same shapes
     for i, (name, case) in enumerate((
             ("paged_decode_attention", decode_timing_case),
@@ -1133,13 +1147,14 @@ def timing(pa, dev, launches, launches_f32, errs) -> list:
     return out
 
 
-def decode_long_timing(pa, dev) -> dict:
-    """bf16 decode at the long-context shape (B sequences of LONG_LEN
-    tokens): kernel, plain version, SDPA on the gathered K/V (every token
-    valid, so no mask) and the byte bound."""
+def decode_long_timing(pa, dev, dt) -> dict:
+    """Decode in ``dt`` at the long-context shape (B sequences of
+    LONG_LEN tokens): kernel, plain version, SDPA on the gathered K/V
+    (every token valid, so no mask) and the byte bound; the f32 row's
+    keys end in ``_f32``."""
     import torch.nn.functional as F
 
-    dt = torch.bfloat16
+    tag = "f32" if dt == torch.float32 else "bf16"
     q, kp, vp, bt, lens = decode_long_case(dt, dev)
     kc, vc = gathered(kp, vp, bt, LONG_LEN)
     qs = q[:, :, None]
@@ -1154,18 +1169,22 @@ def decode_long_timing(pa, dev) -> dict:
         qs, kc, vc, enable_gqa=True), dev)
     bound_ms, by = bound_of(nbytes, flops, dt)
     got = rates(ms, nbytes, flops, bound_ms)
-    print(f"timing paged_decode_attention (bf16, B={B} x {LONG_LEN} tokens): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({by}); {rate_text(got)}",
-          flush=True)
+    print(f"timing paged_decode_attention ({tag}, B={B} x {LONG_LEN} "
+          f"tokens): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); "
+          f"{rate_text(got)}", flush=True)
     del q, kp, vp, kc, vc
     torch.cuda.empty_cache()
-    return {"long_shape": {"b": B, "h": H, "hkv": HKV, "d": D, "p": P,
-                           "length": LONG_LEN},
-            "long_ms": ms, "long_plain_ms": plain_ms,
-            "long_library_ms": lib_ms, "long_bound_ms": bound_ms,
-            "long_bound_by": by, "long_bound_bytes": nbytes,
-            **{f"long_{k}": v for k, v in got.items()}}
+    sfx = "_f32" if dt == torch.float32 else ""
+    row = {"long_ms": ms, "long_plain_ms": plain_ms,
+           "long_library_ms": lib_ms, "long_bound_ms": bound_ms,
+           "long_bound_by": by, "long_bound_bytes": nbytes,
+           **{f"long_{k}": v for k, v in got.items()}}
+    out = {k + sfx: v for k, v in row.items()}
+    if not sfx:
+        out["long_shape"] = {"b": B, "h": H, "hkv": HKV, "d": D, "p": P,
+                             "length": LONG_LEN}
+    return out
 
 
 def bound_of(nbytes: int, flops: int, dtype) -> tuple:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time source variants of the port's hand-written kernels on the card.
 
-    python3 scripts/kernel_variants.py [--group attention|decode|copy|
-                                         prefill_f32|combine ...]
+    python3 scripts/kernel_variants.py [--group attention|decode|
+                                         decode_f32|copy|prefill_f32|
+                                         combine ...]
                                         [--out FILE]
 
 Each variant is the checkout's ``src/repro_torch/kernels/csrc`` with
@@ -24,6 +25,19 @@ chip_smoke's shapes.  The groups:
     as a share of max |plain|).  One more variant, a merge that leaves
     out each sequence's partition 0, is a broken kernel: its row shows
     what the two checks make of it;
+  * ``decode_f32`` — the f32 paged decode's partition (128 tokens instead
+    of 64), the partitions a merging thread loads at once (4, 8), the
+    broken merge above, and the design this one replaced (a split of
+    each sequence over blocks of 8 warps, token by token, then a
+    merge kernel) restored as it was; three diagnostic variants each
+    take one phase out (the ticket and merge, P V, the V loads), so
+    they give wrong outputs and fail the checks, and their times show
+    what that phase costs; timed at chip_smoke's decode
+    timing shape, at 8 sequences of 4096 tokens and at the timing
+    shape's lengths on the serve path's 256-slot table (most of its
+    blocks exit at once), each beside its max |kernel - plain| (within
+    chip_smoke's f32 decode tolerance, and at 4096 tokens within its
+    share of max |plain|) and whether two calls give the same bits;
   * ``copy`` — the copy engine's ring (stage size and depth), an L2
     evict-first hint on the bulk copies, every block waiting for its
     stores to complete before it ends, or the bulk path swapped for a
@@ -92,33 +106,90 @@ PARTITION = ("constexpr int DEC_TOKENS = 128;",
              "constexpr int DEC_BLOCKS_PER_SM = 3;")
 TICKET = ("  __shared__ int last_s;\n"
           "  __syncthreads();\n"
-          "  if (tid == 0) last_s = atom_add_acq_rel(tickets + bh, 1) == "
-          "n_p - 1;\n"
+          "  if (tid == 0) last_s = atom_add_acq_rel(ticket, 1) == n_p - 1;\n"
           "  __syncthreads();\n"
           "  if (!last_s) return;\n")
 SPIN = ("  __syncthreads();\n"
-        "  if (part < n_p - 1) {\n"
+        "  if ((int)blockIdx.z < n_p - 1) {\n"
         "    if (tid == 0)\n"
         '      asm volatile("red.release.gpu.global.add.s32 [%0], 1;\\n" '
-        '::"l"(tickets + bh) : "memory");\n'
+        '::"l"(ticket) : "memory");\n'
         "    return;\n"
         "  }\n"
         "  if (tid == 0)\n"
         "    for (;;) {\n"
         "      int c;\n"
         '      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\\n" : "=r"(c) '
-        ': "l"(tickets + bh) : "memory");\n'
+        ': "l"(ticket) : "memory");\n'
         "      if (c >= n_p - 1) break;\n"
         "      __nanosleep(32);\n"
         "    }\n"
         "  __syncthreads();\n")
 MERGE_WEIGHT = "const float cj = j0 + u < jb ? exp2f(mj[u] - mb) : 0.f;"
+MERGE_BATCH = "constexpr int MERGE_BATCH = 4; "
+MERGE_BATCH_F32 = "constexpr int MERGE_BATCH_F32 = 2; "
+DEC32 = "constexpr int DEC32_TOKENS = 64; "
+F32_MERGE = "  if (n_p == 1) return;\n  last_ticket_merge<DEC32_THREADS"
+F32_PV = "  for (int tt = tg; tt < nv; tt += TG) {"
+F32_V_STAGE = "  stage(Vs, v, voff_s, 0);\n"
+
+
+def _merge_batch(n: int, suffix: str = "") -> str:
+    return f"constexpr int MERGE_BATCH{suffix} = {n}; "
+
 
 # -- prefill_f32: the f32 paged prefill body ---------------------------
 PF32 = ("constexpr int PF32_TOKENS = 64;", "constexpr int PF32_GROUPS = 2;")
 PF32_ENTRY = ("  return launch_prefill_f32(q, k, v, bt, starts, ntoks, out, B, C, H, "
               "Hkv, D, P, n_slots,\n")
 ALLOW_SMEM = "template <typename K>\nint allow_smem("
+# what the replaced token-by-token f32 bodies (decode and prefill)
+# shared, as it was
+TOKEN_LOOP_HELPERS = r'''constexpr int WARPS = 8;                 // f32 decode: warps per block
+constexpr int THREADS = WARPS * 32;
+constexpr int COMBINE_THREADS = 128;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+
+template <int N>
+__device__ __forceinline__ void warp_sum_rows(float (&x)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) x[n] += __shfl_xor_sync(0xffffffffu, x[n], o);
+  }
+}
+
+// Load one token's K and V row slice of this lane: dims lane + 32 i.
+template <typename T, int NV>
+__device__ __forceinline__ void load_token(const T* __restrict__ k, const T* __restrict__ v,
+                                           int64_t k_off, int64_t v_off, int lane, int D,
+                                           float (&kr)[NV], float (&vr)[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    int d = lane + 32 * i;
+    kr[i] = d < D ? to_f32(k[k_off + d]) : 0.f;
+    vr[i] = d < D ? to_f32(v[v_off + d]) : 0.f;
+  }
+}
+
+// Fold one token (score s, value row vr) into a row's running state.
+template <int NV>
+__device__ __forceinline__ void online_token(float s, const float (&vr)[NV], float& m,
+                                             float& l, float (&acc)[NV]) {
+  float m_new = fmaxf(m, s);
+  float alpha = expf(m - m_new);
+  float p = expf(s - m_new);
+  l = l * alpha + p;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) acc[i] = fmaf(p, vr[i], acc[i] * alpha);
+  m = m_new;
+}
+
+'''
 # the f32 prefill body this design replaced (a warp per 8 score rows,
 # token by token), as it was: the before of the same call
 TOKEN_LOOP_PREFILL = r'''constexpr int ROWS_PER_WARP = 8;
@@ -247,6 +318,214 @@ int launch_prefill_token_loop(const void* q, const void* k, const void* v, const
 }
 
 '''
+# the f32 decode this design replaced (each sequence split over S
+# blocks of 8 warps, token by token, then a merge kernel), as it was, and
+# an entry with the new one's arguments: S from the SM count as that
+# design's wrapper chose it, at most the 64-token partitions the
+# wrapper's scratch is sized for
+SPLIT_DECODE = r'''// ---------------------------------------------------------------------
+// decode, pass 1: grid (B, H_kv, S).  Block (b, h, split) takes the
+// tokens [split * chunk, (split + 1) * chunk) of sequence b (chunk =
+// ceil(length / S)) for the G query rows of KV head h; warp w takes
+// every WARPS-th token of that range.  Writes the block's unnormalised
+// partial (m, l, acc) per query row.
+// ---------------------------------------------------------------------
+template <typename T, int NV, int G>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int32_t* __restrict__ block_tables,
+                          const int32_t* __restrict__ lengths, float* __restrict__ m_part,
+                          float* __restrict__ l_part, float* __restrict__ acc_part, int H,
+                          int Hkv, int D, int P, int n_slots, int64_t k_page_stride,
+                          int64_t v_page_stride, float sm_scale, int S) {
+  extern __shared__ float smem[];                 // WARPS x group x (D + 2)
+  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int group = H / Hkv;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int length = min(lengths[b], n_slots * P);    // the table's reach
+  const int chunk = (length + S - 1) / S;
+  const int t0 = split * chunk, t1 = min(length, t0 + chunk);
+
+  float qr[G][NV], acc[G][NV], m[G], l[G];
+  const T* qb = q + ((int64_t)b * H + (int64_t)h * group) * D;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      int d = lane + 32 * i;
+      qr[g][i] = (g < group && d < D) ? to_f32(qb[(int64_t)g * D + d]) : 0.f;
+      acc[g][i] = 0.f;
+    }
+  }
+  const int32_t* bt = block_tables + (int64_t)b * n_slots;
+  const int64_t tok_stride = (int64_t)Hkv * D;
+  // software pipeline: the next token's K/V loads are in flight while
+  // this token's scores and updates run
+  float kr[NV], vr[NV], kn[NV], vn[NV];
+  auto fetch = [&](int tok, float (&kx)[NV], float (&vx)[NV]) {
+    const int64_t page = bt[tok / P];
+    const int64_t in_page = (int64_t)(tok % P) * tok_stride + (int64_t)h * D;
+    load_token<T, NV>(k, v, page * k_page_stride + in_page, page * v_page_stride + in_page,
+                      lane, D, kx, vx);
+  };
+  if (t0 + warp < t1) fetch(t0 + warp, kr, vr);
+  for (int tok = t0 + warp; tok < t1; tok += WARPS) {
+    if (tok + WARPS < t1) fetch(tok + WARPS, kn, vn);
+    float part[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      part[g] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) part[g] = fmaf(qr[g][i], kr[i], part[g]);
+    }
+    warp_sum_rows<G>(part);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < group) online_token<NV>(part[g] * sm_scale, vr, m[g], l[g], acc[g]);
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      kr[i] = kn[i];
+      vr[i] = vn[i];
+    }
+  }
+  // merge the warps: per row, rescale each warp's state to the max
+  const int W = D + 2;
+  float* mine = smem + (size_t)warp * group * W;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g >= group) break;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      int d = lane + 32 * i;
+      if (d < D) mine[g * W + d] = acc[g][i];
+    }
+    if (lane == 0) {
+      mine[g * W + D] = m[g];
+      mine[g * W + D + 1] = l[g];
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < group * D; idx += blockDim.x) {
+    int g = idx / D, d = idx - g * D;
+    float M = NEG_INF;
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, smem[(size_t)(w * group + g) * W + D]);
+    float L = 0.f, A = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      const float* row = smem + (size_t)(w * group + g) * W;
+      float c = expf(row[D] - M);
+      L += row[D + 1] * c;
+      A += row[d] * c;
+    }
+    int64_t prow = ((int64_t)b * H + (int64_t)h * group + g) * S + split;
+    acc_part[prow * D + d] = A;
+    if (d == 0) {
+      m_part[prow] = M;
+      l_part[prow] = L;
+    }
+  }
+}
+
+// decode, pass 2: grid (B * H); merge the S partials of one query row
+// and normalise.
+template <typename T>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+paged_decode_combine_kernel(const float* __restrict__ m_part, const float* __restrict__ l_part,
+                            const float* __restrict__ acc_part, T* __restrict__ out, int D,
+                            int S) {
+  const int64_t row = blockIdx.x;
+  float M = NEG_INF;
+  for (int s = 0; s < S; ++s) M = fmaxf(M, m_part[row * S + s]);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < S; ++s) {
+      float c = expf(m_part[row * S + s] - M);
+      L += l_part[row * S + s] * c;
+      A += acc_part[(row * S + s) * D + d] * c;
+    }
+    out[row * D + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
+  }
+}
+
+template <typename T, int NV, int G>
+int launch_decode_nv_g(const void* q, const void* k, const void* v, const void* bt,
+                       const void* lens, void* m_part, void* l_part, void* acc_part,
+                       void* out, int B, int H, int Hkv, int D, int P, int n_slots,
+                       long long kps, long long vps, float sm_scale, int S,
+                       cudaStream_t stream) {
+  const size_t bytes = (size_t)WARPS * (H / Hkv) * (D + 2) * sizeof(float);
+  auto split = paged_decode_split_kernel<T, NV, G>;
+  int err = allow_smem(split, bytes);
+  if (err) return err;
+  split<<<dim3(B, Hkv, S), THREADS, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)bt, (const int32_t*)lens,
+      (float*)m_part, (float*)l_part, (float*)acc_part, H, Hkv, D, P, n_slots, kps, vps,
+      sm_scale, S);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  paged_decode_combine_kernel<T><<<B * H, COMBINE_THREADS, 0, stream>>>(
+      (const float*)m_part, (const float*)l_part, (const float*)acc_part, (T*)out, D, S);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NV>
+int launch_decode_nv(int group, const void* q, const void* k, const void* v,
+                     const void* bt, const void* lens, void* mp, void* lp, void* ap,
+                     void* out, int B, int H, int Hkv, int D, int P, int n_slots,
+                     long long kps, long long vps, float sc, int S, cudaStream_t st) {
+  if (group <= 4)
+    return launch_decode_nv_g<T, NV, 4>(q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D,
+                                        P, n_slots, kps, vps, sc, S, st);
+  return launch_decode_nv_g<T, NV, 8>(q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D, P,
+                                      n_slots, kps, vps, sc, S, st);
+}
+
+template <typename T>
+int launch_decode(const void* q, const void* k, const void* v, const void* bt,
+                  const void* lens, void* mp, void* lp, void* ap, void* out, int B, int H,
+                  int Hkv, int D, int P, int n_slots, long long kps, long long vps,
+                  float sc, int S, void* stream) {
+  const int group = H / Hkv;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 32)
+    return launch_decode_nv<T, 1>(group, q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D,
+                                  P, n_slots, kps, vps, sc, S, st);
+  if (D <= 64)
+    return launch_decode_nv<T, 2>(group, q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D,
+                                  P, n_slots, kps, vps, sc, S, st);
+  if (D <= 128)
+    return launch_decode_nv<T, 4>(group, q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D,
+                                  P, n_slots, kps, vps, sc, S, st);
+  return launch_decode_nv<T, 8>(group, q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D, P,
+                                n_slots, kps, vps, sc, S, st);
+}
+
+int launch_decode_split(const void* q, const void* k, const void* v, const void* bt,
+                        const void* lens, void* mp, void* lp, void* ap, void* out, int B,
+                        int H, int Hkv, int D, int P, int n_slots, long long kps,
+                        long long vps, float sc, void* stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int cap = (n_slots * P + 63) / 64;
+  int S = (4 * sms + B * Hkv - 1) / (B * Hkv);
+  S = S > 16 ? 16 : S;
+  S = S > cap ? cap : S < 1 ? 1 : S;
+  return launch_decode<float>(q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D, P, n_slots,
+                              kps, vps, sc, S, stream);
+}
+
+'''
+DECODE_F32_ENTRY = ("  cudaStream_t st = (cudaStream_t)stream;\n"
+                    "  if (D <= 64)\n    return launch_decode_f32_g<64>(")
+SPLIT_ENTRY = ("  return launch_decode_split(q, k, v, bt, lens, m_part, l_part, "
+               "acc_part, out, B, H, Hkv, D,\n"
+               "                             P, n_slots, k_page_stride, "
+               "v_page_stride, sm_scale, stream);\n"
+               + DECODE_F32_ENTRY)
+DECODE_BF16_SMEM = "constexpr size_t decode_bf16_smem_bytes(int dp) {"
 PF32_ORDER = ("  const int b = lin % gridDim.x, h = lin / gridDim.x % gridDim.z;\n"
               "  const int q0 = (gridDim.y - 1 - lin / (gridDim.x * gridDim.z)) "
               "* block_q;\n")
@@ -402,11 +681,34 @@ VARIANTS = {
             {PAGED: [(PARTITION[0], "constexpr int DEC_TOKENS = 64;"),
                      (PARTITION[1], "constexpr int DEC_BLOCKS_PER_SM = 6;")]},
             {"DECODE_TOKENS": 64}),
-        "merge_batch_8": ({PAGED: [("constexpr int MERGE_BATCH = 4;",
-                                    "constexpr int MERGE_BATCH = 8;")]}, {}),
+        "merge_batch_8": ({PAGED: [(MERGE_BATCH, _merge_batch(8))]}, {}),
         "broken_merge_leaves_out_partition_0": (
             {PAGED: [(MERGE_WEIGHT, MERGE_WEIGHT.replace(
                 "j0 + u < jb", "j0 + u < jb && j0 + u > 0"))]}, {}),
+    },
+    "decode_f32": {
+        "committed": ({}, {}),
+        "partition_128_tokens": (
+            {PAGED: [(DEC32, "constexpr int DEC32_TOKENS = 128;")]},
+            {"DECODE_TOKENS_F32": {64: 128, 128: 128, 256: 64}}),
+        "merge_batch_4": (
+            {PAGED: [(MERGE_BATCH_F32, _merge_batch(4, "_F32"))]}, {}),
+        "merge_batch_8": (
+            {PAGED: [(MERGE_BATCH_F32, _merge_batch(8, "_F32"))]}, {}),
+        "broken_merge_leaves_out_partition_0": (
+            {PAGED: [(MERGE_WEIGHT, MERGE_WEIGHT.replace(
+                "j0 + u < jb", "j0 + u < jb && j0 + u > 0"))]}, {}),
+        "diagnostic_no_merge": (
+            {PAGED: [(F32_MERGE, F32_MERGE.replace("if (n_p == 1) ", ""))]},
+            {}),
+        "diagnostic_no_pv": (
+            {PAGED: [(F32_PV, F32_PV.replace("tt < nv", "tt < 0"))]}, {}),
+        "diagnostic_no_v_loads": (
+            {PAGED: [(F32_V_STAGE, "  cp_async_commit();\n")]}, {}),
+        "replaced_split_and_combine": (
+            {PAGED: [(DECODE_BF16_SMEM, TOKEN_LOOP_HELPERS + SPLIT_DECODE
+                      + DECODE_BF16_SMEM),
+                     (DECODE_F32_ENTRY, SPLIT_ENTRY)]}, {}),
     },
     "prefill_f32": {
         "committed": ({}, {}),
@@ -425,7 +727,8 @@ VARIANTS = {
             {PAGED: [(PF32_ORDER, "  const int b = blockIdx.x, h = blockIdx.z, "
                                   "q0 = blockIdx.y * block_q;\n")]}, {}),
         "replaced_token_loop": (
-            {PAGED: [(ALLOW_SMEM, TOKEN_LOOP_PREFILL + ALLOW_SMEM),
+            {PAGED: [(ALLOW_SMEM,
+                      TOKEN_LOOP_HELPERS + TOKEN_LOOP_PREFILL + ALLOW_SMEM),
                      (PF32_ENTRY, TOKEN_LOOP_ENTRY)]}, {}),
     },
     "combine": {
@@ -466,7 +769,8 @@ VARIANTS = {
                                        (LAUNCH, VECTOR_LAUNCH)]}, {}),
     },
 }
-SOURCES = {"attention": (FLASH, PAGED), "decode": (PAGED,), "copy": (COPY,),
+SOURCES = {"attention": (FLASH, PAGED), "decode": (PAGED,),
+           "decode_f32": (PAGED,), "copy": (COPY,),
            "prefill_f32": (PAGED,), "combine": (COMBINE,)}
 
 
@@ -506,9 +810,9 @@ def attention_row(cs, fa, pa, dev, data) -> tuple:
     return row, ok
 
 
-def decode_row(cs, pa, dev, data) -> tuple:
+def decode_row(cs, pa, dev, dt, data) -> tuple:
     row, ok = {}, True
-    tol = cs.TOL[torch.bfloat16]
+    tol = cs.DECODE_TOL[dt]
     for tag, (args, ref) in data.items():
         got = pa.paged_decode_attention(*args)
         again = pa.paged_decode_attention(*args)
@@ -526,6 +830,19 @@ def decode_row(cs, pa, dev, data) -> tuple:
         row[f"{tag}_ms"] = cs.time_ms(
             lambda: pa.paged_decode_attention(*args), dev)
     return row, ok
+
+
+def decode_data(cs, pa, dev, dt, slots_256: bool) -> dict:
+    """chip_smoke's decode timing shape and 8 x 4096 tokens in ``dt``,
+    and with ``slots_256`` the timing shape's lengths on a table of 256
+    slots (the serve path's: 4096 tokens of reach)."""
+    cases = {"timing": cs.decode_case(dt, dev),
+             "long": cs.decode_long_case(dt, dev)}
+    if slots_256:
+        cases["timing_256_slots"] = cs.decode_case(dt, dev,
+                                                   n_slots=cs.LONG_SLOTS)
+    return {tag: (args, pa.paged_decode_attention_ref(*args))
+            for tag, args in cases.items()}
 
 
 def prefill_f32_row(cs, pa, dev, data) -> tuple:
@@ -607,6 +924,7 @@ def main(argv=None) -> int:
     csrc = build.CSRC
     saved = {"bf16_tiles": fa.TILES[torch.bfloat16],
              "DECODE_TOKENS": pa.DECODE_TOKENS,
+             "DECODE_TOKENS_F32": pa.DECODE_TOKENS_F32,
              "STAGE_BYTES": sc.STAGE_BYTES,
              "PREFILL_TOKENS_F32": pa.PREFILL_TOKENS_F32,
              "PREFILL_GROUPS_F32": pa.PREFILL_GROUPS_F32,
@@ -617,6 +935,7 @@ def main(argv=None) -> int:
         s = {**saved, **settings}
         fa.TILES[torch.bfloat16] = s["bf16_tiles"]
         pa.DECODE_TOKENS = s["DECODE_TOKENS"]
+        pa.DECODE_TOKENS_F32 = s["DECODE_TOKENS_F32"]
         sc.STAGE_BYTES = s["STAGE_BYTES"]
         pa.PREFILL_TOKENS_F32 = s["PREFILL_TOKENS_F32"]
         pa.PREFILL_GROUPS_F32 = s["PREFILL_GROUPS_F32"]
@@ -637,13 +956,10 @@ def main(argv=None) -> int:
             pcase = cs.prefill_case(torch.bfloat16, dev)
             data["prefill"] = (pcase, pa.paged_prefill_attention_ref(*pcase))
             measure = partial(attention_row, cs, fa, pa, dev, data)
-        elif group == "decode":
-            data = {}
-            for tag, make in (("timing", cs.decode_case),
-                              ("long", cs.decode_long_case)):
-                case = make(torch.bfloat16, dev)
-                data[tag] = (case, pa.paged_decode_attention_ref(*case))
-            measure = partial(decode_row, cs, pa, dev, data)
+        elif group in ("decode", "decode_f32"):
+            dt = torch.float32 if group == "decode_f32" else torch.bfloat16
+            data = decode_data(cs, pa, dev, dt, group == "decode_f32")
+            measure = partial(decode_row, cs, pa, dev, dt, data)
         elif group == "prefill_f32":
             data = prefill_f32_data(cs, pa, dev)
             measure = partial(prefill_f32_row, cs, pa, dev, data)

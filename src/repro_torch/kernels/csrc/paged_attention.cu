@@ -2,8 +2,7 @@
 //
 // Replaces the two Pallas TPU kernels of src/repro/kernels/paged_attention.py:
 //   paged_decode_attention   (body _paged_kernel)   -> paged_decode_bf16_kernel (bf16)
-//                                                      paged_decode_split_kernel
-//                                                      + paged_decode_combine_kernel (f32)
+//                                                      paged_decode_f32_kernel (f32)
 //   paged_prefill_attention  (body _prefill_kernel) -> paged_prefill_mma_kernel (bf16)
 //                                                      paged_prefill_f32_kernel (f32)
 // The wrapper picks the body by dtype, a fixed dispatch.  Both dtypes
@@ -27,37 +26,43 @@
 // kernel itself (no scalar prefetch), and the walk stops at the last
 // valid token (the TPU grid visits every one of the n_slots table slots).
 //
-// Decode in bf16 (paged_decode_bf16_kernel), one launch per step:
-//   * fixed token partitions: a block of 8 warps owns DEC_TOKENS = 128
-//     tokens of one (sequence, KV head), all G query heads of that KV
-//     head; the grid is (H_kv, B, n_slots * P / 128), from the table and
-//     never from the lengths (the host reads no length), partition major,
-//     and a block past its sequence's length exits at once;
+// Decode, one launch per step in both dtypes, one structure:
+//   * fixed token partitions: a block of 8 warps owns T tokens of one
+//     (sequence, KV head), all G query heads of that KV head; the grid is
+//     (H_kv, B, n_slots * P / T), from the table and never from the
+//     lengths (the host reads no length), partition major, and a block
+//     past its sequence's length exits at once;
 //   * it reads its page ids beside the length, then puts all of its K
 //     and V rows in flight at once as 16-byte cp.async copies into
-//     XOR-swizzled shared memory (any page size; tokens past the length
-//     zero-filled), so a block pays one memory latency, not one per token;
-//   * S^T = K Q^T and O^T = V^T P^T run as mma.sync m16n8k16 (bf16 in, f32
-//     accumulate) with the tokens, then the head dims, as M and the <= 8
-//     query heads as N; one max and one sum per head over the partition,
-//     one exp per (token, head), no running rescale;
+//     shared memory, XOR-swizzled where the reads would conflict (any page
+//     size; tokens past the length zero-filled), so a block pays one
+//     memory latency, not one per token;
+//   * one max and one sum per head over the partition, one exp per
+//     (token, head), no running rescale;
 //   * a sequence of one partition writes its output directly; otherwise
 //     every block writes its partial and takes a ticket of its (sequence,
 //     KV head) by an acq_rel atomic add; the block that draws the last
 //     ticket, whichever partition it holds, merges the partials in
 //     partition order, never in arrival order (so every call gives the
-//     same bits), and resets the ticket.  No block waits for another, so
-//     nothing rests on the order in which the hardware dispatches blocks.
+//     same bits), and resets the ticket (last_ticket_merge, shared by both
+//     bodies).  No block waits for another, so nothing rests on the order
+//     in which the hardware dispatches blocks.
+// bf16 (paged_decode_bf16_kernel), T = DEC_TOKENS = 128: S^T = K Q^T and
+// O^T = V^T P^T run as mma.sync m16n8k16 (bf16 in, f32 accumulate) with
+// the tokens, then the head dims, as M and the <= 8 query heads as N.
 // Measured against the 64-token partition of 4 warps, other merge
 // batches and a merge by the last partition's block spinning on the
 // count by scripts/kernel_variants.py: the 128-token partition halves the
 // partials, the tickets and the merge's loads at long contexts (PERF.md).
-// Decode in f32 keeps the first design (paged_decode_split_kernel): each
-// sequence split over S blocks (S from the wrapper so the grid fills the
-// card) and 8 warps, token by token, a lane owning head dims lane + 32 i;
-// the warps merge in shared memory and a second kernel merges the S
-// partials (the flash-decoding split).
-//
+// f32 (paged_decode_f32_kernel), T = DEC32_TOKENS = 64, on the CUDA cores
+// (TF32 stays off: the reference computes in f32): a thread per (token,
+// quarter of the head dim) takes the scores of all G heads from one K
+// load per 16-byte chunk, q broadcast; a warp per head takes the softmax;
+// a thread per (4-dim column, token group) takes P V for all G heads from
+// one V load.  64 KB of K/V stages at D = 128, so three blocks share an
+// SM; 64- against 128-token partitions and the merge batch were measured
+// by scripts/kernel_variants.py (PERF.md).
+
 // The prefill window in bf16 (the port's default dtype) is a tile design
 // on the tensor cores, so that each K/V byte is moved once per block and
 // the products stay off the critical path:
@@ -118,9 +123,6 @@ using namespace hopper;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int WARPS = 8;                 // f32 decode: warps per block
-constexpr int THREADS = WARPS * 32;
-constexpr int COMBINE_THREADS = 128;
 constexpr int PF_ROWS = 64;              // prefill: score rows per block (both bodies)
 constexpr int PF32_TOKENS = 64;          // f32 prefill: context tokens per tile (D <= 128)
 constexpr int PF32_TOKENS_D256 = 32;     // ... at D > 128, so two groups fit 227 KB
@@ -138,20 +140,15 @@ constexpr int TOKEN_GROUPS = DEC_WARPS / 4;  // P V: 4 warps (head-dim quarters)
 constexpr int KT_PV = DEC_TOKENS / 16 / TOKEN_GROUPS;  // P V k-steps per warp
 constexpr int DEC_ROWS = 8;              // the mma's N: query heads of a KV head
 constexpr int PS_STRIDE = DEC_TOKENS + 8;  // P row stride: conflict-free B loads
-constexpr int MERGE_BATCH = 4;           // partitions a merging thread loads at once
+constexpr int MERGE_BATCH = 4;           // bf16 decode: partitions a merging thread loads at once
 constexpr int DEC_BLOCKS_PER_SM = 3;     // what 64 KB of K/V stages (D = 128) allow
+constexpr int DEC32_TOKENS = 64;         // f32 decode: tokens per partition (64 at D > 128)
+constexpr int DEC32_THREADS = 256;       // f32 decode: 8 warps
+constexpr int MERGE_BATCH_F32 = 2;       // f32 decode: partitions a merging thread loads at once
 static_assert(PF_ROWS == 8 * PF32_GROUP_THREADS / 16, "f32 prefill: 8 rows per row group");
 static_assert(TOKEN_GROUPS == 1 || TOKEN_GROUPS == 2, "64 or 128 tokens per partition");
 static_assert(DEC_THREADS >= DEC_TOKENS, "a thread per token computes its offsets");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// Sum each of N per-lane partials over the warp.  The N butterflies are
-// interleaved so their shuffles overlap instead of forming one long
-// dependent chain per row.
 // The old value of *p, after adding v (acquire and release, GPU scope).
 __device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
   int old;
@@ -160,171 +157,135 @@ __device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
   return old;
 }
 
-// Four outputs a * inv, rounded to bf16, to 8-byte aligned p.
-__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* p, float4 a, float inv) {
-  uint2 v = make_uint2(pack_bf16x2(a.x * inv, a.y * inv), pack_bf16x2(a.z * inv, a.w * inv));
-  *reinterpret_cast<uint2*>(p) = v;
+// Max / sum over the 32 lanes of a warp.
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
 }
 
-template <int N>
-__device__ __forceinline__ void warp_sum_rows(float (&x)[N]) {
+__device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) x[n] += __shfl_xor_sync(0xffffffffu, x[n], o);
-  }
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
-// Load one token's K and V row slice of this lane: dims lane + 32 i.
-template <typename T, int NV>
-__device__ __forceinline__ void load_token(const T* __restrict__ k, const T* __restrict__ v,
-                                           int64_t k_off, int64_t v_off, int lane, int D,
-                                           float (&kr)[NV], float (&vr)[NV]) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    int d = lane + 32 * i;
-    kr[i] = d < D ? to_f32(k[k_off + d]) : 0.f;
-    vr[i] = d < D ? to_f32(v[v_off + d]) : 0.f;
-  }
+// Four outputs a * inv to 16-byte (f32) or 8-byte (bf16, rounded) aligned p.
+__device__ __forceinline__ void store4(float* p, float4 a, float inv) {
+  *reinterpret_cast<float4*>(p) = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
 }
 
-// Fold one token (score s, value row vr) into a row's running state.
-template <int NV>
-__device__ __forceinline__ void online_token(float s, const float (&vr)[NV], float& m,
-                                             float& l, float (&acc)[NV]) {
-  float m_new = fmaxf(m, s);
-  float alpha = expf(m - m_new);
-  float p = expf(s - m_new);
-  l = l * alpha + p;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) acc[i] = fmaf(p, vr[i], acc[i] * alpha);
-  m = m_new;
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 a, float inv) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16x2(a.x * inv, a.y * inv), pack_bf16x2(a.z * inv, a.w * inv));
 }
 
 // ---------------------------------------------------------------------
-// decode, pass 1: grid (B, H_kv, S).  Block (b, h, split) takes the
-// tokens [split * chunk, (split + 1) * chunk) of sequence b (chunk =
-// ceil(length / S)) for the G query rows of KV head h; warp w takes
-// every WARPS-th token of that range.  Writes the block's unnormalised
-// partial (m, l, acc) per query row.
+// decode, both bodies: the last-ticket merge of a (sequence, KV head).
+// Every block of it has written its partial (m in base 2, l, acc) to
+// rows base + part * group + head of m_part / l_part (x D of acc_part);
+// n_p > 1 blocks work on it.  After the block's barrier thread 0 adds
+// one to the ticket (release: the block's partial is visible first;
+// acquire: so are those of the blocks counted before it).  The block that
+// draws n_p - 1 arrived last and merges; the others end.  The merge writes
+// the normalised output of the group's heads to ob and resets the ticket.
+// `slot` is shared memory for BLOCK_THREADS x 6 floats, free by now;
+// BATCH partitions' loads of a merging thread are in flight together.
 // ---------------------------------------------------------------------
-template <typename T, int NV, int G>
-__global__ void __launch_bounds__(THREADS)
-paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const int32_t* __restrict__ block_tables,
-                          const int32_t* __restrict__ lengths, float* __restrict__ m_part,
-                          float* __restrict__ l_part, float* __restrict__ acc_part, int H,
-                          int Hkv, int D, int P, int n_slots, int64_t k_page_stride,
-                          int64_t v_page_stride, float sm_scale, int S) {
-  extern __shared__ float smem[];                 // WARPS x group x (D + 2)
-  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
-  const int group = H / Hkv;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int length = min(lengths[b], n_slots * P);    // the table's reach
-  const int chunk = (length + S - 1) / S;
-  const int t0 = split * chunk, t1 = min(length, t0 + chunk);
-
-  float qr[G][NV], acc[G][NV], m[G], l[G];
-  const T* qb = q + ((int64_t)b * H + (int64_t)h * group) * D;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      int d = lane + 32 * i;
-      qr[g][i] = (g < group && d < D) ? to_f32(qb[(int64_t)g * D + d]) : 0.f;
-      acc[g][i] = 0.f;
-    }
-  }
-  const int32_t* bt = block_tables + (int64_t)b * n_slots;
-  const int64_t tok_stride = (int64_t)Hkv * D;
-  // software pipeline: the next token's K/V loads are in flight while
-  // this token's scores and updates run
-  float kr[NV], vr[NV], kn[NV], vn[NV];
-  auto fetch = [&](int tok, float (&kx)[NV], float (&vx)[NV]) {
-    const int64_t page = bt[tok / P];
-    const int64_t in_page = (int64_t)(tok % P) * tok_stride + (int64_t)h * D;
-    load_token<T, NV>(k, v, page * k_page_stride + in_page, page * v_page_stride + in_page,
-                      lane, D, kx, vx);
-  };
-  if (t0 + warp < t1) fetch(t0 + warp, kr, vr);
-  for (int tok = t0 + warp; tok < t1; tok += WARPS) {
-    if (tok + WARPS < t1) fetch(tok + WARPS, kn, vn);
-    float part[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      part[g] = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) part[g] = fmaf(qr[g][i], kr[i], part[g]);
-    }
-    warp_sum_rows<G>(part);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g < group) online_token<NV>(part[g] * sm_scale, vr, m[g], l[g], acc[g]);
-    }
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      kr[i] = kn[i];
-      vr[i] = vn[i];
-    }
-  }
-  // merge the warps: per row, rescale each warp's state to the max
-  const int W = D + 2;
-  float* mine = smem + (size_t)warp * group * W;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g >= group) break;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      int d = lane + 32 * i;
-      if (d < D) mine[g * W + d] = acc[g][i];
-    }
-    if (lane == 0) {
-      mine[g * W + D] = m[g];
-      mine[g * W + D + 1] = l[g];
-    }
-  }
+template <int BLOCK_THREADS, int BATCH, typename OutT>
+__device__ __forceinline__ void last_ticket_merge(const float* __restrict__ m_part,
+                                                  const float* __restrict__ l_part,
+                                                  const float* __restrict__ acc_part,
+                                                  int* __restrict__ ticket, int64_t base,
+                                                  int n_p, int group, int D,
+                                                  OutT* __restrict__ ob, float* slot) {
+  const int tid = threadIdx.x;
+  __shared__ int last_s;
   __syncthreads();
-  for (int idx = threadIdx.x; idx < group * D; idx += blockDim.x) {
-    int g = idx / D, d = idx - g * D;
-    float M = NEG_INF;
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, smem[(size_t)(w * group + g) * W + D]);
-    float L = 0.f, A = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
-      const float* row = smem + (size_t)(w * group + g) * W;
-      float c = expf(row[D] - M);
-      L += row[D + 1] * c;
-      A += row[d] * c;
-    }
-    int64_t prow = ((int64_t)b * H + (int64_t)h * group + g) * S + split;
-    acc_part[prow * D + d] = A;
-    if (d == 0) {
-      m_part[prow] = M;
-      l_part[prow] = L;
+  if (tid == 0) last_s = atom_add_acq_rel(ticket, 1) == n_p - 1;
+  __syncthreads();
+  if (!last_s) return;
+  // merge the n_p partials.  Thread t takes 4-dim column t % C' (C' = the
+  // C columns, at most BLOCK_THREADS) over the r = t / C' -th of Q =
+  // BLOCK_THREADS / C' contiguous ranges of partitions, in partition
+  // order, BATCH partitions' m, l and acc loads in flight together, its
+  // running (M, L, A) rescaled when a batch raises M; the Q ranges are
+  // then combined in order through shared memory.  The same bits on every
+  // call.
+  const int C = group * D / 4, Cp = min(C, BLOCK_THREADS), Q = BLOCK_THREADS / Cp;
+  const int rg = tid / Cp, col = tid % Cp;   // range, column
+  if (rg < Q) {
+    const int ja = rg * n_p / Q, jb = (rg + 1) * n_p / Q;
+    for (int cc = col; cc < C; cc += Cp) {
+      const int i = cc * 4, row = i / D;
+      const float* mp = m_part + base + row;     // partition j: mp[j * group]
+      const float* lp = l_part + base + row;
+      const float* ap = acc_part + (base + row) * D + (i - row * D);   // ap[j * group * D]
+      float M = NEG_INF, L = 0.f;
+      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j0 = ja; j0 < jb; j0 += BATCH) {
+        float mj[BATCH], lj[BATCH];
+        float4 aj[BATCH];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int j = min(j0 + u, jb - 1);     // past the range: weight 0 below
+          mj[u] = __ldcg(mp + j * group);
+          lj[u] = __ldcg(lp + j * group);
+          aj[u] = __ldcg(reinterpret_cast<const float4*>(ap + (int64_t)j * group * D));
+        }
+        float mb = M;
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) mb = fmaxf(mb, mj[u]);
+        const float r = exp2f(M - mb);           // 0 on the first batch
+        L *= r;
+        A.x *= r;
+        A.y *= r;
+        A.z *= r;
+        A.w *= r;
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const float cj = j0 + u < jb ? exp2f(mj[u] - mb) : 0.f;
+          L = fmaf(cj, lj[u], L);
+          A.x = fmaf(cj, aj[u].x, A.x);
+          A.y = fmaf(cj, aj[u].y, A.y);
+          A.z = fmaf(cj, aj[u].z, A.z);
+          A.w = fmaf(cj, aj[u].w, A.w);
+        }
+        M = mb;
+      }
+      if (Q == 1) {
+        store4(ob + i, A, 1.f / fmaxf(L, 1e-30f));
+      } else {                                   // C = Cp: one column per thread
+        float* sl = slot + (rg * Cp + col) * 6;
+        sl[0] = M;
+        sl[1] = L;
+        sl[2] = A.x;
+        sl[3] = A.y;
+        sl[4] = A.z;
+        sl[5] = A.w;
+      }
     }
   }
-}
-
-// decode, pass 2: grid (B * H); merge the S partials of one query row
-// and normalise.
-template <typename T>
-__global__ void __launch_bounds__(COMBINE_THREADS)
-paged_decode_combine_kernel(const float* __restrict__ m_part, const float* __restrict__ l_part,
-                            const float* __restrict__ acc_part, T* __restrict__ out, int D,
-                            int S) {
-  const int64_t row = blockIdx.x;
-  float M = NEG_INF;
-  for (int s = 0; s < S; ++s) M = fmaxf(M, m_part[row * S + s]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < S; ++s) {
-      float c = expf(m_part[row * S + s] - M);
-      L += l_part[row * S + s] * c;
-      A += acc_part[(row * S + s) * D + d] * c;
+  if (Q > 1) {
+    __syncthreads();
+    if (rg == 0) {
+      float M = NEG_INF;
+      for (int r = 0; r < Q; ++r) M = fmaxf(M, slot[(r * Cp + col) * 6]);
+      float L = 0.f;
+      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = 0; r < Q; ++r) {              // an empty range: M = NEG_INF, weight 0
+        const float* sl = slot + (r * Cp + col) * 6;
+        const float c = exp2f(sl[0] - M);
+        L = fmaf(c, sl[1], L);
+        A.x = fmaf(c, sl[2], A.x);
+        A.y = fmaf(c, sl[3], A.y);
+        A.z = fmaf(c, sl[4], A.z);
+        A.w = fmaf(c, sl[5], A.w);
+      }
+      store4(ob + col * 4, A, 1.f / fmaxf(L, 1e-30f));
     }
-    out[row * D + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
   }
+  if (tid == 0) *ticket = 0;             // ready for the next call
 }
 
 // ---------------------------------------------------------------------
@@ -558,98 +519,230 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       l_part[prow + 2 * tig + 1] = l1;
     }
   }
-  // the ticket: after the block's barrier thread 0 adds one (release:
-  // the block's partial is visible first; acquire: so are those of the
-  // blocks counted before it).  The block that draws n_p - 1 arrived last
-  // and merges; the others end.
-  __shared__ int last_s;
+  last_ticket_merge<DEC_THREADS, MERGE_BATCH>(m_part, l_part, acc_part, tickets + bh,
+                                              bh * n_parts * group, n_p, group, D, ob,
+                                              reinterpret_cast<float*>(smem4));
+}
+
+// ---------------------------------------------------------------------
+// decode, f32, CUDA cores: grid (H_kv, B, n_parts), DEC32_THREADS
+// threads, partition major, as the bf16 body.  Block (h, b, part) takes
+// tokens [part * T, (part + 1) * T) of sequence b for the G <= GP query
+// heads of KV head h (GP: the group padded to 4 or 8); the grid comes
+// from the table (n_parts = ceil(n_slots * P / T)) and a block past its
+// sequence's n_p = ceil(length / T) partitions exits at once.  DP: the
+// head dim padded to 64 / 128 / 256 (zeros past D in shared memory).
+//   scores  thread (token t, slice s) of S = DEC32_THREADS / T slices:
+//           q_g . k_t over the slice's 16-byte chunks for all GP heads,
+//           K rows read from XOR-swizzled chunks (conflict-free), q
+//           broadcast; the S slices' sums meet in shared memory;
+//   softmax warp g: head g over the partition, one max and one sum, one
+//           exp2 per (token, head), p re-masked to 0;
+//   P V     thread (4-dim column c, token group tg) of TG = DEC32_THREADS
+//           / (DP / 4) groups: tokens tg, tg + TG, ... below the length,
+//           all GP heads from one V load; the groups' sums are added in
+//           group order through shared memory.
+// Then as the bf16 body: one partition writes its output, more write
+// their partials and meet at the last-ticket merge.
+// ---------------------------------------------------------------------
+constexpr int dec32_tokens(int dp) { return dp >= 256 ? 64 : DEC32_TOKENS; }
+
+// K and V stages of a partition, then q of DEC_ROWS heads
+constexpr size_t decode_f32_smem_bytes(int dp) {
+  return ((size_t)2 * dec32_tokens(dp) * dp + (size_t)DEC_ROWS * dp) * sizeof(float);
+}
+
+// the blocks per SM the registers are budgeted for: three where a
+// partition's K and V stages take at most 64 KB
+constexpr int dec32_blocks_per_sm(int dp) { return dec32_tokens(dp) * dp <= 64 * 128 ? 3 : 1; }
+
+template <int DP, int T, int GP>
+__global__ void __launch_bounds__(DEC32_THREADS, dec32_blocks_per_sm(DP))
+paged_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int32_t* __restrict__ block_tables,
+                        const int32_t* __restrict__ lengths, float* __restrict__ m_part,
+                        float* __restrict__ l_part, float* __restrict__ acc_part,
+                        int* __restrict__ tickets, float* __restrict__ out, int H, int Hkv,
+                        int D, int P, int n_slots, int64_t k_page_stride,
+                        int64_t v_page_stride, float sm_scale) {
+  constexpr int CH = DP / 4;                     // 16-byte chunks per row
+  constexpr int S = DEC32_THREADS / T;           // score slices of the head dim
+  constexpr int CS = CH / S;                     // chunks per slice
+  constexpr int TG = DEC32_THREADS / CH;         // P V token groups
+  static_assert(T % 32 == 0 && DEC32_THREADS % T == 0 && CS >= 1, "slices of whole warps");
+  static_assert(GP % 4 == 0 && GP <= DEC_ROWS && GP <= DEC32_THREADS / 32, "a warp per head");
+  static_assert((DEC32_THREADS + T) * GP <= T * DP, "scores and P fit the K stage");
+  static_assert(TG * GP * DP <= 2 * T * DP, "the token groups' sums fit both stages");
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);   // T x DP, chunk c of row r at c ^ (r % 8)
+  float* Vs = Ks + T * DP;                       // T x DP
+  float* Qs = Vs + T * DP;                       // DEC_ROWS x DP
+  float* Sp = Ks;                                // after the scores: S x GP x T sums,
+  float* Ps = Ks + DEC32_THREADS * GP;           // then P: T x GP
+  float4* R = smem4;                             // after P V: TG x GP x CH sums
+  __shared__ int64_t koff_s[T], voff_s[T];       // -1: masked
+  __shared__ float red_l[GP];
+
+  const int h = blockIdx.x, b = blockIdx.y, part = blockIdx.z;
+  const int n_parts = gridDim.z;
+  const int group = H / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int reach = n_slots * P;
+  const int t0 = part * T;
+  // the partition's page ids are read beside the length: one latency
+  int page = 0;
+  if (tid < T && t0 + tid < reach)
+    page = block_tables[(int64_t)b * n_slots + (t0 + tid) / P];
+  const int length = min(lengths[b], reach);     // the table's reach
+  const int n_p = max(0, (length + T - 1) / T);
+  float* ob = out + ((int64_t)b * H + (int64_t)h * group) * D;
+  if (part >= n_p) {
+    if (n_p == 0 && part == 0)                   // length 0: exact zeros
+      for (int i = tid; i < group * D; i += DEC32_THREADS) ob[i] = 0.f;
+    return;
+  }
+  const int nv = min(T, length - t0);            // the partition's valid tokens
+  if (tid < T) {
+    const int64_t in_page = (int64_t)((t0 + tid) % P) * Hkv * D + (int64_t)h * D;
+    koff_s[tid] = tid < nv ? page * k_page_stride + in_page : -1;
+    voff_s[tid] = tid < nv ? page * v_page_stride + in_page : -1;
+  }
   __syncthreads();
-  if (tid == 0) last_s = atom_add_acq_rel(tickets + bh, 1) == n_p - 1;
+  // q, then every K and V copy of the partition in flight before the
+  // first score; heads past the group, tokens past the length and dims
+  // past D are zero-filled
+  const float* qg = q + ((int64_t)b * H + (int64_t)h * group) * D;
+  for (int i = tid; i < GP * CH; i += DEC32_THREADS) {
+    const int g = i / CH, d = (i % CH) * 4;
+    const bool ok = g < group && d < D;
+    cp_async16(Qs + g * DP + d, ok ? qg + g * D + d : qg, ok ? VEC_BYTES : 0);
+  }
+  auto stage = [&](float* dst, const float* src, const int64_t* off, int swizzle) {
+#pragma unroll 4
+    for (int i = tid; i < T * CH; i += DEC32_THREADS) {
+      const int r = i / CH, c = i % CH, d = c * 4;
+      const int64_t o = off[r];
+      const bool ok = o >= 0 && d < D;
+      cp_async16(dst + r * DP + ((c ^ (r & swizzle)) << 2), ok ? src + o + d : src,
+                 ok ? VEC_BYTES : 0);
+    }
+    cp_async_commit();
+  };
+  stage(Ks, k, koff_s, 7);               // with q
+  stage(Vs, v, voff_s, 0);
+  cp_async_wait<1>();                    // q and K have landed
   __syncthreads();
-  if (!last_s) return;
-  // merge the n_p partials.  Thread t takes 4-dim column t % C' (C' = the
-  // C columns, at most DEC_THREADS) over the r = t / C' -th of Q =
-  // DEC_THREADS / C' contiguous ranges of partitions, in partition order,
-  // MERGE_BATCH partitions' m, l and acc loads in flight together, its
-  // running (M, L, A) rescaled when a batch raises M; the Q ranges are then
-  // combined in order through shared memory (the K stage).  The same bits
-  // on every call.
-  const int64_t base = bh * n_parts * group;
-  const int C = group * D / 4, Cp = min(C, DEC_THREADS), Q = DEC_THREADS / Cp;
-  const int rg = tid / Cp, col = tid % Cp;   // range, column
-  float* slot = reinterpret_cast<float*>(smem4);   // (M, L, A) per (range, column)
-  if (rg < Q) {
-    const int ja = rg * n_p / Q, jb = (rg + 1) * n_p / Q;
-    for (int cc = col; cc < C; cc += Cp) {
-      const int i = cc * 4, row = i / D;
-      const float* mp = m_part + base + row;     // partition j: mp[j * group]
-      const float* lp = l_part + base + row;
-      const float* ap = acc_part + (base + row) * D + (i - row * D);   // ap[j * group * D]
-      float M = NEG_INF, L = 0.f;
-      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int j0 = ja; j0 < jb; j0 += MERGE_BATCH) {
-        float mj[MERGE_BATCH], lj[MERGE_BATCH];
-        float4 aj[MERGE_BATCH];
+
+  // scores of token t over slice s: 8 lanes of a load phase hold 8
+  // consecutive tokens, so the swizzle puts their chunks in 8 bank groups
+  const int t = tid % T, s = tid / T;
+  float sc[GP];
 #pragma unroll
-        for (int u = 0; u < MERGE_BATCH; ++u) {
-          const int j = min(j0 + u, jb - 1);     // past the range: weight 0 below
-          mj[u] = __ldcg(mp + j * group);
-          lj[u] = __ldcg(lp + j * group);
-          aj[u] = __ldcg(reinterpret_cast<const float4*>(ap + (int64_t)j * group * D));
-        }
-        float mb = M;
+  for (int g = 0; g < GP; ++g) sc[g] = 0.f;
+  {
+    const float* krow = Ks + t * DP;
+#pragma unroll 4
+    for (int cc = 0; cc < CS; ++cc) {
+      const int c = s * CS + cc;
+      const float4 kv = *reinterpret_cast<const float4*>(krow + ((c ^ (t & 7)) << 2));
 #pragma unroll
-        for (int u = 0; u < MERGE_BATCH; ++u) mb = fmaxf(mb, mj[u]);
-        const float r = exp2f(M - mb);           // 0 on the first batch
-        L *= r;
-        A.x *= r;
-        A.y *= r;
-        A.z *= r;
-        A.w *= r;
+      for (int g = 0; g < GP; ++g)
+        sc[g] = dot4(*reinterpret_cast<const float4*>(Qs + g * DP + c * 4), kv, sc[g]);
+    }
+  }
+  __syncthreads();                       // K read: its stage takes the scores
 #pragma unroll
-        for (int u = 0; u < MERGE_BATCH; ++u) {
-          const float cj = j0 + u < jb ? exp2f(mj[u] - mb) : 0.f;
-          L = fmaf(cj, lj[u], L);
-          A.x = fmaf(cj, aj[u].x, A.x);
-          A.y = fmaf(cj, aj[u].y, A.y);
-          A.z = fmaf(cj, aj[u].z, A.z);
-          A.w = fmaf(cj, aj[u].w, A.w);
-        }
-        M = mb;
-      }
-      if (Q == 1) {
-        store_bf16x4(ob + i, A, 1.f / fmaxf(L, 1e-30f));
-      } else {                                   // C = Cp: one column per thread
-        float* sl = slot + (rg * Cp + col) * 6;
-        sl[0] = M;
-        sl[1] = L;
-        sl[2] = A.x;
-        sl[3] = A.y;
-        sl[4] = A.z;
-        sl[5] = A.w;
+  for (int g = 0; g < GP; ++g) Sp[(s * GP + g) * T + t] = sc[g];
+  __syncthreads();
+
+  // one max and one sum per head over the partition, base 2; p re-masked
+  const int64_t bh = (int64_t)b * Hkv + h;
+  const int64_t prow = (bh * n_parts + part) * group;
+  if (warp < GP) {
+    const int g = warp;
+    const bool head = g < group;
+    const float scale2 = sm_scale * LOG2E;
+    float x[T / 32];
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < T / 32; ++j) {
+      const int tt = lane + 32 * j;
+      float a = Sp[g * T + tt];
+#pragma unroll
+      for (int s2 = 1; s2 < S; ++s2) a += Sp[(s2 * GP + g) * T + tt];
+      x[j] = head && tt < nv ? a * scale2 : NEG_INF;
+      mx = fmaxf(mx, x[j]);
+    }
+    mx = warp_max(mx);                   // finite for a head: token t0 is valid
+    float ls = 0.f;
+#pragma unroll
+    for (int j = 0; j < T / 32; ++j) {
+      const int tt = lane + 32 * j;
+      const float p = head && tt < nv ? exp2f(x[j] - mx) : 0.f;
+      ls += p;
+      Ps[tt * GP + g] = p;
+    }
+    ls = warp_sum(ls);
+    if (lane == 0) {
+      red_l[g] = ls;
+      if (head && n_p > 1) {
+        m_part[prow + g] = mx;
+        l_part[prow + g] = ls;
       }
     }
   }
-  if (Q > 1) {
-    __syncthreads();
-    if (rg == 0) {
-      float M = NEG_INF;
-      for (int r = 0; r < Q; ++r) M = fmaxf(M, slot[(r * Cp + col) * 6]);
-      float L = 0.f;
-      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int r = 0; r < Q; ++r) {              // an empty range: M = NEG_INF, weight 0
-        const float* sl = slot + (r * Cp + col) * 6;
-        const float c = exp2f(sl[0] - M);
-        L = fmaf(c, sl[1], L);
-        A.x = fmaf(c, sl[2], A.x);
-        A.y = fmaf(c, sl[3], A.y);
-        A.z = fmaf(c, sl[4], A.z);
-        A.w = fmaf(c, sl[5], A.w);
+  cp_async_wait<0>();                    // V has landed
+  __syncthreads();
+
+  // P V: thread (column c, token group tg), all GP heads per V load
+  const int c = tid % CH, tg = tid / CH;
+  float4 acc[GP];
+#pragma unroll
+  for (int g = 0; g < GP; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+  for (int tt = tg; tt < nv; tt += TG) {
+    const float4 vv = *reinterpret_cast<const float4*>(Vs + tt * DP + c * 4);
+#pragma unroll
+    for (int g4 = 0; g4 < GP; g4 += 4) {
+      const float4 p4 = *reinterpret_cast<const float4*>(Ps + tt * GP + g4);
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4& a = acc[g4 + e];
+        a.x = fmaf(p[e], vv.x, a.x);
+        a.y = fmaf(p[e], vv.y, a.y);
+        a.z = fmaf(p[e], vv.z, a.z);
+        a.w = fmaf(p[e], vv.w, a.w);
       }
-      store_bf16x4(ob + col * 4, A, 1.f / fmaxf(L, 1e-30f));
     }
   }
-  if (tid == 0) tickets[bh] = 0;         // ready for the next call
+  __syncthreads();                       // V and P read: both stages take the sums
+#pragma unroll
+  for (int g = 0; g < GP; ++g) R[(tg * GP + g) * CH + c] = acc[g];
+  __syncthreads();
+  // the token groups' sums in group order: the output (one partition) or
+  // the block's partial
+  for (int i = tid; i < GP * CH; i += DEC32_THREADS) {
+    const int g = i / CH, d = (i % CH) * 4;
+    if (g >= group || d >= D) continue;
+    float4 a = R[i];
+#pragma unroll
+    for (int j = 1; j < TG; ++j) {
+      const float4 r = R[j * GP * CH + i];
+      a.x += r.x;
+      a.y += r.y;
+      a.z += r.z;
+      a.w += r.w;
+    }
+    if (n_p == 1)
+      store4(ob + g * D + d, a, 1.f / fmaxf(red_l[g], 1e-30f));
+    else
+      *reinterpret_cast<float4*>(acc_part + (prow + g) * D + d) = a;
+  }
+  if (n_p == 1) return;
+  last_ticket_merge<DEC32_THREADS, MERGE_BATCH_F32>(m_part, l_part, acc_part, tickets + bh,
+                                                    bh * n_parts * group, n_p, group, D, ob,
+                                                    reinterpret_cast<float*>(smem4));
 }
 
 // ---------------------------------------------------------------------
@@ -1102,59 +1195,6 @@ int allow_smem(K kernel, size_t bytes) {
   return 0;
 }
 
-template <typename T, int NV, int G>
-int launch_decode_nv_g(const void* q, const void* k, const void* v, const void* bt,
-                       const void* lens, void* m_part, void* l_part, void* acc_part,
-                       void* out, int B, int H, int Hkv, int D, int P, int n_slots,
-                       long long kps, long long vps, float sm_scale, int S,
-                       cudaStream_t stream) {
-  const size_t bytes = (size_t)WARPS * (H / Hkv) * (D + 2) * sizeof(float);
-  auto split = paged_decode_split_kernel<T, NV, G>;
-  int err = allow_smem(split, bytes);
-  if (err) return err;
-  split<<<dim3(B, Hkv, S), THREADS, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)bt, (const int32_t*)lens,
-      (float*)m_part, (float*)l_part, (float*)acc_part, H, Hkv, D, P, n_slots, kps, vps,
-      sm_scale, S);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  paged_decode_combine_kernel<T><<<B * H, COMBINE_THREADS, 0, stream>>>(
-      (const float*)m_part, (const float*)l_part, (const float*)acc_part, (T*)out, D, S);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int NV>
-int launch_decode_nv(int group, const void* q, const void* k, const void* v,
-                     const void* bt, const void* lens, void* mp, void* lp, void* ap,
-                     void* out, int B, int H, int Hkv, int D, int P, int n_slots,
-                     long long kps, long long vps, float sc, int S, cudaStream_t st) {
-  if (group <= 4)
-    return launch_decode_nv_g<T, NV, 4>(q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D,
-                                        P, n_slots, kps, vps, sc, S, st);
-  return launch_decode_nv_g<T, NV, 8>(q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D, P,
-                                      n_slots, kps, vps, sc, S, st);
-}
-
-template <typename T>
-int launch_decode(const void* q, const void* k, const void* v, const void* bt,
-                  const void* lens, void* mp, void* lp, void* ap, void* out, int B, int H,
-                  int Hkv, int D, int P, int n_slots, long long kps, long long vps,
-                  float sc, int S, void* stream) {
-  const int group = H / Hkv;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 32)
-    return launch_decode_nv<T, 1>(group, q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D,
-                                  P, n_slots, kps, vps, sc, S, st);
-  if (D <= 64)
-    return launch_decode_nv<T, 2>(group, q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D,
-                                  P, n_slots, kps, vps, sc, S, st);
-  if (D <= 128)
-    return launch_decode_nv<T, 4>(group, q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D,
-                                  P, n_slots, kps, vps, sc, S, st);
-  return launch_decode_nv<T, 8>(group, q, k, v, bt, lens, mp, lp, ap, out, B, H, Hkv, D, P,
-                                n_slots, kps, vps, sc, S, st);
-}
-
 constexpr size_t decode_bf16_smem_bytes(int dp) {
   return (size_t)2 * DEC_TOKENS * dp * sizeof(__nv_bfloat16);
 }
@@ -1175,6 +1215,50 @@ int launch_decode_bf16_dp(const void* q, const void* k, const void* v, const voi
       (const int32_t*)lens, (float*)mp, (float*)lp, (float*)ap, (int*)tickets, (bf16*)out, H,
       Hkv, D, P, n_slots, kps, vps, sc);
   return (int)cudaGetLastError();
+}
+
+template <int DP, int GP>
+int launch_decode_f32_dp(const void* q, const void* k, const void* v, const void* bt,
+                         const void* lens, void* mp, void* lp, void* ap, void* tickets,
+                         void* out, int B, int H, int Hkv, int D, int P, int n_slots,
+                         long long kps, long long vps, float sc, cudaStream_t st) {
+  constexpr int T = dec32_tokens(DP);
+  const size_t bytes = decode_f32_smem_bytes(DP);
+  auto kernel = paged_decode_f32_kernel<DP, T, GP>;
+  int err = allow_smem(kernel, bytes);
+  if (err) return err;
+  const int n_parts = (n_slots * P + T - 1) / T;
+  kernel<<<dim3(Hkv, B, n_parts), DEC32_THREADS, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int32_t*)bt,
+      (const int32_t*)lens, (float*)mp, (float*)lp, (float*)ap, (int*)tickets, (float*)out, H,
+      Hkv, D, P, n_slots, kps, vps, sc);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_decode_f32_g(const void* q, const void* k, const void* v, const void* bt,
+                        const void* lens, void* mp, void* lp, void* ap, void* tickets,
+                        void* out, int B, int H, int Hkv, int D, int P, int n_slots,
+                        long long kps, long long vps, float sc, cudaStream_t st) {
+  if (H / Hkv <= 4)
+    return launch_decode_f32_dp<DP, 4>(q, k, v, bt, lens, mp, lp, ap, tickets, out, B, H, Hkv,
+                                       D, P, n_slots, kps, vps, sc, st);
+  return launch_decode_f32_dp<DP, 8>(q, k, v, bt, lens, mp, lp, ap, tickets, out, B, H, Hkv, D,
+                                     P, n_slots, kps, vps, sc, st);
+}
+
+// blocks of the f32 decode body resident per SM (its registers and shared
+// memory at a group of 4), or -1 on an error
+template <int DP>
+int decode_f32_occupancy() {
+  auto kernel = paged_decode_f32_kernel<DP, dec32_tokens(DP), 4>;
+  const size_t bytes = decode_f32_smem_bytes(DP);
+  int blocks = 0;
+  if (allow_smem(kernel, bytes) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, DEC32_THREADS, bytes) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 constexpr int pf32_tokens(int dp) { return dp >= 256 ? PF32_TOKENS_D256 : PF32_TOKENS; }
@@ -1305,25 +1389,45 @@ int paged_decode_partition_tokens_bf16() { return DEC_TOKENS; }
 int paged_decode_smem_bytes_bf16(int D) {
   return (int)decode_bf16_smem_bytes(D <= 64 ? 64 : D <= 128 ? 128 : 256);
 }
+// the f32 decode body at head dim D: tokens per partition, the dynamic
+// shared memory of a launch, and its blocks resident per SM (or -1)
+int paged_decode_partition_tokens_f32(int D) {
+  return dec32_tokens(D <= 64 ? 64 : D <= 128 ? 128 : 256);
+}
+int paged_decode_smem_bytes_f32(int D) {
+  return (int)decode_f32_smem_bytes(D <= 64 ? 64 : D <= 128 ? 128 : 256);
+}
+int paged_decode_blocks_per_sm_f32(int D) {
+  return D <= 64 ? decode_f32_occupancy<64>() : D <= 128 ? decode_f32_occupancy<128>()
+                                                          : decode_f32_occupancy<256>();
+}
 
-// f32: paged_decode_split_kernel + paged_decode_combine_kernel.  m_part,
-// l_part: (B, H, S) f32 and acc_part: (B, H, S, D) f32 scratch from the
-// wrapper's cache.
+// f32: paged_decode_f32_kernel, one launch; scratch as for bf16 below.
 int paged_decode_attention_f32(const void* q, const void* k, const void* v,
                                const void* bt, const void* lens, void* m_part,
-                               void* l_part, void* acc_part, void* out, int B, int H,
-                               int Hkv, int D, int P, int n_slots, long long k_page_stride,
-                               long long v_page_stride, float sm_scale, int S,
-                               void* stream) {
-  return launch_decode<float>(q, k, v, bt, lens, m_part, l_part, acc_part, out, B, H, Hkv,
-                              D, P, n_slots, k_page_stride, v_page_stride, sm_scale, S,
-                              stream);
+                               void* l_part, void* acc_part, void* tickets, void* out,
+                               int B, int H, int Hkv, int D, int P, int n_slots,
+                               long long k_page_stride, long long v_page_stride,
+                               float sm_scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 64)
+    return launch_decode_f32_g<64>(q, k, v, bt, lens, m_part, l_part, acc_part, tickets, out,
+                                   B, H, Hkv, D, P, n_slots, k_page_stride, v_page_stride,
+                                   sm_scale, st);
+  if (D <= 128)
+    return launch_decode_f32_g<128>(q, k, v, bt, lens, m_part, l_part, acc_part, tickets, out,
+                                    B, H, Hkv, D, P, n_slots, k_page_stride, v_page_stride,
+                                    sm_scale, st);
+  return launch_decode_f32_g<256>(q, k, v, bt, lens, m_part, l_part, acc_part, tickets, out,
+                                  B, H, Hkv, D, P, n_slots, k_page_stride, v_page_stride,
+                                  sm_scale, st);
 }
 
 // bf16: paged_decode_bf16_kernel, one launch.  m_part, l_part: (B, H_kv,
 // n_parts, G) f32, acc_part: (B, H_kv, n_parts, G, D) f32 scratch, and
 // tickets: (B, H_kv) int32, zero before the first call (each call leaves
-// them zero); all from the wrapper's cache.
+// them zero); all from the wrapper's cache, which both bodies share (the
+// launches of one stream run one after another).
 int paged_decode_attention_bf16(const void* q, const void* k, const void* v,
                                 const void* bt, const void* lens, void* m_part,
                                 void* l_part, void* acc_part, void* tickets, void* out,

@@ -8,10 +8,9 @@ ids.  Two kernels (``csrc/paged_attention.cu``, CUDA C++ for
 
   * ``paged_decode_attention`` replaces the Pallas kernel
     ``repro.kernels.paged_attention.paged_decode_attention`` (body
-    ``_paged_kernel``): one decode step.  In bf16 one launch, grid
-    (KV head, sequence, 128-token partition) from the block table's
-    reach, the partials merged in the same launch; in f32 a split of
-    each sequence's tokens over blocks, then a merge kernel.
+    ``_paged_kernel``): one decode step, one launch, grid (KV head,
+    sequence, token partition) from the block table's reach, the
+    partials merged in the same launch.
   * ``paged_prefill_attention`` replaces
     ``repro.kernels.paged_attention.paged_prefill_attention`` (body
     ``_prefill_kernel``): a whole chunked-prefill window, grid
@@ -27,21 +26,22 @@ strided view of the whole ``(n_pages, 2, L, P, H_kv, D)`` pool (the
 page stride is a kernel argument; a ``.contiguous()`` here would copy
 the pool twice per layer per tick).
 
-Decode has one body per dtype, a fixed dispatch.  bf16, the serving
-dtype: fixed partitions of ``DECODE_TOKENS`` tokens per (sequence, KV
-head), each block staging its partition's K/V rows with 16-byte
-``cp.async`` copies (so q and page rows must start and step 16-byte
-aligned, ``check_vectors``) and running both products on the tensor
-cores; the grid is H_kv x B x ``decode_partitions(n_slots, P)``, fixed
-by the table, so the host never reads ``lengths`` (no sync in the
-decode step); every block of a (sequence, KV head) writes its partial
-and takes a ticket, and the block that draws the last ticket merges the
-partials in partition order (the same bits on every call; no block
-waits for another).  f32 keeps the first design:
-each sequence's tokens split over ``decode_splits`` blocks of 8 warps,
-then a merge kernel.  Both take their scratch (partials, tickets) from
-a cache per device and stream (``_scratch``), not from a fresh
-allocation per call.
+Decode has one body per dtype, a fixed dispatch, both of one
+structure: fixed partitions of ``decode_tokens(dtype, D)`` tokens per
+(sequence, KV head) — ``DECODE_TOKENS`` in bf16 (the port's default),
+``DECODE_TOKENS_F32`` by padded head dim in f32 (the reference's
+serving dtype) — each block staging its partition's K/V rows with
+16-byte ``cp.async`` copies (so q and page rows must start and step
+16-byte aligned, ``check_vectors``); bf16 runs both products on the
+tensor cores, f32 on the CUDA cores.  The grid is H_kv x B x
+``decode_partitions(n_slots, P, tokens)``, fixed by the table, so the
+host never reads ``lengths`` (no sync in the decode step); every block
+of a (sequence, KV head) writes its partial and takes a ticket, and the
+block that draws the last ticket merges the partials in partition order
+(the same bits on every call; no block waits for another).  Both take
+their scratch (partials, tickets) from one cache per device and stream
+(``_scratch``), not from a fresh allocation per call: the launches of a
+stream run one after another, and each leaves the tickets at zero.
 
 The prefill window has one body per dtype, a fixed dispatch (no
 fallback), both a tile walk over the context gathered through the block
@@ -63,7 +63,7 @@ row ``j >= n_tok`` are exact zeros.
 The wrappers take the plain version for CPU tensors — only there.  For
 a CUDA tensor they launch the kernel or raise; nothing falls back.
 ``LAUNCHES`` counts kernel launches per wrapper (plain integers; one
-per call, the decode split/merge pair counting once), so a run can show
+per call), so a run can show
 that its main path went through the kernels; ``LAUNCHES_BY_DTYPE``
 splits the same counts by the body's dtype.
 """
@@ -74,7 +74,6 @@ import math
 import torch
 
 from . import build
-from ..device import sm_count
 from .flash_attention import VECTOR_BYTES, check_vectors
 
 NEG_INF = -1e30
@@ -92,11 +91,9 @@ PREFILL_TILE_BF16 = (64, 64)
 PREFILL_TOKENS_F32 = {64: 64, 128: 64, 256: 32}
 PREFILL_GROUPS_F32 = 2
 _F32_PAD = 4
-# f32 decode: blocks per SM the split aims at, and the most splits
-DECODE_BLOCKS_PER_SM = 4
-MAX_DECODE_SPLITS = 16
-# bf16 decode: tokens per partition
+# decode: tokens per partition, in bf16 and in f32 by padded head dim
 DECODE_TOKENS = 128
+DECODE_TOKENS_F32 = {64: 64, 128: 64, 256: 64}
 
 LAUNCHES = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
 LAUNCHES_BY_DTYPE = {(name, tag): 0 for name in LAUNCHES
@@ -107,10 +104,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
-    "paged_decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _L, _L, _F, _I, _P],
-    "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _L, _L, _F, _P],
+    "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _L, _L, _F, _P],
     "paged_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _L, _L, _F, _I, _P],
 }
@@ -144,6 +139,13 @@ def prefill_f32_smem_bytes(d: int) -> int:
     return 4 * (MAX_WINDOW_ROWS * ld + PREFILL_GROUPS_F32 * t * (2 * ld + ldp))
 
 
+def decode_f32_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of an f32 decode block at head dim ``d``: a
+    partition's K and V rows, then q of 8 heads, at the padded dim."""
+    dp = padded_dim(d)
+    return 4 * (2 * DECODE_TOKENS_F32[dp] * dp + MAX_GROUP * dp)
+
+
 def choose_block(window: int, group: int = 1) -> int:
     """Prefill-window q-block rows on the H100.
 
@@ -157,20 +159,18 @@ def choose_block(window: int, group: int = 1) -> int:
     return max(1, min(BLOCK_Q, int(window), MAX_WINDOW_ROWS // int(group)))
 
 
-def decode_splits(device: torch.device, batch: int, kv_heads: int) -> int:
-    """f32 decode: blocks each sequence's tokens are split over, enough
-    that ``batch x kv_heads x splits`` gives every SM ~4 blocks of 8 warps
-    (the split point inside a sequence follows its length)."""
-    want = -(-DECODE_BLOCKS_PER_SM * sm_count(device)
-             // max(batch * kv_heads, 1))
-    return max(1, min(MAX_DECODE_SPLITS, want))
+def decode_tokens(dtype: torch.dtype, d: int) -> int:
+    """Tokens per partition of the decode body for ``dtype`` at head dim
+    ``d``."""
+    return DECODE_TOKENS if dtype == torch.bfloat16 else \
+        DECODE_TOKENS_F32[padded_dim(d)]
 
 
-def decode_partitions(n_slots: int, page_tokens: int) -> int:
-    """Partitions of the bf16 decode grid per (sequence, KV head): the
-    table's reach in ``DECODE_TOKENS``-token pieces, whatever the
-    lengths (the grid is fixed without reading them)."""
-    return -(-n_slots * page_tokens // DECODE_TOKENS)
+def decode_partitions(n_slots: int, page_tokens: int, tokens: int) -> int:
+    """Partitions of the decode grid per (sequence, KV head): the table's
+    reach in ``tokens``-token pieces, whatever the lengths (the grid is
+    fixed without reading them)."""
+    return -(-n_slots * page_tokens // tokens)
 
 
 _SCRATCH: dict = {}
@@ -278,6 +278,16 @@ def _kernel(name: str, dtype: torch.dtype):
                 lib.paged_decode_partition_tokens_bf16() != DECODE_TOKENS:
             raise RuntimeError("kernel library's decode partition differs "
                                "from the wrapper's")
+        if full == "paged_decode_attention_f32":
+            got = ({dp: lib.paged_decode_partition_tokens_f32(dp)
+                    for dp in DECODE_TOKENS_F32},
+                   {dp: lib.paged_decode_smem_bytes_f32(dp)
+                    for dp in DECODE_TOKENS_F32})
+            want = (DECODE_TOKENS_F32,
+                    {dp: decode_f32_smem_bytes(dp) for dp in DECODE_TOKENS_F32})
+            if got != want:
+                raise RuntimeError(f"kernel library's f32 decode partitions "
+                                   f"{got} differ from the wrapper's {want}")
         if full == "paged_prefill_attention_f32":
             got = ({dp: lib.paged_prefill_tile_tokens_f32(dp)
                     for dp in PREFILL_TOKENS_F32},
@@ -355,36 +365,30 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pages any stride apart (a per-layer view of the pool); block_tables
     (B, n_slots) int32; lengths (B,) int32 (0 = inactive -> zero row).
     Token t of sequence b lives in page ``block_tables[b, t // P]``.
-    bf16 launches the partitioned tensor-core body (q and page rows
-    16-byte aligned, else ``ValueError``), f32 the split CUDA-core one."""
+    bf16 launches the partitioned tensor-core body, f32 the partitioned
+    CUDA-core one; both stage q and page rows in 16-byte copies (rows not
+    16-byte aligned: ``ValueError``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           lengths)
     b, h, hkv, d, page_tokens, n_slots = _check(
         q, k_pages, v_pages, block_tables, (lengths,), q_dims=3)
-    if q.dtype == torch.bfloat16:
-        check_vectors("bf16 decode", q=q, k_pages=k_pages, v_pages=v_pages)
+    check_vectors(f"{_SUFFIX[q.dtype]} decode", q=q, k_pages=k_pages,
+                  v_pages=v_pages)
     sm_scale = 1.0 / math.sqrt(d)
     fn = _kernel("paged_decode_attention", q.dtype)
     out = torch.empty_like(q)
+    # partial (m, l, acc) per (sequence, KV head, partition, head)
+    rows = b * h * decode_partitions(n_slots, page_tokens,
+                                     decode_tokens(q.dtype, d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        ins = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-               block_tables.data_ptr(), lengths.data_ptr())
-        dims = (b, h, hkv, d, page_tokens, n_slots, k_pages.stride(0),
-                v_pages.stride(0), sm_scale)
-        if q.dtype == torch.bfloat16:
-            # partial (m, l, acc) per (sequence, KV head, partition, head)
-            rows = b * h * decode_partitions(n_slots, page_tokens)
-            tickets = _scratch(q.device, stream, "tickets", b * hkv,
-                               torch.int32)
-            err = fn(*ins, *_partials(q.device, stream, rows, d),
-                     tickets.data_ptr(), out.data_ptr(), *dims, stream)
-        else:
-            # partial (m, l, acc) per (sequence, head, split)
-            splits = decode_splits(q.device, b, hkv)
-            err = fn(*ins, *_partials(q.device, stream, b * h * splits, d),
-                     out.data_ptr(), *dims, splits, stream)
+        tickets = _scratch(q.device, stream, "tickets", b * hkv, torch.int32)
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 block_tables.data_ptr(), lengths.data_ptr(),
+                 *_partials(q.device, stream, rows, d), tickets.data_ptr(),
+                 out.data_ptr(), b, h, hkv, d, page_tokens, n_slots,
+                 k_pages.stride(0), v_pages.stride(0), sm_scale, stream)
     _raise_on(err, "paged_decode_attention")
     _count("paged_decode_attention", q.dtype)
     return out

@@ -108,12 +108,13 @@ DECODE_CASES = {
 }
 
 
-# the edges of the bf16 decode kernel's partitions (pa.DECODE_TOKENS
-# tokens), at full head width (H=32, H_kv=8, D=128 unless named):
-# sequences over several partitions with a ragged last one; lengths that
-# are exact multiples of the partition beside 0 and 1; a page size (12)
-# that does not divide it; a 4096-token context; lengths past the
-# table's reach (clamped); GQA groups 8 and 1 at head dims 256 and 64
+# the edges of the decode kernels' partitions (pa.DECODE_TOKENS tokens in
+# bf16, pa.DECODE_TOKENS_F32 in f32), at full head width (H=32, H_kv=8,
+# D=128 unless named): sequences over several partitions with a ragged
+# last one; lengths that are exact multiples of the partition beside 0
+# and 1; a page size (12) that does not divide it; a 4096-token context;
+# lengths past the table's reach (clamped); GQA groups 8 and 1 at head
+# dims 256 and 64 (f32 partitions there too)
 def _decode_pool(seed, lens, P=16, slots=64, H=32, Hkv=8, D=128, layers=1):
     """q, a (n_pages, 2, layers, P, H_kv, D) page pool as the engine keeps
     it, block tables and lengths."""
@@ -133,6 +134,7 @@ def _decode_full(seed, lens, **kw):
 
 
 _T = pa.DECODE_TOKENS
+_T32, _T32_256 = pa.DECODE_TOKENS_F32[128], pa.DECODE_TOKENS_F32[256]
 DECODE_EDGE_CASES = {
     "several_partitions_ragged_last": lambda: _decode_full(
         80, [3 * _T + 5, 2 * _T + 2, _T + 1, 200]),
@@ -148,6 +150,15 @@ DECODE_EDGE_CASES = {
         85, [300, 64, 1], H=8, Hkv=1, D=256, slots=24),
     "group_1_d64": lambda: _decode_full(
         86, [129, 7], H=4, Hkv=4, D=64, slots=12),
+    "f32_partition_multiples_0_1": lambda: _decode_full(
+        90, [_T32, 2 * _T32, 0, 1, 5 * _T32, 3 * _T32]),
+    "f32_partition_ragged_last": lambda: _decode_full(
+        91, [3 * _T32 + 5, _T32 + 1, 2 * _T32 - 1, 7 * _T32 + 33]),
+    "f32_partition_page_12": lambda: _decode_full(
+        92, [_T32, 100, 37, 3 * _T32 + 12, 250], P=12, slots=24),
+    "f32_partition_group_8_d256": lambda: _decode_full(
+        93, [4 * _T32_256 + 1, 2 * _T32_256, _T32_256 - 1, 0], H=8, Hkv=1,
+        D=256, slots=24),
 }
 DECODE_GPU_CASES = {**DECODE_CASES, **DECODE_EDGE_CASES}
 
@@ -331,9 +342,9 @@ def cuda_device():
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(DECODE_GPU_CASES))
 def test_cuda_decode_kernel_matches_plain(cuda_device, case, dt):
-    """Both decode bodies (bf16 partitions on the tensor cores, f32
-    splits on the CUDA cores) over the reference's corpus and the bf16
-    body's partition edges; length-0 rows exactly 0."""
+    """Both decode bodies (partitions on the tensor cores in bf16, on the
+    CUDA cores in f32) over the reference's corpus and each body's
+    partition edges; length-0 rows exactly 0."""
     q, kp, vp, bt, lens = _tensors(DECODE_GPU_CASES[case](), dt, cuda_device)
     n = pa.LAUNCHES["paged_decode_attention"]
     got = pa.paged_decode_attention(q, kp, vp, bt, lens)
@@ -421,33 +432,42 @@ def test_cuda_prefill_f32_raises_on_misaligned_rows(cuda_device):
     assert dict(pa.LAUNCHES) == n
 
 
-def test_cuda_decode_kernel_same_bits_on_every_call(cuda_device):
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cuda_decode_kernel_same_bits_on_every_call(cuda_device, dt):
     """Sequences over several partitions, merged by whichever block comes
     last: two calls give identical bits (the merge runs in partition
     order and each call leaves the tickets at zero), on the strided
-    per-layer view of a three-layer pool, and match the plain version."""
+    per-layer view of a three-layer pool, and match the plain version;
+    only the dtype's body counts a launch."""
     q, pool, bt, lens = _tensors(_decode_pool(
-        87, [777, 4096, 65, 0, 1, 512], slots=256, layers=3), "bf16",
+        87, [777, 4096, 65, 0, 1, 512], slots=256, layers=3), dt,
         cuda_device)
     kp, vp = pool[:, 0, 2], pool[:, 1, 2]
     assert not kp.is_contiguous() and kp.stride(0) == 2 * 3 * 16 * 8 * 128
+    n = dict(pa.LAUNCHES_BY_DTYPE)
     first = pa.paged_decode_attention(q, kp, vp, bt, lens)
     second = pa.paged_decode_attention(q, kp, vp, bt, lens)
+    n[("paged_decode_attention", dt)] += 2
+    assert pa.LAUNCHES_BY_DTYPE == n
     torch.cuda.synchronize()
-    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    bits = torch.int32 if dt == "f32" else torch.int16
+    assert torch.equal(first.view(bits), second.view(bits))
     want = pa.paged_decode_attention_ref(q, kp, vp, bt, lens)
-    _close(first.cpu(), want.cpu().float().numpy(), "bf16")
+    _close(first.cpu(), want.cpu().float().numpy(), dt)
     assert float(first[3].abs().max()) == 0.0
 
 
-def test_cuda_decode_raises_on_misaligned_bf16_rows(cuda_device):
-    """The bf16 decode kernel stages rows in 16-byte copies: a page pool
-    that starts off a 16-byte boundary raises before any launch."""
-    q, kp, vp, bt, lens = _tensors(_decode_full(88, [70, 3]), "bf16",
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cuda_decode_raises_on_misaligned_bf16_rows(cuda_device, dt):
+    """Both decode kernels (bf16, and f32 too) stage rows in 16-byte
+    copies: a page pool that starts 8 bytes off a 16-byte boundary raises
+    before any launch."""
+    q, kp, vp, bt, lens = _tensors(_decode_full(88, [70, 3]), dt,
                                    cuda_device)
     n = dict(pa.LAUNCHES)
-    pool = torch.zeros(kp.numel() + 4, dtype=kp.dtype, device=cuda_device)
-    odd = pool[4:].view(kp.shape)                 # starts 8 bytes off
+    off = 8 // kp.element_size()
+    pool = torch.zeros(kp.numel() + off, dtype=kp.dtype, device=cuda_device)
+    odd = pool[off:].view(kp.shape)               # starts 8 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         pa.paged_decode_attention(q, odd, vp, bt, lens)
     assert dict(pa.LAUNCHES) == n

@@ -187,34 +187,52 @@ def test_choose_block_fits_the_warps_rows():
         assert pa.choose_block(64, g) * g <= pa.MAX_WINDOW_ROWS
 
 
-def _partition_tokens(part, length, n_slots, page_tokens):
-    """The tokens block ``part`` of the bf16 decode kernel takes for a
-    sequence of ``length`` (the kernel's walk: the length clamped to the
-    table's reach, DECODE_TOKENS a block, none past the length)."""
+def _partition_tokens(part, length, n_slots, page_tokens, tokens):
+    """The tokens block ``part`` of a decode body with ``tokens``-token
+    partitions takes for a sequence of ``length`` (the kernel's walk: the
+    length clamped to the table's reach, ``tokens`` a block, none past
+    the length)."""
     length = max(0, min(length, n_slots * page_tokens))
-    t0 = part * pa.DECODE_TOKENS
-    return range(t0, max(t0, min(t0 + pa.DECODE_TOKENS, length)))
+    t0 = part * tokens
+    return range(t0, max(t0, min(t0 + tokens, length)))
 
 
+# the partition of each decode body: bf16, then f32 at each padded dim
+DECODE_BODIES = {"bf16": pa.DECODE_TOKENS,
+                 **{f"f32_d{dp}": t for dp, t in pa.DECODE_TOKENS_F32.items()}}
+
+
+@pytest.mark.parametrize("body", sorted(DECODE_BODIES))
 @pytest.mark.parametrize("page_tokens,n_slots", [(16, 64), (16, 256),
                                                   (12, 20), (1, 70)])
-def test_decode_partitions_cover_every_token_once(page_tokens, n_slots):
-    """The bf16 decode grid comes from the table alone, and its blocks
+def test_decode_partitions_cover_every_token_once(page_tokens, n_slots, body):
+    """Each decode body's grid comes from the table alone, and its blocks
     take every token of every sequence exactly once: lengths 0 and 1,
     around the partition and the table's reach, and past the reach
     (clamped), for page sizes that do and do not divide the partition."""
+    tok = DECODE_BODIES[body]
     reach = n_slots * page_tokens
-    parts = pa.decode_partitions(n_slots, page_tokens)
-    assert (parts - 1) * pa.DECODE_TOKENS < reach <= parts * pa.DECODE_TOKENS
-    tok = pa.DECODE_TOKENS
+    parts = pa.decode_partitions(n_slots, page_tokens, tok)
+    assert (parts - 1) * tok < reach <= parts * tok
     for length in sorted({-3, 0, 1, tok - 1, tok, tok + 1, 3 * tok + 5,
                           reach - 1, reach, reach + 1, 4 * reach}):
         seen = [t for p in range(parts) for t in
-                _partition_tokens(p, length, n_slots, page_tokens)]
+                _partition_tokens(p, length, n_slots, page_tokens, tok)]
         assert seen == list(range(max(0, min(length, reach)))), length
         active = [p for p in range(parts) if
-                  _partition_tokens(p, length, n_slots, page_tokens)]
+                  _partition_tokens(p, length, n_slots, page_tokens, tok)]
         assert active == list(range(-(-max(0, min(length, reach)) // tok)))
+
+
+@pytest.mark.parametrize("d", [16, 64, 100, 128, 200, 256])
+def test_decode_tokens_by_dtype_and_head_dim(d):
+    """bf16 decode takes DECODE_TOKENS-token partitions at every head
+    dim; f32 takes its padded dim's entry, 64 or 128 tokens, a whole
+    number of warps that divides the block's 256 threads."""
+    assert pa.decode_tokens(torch.bfloat16, d) == pa.DECODE_TOKENS
+    t = pa.decode_tokens(torch.float32, d)
+    assert t == pa.DECODE_TOKENS_F32[pa.padded_dim(d)] and t in (64, 128)
+    assert 256 % t == 0
 
 
 # ======================================================================
@@ -729,6 +747,19 @@ def test_f32_prefill_smem_pinned():
     assert 2 * pa.prefill_f32_smem_bytes(128) > 232448
 
 
+def test_f32_decode_smem_pinned():
+    """The f32 decode body's dynamic shared memory (a partition's K and V
+    rows, then q of 8 heads) as chip_smoke reports it: 69,632 B at
+    qwen3-8b's head dim, where three blocks share an SM beside their
+    static offsets (2 x 64 int64) and the 1 KB each block reserves; every
+    head dim fits one block of the H100's 227 KB."""
+    assert {d: pa.decode_f32_smem_bytes(d) for d in (16, 64, 128, 256)} \
+        == {16: 34816, 64: 34816, 128: 69632, 256: 139264}
+    for d in (16, 64, 128, 256):
+        assert pa.decode_f32_smem_bytes(d) + 2 * 64 * 8 <= 232448
+    assert 3 * (pa.decode_f32_smem_bytes(128) + 2 * 64 * 8 + 1024) <= 233472
+
+
 def _paged_lib(**over):
     vals = dict(paged_attention_max_head_dim=256,
                 paged_attention_max_group=8,
@@ -739,7 +770,10 @@ def _paged_lib(**over):
                 paged_prefill_tile_tokens_f32=lambda dp:
                 pa.PREFILL_TOKENS_F32[dp],
                 paged_prefill_token_groups_f32=pa.PREFILL_GROUPS_F32,
-                paged_prefill_smem_bytes_f32=pa.prefill_f32_smem_bytes)
+                paged_prefill_smem_bytes_f32=pa.prefill_f32_smem_bytes,
+                paged_decode_partition_tokens_f32=lambda dp:
+                pa.DECODE_TOKENS_F32[dp],
+                paged_decode_smem_bytes_f32=pa.decode_f32_smem_bytes)
     return _FakeLib(**{**vals, **over})
 
 
@@ -759,6 +793,24 @@ def test_paged_library_f32_tiles_checked(monkeypatch, over):
     else:
         with pytest.raises(RuntimeError, match="f32 prefill tiles"):
             pa._kernel("paged_prefill_attention", torch.float32)
+
+
+@pytest.mark.parametrize("over", [
+    {}, {"paged_decode_partition_tokens_f32": lambda dp: 128},
+    {"paged_decode_smem_bytes_f32": lambda dp: 4096}],
+    ids=["same", "tokens", "smem"])
+def test_paged_library_f32_decode_checked(monkeypatch, over):
+    """The wrapper holds the f32 decode library's partitions and shared
+    memory to its own at load, and raises where they differ."""
+    lib = _paged_lib(**over)
+    monkeypatch.setattr(pa.build, "load", lambda source: lib)
+    if not over:
+        fn = pa._kernel("paged_decode_attention", torch.float32)
+        assert fn is lib.paged_decode_attention_f32
+        assert fn.argtypes == pa._ARGTYPES["paged_decode_attention"]
+    else:
+        with pytest.raises(RuntimeError, match="f32 decode partitions"):
+            pa._kernel("paged_decode_attention", torch.float32)
 
 
 def test_launches_counted_by_dtype():
