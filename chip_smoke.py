@@ -23,7 +23,8 @@ caught):
                passes them, decode also at 8 sequences of 4096 tokens
                (there also held to a share of the output's scale) and
                twice (two calls must give the same bits), f32 decode
-               within 1e-5; the copy
+               within 1e-5, prefill also at the speculative verify
+               window (8 sequences x k+1 = 5 rows, n_tok 1-5); the copy
                engine bit for bit on random bits
                (NaNs included) in f32/bf16/int8/int32 at the ring chunk
                of a 64 MiB-per-PE psum (8 PEs x 8 MiB), ragged and
@@ -37,7 +38,27 @@ caught):
                launch counters, zeroed just before, must equal n_layers x
                the prefill and decode steps of the run; the same trace
                again with ``torch.profiler`` on two windows of ticks for
-               where the device time goes; then, that engine freed,
+               where the device time goes; then, on the same weights
+               (only pools are new): speculative decoding, k = 4, of the
+               same trace with four proposers (n-gram, replay of the
+               n-gram run's streams, a fixed [0, 1, 2, 3], a draft model
+               with the target's own weights and config), whose streams
+               must be identical and replay must accept everything (the
+               non-spec run's streams are compared, every diverging
+               stream's first divergence printed with its top-2 margin;
+               the draft must accept everything where none diverges),
+               whose
+               prefill body must launch n_layers x (prefill steps +
+               verify ticks + the draft's prefill steps) and decode body
+               n_layers x the draft's decode steps, with ten profiled
+               verify ticks of the n-gram engine; a 200-token prompt
+               served twice with ``prefix_keep``, the second a prefix
+               hit through 12 migrated pages (12 put_nbi, one quiet) with
+               the first's stream; and an SLO run (``--slo 0.5+0.25``,
+               TTFT deadlines, a pool that forces eviction, a shed) whose
+               served streams must equal an FCFS run's and whose
+               interactive attainment must beat FCFS's; then, that
+               engine freed,
                qwen3-8b at full width in f32 (the reference's serving
                dtype; f32 weights drawn on the card): the first prefill
                chunk's and first decode step's logits through the
@@ -45,10 +66,15 @@ caught):
                max |logit|, and a seeded trace (the same 8 requests,
                outputs cut to 16-32 tokens) must launch the f32 bodies
                n_layers x its prefill and decode steps and the bf16
-               bodies never (tok/s, wall time, peak memory printed);
+               bodies never (tok/s, wall time, peak memory printed), and
+               the same trace with speculation (k = 4; n-gram, replay of
+               the non-spec streams, a draft model with the target's own
+               weights) must give the same streams through the f32
+               prefill body, replay and draft accepting everything;
                then the smoke config in f32 on the card must give the
                same greedy streams with the kernels as with the plain
-               versions;
+               versions, with and without speculation and after prefix
+               resumes;
   5. comm    — ``repro_torch.launch.comm_bench`` on the card: one team
                of 8 PEs, every collective under each algorithm, then the
                main path: psum, all_gather, psum_scatter, all_to_all and
@@ -88,7 +114,8 @@ caught):
                f32 as the trainer runs it and in bf16; paged decode and
                prefill in bf16, the port's default serving dtype, and in
                f32 beside it; decode in both dtypes also at 8 sequences
-               of 4096 tokens, SDPA on the gathered K/V its yardstick; the copy
+               of 4096 tokens, SDPA on the gathered K/V its yardstick;
+               prefill also at the verify window; the copy
                engine and ``clone``
                also at the staged payloads 8 x 64 KiB and 8 x 1 MiB, and
                at every payload the comm phase staged, summed as launches
@@ -105,7 +132,8 @@ forward, plain backward) against the all-plain path on the grads.
 
 ``launches`` in the kernels line is each kernel's count from its main
 path (the bf16 serve run for the paged-attention kernels, with
-``launches_f32`` from the f32 serve run, the communicator calls for
+``launches_f32`` from the f32 serve run and ``launches_spec`` summed
+over the speculative runs, the communicator calls for
 the copy engine, the gemma-2b training steps for the flash kernel; 0
 for ``combine_blocked``, which is reached only through ``ops.combine``).
 It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -116,6 +144,7 @@ non-zero and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -138,6 +167,12 @@ DECODE_LENS = [0, 1, 9, 16, 100, 256, 512, 777]    # 0, mid-page, full pages
 WINDOW = 64
 WIN_START = [0, 5, 16, 100, 250, 37, 448, 0]       # mid-page starts
 WIN_NTOK = [64, 64, 30, 64, 1, 64, 64, 0]          # padded, inactive rows
+# the speculative verify window: k+1 = 5 rows per sequence (the pending
+# token and 4 drafts; 20 score rows at the GQA group of 4), n_tok 1..5,
+# starts mid-page as decode positions are
+SPEC_K = 4
+VERIFY_START = [8, 99, 300, 15, 611, 47, 200, 770]
+VERIFY_NTOK = [5, 1, 3, 5, 2, 4, 5, 5]
 N_SLOTS = 64                                       # 1024 tokens of table
 # the long-context decode shape: the same heads, every sequence 4096
 # tokens (qwen3-8b's max_seq in the serving config's table)
@@ -185,6 +220,24 @@ SERVE_TRACE_F32 = {**SERVE_TRACE, "out_short": (16, 33), "out_long": (16, 33)}
 # first-step logits of the kernel path against the plain path, as a share
 # of max |logit| (f32: the two differ by summation order only)
 LOGIT_TOL = 1e-3
+# the prefix-migration run: one 200-token prompt (three 64-token chunks
+# plus 8: 12 full pages of 16) served twice, the second a prefix hit
+PREFIX_PROMPT, PREFIX_NEW = 200, 16
+# the SLO run (``--slo 0.5+0.25`` with TTFT deadlines, clock="tick"): 12
+# requests, prompts 64-256 tokens, 8-16 out, on a pool of 48 pages.  The
+# 72-token tick budget prefills about one 64-token chunk a tick, so an
+# interactive deadline of 10 ticks (a 256-token prompt needs 4) is met
+# by some requests and not all, and priority admission shows in its
+# attainment; the lone best-effort request waits past its 20 ticks and
+# is shed, and the small pool forces one eviction.  The scheduler alone
+# (``ServeEngine`` on the smoke model with the same trace and geometry:
+# scheduling does not depend on the tokens) shows FCFS 3 of 7
+# interactive requests in time and SLO 5 of 7, one eviction, one shed.
+SLO_TRACE = dict(n_requests=12, rate=8.0, seed=0, prompt_short=(64, 129),
+                 prompt_long=(129, 257), long_frac=0.25, out_short=(8, 17),
+                 out_long=(8, 17), interactive_frac=0.5, batch_frac=0.25)
+SLO_TTFT = dict(interactive=10.0, batch=20.0, best_effort=20.0)
+SLO_PAGES = 48
 
 
 def fail(msg: str) -> None:
@@ -239,15 +292,22 @@ def decode_long_case(dtype, dev, seed=3):
     return q, pool[:, 0, 1], pool[:, 1, 1], bt, lens
 
 
-def prefill_case(dtype, dev, seed=2):
+def prefill_case(dtype, dev, seed=2, window=WINDOW, starts=WIN_START,
+                 ntoks=WIN_NTOK):
     gen = torch.Generator(device=dev).manual_seed(seed)
     pool, bt = make_pool(gen, dtype, dev)
-    q = torch.randn((B, WINDOW, H, D), generator=gen, device=dev).to(dtype)
-    start = torch.tensor(WIN_START, dtype=torch.int32, device=dev)
-    n_tok = torch.tensor(WIN_NTOK, dtype=torch.int32, device=dev)
-    need = [s + n for s, n in zip(WIN_START, WIN_NTOK)]
+    q = torch.randn((B, window, H, D), generator=gen, device=dev).to(dtype)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    n_tok = torch.tensor(ntoks, dtype=torch.int32, device=dev)
+    need = [s + n for s, n in zip(starts, ntoks)]
     return (q, pool[:, 0, 1], pool[:, 1, 1], null_pad(bt, need), start,
             n_tok)
+
+
+def verify_case(dtype, dev, seed=4):
+    """A verify window at the path's width: k+1 rows per sequence."""
+    return prefill_case(dtype, dev, seed, SPEC_K + 1, VERIFY_START,
+                        VERIFY_NTOK)
 
 
 # ----------------------------------------------------------------------
@@ -391,12 +451,24 @@ def parity(pa, dev) -> dict:
         pad = torch.arange(WINDOW, device=dev)[None] >= n_tok[:, None]
         if out[pad].abs().max().item() != 0.0:
             fail(f"prefill {tag}: padded/inactive rows are not exactly zero")
-        errs[("paged_prefill_attention", tag)] = err
+        q, kp, vp, bt, start, n_tok = verify_case(dtype, dev)
+        out = pa.paged_prefill_attention(q, kp, vp, bt, start, n_tok)
+        ref = pa.paged_prefill_attention_ref(q, kp, vp, bt, start, n_tok)
+        torch.cuda.synchronize()
+        v_err = (out.float() - ref.float()).abs().max().item()
+        if not v_err <= TOL[dtype]:
+            fail(f"verify window {tag}: max |kernel - plain| {v_err} > "
+                 f"{TOL[dtype]}")
+        pad = torch.arange(SPEC_K + 1, device=dev)[None] >= n_tok[:, None]
+        if out[pad].abs().max().item() != 0.0:
+            fail(f"verify window {tag}: padded rows are not exactly zero")
+        errs[("paged_prefill_attention", tag)] = max(err, v_err)
         print(f"parity {tag}: decode max_err="
               f"{errs[('paged_decode_attention', tag)]:.3e} (timing shape and "
               f"{LONG_LEN} tokens, there {long_err:.3e} against max |plain| "
               f"{scale:.3e}; two calls equal; tol {DECODE_TOL[dtype]}) "
-              f"prefill max_err={err:.3e} (tol {TOL[dtype]})", flush=True)
+              f"prefill max_err={err:.3e}, verify window ({B} x {SPEC_K + 1} "
+              f"rows) {v_err:.3e} (tol {TOL[dtype]})", flush=True)
     return errs
 
 
@@ -588,8 +660,10 @@ def serve_full(pa, dev):
 
     pa.reset_launches()
     torch.cuda.synchronize()
+    t1 = time.monotonic()
     done = eng.run(reqs)
     torch.cuda.synchronize()
+    wall = time.monotonic() - t1
     launches = dict(pa.LAUNCHES)
 
     m = eng.metrics()
@@ -614,9 +688,18 @@ def serve_full(pa, dev):
                            "decode_p50_s", "decode_p99_s", "latency_p50_s",
                            "latency_p99_s", "ticks", "steps")}), flush=True)
     profile_serve(eng, make_requests(tcfg))
+    # the speculative, prefix-migration and SLO paths on the same weights
+    t0 = time.monotonic()
+    base = {"ticks": m["ticks"], "wall_s": wall,
+            "tok_s": m["tokens_out"] / wall, "tokens_out": m["tokens_out"]}
+    launches_spec = serve_spec_bf16(pa, eng, cfg, tcfg, done, base)
+    serve_prefix_full(eng, cfg)
+    serve_slo_full(eng, cfg)
+    print(f"serve spec/prefix/slo parts (bf16): "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, launches_spec
 
 
 def serve_full_f32(pa, dev) -> dict:
@@ -665,6 +748,7 @@ def serve_full_f32(pa, dev) -> dict:
                                 m["steps"]["decode"]):
         fail(f"serve f32: kernel launches {launches} != n_layers x steps "
              f"{want}")
+    base_streams = streams_of(done)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"serve f32: {len(done)} requests, {m['tokens_out']} tokens out, "
           f"{m['steps']['prefill']} prefill steps, {m['steps']['decode']} "
@@ -678,9 +762,418 @@ def serve_full_f32(pa, dev) -> dict:
          **{k: m[k] for k in ("span_s", "ttft_p50_s", "ttft_p99_s",
                               "decode_p50_s", "decode_p99_s", "ticks",
                               "steps")}}), flush=True)
+    t0 = time.monotonic()
+    serve_spec_f32(pa, eng, cfg, base_streams)
+    print(f"serve spec part (f32): {time.monotonic() - t0:.1f} s", flush=True)
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+def streams_of(done) -> dict:
+    return {r.rid: list(r.out) for r in done}
+
+
+def spec_scfg(eng):
+    """The engine's serving config with speculation on, and a tick budget
+    that covers every verify window and every prefilling sequence's whole
+    chunk, so the prefill chunking is the same whatever the proposer
+    accepts."""
+    sc = eng.scfg
+    return dataclasses.replace(
+        sc, spec_k=SPEC_K,
+        tick_tokens=sc.max_batch * (1 + SPEC_K + sc.prefill_chunk))
+
+
+def divergences(got: dict, want: dict) -> list:
+    """(rid, output index) of the first token where each stream of
+    ``got`` leaves ``want``'s, for every stream that does, by rid."""
+    out = []
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        j = next((j for j in range(max(len(a), len(b)))
+                  if j >= len(a) or j >= len(b) or a[j] != b[j]), None)
+        if j is not None:
+            out.append((rid, j))
+    return out
+
+
+def first_divergence(got: dict, want: dict):
+    """(rid, output index) of the first diverging stream, or None."""
+    div = divergences(got, want)
+    return div[0] if div else None
+
+
+def decode_margins(eng, cfg, cases) -> list:
+    """The non-speculative path's logits for output ``j`` of each of
+    ``cases`` ((prompt, outputs, j), at most max_batch of them), one case
+    a row of the serve run's shapes: the prompts through 64-token prefill
+    windows, outputs 0..j-1 through decode steps, on a fresh pool; a row
+    that has nothing to feed in a step sits idle on page 0, as the
+    engine's idle rows do.  Returns (top-1 minus top-2 logit, top-1
+    token) per case."""
+    from repro_torch.models import embed as emb
+    from repro_torch.serve import engine as se
+
+    scfg, params, dev = eng.scfg, eng.exec.params, eng.device
+    bm, c, pt = scfg.max_batch, scfg.prefill_chunk, scfg.page_tokens
+    if len(cases) > bm:
+        raise ValueError(f"{len(cases)} cases for {bm} rows")
+    table = torch.zeros((bm, scfg.table_slots), dtype=torch.int32)
+    base = 1
+    for i, (prompt, _, j) in enumerate(cases):
+        need = -(-(len(prompt) + j + 1) // pt)
+        table[i, :need] = base + torch.arange(need, dtype=torch.int32)
+        base += need
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    window = se._make_window_forward(cfg, scfg)
+    decode = se._make_decode_forward(cfg, scfg)
+    pool = eng.exec.init_pool()
+    z = lambda: torch.zeros((bm,), dtype=torch.int32)   # noqa: E731
+    logits = [None] * len(cases)
+
+    def rows(active):
+        bt = torch.zeros_like(table)
+        bt[active] = table[active]
+        return bt.to(dev)
+
+    n_chunks = max(-(-len(p) // c) for p, _, _ in cases)
+    for k in range(n_chunks):
+        ids = torch.zeros((bm, c), dtype=torch.int32)
+        start, n_tok, active = z(), z(), []
+        for i, (prompt, _, _) in enumerate(cases):
+            chunk = prompt[k * c:(k + 1) * c]
+            if chunk:
+                ids[i, :len(chunk)] = torch.tensor(chunk, dtype=torch.int32)
+                start[i], n_tok[i] = k * c, len(chunk)
+                active.append(i)
+        x, pool = window(params, pool, ids.to(dev), start.to(dev),
+                         n_tok.to(dev), rows(active))
+        for i in active:
+            if (k + 1) * c >= len(cases[i][0]):
+                logits[i] = emb.lm_head_logits(head, x[i, int(n_tok[i]) - 1])
+    for t in range(max(j for _, _, j in cases)):
+        tok, pos, lens, active = z(), z(), z(), []
+        for i, (prompt, outs, j) in enumerate(cases):
+            if t < j:
+                n = len(prompt) + t
+                tok[i], pos[i], lens[i] = outs[t], n, n + 1
+                active.append(i)
+        x, pool = decode(params, pool, tok.to(dev), pos.to(dev),
+                         rows(active), lens.to(dev))
+        for i in active:
+            if t == cases[i][2] - 1:
+                logits[i] = emb.lm_head_logits(head, x[i])
+    del pool
+    out = []
+    for lg in logits:
+        top = lg.float().topk(2)
+        out.append(((top.values[0] - top.values[1]).item(),
+                    int(top.indices[0])))
+    return out
+
+
+def spec_run(pa, eng, cfg, reqs, proposer=None, kv=None, clock="tick",
+             profile_reqs=None):
+    """One speculative run of ``reqs`` on a second engine over ``eng``'s
+    weights (only its pool is new), the launch counters zeroed just
+    before; then, given ``profile_reqs``, ``profile_verify`` on the same
+    engine.  Returns (streams, metrics,
+    launches by (kernel, dtype), wall seconds, the draft's step
+    counts)."""
+    from repro_torch.serve import ServeEngine
+
+    e2 = ServeEngine(eng.exec.params, cfg, spec_scfg(eng), device=eng.device,
+                     kv=kv, proposer=proposer)
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = e2.run(reqs, clock=clock)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(pa.LAUNCHES_BY_DTYPE)
+    m = e2.metrics()
+    if len(done) != len(reqs) or any(len(r.out) != r.max_new for r in done):
+        fail(f"spec run: {len(done)} of {len(reqs)} requests finished whole")
+    if m["steps"]["decode"] or not m["steps"]["verify"]:
+        fail(f"spec run: steps {m['steps']}: every decode token must come "
+             f"from a verify window")
+    dsteps = dict(getattr(e2.proposer, "steps",
+                          {"prefill": 0, "decode": 0}))
+    got = streams_of(done)
+    if profile_reqs is not None:             # after the run's results:
+        profile_verify(e2, profile_reqs)     # it resets the engine
+    del e2
+    return got, m, launches, wall, dsteps
+
+
+def spec_launches_ok(launches, cfg, m, dsteps, tag) -> dict:
+    """The prefill body of ``tag`` launches n_layers x (prefill steps +
+    verify ticks + the draft's prefill steps), the decode body n_layers x
+    the draft's decode steps, the other dtype's bodies never."""
+    want = {k: 0 for k in launches}
+    want[("paged_prefill_attention", tag)] = cfg.n_layers * (
+        m["steps"]["prefill"] + m["steps"]["verify"] + dsteps["prefill"])
+    want[("paged_decode_attention", tag)] = cfg.n_layers * dsteps["decode"]
+    if launches != want:
+        fail(f"spec run ({tag}): kernel launches {launches} != {want}")
+    return want
+
+
+def spec_proposer_runs(pa, eng, cfg, tcfg, tag, names, replay=None,
+                       profile=False) -> tuple:
+    """Speculative runs (k = SPEC_K) of the trace ``tcfg`` on a second
+    engine over ``eng``'s weights, one per proposer of ``names``, in
+    order: "ngram", "replay" (of ``replay``, or of the n-gram run's
+    streams), "fixed" ([0, 1, 2, 3]) and "draft" (a draft model with the
+    target's own weights and config; its own pool only).  The runs'
+    streams must be identical (the verify window is k+1 rows whatever is
+    proposed); replay must accept every proposal and emit more than one
+    token a tick, the draft model more than one a tick.  Returns (results
+    by proposer, launches summed over the runs by (kernel, dtype))."""
+    from repro_torch.core.heap import SymmetricHeap
+    from repro_torch.serve import (DraftModelProposer, FixedProposer,
+                                   NgramProposer, PagedKVCache,
+                                   ReplayProposer, make_requests)
+
+    total: dict = {}
+    res = {}
+    for name in names:
+        kv = None
+        if name == "draft":
+            sc = spec_scfg(eng)
+            kv = PagedKVCache(
+                SymmetricHeap(("data",)), n_layers=cfg.n_layers,
+                kv_heads=cfg.kv_per_rank(1), head_dim=cfg.head_dim,
+                n_pages=sc.n_pages, page_tokens=sc.page_tokens,
+                dtype=sc.dtype)
+            prop = DraftModelProposer(eng.exec.params, cfg, sc, kv,
+                                      target_vocab=cfg.vocab,
+                                      device=eng.device)
+        elif name == "replay":
+            prop = ReplayProposer(replay if replay is not None
+                                  else res["ngram"]["streams"])
+        else:
+            prop = {"ngram": NgramProposer,
+                    "fixed": lambda: FixedProposer([0, 1, 2, 3])}[name]()
+        got, m, launches, wall, dsteps = spec_run(
+            pa, eng, cfg, make_requests(tcfg), prop, kv,
+            profile_reqs=make_requests(tcfg)
+            if profile and name == "ngram" else None)
+        del prop, kv
+        torch.cuda.empty_cache()
+        spec_launches_ok(launches, cfg, m, dsteps, tag)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        res[name] = dict(streams=got, ticks=m["ticks"], wall_s=wall,
+                         tok_s=m["tokens_out"] / wall,
+                         accept_rate=m["spec"]["accept_rate"],
+                         tokens_per_tick=m["spec"]["tokens_per_tick"],
+                         verify_ticks=m["steps"]["verify"],
+                         prefill_steps=m["steps"]["prefill"],
+                         draft_steps=dsteps,
+                         launches={f"{k[0]}/{k[1]}": v
+                                   for k, v in launches.items() if v})
+    ref = res[names[0]]["streams"]
+    for name, r in res.items():
+        if r["streams"] != ref:
+            fail(f"spec {tag}: the {name} run's streams differ from the "
+                 f"{names[0]} run's at {first_divergence(r['streams'], ref)}"
+                 f": the target's tokens depend on the proposer")
+    if "replay" in res and res["replay"]["accept_rate"] != 1.0:
+        fail(f"spec {tag}: replay of the target's own streams accepted "
+             f"{res['replay']['accept_rate']} of its proposals, not all")
+    for name in ("replay", "draft"):
+        if name in res and not res[name]["tokens_per_tick"] > 1:
+            fail(f"spec {tag}: {name} tokens per tick "
+                 f"{res[name]['tokens_per_tick']} <= 1")
+    return res, total
+
+
+def margin_text(eng, cfg, reqs, spec: dict, plain: dict) -> tuple:
+    """Every stream where ``spec`` leaves ``plain`` (the non-spec run's
+    streams of ``reqs``): (number of equal streams, text with each first
+    divergence and the non-spec run's top-2 logit margin there)."""
+    div = divergences(spec, plain)
+    prompts = {r.rid: r.prompt for r in reqs}
+    margins = decode_margins(eng, cfg, [(prompts[rid], plain[rid], j)
+                                        for rid, j in div]) if div else []
+    text = "; ".join(
+        f"request {rid} output {j}: spec {spec[rid][j:j + 3]} vs non-spec "
+        f"{plain[rid][j:j + 3]}, non-spec top-2 margin {mg:.6g} (top-1 "
+        f"{top})" for (rid, j), (mg, top) in zip(div, margins))
+    return len(plain) - len(div), text
+
+
+def serve_spec_bf16(pa, eng, cfg, tcfg, base_done, base) -> dict:
+    """Full-width bf16 speculative decoding of the serve trace with four
+    proposers (``spec_proposer_runs``: n-gram, replay of the n-gram
+    run's streams, fixed, draft model).  Agreement with the non-spec run
+    is reported, with every diverging stream's first divergence and its
+    top-2 margin; where no stream diverges, the draft model must accept
+    every proposal too.  Returns the launches summed over the runs."""
+    res, total = spec_proposer_runs(
+        pa, eng, cfg, tcfg, "bf16", ("ngram", "replay", "fixed", "draft"),
+        profile=True)
+    want = streams_of(base_done)
+    same, text = margin_text(eng, cfg, base_done, res["ngram"]["streams"],
+                             want)
+    if same == len(want):
+        agree = "spec streams == non-spec streams"
+        if res["draft"]["accept_rate"] != 1.0:
+            fail(f"spec bf16: draft accept rate "
+                 f"{res['draft']['accept_rate']} != 1.0 with streams equal "
+                 f"to the non-spec run's")
+    else:
+        agree = (f"spec streams differ from non-spec: {same} of {len(want)} "
+                 f"streams equal; first divergences: {text}")
+    print(f"serve spec bf16 (k={SPEC_K}): four proposers' streams "
+          f"identical, replay accepts all; {agree}", flush=True)
+    print("serve spec bf16 runs: " + json.dumps(
+        {"non_spec": base,
+         **{n: {k: v for k, v in r.items() if k != "streams"}
+            for n, r in res.items()}}), flush=True)
+    return total
+
+
+def serve_spec_f32(pa, eng, cfg, base_streams) -> None:
+    """Full-width f32 speculative decoding of the f32 trace with the
+    n-gram proposer, replay of the f32 non-spec streams and a draft
+    model with the target's own weights (``spec_proposer_runs``): the
+    streams must equal the f32 non-spec run's (the prefill body's rows
+    against the decode body's tokens), and replay and the draft model,
+    which then propose exactly the target's tokens, must accept every
+    proposal."""
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    tcfg = TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE_F32)
+    res, _ = spec_proposer_runs(pa, eng, cfg, tcfg, "f32",
+                                ("ngram", "replay", "draft"),
+                                replay=base_streams)
+    same, text = margin_text(eng, cfg, make_requests(tcfg),
+                             res["ngram"]["streams"], base_streams)
+    if same != len(base_streams):
+        fail(f"serve spec f32: {len(base_streams) - same} streams differ "
+             f"from the non-spec run's: {text}")
+    if res["draft"]["accept_rate"] != 1.0:
+        fail(f"serve spec f32: draft accept rate "
+             f"{res['draft']['accept_rate']} != 1.0 with streams equal to "
+             f"the non-spec run's")
+    print(f"serve spec f32 (k={SPEC_K}): ngram, replay and draft streams "
+          f"== non-spec f32 streams, replay and draft accept all; "
+          + json.dumps({n: {k: v for k, v in r.items() if k != "streams"}
+                        for n, r in res.items()}), flush=True)
+
+
+def serve_prefix_full(eng, cfg) -> None:
+    """Prefix-cache migration at full width in bf16: a 200-token prompt
+    served once (chunks 64, 64, 64, 8; its 12 full pages pinned), then
+    again after it finished: the second admission is a prefix hit whose
+    12 pages arrive by put_nbi with ONE quiet on that tick, it re-feeds
+    only rows 192-199 (the first serve's last chunk), and its greedy
+    stream must equal the first's bit for bit."""
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import engine as se
+
+    dev = eng.device
+    e2 = ServeEngine(eng.exec.params, cfg,
+                     dataclasses.replace(eng.scfg, prefix_keep=True),
+                     device=dev)
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(cfg.vocab, (PREFIX_PROMPT,), generator=gen).tolist()
+    first = e2.run([Request(rid=0, prompt=list(prompt),
+                            max_new=PREFIX_NEW)], clock="tick")[0]
+    pages = PREFIX_PROMPT // e2.scfg.page_tokens
+    if first.prefill_chunks != [64, 64, 64, 8] or \
+            e2.kv.pinned_pages != pages:
+        fail(f"prefix: first serve chunks {first.prefill_chunks}, pinned "
+             f"{e2.kv.pinned_pages} pages (want [64, 64, 64, 8], {pages})")
+    e2.submit(Request(rid=1, prompt=list(prompt), max_new=PREFIX_NEW))
+    drained = []                     # the stats of every queue drained
+
+    class Counted(se.CommQueue):
+        def quiet(self):
+            out = super().quiet()
+            drained.append(self.stats())
+            return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    plain_queue, se.CommQueue = se.CommQueue, Counted
+    try:
+        t0 = time.monotonic()
+        e2.tick(e2.ticks)
+        torch.cuda.synchronize()
+        tick_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        se.CommQueue = plain_queue
+    peak_extra = (torch.cuda.max_memory_allocated(dev) - mem0) / 1e6
+    got = [(st["puts"], st["quiets"]) for st in drained]
+    if (e2.kv.stats["prefix_hits"], e2.kv.stats["migrations"], got) != \
+            (1, pages, [(pages, 1)]):
+        fail(f"prefix: hits {e2.kv.stats['prefix_hits']}, migrations "
+             f"{e2.kv.stats['migrations']}, drained queues (puts, quiets) "
+             f"{got} (want 1, {pages}, [({pages}, 1)])")
+    st = drained[0]
+    while e2.sched.has_work():
+        e2.tick(e2.ticks)
+    second = next(r for r in e2.finished if r.rid == 1)
+    if second.prefill_chunks != [PREFIX_PROMPT - pages * P] or \
+            second.out != first.out:
+        fail(f"prefix: resumed chunks {second.prefill_chunks}, stream "
+             f"{second.out} vs first {first.out}")
+    page_mb = e2.pool[0].numel() * e2.pool.element_size() / 1e6
+    print(f"serve prefix bf16: {pages} pages ({page_mb:.2f} MB each) "
+          f"migrated by {st['puts']} put_nbi ({st['coalesced']} coalesced) "
+          f"and {st['quiets']} quiet; resumed stream == first stream "
+          f"{first.out[:6]}...; migrating tick {tick_ms:.1f} ms wall, peak "
+          f"memory over it +{peak_extra:.1f} MB above "
+          f"{mem0 / 1e9:.2f} GB", flush=True)
+    del e2
+    torch.cuda.empty_cache()
+
+
+def serve_slo_full(eng, cfg) -> None:
+    """The SLO policy at full width in bf16 on the tick clock: the SLO
+    trace served FCFS and under ``--slo 0.5+0.25`` with TTFT deadlines,
+    on a pool small enough to evict; every request the SLO run serves
+    must give the FCFS run's stream.  Prints attainment and sheds."""
+    from repro_torch.serve import (SLOConfig, ServeEngine, TrafficConfig,
+                                   make_requests)
+
+    slo = SLOConfig(**{f"ttft_{c}": t for c, t in SLO_TTFT.items()})
+    tcfg = TrafficConfig(vocab=cfg.vocab, **SLO_TRACE, **{
+        f"deadline_{c}": t for c, t in SLO_TTFT.items()})
+    out = {}
+    for mode, pol in (("fcfs", None), ("slo", slo)):
+        e2 = ServeEngine(eng.exec.params, cfg, dataclasses.replace(
+            eng.scfg, n_pages=SLO_PAGES, slo=pol), device=eng.device)
+        t0 = time.monotonic()
+        done = e2.run(make_requests(tcfg), clock="tick")
+        torch.cuda.synchronize()
+        m = e2.metrics()
+        out[mode] = (streams_of(done), m, time.monotonic() - t0)
+        del e2
+    (fcfs, mf, wf), (got, ms, ws) = out["fcfs"], out["slo"]
+    bad = [rid for rid in got if got[rid] != fcfs.get(rid)]
+    if bad or len(got) + sum(ms["slo"]["shed"].values()) != len(fcfs):
+        fail(f"slo: requests {bad} differ from FCFS; served {len(got)}, "
+             f"shed {ms['slo']['shed']} of {len(fcfs)}")
+    if not (ms["sched"]["preempted"] and ms["sched"]["shed"]):
+        fail(f"slo: the run must evict and shed: {ms['sched']}")
+    if not ms["slo"]["attained"]["interactive"] > \
+            mf["slo"]["attained"]["interactive"]:
+        fail(f"slo: interactive attainment {ms['slo']['attained']} is no "
+             f"better than FCFS's {mf['slo']['attained']}")
+    print(f"serve slo bf16: {len(got)} served streams == FCFS streams; "
+          + json.dumps({"fcfs": {"ticks": mf["ticks"], "wall_s": wf,
+                                 "preempted": mf["sched"]["preempted"],
+                                 "attained": mf["slo"]["attained"]},
+                        "slo": {"ticks": ms["ticks"], "wall_s": ws,
+                                "preempted": ms["sched"]["preempted"],
+                                **ms["slo"]}}), flush=True)
+    torch.cuda.empty_cache()
 
 
 def first_step_logits(eng, cfg, reqs) -> None:
@@ -811,6 +1304,16 @@ def _window(eng, tick, n_ticks):
                   **out}
 
 
+def _prefill_all(eng, tick):
+    """Tick until no request is prefilling; returns the next tick."""
+    while eng.sched.has_work() and any(
+            r.is_prefilling() for r in [*eng.sched.running,
+                                        *eng.sched.waiting]):
+        eng.tick(tick)
+        tick += 1
+    return tick
+
+
 def profile_serve(eng, reqs) -> None:
     """Where the time of the same trace goes, on the same engine: all
     requests submitted at once, then ten profiled ticks while prompts
@@ -820,12 +1323,7 @@ def profile_serve(eng, reqs) -> None:
     for r in reqs:
         eng.submit(r)
     tick, mixed = _window(eng, 0, 10)
-    while eng.sched.has_work() and any(
-            r.is_prefilling() for r in [*eng.sched.running,
-                                        *eng.sched.waiting]):
-        eng.tick(tick)
-        tick += 1
-    tick, decode = _window(eng, tick, 10)
+    tick, decode = _window(eng, _prefill_all(eng, tick), 10)
     while eng.sched.has_work():
         eng.tick(tick)
         tick += 1
@@ -834,27 +1332,60 @@ def profile_serve(eng, reqs) -> None:
           flush=True)
 
 
+def profile_verify(eng, reqs) -> None:
+    """The speculative engine's counterpart of the decode-only window:
+    ``reqs`` submitted at once, prefilled, then ten profiled ticks of
+    verify windows only."""
+    eng.reset_metrics()
+    for r in reqs:
+        eng.submit(r)
+    _, window = _window(eng, _prefill_all(eng, 0), 10)
+    print(f"profile spec k={SPEC_K}: " + json.dumps(
+        {"verify_only_ticks": window}), flush=True)
+
+
 def serve_smoke_streams(dev):
     """Kernel vs plain attention on the smoke config in f32 on the card:
-    identical greedy streams (the reference's acceptance bar)."""
+    identical greedy streams (the reference's acceptance bar), without
+    and with speculation (k = 2, n-gram), and with prefix keeping, where
+    the same prompts served again resume from migrated pages."""
     from repro_torch.launch.serve import build_engine
     from repro_torch.serve import Request
 
+    t0 = time.monotonic()
+    prompts = [list(range(3, 9)), list(range(4, 10)), [7, 3, 99, 12]]
     streams = {}
-    for impl in ("kernel", "ref"):
-        eng, cfg = build_engine("qwen3-8b", config="smoke", dtype="f32",
-                                device=dev, page_tokens=4, n_pages=32,
-                                max_batch=3, prefill_chunk=3,
-                                attn_impl=impl, seed=0)
-        prompts = [list(range(3, 9)), list(range(4, 10)), [7, 3, 99, 12]]
-        done = eng.run([Request(rid=i, prompt=p, max_new=5)
-                        for i, p in enumerate(prompts)], clock="tick")
-        streams[impl] = {r.rid: list(r.out) for r in done}
-    if streams["kernel"] != streams["ref"]:
-        fail(f"smoke streams differ: kernel {streams['kernel']} vs plain "
-             f"{streams['ref']}")
-    print(f"serve smoke f32: kernel streams == plain streams "
-          f"{streams['kernel']}", flush=True)
+    for mode, kw in (("plain", {}), ("spec", dict(spec_k=2)),
+                     ("prefix", dict(prefix_keep=True))):
+        for impl in ("kernel", "ref"):
+            eng, cfg = build_engine("qwen3-8b", config="smoke", dtype="f32",
+                                    device=dev, page_tokens=4, n_pages=32,
+                                    max_batch=3, prefill_chunk=3,
+                                    attn_impl=impl, seed=0, **kw)
+            done = eng.run([Request(rid=i, prompt=p, max_new=5)
+                            for i, p in enumerate(prompts)], clock="tick")
+            got = {r.rid: list(r.out) for r in done}
+            if mode == "prefix":
+                again = [r for r in eng.run(
+                    [Request(rid=10 + i, prompt=p, max_new=5)
+                     for i, p in enumerate(prompts)], clock="tick")
+                    if r.rid >= 10]
+                if eng.kv.stats["prefix_hits"] < 2 or \
+                        {r.rid - 10: list(r.out) for r in again} != got:
+                    fail(f"smoke prefix resume ({impl}): hits "
+                         f"{eng.kv.stats['prefix_hits']}, streams "
+                         f"{[r.out for r in again]} vs {got}")
+            if mode == "spec" and not eng.metrics()["spec"]["verify_ticks"]:
+                fail("smoke spec run verified nothing")
+            streams[mode, impl] = got
+    want = streams["plain", "ref"]
+    bad = {k: v for k, v in streams.items() if v != want}
+    if bad:
+        fail(f"smoke streams differ from the plain non-spec run {want}: "
+             f"{bad}")
+    print(f"serve smoke f32: kernel streams == plain streams, with and "
+          f"without speculation (k=2) and after prefix resumes "
+          f"{want}; {time.monotonic() - t0:.1f} s", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -1089,7 +1620,7 @@ def gathered(kp, vp, bt, s):
     return kc, vc
 
 
-def timing(pa, dev, launches, launches_f32, errs) -> list:
+def timing(pa, dev, launches, launches_f32, launches_spec, errs) -> list:
     dt = torch.bfloat16
     rows = [dict(name="paged_decode_attention",
                  **decode_timing_case(pa, dev, dt),
@@ -1144,6 +1675,26 @@ def timing(pa, dev, launches, launches_f32, errs) -> list:
         print(f"timing {name} (f32): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
+    # the verify window (k+1 rows) through the prefill bodies, and the
+    # speculative runs' launches of each paged kernel
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        f = prefill_timing_case(pa, dev, dt, verify=True)
+        ms, plain_ms, lib_ms = (time_ms(f[k], dev)
+                                for k in ("fn", "plain", "lib"))
+        bound_ms, by = bound_of(f["nbytes"], f["flops"], dt)
+        got = rates(ms, f["nbytes"], f["flops"], bound_ms)
+        out[1].update({f"verify_{tag}": {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by, **got}})
+        print(f"timing paged_prefill_attention verify window ({tag}, "
+              f"{B} x {SPEC_K + 1} rows): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
+    for row in out:
+        row["launches_spec"] = {f"{name}/{tag}": n for (name, tag), n
+                                in launches_spec.items()
+                                if name == row["name"]}
     return out
 
 
@@ -1219,24 +1770,30 @@ def decode_timing_case(pa, dev, dt) -> dict:
         flops=4 * ntok * H * D)
 
 
-def prefill_timing_case(pa, dev, dt) -> dict:
-    """The prefill window at the parity shape in ``dt``: the kernel, its
-    plain version and SDPA on pre-gathered K/V with the window's mask,
-    and the bytes and flops of its bound (each K/V token a row sees read
-    once, q read and out written once)."""
+def prefill_timing_case(pa, dev, dt, verify: bool = False) -> dict:
+    """The prefill window at the parity shape in ``dt`` (or, with
+    ``verify``, the k+1-row verify window): the kernel, its plain version
+    and SDPA on pre-gathered K/V with the window's mask, and the bytes
+    and flops of its bound (each K/V token a row sees read once, q read
+    and out written once)."""
     import torch.nn.functional as F
 
     isz = torch.tensor([], dtype=dt).element_size()
-    q2, kp2, vp2, bt2, start, n_tok = prefill_case(dt, dev)
-    s2 = max(a + n for a, n in zip(WIN_START, WIN_NTOK))
+    if verify:
+        window, starts, ntoks = SPEC_K + 1, VERIFY_START, VERIFY_NTOK
+        q2, kp2, vp2, bt2, start, n_tok = verify_case(dt, dev)
+    else:
+        window, starts, ntoks = WINDOW, WIN_START, WIN_NTOK
+        q2, kp2, vp2, bt2, start, n_tok = prefill_case(dt, dev)
+    s2 = max(a + n for a, n in zip(starts, ntoks))
     kc2, vc2 = gathered(kp2, vp2, bt2, s2)
-    j = torch.arange(WINDOW, device=dev)[None]
+    j = torch.arange(window, device=dev)[None]
     lim = torch.where(j < n_tok[:, None], start[:, None] + j + 1,
                       torch.zeros_like(j))
     mask2 = (torch.arange(s2, device=dev)[None, None] < lim[:, :, None])
     mask2 = mask2[:, None]
     qt = q2.transpose(1, 2)
-    seen = sum(a + n for a, n in zip(WIN_START, WIN_NTOK) if n)
+    seen = sum(a + n for a, n in zip(starts, ntoks) if n)
     return dict(
         fn=lambda: pa.paged_prefill_attention(q2, kp2, vp2, bt2, start,
                                               n_tok),
@@ -1248,7 +1805,7 @@ def prefill_timing_case(pa, dev, dt) -> dict:
         nbytes=(2 * q2.numel() * isz + seen * HKV * D * isz * 2
                 + bt2.numel() * 4 + 2 * B * 4),
         flops=sum(4 * (a + jj + 1) * H * D
-                  for a, n in zip(WIN_START, WIN_NTOK) for jj in range(n)))
+                  for a, n in zip(starts, ntoks) for jj in range(n)))
 
 
 def comm_timing(sc, rc, dev, launches, by_payload, errs) -> list:
@@ -1443,14 +2000,14 @@ def main(argv=None) -> int:
     flash_errs = flash_parity(fa, dev)
     flash_autograd_parity(fa, dev)
     comm_errs = comm_kernel_parity(sc, rc, dev)
-    launches = serve_full(pa, dev)
+    launches, launches_spec = serve_full(pa, dev)
     launches_f32 = serve_full_f32(pa, dev)
     serve_smoke_streams(dev)
     comm_launches, comm_payloads = comm_phase(sc, rc, dev, args.comm_out)
     flash_launches = train_full(fa, dev)
     train_smoke_parity(dev)
     timing_floor(dev)
-    kernels = timing(pa, dev, launches, launches_f32, errs) + \
+    kernels = timing(pa, dev, launches, launches_f32, launches_spec, errs) + \
         comm_timing(sc, rc, dev, comm_launches, comm_payloads, comm_errs) + \
         [flash_timing(fa, dev, flash_launches, flash_errs)]
 

@@ -106,3 +106,24 @@ def sample_tokens(logits: torch.Tensor, state: dict, pos: torch.Tensor,
     -> (b,) int32 tokens."""
     vals, idxs = emb.tp_sample_candidates(logits, n_candidates)
     return sample_from_candidates(vals, idxs, state, pos)
+
+
+def sample_window_tokens(logits: torch.Tensor, state: dict,
+                         pos: torch.Tensor,
+                         n_candidates: int = 8) -> torch.Tensor:
+    """The window form of :func:`sample_tokens`, what speculative verify
+    uses: one draw per (sequence, window row).  ``logits`` (b, C, V);
+    ``pos`` (b, C) the absolute position of the token GENERATED at each
+    row (the RNG counter).  Row ``(i, j)`` draws with the key a decode
+    step at that position would use, ``fold_in(fold_in(PRNGKey(seed),
+    rid), pos[i, j])``, so a verified window reproduces the sequential
+    stream wherever the fed tokens match.  Returns (b, C) tokens."""
+    vals, idxs = emb.tp_sample_candidates(logits, n_candidates)
+    b, c, k = vals.shape
+    flat = {name: np.repeat(state[name], c)
+            for name in ("temperature", "top_k", "top_p", "rid")}
+    flat["seed"] = state["seed"]
+    toks = sample_from_candidates(vals.reshape(b * c, k),
+                                  idxs.reshape(b * c, k), flat,
+                                  pos.reshape(b * c))
+    return toks.reshape(b, c)

@@ -1,8 +1,9 @@
 """repro_torch on the GPU: the CUDA paged-attention kernels against
 their plain PyTorch versions over the reference's parity corpus
 (mid-page starts, full final pages, padded and inactive rows, the verify
-shape, GQA/MQA, f32/bf16, length 0) and the edges of the bf16 prefill
-kernel's tiles, and the engine's kernel path; the copy and combine
+shape, GQA/MQA, f32/bf16, length 0), the edges of the bf16 prefill
+kernel's tiles and verify windows at qwen3-8b's width, and the engine's
+kernel path, speculative decoding included; the copy and combine
 kernels and the pallas backend; the flash-attention kernel against its
 plain version (its tile edges, the models' layouts, the 16-byte row
 check), the autograd path through it, and smoke-config training with
@@ -225,6 +226,16 @@ PREFILL_EDGE_CASES = {
         65, 2, 16, 8, 2, 128, 12, 20, start=[100, 7], n_tok=[16, 11]),
     "rows_past_the_tables_reach": lambda: _window_case(
         66, 2, 16, 8, 2, 128, 16, 4, start=[60, 10], n_tok=[16, 16]),
+    # speculative verify windows at qwen3-8b's width: C = k+1 rows (k = 1
+    # and 4; at a group of 4, 8 and 20 score rows, one block, 20 rows
+    # straddling two 16-row tensor-core tiles), n_tok mixed 1..C, starts
+    # mid-page
+    "verify_qwen_width_k1": lambda: _window_case(
+        80, 8, 2, 32, 8, 128, 16, 32, start=[13, 100, 7, 250, 31, 0, 64, 499],
+        n_tok=[2, 1, 2, 1, 2, 2, 1, 2]),
+    "verify_qwen_width_k4": lambda: _window_case(
+        81, 8, 5, 32, 8, 128, 16, 32, start=[13, 100, 7, 250, 31, 3, 64, 490],
+        n_tok=[5, 1, 3, 4, 2, 5, 1, 5]),
 }
 PREFILL_GPU_CASES = {**WINDOW_CASES, **PREFILL_EDGE_CASES}
 
@@ -496,6 +507,40 @@ def test_cuda_kernel_path_never_runs_plain_versions(cuda_device,
     assert pa.LAUNCHES == {
         "paged_decode_attention": cfg.n_layers * eng.steps["decode"],
         "paged_prefill_attention": cfg.n_layers * eng.steps["prefill"]}
+
+
+def test_cuda_spec_streams_equal_plain_decode_streams(cuda_device):
+    """Speculative decoding on the card, smoke config in f32: the spec
+    streams (every decode token from a verify window through the prefill
+    body) equal the non-spec streams (tokens from the decode body), and
+    the prefill body launches n_layers x (prefill steps + verify ticks),
+    the decode body never."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import Request
+
+    def reqs():
+        return [Request(rid=i, prompt=[5, 17, 42] * (4 - i), max_new=8)
+                for i in range(3)]
+
+    streams = {}
+    for spec_k in (0, 2):
+        eng, cfg = launch.build_engine(config="smoke", dtype="f32",
+                                       device=cuda_device, page_tokens=4,
+                                       n_pages=48, max_batch=3,
+                                       prefill_chunk=4, spec_k=spec_k)
+        pa.reset_launches()
+        done = eng.run(reqs(), clock="tick")
+        streams[spec_k] = {r.rid: list(r.out) for r in done}
+        want = {("paged_prefill_attention", "f32"): cfg.n_layers * (
+                    eng.steps["prefill"] + eng.steps["verify"]),
+                ("paged_decode_attention", "f32"):
+                    cfg.n_layers * eng.steps["decode"]}
+        got = {k: v for k, v in pa.LAUNCHES_BY_DTYPE.items() if v}
+        assert got == {k: v for k, v in want.items() if v}
+        if spec_k:
+            assert eng.steps["decode"] == 0 and eng.steps["verify"] > 0
+            assert eng.metrics()["spec"]["drafted"] > 0
+    assert streams[2] == streams[0]
 
 
 # ======================================================================

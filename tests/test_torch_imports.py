@@ -81,6 +81,13 @@ def test_the_training_slice_is_covered():
     assert want <= set(_modules())
 
 
+def test_the_serving_slice_is_covered():
+    want = {"repro_torch.serve." + m for m in (
+        "engine", "kv_cache", "scheduler", "sampling", "slo", "spec",
+        "threefry", "traffic")} | {"repro_torch.launch.serve"}
+    assert want <= set(_modules())
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_import_of_jax_or_repro(path):

@@ -4,8 +4,10 @@ reference on the same inputs: heap offsets, ``PagedKVCache`` grants,
 and the token streams of the whole engine (the port on the CPU, the
 reference with ``attn_impl="ref"``) for the same ``from_jax`` weights
 and requests — greedy and sampled, across prefill chunkings.  Plus the
-device contract (no GPU -> raise) and the explicit refusals of what
-later slices bring.
+device contract (no GPU -> raise), the explicit refusals of what later
+slices bring, and the prefix cache: registration, the pin budget,
+``put_nbi`` page migration drained by one ``quiet()``, and a prefix-hit
+resume whose stream equals the first serve's and the reference's.
 
 Host bookkeeping and token streams must be EQUAL; nothing here has a
 tolerance.
@@ -149,10 +151,7 @@ def test_scheduler_plans_match_reference(n_pages, chunk, tick_tokens):
                 if r.rid not in chunked and not r.is_prefilling():
                     sched.advance(r, 7, tick)
                 if not r.is_prefilling() and r.finished():
-                    if is_ref:
-                        sched.finish(r, tick, register_prefix=False)
-                    else:
-                        sched.finish(r, tick)
+                    sched.finish(r, tick, register_prefix=False)
         assert ours_kv.tables == ref_kv.tables
         assert [(r.rid, r.n_done, r.out) for r in ours.running] == \
             [(r.rid, r.n_done, r.out) for r in ref.running]
@@ -310,34 +309,48 @@ def test_build_engine_without_device_raises_when_cuda_absent(monkeypatch):
     assert eng.device.type == "cpu" and cfg.n_layers == 2
 
 
-@pytest.mark.parametrize("what", ["spec_k", "slo", "prefix_keep", "moe",
-                                  "disagg", "router_amo", "cli_hot_swap",
-                                  "cli_slo"])
+@pytest.mark.parametrize("what", ["moe", "disagg", "router_amo",
+                                  "cli_hot_swap"])
 def test_later_slices_raise_not_implemented(what):
     small = dict(config="smoke", dtype="f32", device="cpu", page_tokens=4,
                  n_pages=16, max_batch=2, prefill_chunk=4)
     cli = ["--config", "smoke", "--device", "cpu", "--dtype", "f32"]
     with pytest.raises(NotImplementedError):
-        if what == "spec_k":
-            launch.build_engine(spec_k=2, **small)
-        elif what == "slo":
-            launch.build_engine(slo=object(), **small)
-        elif what == "prefix_keep":
-            launch.build_engine(prefix_keep=True, **small)
-        elif what == "disagg":
+        if what == "disagg":
             launch.build_engine(disagg="1+1", **small)
         elif what == "router_amo":
             launch.build_engine(router="amo", **small)
         elif what == "cli_hot_swap":
             launch.main(cli + ["--hot-swap"])
-        elif what == "cli_slo":
-            launch.main(cli + ["--slo", "0.5+0.25"])
         else:
             cfg = dataclasses.replace(configs.get_smoke("qwen3-8b"),
                                       family="moe",
                                       moe=MoEConfig(num_experts=4, top_k=2,
                                                     expert_ff=32))
             serve.ServeEngine({}, cfg, serve.ServeConfig(), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(spec_k=2, draft="qwen3-8b"),
+                                dict(prefix_keep=True),
+                                dict(slo=serve.SLOConfig())],
+                         ids=["spec", "draft", "prefix", "slo"])
+def test_new_paths_run_on_the_card_unless_asked(monkeypatch, kw):
+    """``build_engine`` with speculation, a draft model, prefix keeping or
+    the SLO policy raises without a GPU unless ``device="cpu"`` is
+    passed; on the CPU it builds and serves."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(config="smoke", dtype="f32", page_tokens=4, n_pages=16,
+                 max_batch=2, prefill_chunk=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.build_engine(**small, **kw)
+    eng, cfg = launch.build_engine(device="cpu", **small, **kw)
+    assert eng.device.type == "cpu"
+    if "draft" in kw:
+        assert eng.proposer.device.type == "cpu"
+        assert eng.proposer.kv is eng.kv
+    done = eng.run([serve.Request(rid=0, prompt=[5, 17, 42] * 2, max_new=4)],
+                   clock="tick")
+    assert len(done[0].out) == 4
 
 
 def test_cli_serves_smoke_config_on_cpu(capsys):
@@ -347,3 +360,171 @@ def test_cli_serves_smoke_config_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "arch=qwen3-8b-smoke device=cpu" in out
     assert '"requests": 3' in out
+
+
+# ======================================================================
+# prefix cache and page migration: put_nbi per page, ONE quiet()
+# ======================================================================
+def test_page_migration_put_nbi_one_quiet():
+    """N migrations issue N put_nbi and drain with ONE quiet(); the
+    destination PE's rows equal the source's pages, as the reference's
+    (LocalTransport, two PEs, adjacent pages coalesced)."""
+    from repro.core import CommQueue as JQueue, LocalTransport as JLocal
+    from repro_torch.core import CommQueue, LocalTransport
+
+    ours, ref = _kv_pair(n_pages=8)
+    rng = np.random.RandomState(0)
+    system = rng.randn(2, *ours.handle.shape).astype(np.float32)
+    out = {}
+    for kv, queue, tr, mod, arr in (
+            (ours, CommQueue, LocalTransport, serve, torch.from_numpy),
+            (ref, JQueue, JLocal, jserve, np.array)):
+        migs = [mod.PageMigration(src_pe=0, dst_pe=1, src_page=3,
+                                  dst_page=5),
+                mod.PageMigration(src_pe=0, dst_pe=1, src_page=4,
+                                  dst_page=6)]
+        state = {kv.handle.name: arr(system.copy())}
+        q = queue("pe", state, transport=tr(2))
+        if mod is serve:
+            got = kv.issue_migrations(q, state[kv.handle.name], migs)
+        else:
+            got = kv.issue_migrations(q, state[kv.handle.name], migs,
+                                      system=True)
+        st = q.stats()
+        out[mod] = (np.asarray(got[kv.handle.name]),
+                    {k: st[k] for k in ("puts", "quiets", "coalesced")},
+                    kv.stats["migrations"])
+    assert out[serve][1] == out[jserve][1] == \
+        {"puts": 2, "quiets": 1, "coalesced": 1}
+    assert out[serve][2] == out[jserve][2] == 2
+    np.testing.assert_array_equal(out[serve][0], out[jserve][0])
+    np.testing.assert_array_equal(out[serve][0][1, 5], system[0, 3])
+    untouched = np.ones(8, bool)
+    untouched[[5, 6]] = False
+    np.testing.assert_array_equal(out[serve][0][1][untouched],
+                                  system[1][untouched])
+
+
+def test_engine_migration_lands_in_the_pool_in_place(count_quiets):
+    """``LocalExec.migrate``: one put_nbi per page and one quiet, the
+    pages written into the engine's own pool tensor (no copy of it)."""
+    eng = serve.ServeEngine({}, configs.get_smoke("qwen3-8b"),
+                            serve.ServeConfig(page_tokens=4, n_pages=12),
+                            device="cpu")
+    pool = eng.pool
+    pool.copy_(torch.randn(pool.shape, generator=torch.Generator()
+                           .manual_seed(0)))
+    before = pool.clone()
+    migs = tuple(serve.PageMigration(0, 0, s, d)
+                 for s, d in ((2, 9), (3, 10), (7, 4)))
+    got = eng.exec.migrate(pool, migs)
+    assert got is pool
+    assert [(q["puts"], q["quiets"], q["coalesced"])
+            for q in count_quiets] == [(3, 1, 1)]
+    for m in migs:
+        torch.testing.assert_close(pool[m.dst_page], before[m.src_page],
+                                   rtol=0, atol=0)
+    keep = [i for i in range(12) if i not in (9, 10, 4)]
+    torch.testing.assert_close(pool[keep], before[keep], rtol=0, atol=0)
+
+
+def test_prefix_pin_budget_bounds_the_cache():
+    ours, ref = _kv_pair(n_pages=9)
+    for kv in (ours, ref):
+        assert kv.pin_budget == 2
+        assert kv.alloc_seq("a", 8)
+        assert kv.register_prefix(list(range(8)), 0, kv.tables["a"][:2])
+        assert kv.pinned_pages == 2
+        assert kv.alloc_seq("b", 8)
+        assert not kv.register_prefix(list(range(20, 28)), 0,
+                                      kv.tables["b"][:2])   # over budget
+        assert kv.pinned_pages == 2
+    assert ours._prefix == ref._prefix and ours.tables == ref.tables
+    assert serve.PagedKVCache(SymmetricHeap(("data",), 1 << 24),
+                              n_layers=1, kv_heads=1, head_dim=4,
+                              n_pages=64, page_tokens=4).pin_budget == 15
+
+
+def test_prefix_cache_registration_and_lookup():
+    ours, ref = _kv_pair(n_pages=10)
+    prompt = list(range(11))                   # 2 full pages + 3 tokens
+    for kv in (ours, ref):
+        assert kv.alloc_seq("a", len(prompt) + 1)
+        pages = kv.tables["a"]
+        assert kv.register_prefix(prompt, owner_pe=0, pages=pages[:2])
+        assert not kv.register_prefix(prompt, owner_pe=1, pages=pages[:2])
+        assert kv.lookup_prefix(prompt + [99, 98]) == (0, pages[:2])
+        # only whole registered keys hit: one matching page is no hit
+        assert kv.lookup_prefix(prompt[:5] + [1, 2, 3]) is None
+        assert kv.lookup_prefix([5, 5, 5, 5]) is None
+        taken = kv.take_pages(3)
+        kv.attach_seq("b", taken)
+        assert kv.tables["b"] == taken
+        with pytest.raises(ValueError):
+            kv.attach_seq("b", taken)
+        assert kv.take_pages(100) is None
+    assert ours.tables == ref.tables and ours._free == ref._free
+    assert ours.stats["page_allocs"] == ref.stats["page_allocs"]
+
+
+def _count_quiets(monkeypatch, engine_module) -> list:
+    """Record the stats of every CommQueue ``engine_module`` drains."""
+    seen = []
+
+    class Counted(engine_module.CommQueue):
+        def quiet(self):
+            out = super().quiet()
+            seen.append(self.stats())
+            return out
+
+    monkeypatch.setattr(engine_module, "CommQueue", Counted)
+    return seen
+
+
+@pytest.fixture
+def count_jax_quiets(monkeypatch):
+    from repro.serve import engine as jengine
+    return _count_quiets(monkeypatch, jengine)
+
+
+@pytest.fixture
+def count_quiets(monkeypatch):
+    from repro_torch.serve import engine
+    return _count_quiets(monkeypatch, engine)
+
+
+@pytest.mark.parametrize("spec_k", [0, 2])
+def test_local_prefix_hit_resumes_via_self_pair_copy(weights,
+                                                     count_jax_quiets,
+                                                     count_quiets, spec_k):
+    """A same-PE prefix hit reuses the pinned pages through put_nbi with
+    self-pairs (one put per page, one quiet on that tick): the re-served
+    prompt gives the first serve's stream, the reference's stream, and
+    the uncovered suffix prefills in one >= 2-token chunk."""
+    jcfg, ctx, jparams, cfg, params = weights
+    kw = dict(page_tokens=4, n_pages=32, max_batch=2, max_seq=32,
+              prefill_chunk=4, prefix_keep=True, spec_k=spec_k)
+    jeng = jserve.ServeEngine(jparams, jcfg, ctx,
+                              jserve.ServeConfig(attn_impl="ref", **kw))
+    eng = serve.ServeEngine(params, cfg, serve.ServeConfig(**kw),
+                            device="cpu")
+    prompt = list(range(5, 16))                # 2 full pages + 3 extra
+    res = {}
+    for mod, e in ((jserve, jeng), (serve, eng)):
+        first = e.run([mod.Request(rid=0, prompt=list(prompt), max_new=5)],
+                      clock="tick")[0]
+        assert e.kv.pinned_pages == 2
+        e.submit(mod.Request(rid=1, prompt=list(prompt), max_new=5))
+        while e.sched.has_work():
+            e.tick()
+        again = next(r for r in e.finished if r.rid == 1)
+        assert again.out == first.out
+        assert e.kv.lookup_prefix(prompt) is not None   # originals intact
+        res[mod] = (first.out, again.prefill_chunks, e.sched.stats["resumed"],
+                    e.kv.stats["migrations"], e.kv.stats["prefix_hits"])
+    assert res[serve] == res[jserve]
+    assert res[serve][1:] == ([3], 1, 2, 1)
+    assert [(q["puts"], q["quiets"]) for q in count_quiets] == [(2, 1)]
+    assert [(q["puts"], q["quiets"]) for q in count_jax_quiets] == [(2, 1)]
+    assert eng.metrics()["kv"] == {k: jeng.metrics()["kv"][k]
+                                   for k in eng.kv.stats}
