@@ -24,7 +24,9 @@ caught):
                (there also held to a share of the output's scale) and
                twice (two calls must give the same bits), f32 decode
                within 1e-5, prefill also at the speculative verify
-               window (8 sequences x k+1 = 5 rows, n_tok 1-5); the copy
+               window (8 sequences x k+1 = 5 rows, n_tok 1-5), and both
+               at the MoE archs' layouts in both dtypes (H 32 / H_kv 4
+               and H 16 / H_kv 16, D 128); the copy
                engine bit for bit on random bits
                (NaNs included) in f32/bf16/int8/int32 at the ring chunk
                of a 64 MiB-per-PE psum (8 PEs x 8 MiB), ragged and
@@ -71,10 +73,25 @@ caught):
                the non-spec streams, a draft model with the target's own
                weights) must give the same streams through the f32
                prefill body, replay and draft accepting everything;
-               then the smoke config in f32 on the card must give the
-               same greedy streams with the kernels as with the plain
-               versions, with and without speculation and after prefix
-               resumes;
+               then, that engine freed, the MoE stage: qwen3-moe-30b-a3b
+               at full width in bf16 (48 layers, 128 experts top-8,
+               30.5 B parameters drawn on the card from seed 0) serves
+               the seeded 8-request trace twice (clock "tick", the same
+               streams both times), launches n_layers x steps, ten
+               profiled decode-only ticks beside the decode step's
+               weight-read bound, and the routing-aware first-step
+               comparison of the kernels against the plain versions
+               (flips printed, not gated in bf16); then qwen2-moe-a2.7b
+               at full width in f32 (60 experts padded to 64, top-4, a
+               shared expert, 15.2 B parameters; 256 pages): the same
+               comparison gated (rows no routing flip reaches within
+               1e-3 x max |logit|, every first flip a near-tie), and the
+               f32 trace, launches n_layers x steps; then the smoke
+               configs of qwen3-8b, qwen3-moe-30b-a3b and qwen2-moe-a2.7b
+               in f32 on the card must give the same greedy streams with
+               the kernels as with the plain versions, without and with
+               speculation and after prefix resumes, each kernel run
+               launching n_layers x its steps;
   5. comm    — ``repro_torch.launch.comm_bench`` on the card: one team
                of 8 PEs, every collective under each algorithm, then the
                main path: psum, all_gather, psum_scatter, all_to_all and
@@ -115,7 +132,8 @@ caught):
                prefill in bf16, the port's default serving dtype, and in
                f32 beside it; decode in both dtypes also at 8 sequences
                of 4096 tokens, SDPA on the gathered K/V its yardstick;
-               prefill also at the verify window; the copy
+               prefill also at the verify window; decode and prefill at
+               the MoE archs' layouts in their serving dtypes; the copy
                engine and ``clone``
                also at the staged payloads 8 x 64 KiB and 8 x 1 MiB, and
                at every payload the comm phase staged, summed as launches
@@ -132,8 +150,10 @@ forward, plain backward) against the all-plain path on the grads.
 
 ``launches`` in the kernels line is each kernel's count from its main
 path (the bf16 serve run for the paged-attention kernels, with
-``launches_f32`` from the f32 serve run and ``launches_spec`` summed
-over the speculative runs, the communicator calls for
+``launches_f32`` from the f32 serve run, ``launches_spec`` summed
+over the speculative runs, ``launches_moe`` from the bf16
+qwen3-moe-30b-a3b run and ``launches_moe_f32`` from the f32
+qwen2-moe-a2.7b run), the communicator calls for
 the copy engine, the gemma-2b training steps for the flash kernel; 0
 for ``combine_blocked``, which is reached only through ``ops.combine``).
 It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -163,6 +183,11 @@ SRC = os.path.join(ROOT, "src")
 # page tokens; the parity/timing batch
 H, HKV, D, P = 32, 8, 128, 16
 B = 8
+# the MoE archs' attention layouts (query heads, KV heads; D = 128, P =
+# 16 as above): qwen3-moe-30b-a3b (GQA group 8) served in bf16,
+# qwen2-moe-a2.7b (group 1) in f32
+MOE_HEADS = {"qwen3-moe-30b-a3b": ((32, 4), torch.bfloat16),
+             "qwen2-moe-a2.7b": ((16, 16), torch.float32)}
 DECODE_LENS = [0, 1, 9, 16, 100, 256, 512, 777]    # 0, mid-page, full pages
 WINDOW = 64
 WIN_START = [0, 5, 16, 100, 250, 37, 448, 0]       # mid-page starts
@@ -238,6 +263,23 @@ SLO_TRACE = dict(n_requests=12, rate=8.0, seed=0, prompt_short=(64, 129),
                  out_long=(8, 17), interactive_frac=0.5, batch_frac=0.25)
 SLO_TTFT = dict(interactive=10.0, batch=20.0, best_effort=20.0)
 SLO_PAGES = 48
+# the MoE stage: qwen3-moe-30b-a3b at full width in bf16 (61.1 GB of
+# weights, 512 pages of 1.57 MB) and qwen2-moe-a2.7b in f32, the
+# reference's serving dtype (60.6 GB of weights; 256 pages of 6.3 MB,
+# 1.6 GB: 512 would take ~64 GB with the weights and leave too little
+# of the 80 for the plain path's comparison and the step's activations)
+MOE_BF16, MOE_F32 = "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"
+MOE_F32_PAGES = 256
+# The routing comparison calls a row's routing a near-tie when the gap
+# between its k-th and (k+1)-th gate, as a share of the k-th, is below
+# this.  f32: the kernels differ from the plain versions by summation
+# order (1e-5 at most, phase 3), which moves a router logit of size ~1
+# by ~1e-5 after a few dozen layers; 1e-3 is a hundred times that.
+# bf16: the router's logits are rounded to bf16 (2^-7 apart for logits
+# in [1, 2)) and the kernels' outputs differ from the plain versions by
+# one bf16 ulp, so gates that are eight ulps apart (a share of 2^-4)
+# can swap; printed, not gated.
+MOE_TIE = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4}
 
 
 def fail(msg: str) -> None:
@@ -255,12 +297,12 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 # inputs at the main path's shapes
 # ----------------------------------------------------------------------
-def make_pool(gen, dtype, dev, n_slots=N_SLOTS):
+def make_pool(gen, dtype, dev, n_slots=N_SLOTS, hkv=HKV):
     """A (n_pages, 2, 2, P, H_kv, D) pool; the kernels get the strided
     per-layer views pool[:, 0, 1] / pool[:, 1, 1], as the engine passes
     pool[:, 0|1, li].  Page 0 (the null page) holds noise too."""
     n_pages = B * n_slots + 1
-    pool = torch.randn((n_pages, 2, 2, P, HKV, D), generator=gen,
+    pool = torch.randn((n_pages, 2, 2, P, hkv, D), generator=gen,
                        device=dev).to(dtype)
     bt = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     return pool, bt.reshape(B, n_slots).to(torch.int32)
@@ -274,10 +316,10 @@ def null_pad(bt, tokens):
     return bt.contiguous()
 
 
-def decode_case(dtype, dev, seed=1, n_slots=N_SLOTS):
+def decode_case(dtype, dev, seed=1, n_slots=N_SLOTS, heads=(H, HKV)):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    pool, bt = make_pool(gen, dtype, dev, n_slots)
-    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    pool, bt = make_pool(gen, dtype, dev, n_slots, heads[1])
+    q = torch.randn((B, heads[0], D), generator=gen, device=dev).to(dtype)
     lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
     return q, pool[:, 0, 1], pool[:, 1, 1], null_pad(bt, DECODE_LENS), lens
 
@@ -293,10 +335,11 @@ def decode_long_case(dtype, dev, seed=3):
 
 
 def prefill_case(dtype, dev, seed=2, window=WINDOW, starts=WIN_START,
-                 ntoks=WIN_NTOK):
+                 ntoks=WIN_NTOK, heads=(H, HKV)):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    pool, bt = make_pool(gen, dtype, dev)
-    q = torch.randn((B, window, H, D), generator=gen, device=dev).to(dtype)
+    pool, bt = make_pool(gen, dtype, dev, hkv=heads[1])
+    q = torch.randn((B, window, heads[0], D), generator=gen,
+                    device=dev).to(dtype)
     start = torch.tensor(starts, dtype=torch.int32, device=dev)
     n_tok = torch.tensor(ntoks, dtype=torch.int32, device=dev)
     need = [s + n for s, n in zip(starts, ntoks)]
@@ -469,7 +512,48 @@ def parity(pa, dev) -> dict:
               f"{scale:.3e}; two calls equal; tol {DECODE_TOL[dtype]}) "
               f"prefill max_err={err:.3e}, verify window ({B} x {SPEC_K + 1} "
               f"rows) {v_err:.3e} (tol {TOL[dtype]})", flush=True)
+    moe_layout_parity(pa, dev, errs)
     return errs
+
+
+def moe_layout_parity(pa, dev, errs) -> None:
+    """Decode and the 64-row prefill window at the MoE archs' layouts
+    (qwen3-moe-30b-a3b: H 32 / H_kv 4, group 8; qwen2-moe-a2.7b: H 16 /
+    H_kv 16, group 1; D 128) in both dtypes, against the plain versions
+    with phase 3's tolerances; length-0 and padded rows exactly 0.  The
+    errors join ``errs``."""
+    for arch, (heads, _) in MOE_HEADS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            q, kp, vp, bt, lens = decode_case(dtype, dev, seed=5,
+                                              heads=heads)
+            out = pa.paged_decode_attention(q, kp, vp, bt, lens)
+            ref = pa.paged_decode_attention_ref(q, kp, vp, bt, lens)
+            q, kp, vp, bt, start, n_tok = prefill_case(dtype, dev, seed=6,
+                                                       heads=heads)
+            pout = pa.paged_prefill_attention(q, kp, vp, bt, start, n_tok)
+            pref = pa.paged_prefill_attention_ref(q, kp, vp, bt, start,
+                                                  n_tok)
+            torch.cuda.synchronize()
+            d_err = (out.float() - ref.float()).abs().max().item()
+            p_err = (pout.float() - pref.float()).abs().max().item()
+            pad = torch.arange(WINDOW, device=dev)[None] >= n_tok[:, None]
+            if not d_err <= DECODE_TOL[dtype] or \
+                    out[0].abs().max().item() != 0.0:
+                fail(f"decode {tag} at {arch}'s layout {heads}: max |kernel "
+                     f"- plain| {d_err} (tol {DECODE_TOL[dtype]}), or the "
+                     f"length-0 row is not exactly zero")
+            if not p_err <= TOL[dtype] or pout[pad].abs().max().item() != 0:
+                fail(f"prefill {tag} at {arch}'s layout {heads}: max |kernel "
+                     f"- plain| {p_err} (tol {TOL[dtype]}), or padded rows "
+                     f"are not exactly zero")
+            for name, e in (("paged_decode_attention", d_err),
+                            ("paged_prefill_attention", p_err)):
+                errs[(name, tag)] = max(errs[(name, tag)], e)
+            print(f"parity {tag} at {arch}'s layout (H {heads[0]}, H_kv "
+                  f"{heads[1]}, D {D}): decode max_err={d_err:.3e}, prefill "
+                  f"max_err={p_err:.3e}", flush=True)
+            del q, kp, vp, out, ref, pout, pref
 
 
 def flash_inputs(shape, dtype, dev, seed=11):
@@ -1252,7 +1336,7 @@ def _kind(name: str) -> str:
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
     if "sort" in low:
-        return "sort (sampler)"
+        return "sort (sampler, MoE router)"
     return "elementwise/reduce/copy"
 
 
@@ -1287,7 +1371,7 @@ def _profiled(run, top: int = 6) -> dict:
     }
 
 
-def _window(eng, tick, n_ticks):
+def _window(eng, tick, n_ticks, top: int = 6):
     """Profile up to ``n_ticks`` engine ticks (see ``_profiled``)."""
     steps0 = dict(eng.steps)
 
@@ -1299,7 +1383,7 @@ def _window(eng, tick, n_ticks):
             eng.tick(tick)
             tick += 1
 
-    out = _profiled(run)
+    out = _profiled(run, top)
     return tick, {"steps": {k: eng.steps[k] - steps0[k] for k in steps0},
                   **out}
 
@@ -1344,24 +1428,29 @@ def profile_verify(eng, reqs) -> None:
         {"verify_only_ticks": window}), flush=True)
 
 
-def serve_smoke_streams(dev):
-    """Kernel vs plain attention on the smoke config in f32 on the card:
-    identical greedy streams (the reference's acceptance bar), without
-    and with speculation (k = 2, n-gram), and with prefix keeping, where
-    the same prompts served again resume from migrated pages."""
+def serve_smoke_streams(pa, dev, arch):
+    """Kernel vs plain attention on ``arch``'s smoke config in f32 on the
+    card: identical greedy streams (the reference's acceptance bar),
+    without and with speculation (k = 2, n-gram), and with prefix
+    keeping, where the same prompts served again resume from migrated
+    pages.  The smoke configs' capacity (MoE) drops nothing, so no
+    stream may move.  Through the kernels each run launches n_layers x
+    its steps, through the plain versions none."""
     from repro_torch.launch.serve import build_engine
     from repro_torch.serve import Request
 
     t0 = time.monotonic()
     prompts = [list(range(3, 9)), list(range(4, 10)), [7, 3, 99, 12]]
     streams = {}
-    for mode, kw in (("plain", {}), ("spec", dict(spec_k=2)),
-                     ("prefix", dict(prefix_keep=True))):
+    modes = (("plain", {}), ("spec", dict(spec_k=2)),
+             ("prefix", dict(prefix_keep=True)))
+    for mode, kw in modes:
         for impl in ("kernel", "ref"):
-            eng, cfg = build_engine("qwen3-8b", config="smoke", dtype="f32",
+            eng, cfg = build_engine(arch, config="smoke", dtype="f32",
                                     device=dev, page_tokens=4, n_pages=32,
                                     max_batch=3, prefill_chunk=3,
                                     attn_impl=impl, seed=0, **kw)
+            pa.reset_launches()
             done = eng.run([Request(rid=i, prompt=p, max_new=5)
                             for i, p in enumerate(prompts)], clock="tick")
             got = {r.rid: list(r.out) for r in done}
@@ -1372,20 +1461,359 @@ def serve_smoke_streams(dev):
                     if r.rid >= 10]
                 if eng.kv.stats["prefix_hits"] < 2 or \
                         {r.rid - 10: list(r.out) for r in again} != got:
-                    fail(f"smoke prefix resume ({impl}): hits "
+                    fail(f"{arch} smoke prefix resume ({impl}): hits "
                          f"{eng.kv.stats['prefix_hits']}, streams "
                          f"{[r.out for r in again]} vs {got}")
+            torch.cuda.synchronize()
+            n = cfg.n_layers if impl == "kernel" else 0
+            want_launches = {
+                "paged_decode_attention": n * eng.steps["decode"],
+                "paged_prefill_attention": n * (eng.steps["prefill"]
+                                                + eng.steps["verify"])}
+            if dict(pa.LAUNCHES) != want_launches:
+                fail(f"{arch} smoke {mode} ({impl}): launches "
+                     f"{dict(pa.LAUNCHES)}, want {want_launches}")
             if mode == "spec" and not eng.metrics()["spec"]["verify_ticks"]:
-                fail("smoke spec run verified nothing")
+                fail(f"{arch} smoke spec run verified nothing")
             streams[mode, impl] = got
     want = streams["plain", "ref"]
     bad = {k: v for k, v in streams.items() if v != want}
     if bad:
-        fail(f"smoke streams differ from the plain non-spec run {want}: "
-             f"{bad}")
-    print(f"serve smoke f32: kernel streams == plain streams, with and "
-          f"without speculation (k=2) and after prefix resumes "
-          f"{want}; {time.monotonic() - t0:.1f} s", flush=True)
+        fail(f"{arch} smoke streams differ from the plain non-spec run "
+             f"{want}: {bad}")
+    print(f"serve smoke f32 ({arch}): kernel streams == plain streams, with "
+          f"and without speculation (k=2) and after prefix resumes, "
+          f"launches = n_layers x steps {want}; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
+# ----------------------------------------------------------------------
+# phase 4: MoE serving
+# ----------------------------------------------------------------------
+def moe_engine(arch, dtype, dev, n_pages):
+    """``build_engine`` on ``arch``: weights drawn on ``dev`` from seed 0;
+    prints the parameter count and the bytes the weights take."""
+    import gc
+
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.train.tree import leaves
+
+    gc.collect()                 # earlier engines' cycles, then their memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.monotonic()
+    eng, cfg = build_engine(arch, config="full", dtype=dtype, device=dev,
+                            page_tokens=P, n_pages=n_pages, max_batch=B,
+                            prefill_chunk=WINDOW, attn_impl="kernel", seed=0)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(eng.exec.params))
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in leaves(eng.exec.params))
+    m = cfg.moe
+    print(f"serve moe: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, head_dim "
+          f"{cfg.head_dim}, {m.num_experts} experts (padded "
+          f"{m.experts_padded(1)}) top-{m.top_k} of ff {m.expert_ff}, "
+          f"shared ff {m.shared_ff}, capacity factor {m.capacity_factor}; "
+          f"{n_par / 1e9:.3f} B parameters, {dtype} weights "
+          f"{w_bytes / 1e9:.2f} GB, pool {n_pages} pages "
+          f"{eng.pool.numel() * eng.pool.element_size() / 1e9:.3f} GB, on "
+          f"the card {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB (held "
+          f"before {held / 1e9:.2f}), init {time.monotonic() - t0:.1f} s",
+          flush=True)
+    return eng, cfg
+
+
+def moe_serve_run(pa, eng, cfg, trace, tag) -> tuple:
+    """One run of the seeded ``trace`` on ``eng`` (clock "tick": arrivals
+    by tick, so a second run has the same batches and, under the
+    capacity's drops, the same streams); the paged-attention launches,
+    zeroed just before, must equal n_layers x the run's prefill and
+    decode steps.  Returns (streams, launches by (kernel, dtype),
+    metrics with wall seconds, tok/s and peak memory)."""
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **trace))
+    eng.reset_metrics()
+    torch.cuda.reset_peak_memory_stats(eng.device)
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run(reqs, clock="tick")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(pa.LAUNCHES_BY_DTYPE)
+    m = eng.metrics()
+    if len(done) != len(reqs):
+        fail(f"serve {tag}: {len(done)} of {len(reqs)} requests finished")
+    for r in done:
+        if len(r.out) != r.max_new or not all(0 <= t < cfg.vocab
+                                              for t in r.out):
+            fail(f"serve {tag}: request {r.rid} produced {r.out}")
+    dt = "bf16" if eng.scfg.dtype == torch.bfloat16 else "f32"
+    want = {k: 0 for k in launches}
+    want[("paged_prefill_attention", dt)] = \
+        cfg.n_layers * m["steps"]["prefill"]
+    want[("paged_decode_attention", dt)] = cfg.n_layers * m["steps"]["decode"]
+    if launches != want or not (m["steps"]["prefill"] and
+                                m["steps"]["decode"]):
+        fail(f"serve {tag}: kernel launches {launches} != n_layers x steps "
+             f"{want}")
+    out = {"wall_s": wall, "tok_s": m["tokens_out"] / wall,
+           "tokens_out": m["tokens_out"], "ticks": m["ticks"],
+           "steps": m["steps"], "sched": m["sched"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated(eng.device)
+           / 1e9}
+    print(f"serve {tag}: {len(done)} requests, prompts "
+          f"{min(r.n_prompt for r in reqs)}-{max(r.n_prompt for r in reqs)} "
+          f"tokens, launches prefill "
+          f"{launches[('paged_prefill_attention', dt)]} decode "
+          f"{launches[('paged_decode_attention', dt)]} ({cfg.n_layers} x "
+          f"steps); " + json.dumps(out), flush=True)
+    return streams_of(done), launches, out
+
+
+def moe_decode_profile(eng, cfg, trace) -> dict:
+    """Ten profiled decode-only ticks of ``trace`` (submitted at once,
+    prefilled first), and the decode step's device time beside its
+    weight-read bound: every weight but the embedding table is read once
+    a step (the expert products run over every expert, empty or not, and
+    the head reads its whole table), at 3.35 TB/s."""
+    from repro_torch.serve import TrafficConfig, make_requests
+    from repro_torch.train.tree import leaves
+
+    eng.reset_metrics()
+    for r in make_requests(TrafficConfig(vocab=cfg.vocab, **trace)):
+        eng.submit(r)
+    _, win = _window(eng, _prefill_all(eng, 0), 10, top=16)
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in leaves(eng.exec.params))
+    table = eng.exec.params["embed"]["table"]
+    step_bytes = w_bytes - table.numel() * table.element_size()
+    n = win["steps"]["decode"]
+    if not n or win["steps"]["prefill"]:
+        fail(f"serve moe profile: steps {win['steps']} are not decode only")
+    step_ms = win["device_busy_ms"] / n
+    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    out = {"decode_only_ticks": win, "decode_step_device_ms": step_ms,
+           "weight_bytes_per_step": step_bytes,
+           "weight_read_bound_ms": bound_ms,
+           "bound_share": bound_ms / step_ms,
+           "decode_step_wall_ms": win["wall_ms"] / n}
+    print(f"profile {cfg.name}: " + json.dumps(out), flush=True)
+    return out
+
+
+def moe_routing_compare(eng, cfg, reqs, gated: bool) -> dict:
+    """The first prefill chunk (64 tokens of each of the trace's first 8
+    prompts) and the first decode step after it, through the engine's own
+    trunks on its weights, once with the kernels and once with the plain
+    versions, each on a fresh pool, the port's ``route`` and
+    ``positions_in_expert`` wrapped here to record every layer's top-k
+    set, keep mask and gate gap.  A flip is a row whose top-k set or
+    kept set differs between the two; it reaches later layers of its
+    row, later rows of its sequence (attention) and, in the decode step,
+    its sequence.  Rows no flip reaches must give logits within
+    LOGIT_TOL x max |logit| of the plain path's, and every flip no
+    earlier flip reached must change the top-k set at a near-tie (the
+    relative gap below MOE_TIE), and every keep-only flip no earlier flip
+    reached must follow a set change at an earlier row of its layer (the
+    capacity cascade); with ``gated`` False (bf16) this is printed, not
+    checked."""
+    import dataclasses
+
+    from repro_torch.models import embed as emb
+    from repro_torch.models import mlp
+    from repro_torch.serve import engine as se
+
+    scfg, params, dev = eng.scfg, eng.exec.params, eng.device
+    m, tie = cfg.moe, MOE_TIE[scfg.dtype]
+    n_exp, k = m.experts_padded(1), m.top_k
+    c = scfg.prefill_chunk
+    prompts = [r.prompt[:c] for r in reqs[:scfg.max_batch]]
+    b = len(prompts)
+    ids = torch.zeros((b, c), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    ids = ids.to(dev)
+    n_tok = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                         device=dev)
+    start = torch.zeros_like(n_tok)
+    need = -(-(c + 1) // scfg.page_tokens)
+    bt = torch.zeros((b, scfg.table_slots), dtype=torch.int32)
+    bt[:, :need] = 1 + torch.arange(b * need, dtype=torch.int32).view(b, need)
+    bt = bt.to(dev)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    rows = torch.arange(b, device=dev)
+
+    route0, slots0 = mlp.route, mlp.positions_in_expert
+    rec: list = []
+
+    def route(router_w, xt, cfg_):
+        gate_k, idx_k = route0(router_w, xt, cfg_)
+        logits = (xt @ router_w.to(xt.dtype)).float()
+        logits[:, m.num_experts:] = -1e30
+        top = torch.softmax(logits, -1).topk(k + 1, dim=-1).values
+        member = torch.zeros((xt.shape[0], n_exp), dtype=torch.bool,
+                             device=xt.device)
+        rec.append({"member": member.scatter_(1, idx_k, True), "idx": idx_k,
+                    "gap": (top[:, k - 1] - top[:, k]) / top[:, k - 1]})
+        return gate_k, idx_k
+
+    def slots(idx_k, n_experts):
+        pos = slots0(idx_k, n_experts)
+        n = idx_k.shape[0]
+        cap = int(n * k * m.capacity_factor / n_experts) + 1
+        kept = torch.zeros((n, n_experts), dtype=torch.bool,
+                           device=idx_k.device)
+        rec[-1]["kept"] = kept.scatter_(1, idx_k, (pos < cap).view(n, k))
+        return pos
+
+    got = {}
+    mlp.route, mlp.positions_in_expert = route, slots
+    try:
+        for impl in ("kernel", "ref"):
+            sc2 = dataclasses.replace(scfg, attn_impl=impl)
+            pool = eng.exec.init_pool()
+            rec = []
+            x, pool = se._make_window_forward(cfg, sc2)(params, pool, ids,
+                                                        start, n_tok, bt)
+            lp = emb.lm_head_logits(head, x[rows, n_tok.long() - 1]).float()
+            win_rec = rec
+            # both paths decode the token the kernel path's logits pick
+            tok = (lp if impl == "kernel" else got["kernel"][0]).argmax(-1)
+            rec = []
+            x, pool = se._make_decode_forward(cfg, sc2)(
+                params, pool, tok.to(torch.int32), n_tok, bt, n_tok + 1)
+            got[impl] = (lp, emb.lm_head_logits(head, x).float(), win_rec,
+                         rec)
+            del pool, x
+    finally:
+        mlp.route, mlp.positions_in_expert = route0, slots0
+    torch.cuda.synchronize()
+
+    def walk(kr, rr, shape, tainted):
+        """Flips layer by layer; returns (tainted rows after the last
+        layer, flips [(layer, row, set changed, gap, reached before)])."""
+        flips = []
+        for li, (a, z) in enumerate(zip(kr, rr)):
+            setf = (a["member"] != z["member"]).any(1).view(shape)
+            fl = setf | (a["kept"] != z["kept"]).any(1).view(shape)
+            rows_ = torch.nonzero(fl.flatten()).flatten().tolist()
+            if rows_:
+                sf, gp, tn = (t.flatten().cpu().tolist()
+                              for t in (setf, a["gap"], tainted))
+                flips += [(li, r, sf[r], gp[r], tn[r]) for r in rows_]
+            tainted = tainted | fl
+            if len(shape) == 2:       # attention: later rows of the sequence
+                tainted = tainted.cumsum(1) > 0
+        return tainted, flips
+
+    out = {"tie": tie, "gated": gated}
+    t_win, f_win = walk(got["kernel"][2], got["ref"][2], (b, c),
+                        torch.zeros((b, c), dtype=torch.bool, device=dev))
+    t_dec, f_dec = walk(got["kernel"][3], got["ref"][3], (b,),
+                        t_win.any(1))
+    held = {"prefill": ~t_win[rows, n_tok.long() - 1], "decode": ~t_dec}
+    for i, (step, flips) in enumerate((("prefill", f_win),
+                                       ("decode", f_dec))):
+        kl, rl = got["kernel"][i], got["ref"][i]
+        if not (torch.isfinite(kl).all() and kl.shape == (b, cfg.vocab)):
+            fail(f"moe {cfg.name}: first {step} logits not finite of shape "
+                 f"({b}, {cfg.vocab})")
+        hold = held[step]
+        scale = rl.abs().max().item()
+        err = ((kl - rl).abs().max(1).values[hold].max().item()
+               if hold.any() else float("nan"))
+        # flips no earlier flip reached: a changed top-k set there can come
+        # only from the two paths' rounding, so it must sit at a near-tie;
+        # a changed keep mask alone is the capacity cascade of a set change
+        # at an earlier row of the same layer
+        new = [f for f in flips if not f[4]]
+        roots = [f for f in new if f[2]]
+        cascades = [f for f in new if not f[2]]
+        bad = [f for f in roots if not f[3] < tie] + [
+            f for f in cascades
+            if not any(g[0] == f[0] and g[2] and g[1] < f[1] for g in flips)]
+        if new and not new[0][2]:
+            bad.insert(0, new[0])
+        out[step] = {
+            "flips": len(flips), "held_rows": int(hold.sum()),
+            "max_err_held": err, "max_logit": scale,
+            "roots": [{"layer": f[0], "row": f[1], "gap": f[3]}
+                      for f in roots],
+            "cascades": [{"layer": f[0], "row": f[1]} for f in cascades]}
+        print(f"moe {cfg.name} {step}: {len(flips)} flips (row = sequence"
+              f"{f' x {c} + position' if step == 'prefill' else ''}); "
+              f"{len(roots)} set flips no earlier flip reached (layer:row:"
+              f"gap) " + " ".join(f"{f[0]}:{f[1]}:{f[3]:.2e}" for f in roots)
+              + f"; {len(cascades)} keep-only cascades (layer:row) "
+              + " ".join(f"{f[0]}:{f[1]}" for f in cascades)
+              + f"; held rows {int(hold.sum())} of {b}, max |kernel - plain| "
+              f"{err:.3e} (tol {LOGIT_TOL} x max |logit| {scale:.3f}); near-"
+              f"tie bar {tie:.3e}{'' if gated else ' (printed, not gated)'}",
+              flush=True)
+        if not gated:
+            continue
+        if not hold.any():
+            fail(f"moe {cfg.name} {step}: every row reached by a flip")
+        if not err <= LOGIT_TOL * scale:
+            fail(f"moe {cfg.name} {step}: held rows' logits max err {err} > "
+                 f"{LOGIT_TOL} x max |logit| {scale}")
+        if bad:
+            fail(f"moe {cfg.name} {step}: flips that are neither a near-tie "
+                 f"(gap < {tie}) nor the cascade of an earlier row's set "
+                 f"change, (layer, row, set changed, gap): "
+                 f"{[f[:4] for f in bad]}")
+    return out
+
+
+def serve_moe_bf16(pa, dev) -> dict:
+    """qwen3-moe-30b-a3b in bf16: the seeded trace served twice on the
+    same engine (the same streams both times), launches = n_layers x
+    steps; a profiled decode-only window against the weight-read bound;
+    the routing comparison, printed.  Returns the counted run's launches
+    by (kernel, dtype)."""
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    t0 = time.monotonic()
+    eng, cfg = moe_engine(MOE_BF16, "bf16", dev, 512)
+    # warm-up on a throwaway trace (cuBLAS handles, first launches)
+    eng.run(make_requests(TrafficConfig(
+        vocab=cfg.vocab, **{**SERVE_TRACE, "n_requests": 2, "seed": 99})),
+        clock="tick")
+    first, launches, _ = moe_serve_run(pa, eng, cfg, SERVE_TRACE, "moe bf16")
+    again, _, _ = moe_serve_run(pa, eng, cfg, SERVE_TRACE, "moe bf16 again")
+    if again != first:
+        bad = sorted(r for r in first if again.get(r) != first[r])
+        fail(f"serve moe bf16: the second run's streams differ (requests "
+             f"{bad})")
+    print("serve moe bf16: the second run gave the same streams", flush=True)
+    moe_decode_profile(eng, cfg, SERVE_TRACE)
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE))
+    moe_routing_compare(eng, cfg, reqs, gated=False)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"serve moe bf16 stage: {time.monotonic() - t0:.1f} s", flush=True)
+    return launches
+
+
+def serve_moe_f32(pa, dev) -> dict:
+    """qwen2-moe-a2.7b in f32, the reference's serving dtype: the routing
+    comparison, gated; then the seeded f32 trace, launches = n_layers x
+    steps.  Returns the run's launches by (kernel, dtype)."""
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    t0 = time.monotonic()
+    eng, cfg = moe_engine(MOE_F32, "f32", dev, MOE_F32_PAGES)
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE_F32))
+    moe_routing_compare(eng, cfg, reqs, gated=True)
+    _, launches, _ = moe_serve_run(pa, eng, cfg, SERVE_TRACE_F32, "moe f32")
+    del eng
+    torch.cuda.empty_cache()
+    print(f"serve moe f32 stage: {time.monotonic() - t0:.1f} s", flush=True)
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -1614,13 +2042,14 @@ def rate_text(r: dict) -> str:
 
 def gathered(kp, vp, bt, s):
     """Contiguous (B, H_kv, s, D) K/V gathered through the block table."""
-    bl = bt.long()
-    kc = kp[bl].reshape(B, -1, HKV, D)[:, :s].transpose(1, 2).contiguous()
-    vc = vp[bl].reshape(B, -1, HKV, D)[:, :s].transpose(1, 2).contiguous()
+    bl, hkv = bt.long(), kp.shape[-2]
+    kc = kp[bl].reshape(B, -1, hkv, D)[:, :s].transpose(1, 2).contiguous()
+    vc = vp[bl].reshape(B, -1, hkv, D)[:, :s].transpose(1, 2).contiguous()
     return kc, vc
 
 
-def timing(pa, dev, launches, launches_f32, launches_spec, errs) -> list:
+def timing(pa, dev, launches, launches_f32, launches_spec, launches_moe,
+           launches_moe_f32, errs) -> list:
     dt = torch.bfloat16
     rows = [dict(name="paged_decode_attention",
                  **decode_timing_case(pa, dev, dt),
@@ -1695,7 +2124,36 @@ def timing(pa, dev, launches, launches_f32, launches_spec, errs) -> list:
         row["launches_spec"] = {f"{name}/{tag}": n for (name, tag), n
                                 in launches_spec.items()
                                 if name == row["name"]}
+        row["launches_moe"] = launches_moe[(row["name"], "bf16")]
+        row["launches_moe_f32"] = launches_moe_f32[(row["name"], "f32")]
+    moe_timing(pa, dev, out)
     return out
+
+
+def moe_timing(pa, dev, out) -> None:
+    """Decode and prefill at the MoE archs' layouts, each in its serving
+    dtype, beside the plain versions, SDPA and the bound: into rows
+    ``out[0]`` (decode) and ``out[1]`` (prefill) as ``moe_bf16`` /
+    ``moe_f32``."""
+    for arch, (heads, dt) in MOE_HEADS.items():
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        for i, (name, case) in enumerate((
+                ("paged_decode_attention", decode_timing_case),
+                ("paged_prefill_attention", prefill_timing_case))):
+            f = case(pa, dev, dt, heads=heads)
+            ms, plain_ms, lib_ms = (time_ms(f[k], dev)
+                                    for k in ("fn", "plain", "lib"))
+            bound_ms, by = bound_of(f["nbytes"], f["flops"], dt)
+            got = rates(ms, f["nbytes"], f["flops"], bound_ms)
+            out[i][f"moe_{tag}"] = {
+                "arch": arch, "heads": list(heads), "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": by,
+                "bound_bytes": f["nbytes"], **got}
+            print(f"timing {name} at {arch}'s layout ({tag}, H {heads[0]}, "
+                  f"H_kv {heads[1]}): kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({by}); {rate_text(got)}", flush=True)
 
 
 def decode_long_timing(pa, dev, dt) -> dict:
@@ -1746,15 +2204,16 @@ def bound_of(nbytes: int, flops: int, dtype) -> tuple:
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def decode_timing_case(pa, dev, dt) -> dict:
-    """Decode at the parity shape in ``dt``: the kernel, its plain
-    version and SDPA on pre-gathered K/V with the lengths' mask, and the
-    bytes and flops of its bound (each valid K/V token read once per KV
-    head, q read and out written once)."""
+def decode_timing_case(pa, dev, dt, heads=(H, HKV)) -> dict:
+    """Decode at the parity shape in ``dt`` with ``heads`` (query, KV):
+    the kernel, its plain version and SDPA on pre-gathered K/V with the
+    lengths' mask, and the bytes and flops of its bound (each valid K/V
+    token read once per KV head, q read and out written once)."""
     import torch.nn.functional as F
 
     isz = torch.tensor([], dtype=dt).element_size()
-    q, kp, vp, bt, lens = decode_case(dt, dev)
+    (h, hkv) = heads
+    q, kp, vp, bt, lens = decode_case(dt, dev, heads=heads)
     s = max(DECODE_LENS)
     kc, vc = gathered(kp, vp, bt, s)
     mask = (torch.arange(s, device=dev)[None] < lens[:, None])[:, None, None]
@@ -1765,26 +2224,28 @@ def decode_timing_case(pa, dev, dt) -> dict:
         plain=lambda: pa.paged_decode_attention_ref(q, kp, vp, bt, lens),
         lib=lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
                                                    enable_gqa=True),
-        nbytes=(2 * q.numel() * isz + ntok * HKV * D * isz * 2
+        nbytes=(2 * q.numel() * isz + ntok * hkv * D * isz * 2
                 + bt.numel() * 4 + lens.numel() * 4),
-        flops=4 * ntok * H * D)
+        flops=4 * ntok * h * D)
 
 
-def prefill_timing_case(pa, dev, dt, verify: bool = False) -> dict:
-    """The prefill window at the parity shape in ``dt`` (or, with
-    ``verify``, the k+1-row verify window): the kernel, its plain version
-    and SDPA on pre-gathered K/V with the window's mask, and the bytes
-    and flops of its bound (each K/V token a row sees read once, q read
-    and out written once)."""
+def prefill_timing_case(pa, dev, dt, verify: bool = False,
+                        heads=(H, HKV)) -> dict:
+    """The prefill window at the parity shape in ``dt`` with ``heads``
+    (or, with ``verify``, the k+1-row verify window): the kernel, its
+    plain version and SDPA on pre-gathered K/V with the window's mask,
+    and the bytes and flops of its bound (each K/V token a row sees read
+    once, q read and out written once)."""
     import torch.nn.functional as F
 
     isz = torch.tensor([], dtype=dt).element_size()
+    (h, hkv) = heads
     if verify:
         window, starts, ntoks = SPEC_K + 1, VERIFY_START, VERIFY_NTOK
         q2, kp2, vp2, bt2, start, n_tok = verify_case(dt, dev)
     else:
         window, starts, ntoks = WINDOW, WIN_START, WIN_NTOK
-        q2, kp2, vp2, bt2, start, n_tok = prefill_case(dt, dev)
+        q2, kp2, vp2, bt2, start, n_tok = prefill_case(dt, dev, heads=heads)
     s2 = max(a + n for a, n in zip(starts, ntoks))
     kc2, vc2 = gathered(kp2, vp2, bt2, s2)
     j = torch.arange(window, device=dev)[None]
@@ -1802,9 +2263,9 @@ def prefill_timing_case(pa, dev, dt, verify: bool = False) -> dict:
         lib=lambda: F.scaled_dot_product_attention(qt, kc2, vc2,
                                                    attn_mask=mask2,
                                                    enable_gqa=True),
-        nbytes=(2 * q2.numel() * isz + seen * HKV * D * isz * 2
+        nbytes=(2 * q2.numel() * isz + seen * hkv * D * isz * 2
                 + bt2.numel() * 4 + 2 * B * 4),
-        flops=sum(4 * (a + jj + 1) * H * D
+        flops=sum(4 * (a + jj + 1) * h * D
                   for a, n in zip(starts, ntoks) for jj in range(n)))
 
 
@@ -2002,12 +2463,16 @@ def main(argv=None) -> int:
     comm_errs = comm_kernel_parity(sc, rc, dev)
     launches, launches_spec = serve_full(pa, dev)
     launches_f32 = serve_full_f32(pa, dev)
-    serve_smoke_streams(dev)
+    launches_moe = serve_moe_bf16(pa, dev)
+    launches_moe_f32 = serve_moe_f32(pa, dev)
+    for arch in ("qwen3-8b", MOE_BF16, MOE_F32):
+        serve_smoke_streams(pa, dev, arch)
     comm_launches, comm_payloads = comm_phase(sc, rc, dev, args.comm_out)
     flash_launches = train_full(fa, dev)
     train_smoke_parity(dev)
     timing_floor(dev)
-    kernels = timing(pa, dev, launches, launches_f32, launches_spec, errs) + \
+    kernels = timing(pa, dev, launches, launches_f32, launches_spec,
+                     launches_moe, launches_moe_f32, errs) + \
         comm_timing(sc, rc, dev, comm_launches, comm_payloads, comm_errs) + \
         [flash_timing(fa, dev, flash_launches, flash_errs)]
 

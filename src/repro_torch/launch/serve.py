@@ -5,8 +5,12 @@ cache with seeded synthetic traffic, on the GPU.
         --requests 8 --page-tokens 16 --n-pages 512 --max-batch 8 \\
         --prefill-chunk 64
 
-``--config full`` (the default) serves the published config at full
-width in bf16 with random weights made on the card from ``--seed``;
+``--arch`` is a dense decoder (qwen3-8b, gemma-2b) or a MoE one
+(qwen3-moe-30b-a3b: 128 experts, top-8; qwen2-moe-a2.7b: 60 experts
+padded to 64, top-4, a shared expert), routed with the reference's
+expert capacity.  ``--config full`` (the default) serves the published
+config at full width in bf16 (``--dtype f32`` for the reference's
+serving dtype) with random weights made on the card from ``--seed``;
 ``--config smoke`` the reduced CPU-test config.  The engine runs on the
 card; ``--device cpu`` runs the plain CPU versions of the kernels.
 ``--spec-k N`` turns on speculative decoding (``--draft ngram``, the
@@ -14,8 +18,11 @@ prompt-lookup self-draft, or an arch name for a draft model drawn from
 ``--seed + 1``); ``--slo I+B`` mixes interactive / batch / best-effort
 traffic under the SLO policy (``--ttft``, ``--tenants``,
 ``--tenant-rate``); ``--prefix-keep`` keeps finished prompts' full
-pages as a migratable prefix cache.  None of these changes a token:
-speculation and migration only change how many ticks a stream takes.
+pages as a migratable prefix cache.  For a dense model none of these
+changes a token: speculation and migration only change how many ticks
+a stream takes.  A MoE model's streams are the same only while no
+expert's capacity drops a token: drops depend on which tokens share a
+step, in the reference as here.
 Prints per-request traces with ``--trace``, then the
 throughput/latency summary (with its ``spec`` and ``slo`` blocks).
 
@@ -111,7 +118,9 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b",
+                    help="qwen3-8b, gemma-2b, qwen3-moe-30b-a3b or "
+                         "qwen2-moe-a2.7b")
     ap.add_argument("--config", default="full", choices=["full", "smoke"])
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     ap.add_argument("--device", default=None,

@@ -1,7 +1,7 @@
-"""Decoder-only LM for the dense family: parameters, forward, loss, and
-the decode MLP.
+"""Decoder-only LM for the dense and MoE families: parameters, forward,
+loss, and the decode MLP.
 
-The counterpart of ``repro.models.lm`` (dense branch): ``init``,
+The counterpart of ``repro.models.lm`` (dense and MoE blocks): ``init``,
 ``_dense_block_apply``, ``forward``, ``loss_fn`` and ``_decode_mlp``.
 Parameters are a plain nested dict with the JAX pytree's keys; per-layer
 weights are stacked on a leading layer axis as in the JAX pytree, and
@@ -11,9 +11,17 @@ into a list of per-layer dicts of views — the form the trainer
 differentiates, so each layer's gradient is its own tensor; every
 function here takes either form.
 
+``init`` builds both families; a MoE block's ``mlp`` holds the router,
+the stacked experts and the optional shared expert (``mlp.moe_shapes``),
+and ``_decode_mlp`` routes one token per slot through ``moe_apply``, so
+the serving engine runs both.  ``forward`` and ``loss_fn`` train the
+dense family only: MoE training is ROADMAP A10.
+
 Init draws from an explicit ``torch.Generator`` with the reference's
-distributions: matrices normal with scale ``1/sqrt(fan_in)``, the
-embedding and head tables normal with scale 0.02, every norm scale one.
+distributions: matrices normal with scale ``1/sqrt(fan_in)`` (fan_in is
+``shape[0]``, which for an expert tensor is the expert count, as in the
+reference), the router with scale 0.02, the embedding and head tables
+normal with scale 0.02, every norm scale one.
 The numbers differ from ``jax.random``'s; tests that compare the two
 packages hand the JAX weights over through ``repro_torch.weights``.
 """
@@ -25,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from .attention import self_attention
 from .common import ninit, norm_apply
 from .embed import embed_lookup, lm_head_loss
-from .mlp import is_glu, mlp_apply
+from .mlp import is_glu, mlp_apply, moe_apply, moe_shapes
 
 ACTS = ("swiglu", "geglu", "relu2", "gelu")
 
@@ -38,38 +46,45 @@ def _block_shapes(cfg) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = {"scale": (dh,)}
         attn["k_norm"] = {"scale": (dh,)}
-    mlp = {"wu": (d, ff), "wd": (ff, d)}
-    if is_glu(cfg.act):
-        mlp["wg"] = (d, ff)
+    if cfg.moe:
+        mlp = moe_shapes(cfg)
+    else:
+        mlp = {"wu": (d, ff), "wd": (ff, d)}
+        if is_glu(cfg.act):
+            mlp["wg"] = (d, ff)
     return {"ln1": {"scale": (d,)}, "attn": attn, "ln2": {"scale": (d,)},
             "mlp": mlp}
 
 
 def _fill(shapes, n_layers, gen, dtype, device):
     """Stacked (n_layers, ...) tensors: norm scales are ones, matrices
-    are drawn layer by layer (bounded f32 scratch at full width)."""
+    and expert tensors are drawn layer by layer (bounded f32 scratch at
+    full width).  An entry is a shape, or a (shape, init scale) pair for
+    a matrix drawn at a fixed scale (the MoE router)."""
     out = {}
     for name, s in shapes.items():
         if isinstance(s, dict):
             out[name] = _fill(s, n_layers, gen, dtype, device)
-        elif len(s) == 1:
+            continue
+        s, scale = s if isinstance(s[0], tuple) else (s, None)
+        if len(s) == 1:
             out[name] = torch.ones((n_layers,) + s, dtype=dtype, device=device)
         else:
             t = torch.empty((n_layers,) + s, dtype=dtype, device=device)
             for li in range(n_layers):
-                t[li] = ninit(gen, s, dtype=dtype, device=device)
+                t[li] = ninit(gen, s, scale=scale, dtype=dtype, device=device)
             out[name] = t
     return out
 
 
 def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
          device=None) -> dict:
-    """Dense-family parameters: ``embed``, ``blocks`` (stacked),
+    """Dense- or MoE-family parameters: ``embed``, ``blocks`` (stacked),
     ``ln_f`` and, unless tied, ``head``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"repro_torch lm.init builds the dense family; {cfg.family!r} "
-            f"arrives in a later slice")
+            f"repro_torch lm.init builds the dense and MoE families; "
+            f"{cfg.family!r} arrives in a later slice")
     if cfg.act not in ACTS:
         raise NotImplementedError(f"act {cfg.act!r} not ported")
     v, d = cfg.padded_vocab(1), cfg.d_model
@@ -131,8 +146,8 @@ def forward(params: dict, ids: torch.Tensor, ctx, cfg) -> torch.Tensor:
     ``_scan`` body — so a layer's forward runs twice per step."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"repro_torch runs the dense family; {cfg.family!r} arrives in a "
-            f"later slice")
+            f"repro_torch trains the dense family; {cfg.family!r} arrives in "
+            f"a later slice (MoE training: ROADMAP A10)")
     x = embed_lookup(params["embed"], ids, ctx.compute_dtype)
     blocks = params["blocks"]
     for li in range(n_blocks(blocks)):
@@ -161,8 +176,8 @@ def loss_fn(params: dict, batch: dict, ctx, cfg,
 
 
 def _decode_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Single-token MLP: x (b, d) -> (b, d)."""
+    """Single-token MLP or MoE: x (b, d) -> (b, d); the MoE routes the b
+    slots together, as one window of b tokens."""
     if cfg.moe:
-        raise NotImplementedError(
-            "MoE serving arrives in a later slice of the port")
+        return moe_apply(p, x[:, None], cfg)[:, 0]
     return mlp_apply(p, x, cfg)

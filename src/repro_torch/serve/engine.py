@@ -1,6 +1,6 @@
 """Continuous-batching inference engine over the paged symmetric-heap
 KV cache — the counterpart of ``repro.serve.engine`` for colocated,
-single-device serving of a dense decoder.
+single-device serving of a dense or MoE decoder.
 
 Two layers, as in the reference:
 
@@ -11,7 +11,10 @@ Two layers, as in the reference:
     the chunked-prefill window through ``ops.paged_prefill_attention``
     — and both end in the sampler (``serve.sampling``), whose draws are
     keyed ``(rid, position)``, so token streams do not depend on batch
-    composition or prefill chunking.
+    composition or prefill chunking.  A MoE block routes every row of
+    the call together (``mlp.moe_apply``), padded and inactive rows
+    included, as the reference does: where the expert capacity drops
+    tokens, the streams do depend on what shares a step.
     ``make_verify`` is the speculative-decoding twin of the prefill
     window: the same trunk over a ``(B, k+1)`` window of the pending
     token plus the proposed drafts, sampling at EVERY row with the
@@ -36,8 +39,8 @@ Batch slots are fixed (``ServeConfig.max_batch``): empty slots carry
 the null page table and length 0, which zeroes their attention output
 and routes their K/V writes to the null page.
 
-Not ported yet (each raises ``NotImplementedError``): MoE serving and
-the sliding window over the paged cache.  Disaggregated cells, the AMO
+Not ported yet (raises ``NotImplementedError``): the sliding window
+over the paged cache.  Disaggregated cells, the AMO
 router and weight hot-swap live in ``launch/serve.py``'s refusals.
 """
 from __future__ import annotations
@@ -98,13 +101,9 @@ class ServeConfig:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.moe:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            "MoE serving (models/mlp.py moe_apply) arrives in the MoE slice "
-            "of the port (A4)")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"repro_torch.serve drives dense decoders; got {cfg.family}")
+            f"repro_torch.serve drives dense/moe decoders; got {cfg.family}")
     if cfg.swa_window is not None:
         raise NotImplementedError("sliding-window + paged cache: not yet")
 
@@ -210,7 +209,8 @@ def _make_window_forward(cfg, scfg: ServeConfig):
                                             pool[:, 1, li], bt, start, n_tok,
                                             impl=scfg.attn_impl)
             x = x + o.reshape(b, t, -1).to(cd) @ p["attn"]["wo"].to(cd)
-            x = x + ff.mlp_apply(p["mlp"], rmsnorm(p["ln2"]["scale"], x), cfg)
+            x = x + (ff.moe_apply if cfg.moe else ff.mlp_apply)(
+                p["mlp"], rmsnorm(p["ln2"]["scale"], x), cfg)
         return rmsnorm(params["ln_f"]["scale"], x), pool
 
     return window

@@ -160,6 +160,12 @@ DECODE_EDGE_CASES = {
     "f32_partition_group_8_d256": lambda: _decode_full(
         93, [4 * _T32_256 + 1, 2 * _T32_256, _T32_256 - 1, 0], H=8, Hkv=1,
         D=256, slots=24),
+    # the MoE archs' layouts at full width: qwen3-moe-30b-a3b (H 32,
+    # H_kv 4: group 8) and qwen2-moe-a2.7b (H 16, H_kv 16: group 1), D 128
+    "moe_qwen3_group_8_d128": lambda: _decode_full(
+        94, [0, 1, 9, 16, 100, 256, 512, 777], H=32, Hkv=4, D=128),
+    "moe_qwen2_group_1_d128": lambda: _decode_full(
+        95, [0, 1, 9, 16, 100, 256, 512, 777], H=16, Hkv=16, D=128),
 }
 DECODE_GPU_CASES = {**DECODE_CASES, **DECODE_EDGE_CASES}
 
@@ -235,6 +241,21 @@ PREFILL_EDGE_CASES = {
         n_tok=[2, 1, 2, 1, 2, 2, 1, 2]),
     "verify_qwen_width_k4": lambda: _window_case(
         81, 8, 5, 32, 8, 128, 16, 32, start=[13, 100, 7, 250, 31, 3, 64, 490],
+        n_tok=[5, 1, 3, 4, 2, 5, 1, 5]),
+    # 64-row prefill windows and k = 4 verify windows at the MoE archs'
+    # layouts: qwen3-moe-30b-a3b (H 32 / H_kv 4: group 8, 8 window rows a
+    # block) and qwen2-moe-a2.7b (H 16 / H_kv 16: group 1), D 128
+    "moe_qwen3_group_8_d128": lambda: _window_case(
+        82, 4, 64, 32, 4, 128, 16, 64, start=[5, 100, 0, 937],
+        n_tok=[64, 30, 0, 23]),
+    "moe_qwen2_group_1_d128": lambda: _window_case(
+        83, 4, 64, 16, 16, 128, 16, 64, start=[5, 100, 0, 937],
+        n_tok=[64, 30, 0, 23]),
+    "verify_moe_qwen3_k4": lambda: _window_case(
+        84, 8, 5, 32, 4, 128, 16, 32, start=[13, 100, 7, 250, 31, 3, 64, 490],
+        n_tok=[5, 1, 3, 4, 2, 5, 1, 5]),
+    "verify_moe_qwen2_k4": lambda: _window_case(
+        85, 8, 5, 16, 16, 128, 16, 32, start=[13, 100, 7, 250, 31, 3, 64, 490],
         n_tok=[5, 1, 3, 4, 2, 5, 1, 5]),
 }
 PREFILL_GPU_CASES = {**WINDOW_CASES, **PREFILL_EDGE_CASES}

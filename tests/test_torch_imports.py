@@ -1,7 +1,8 @@
 """repro_torch stands alone: importing the package and every submodule
 (the serving slice, the communication library: core, comm, the copy
 and combine kernels, comm_bench, and the training slice: the flash
-kernel, flash/lm/registry, parallel, data, train, the train launcher),
+kernel, flash/lm/registry, parallel, data, train, the train launcher,
+and the MoE slice: the MoE configs and the MoE layer in models/mlp),
 and ``chip_smoke.py``, pulls in no
 JAX and nothing of the JAX package ``repro`` — checked by a clean
 subprocess's ``sys.modules`` and by an AST scan of every import
@@ -85,6 +86,13 @@ def test_the_serving_slice_is_covered():
     want = {"repro_torch.serve." + m for m in (
         "engine", "kv_cache", "scheduler", "sampling", "slo", "spec",
         "threefry", "traffic")} | {"repro_torch.launch.serve"}
+    assert want <= set(_modules())
+
+
+def test_the_moe_slice_is_covered():
+    want = {"repro_torch.configs.qwen3_moe_30b_a3b",
+            "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.models.mlp",
+            "repro_torch.models.lm", "repro_torch.weights"}
     assert want <= set(_modules())
 
 

@@ -26,7 +26,6 @@ from repro.core.heap import SymmetricHeap as JHeap
 from repro.models import registry
 from repro.parallel.ctx import ParallelCtx
 from repro_torch import configs, serve
-from repro_torch.configs.base import MoEConfig
 from repro_torch.core.heap import SymmetricHeap
 from repro_torch.launch import serve as launch
 from repro_torch.weights import from_jax
@@ -309,7 +308,7 @@ def test_build_engine_without_device_raises_when_cuda_absent(monkeypatch):
     assert eng.device.type == "cpu" and cfg.n_layers == 2
 
 
-@pytest.mark.parametrize("what", ["moe", "disagg", "router_amo",
+@pytest.mark.parametrize("what", ["ssm", "swa", "disagg", "router_amo",
                                   "cli_hot_swap"])
 def test_later_slices_raise_not_implemented(what):
     small = dict(config="smoke", dtype="f32", device="cpu", page_tokens=4,
@@ -323,10 +322,10 @@ def test_later_slices_raise_not_implemented(what):
         elif what == "cli_hot_swap":
             launch.main(cli + ["--hot-swap"])
         else:
-            cfg = dataclasses.replace(configs.get_smoke("qwen3-8b"),
-                                      family="moe",
-                                      moe=MoEConfig(num_experts=4, top_k=2,
-                                                    expert_ff=32))
+            # an SSM family, or the sliding window over the paged cache
+            kw = (dict(family="ssm", ssm_state=16) if what == "ssm"
+                  else dict(swa_window=8))
+            cfg = dataclasses.replace(configs.get_smoke("qwen3-8b"), **kw)
             serve.ServeEngine({}, cfg, serve.ServeConfig(), device="cpu")
 
 
