@@ -56,11 +56,22 @@ caught):
                verify ticks of the n-gram engine; a 200-token prompt
                served twice with ``prefix_keep``, the second a prefix
                hit through 12 migrated pages (12 put_nbi, one quiet) with
-               the first's stream; and an SLO run (``--slo 0.5+0.25``,
+               the first's stream; an SLO run (``--slo 0.5+0.25``,
                TTFT deadlines, a pool that forces eviction, a shed) whose
                served streams must equal an FCFS run's and whose
-               interactive attainment must beat FCFS's; then, that
-               engine freed,
+               interactive attainment must beat FCFS's; and
+               disaggregated serving (only pools and mailboxes new): the
+               trace on clock "tick" colocated, then on 1+1 and 2+2
+               prefill+decode cells under the host and the AMO router
+               and on 2+2 host with k = 4 n-gram, each run gated (zero
+               quiets on the handoff, router and pool queues, signals =
+               pages, waits = tickets, every pool whole after the run,
+               launches n_layers x the cells' steps), 1+1 amo's streams
+               equal to 1+1 host's, each 2+2 peak below twice the
+               weights, each run's divergences from colocated printed
+               with their top-2 margins, and ten profiled 2+2 ticks that
+               must issue a ticket and show no host<->device memcpy of a
+               page row's size; then, that engine freed,
                qwen3-8b at full width in f32 (the reference's serving
                dtype; f32 weights drawn on the card): the first prefill
                chunk's and first decode step's logits through the
@@ -72,7 +83,11 @@ caught):
                the same trace with speculation (k = 4; n-gram, replay of
                the non-spec streams, a draft model with the target's own
                weights) must give the same streams through the f32
-               prefill body, replay and draft accepting everything;
+               prefill body, replay and draft accepting everything, and
+               the f32 trace on 1+1 and 2+2 host cells (the same gates)
+               must give the f32 colocated streams, a divergence passing
+               only at a top-2 margin below 1e-5 x |top logit|, the 2+2
+               peak below twice the f32 weights;
                then, that engine freed, the MoE stage: qwen3-moe-30b-a3b
                at full width in bf16 (48 layers, 128 experts top-8,
                30.5 B parameters drawn on the card from seed 0) serves
@@ -151,7 +166,8 @@ forward, plain backward) against the all-plain path on the grads.
 ``launches`` in the kernels line is each kernel's count from its main
 path (the bf16 serve run for the paged-attention kernels, with
 ``launches_f32`` from the f32 serve run, ``launches_spec`` summed
-over the speculative runs, ``launches_moe`` from the bf16
+over the speculative runs, ``launches_disagg`` / ``launches_disagg_f32``
+summed over the bf16 / f32 disaggregated runs, ``launches_moe`` from the bf16
 qwen3-moe-30b-a3b run and ``launches_moe_f32`` from the f32
 qwen2-moe-a2.7b run), the communicator calls for
 the copy engine, the gemma-2b training steps for the flash kernel; 0
@@ -165,6 +181,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -263,6 +280,18 @@ SLO_TRACE = dict(n_requests=12, rate=8.0, seed=0, prompt_short=(64, 129),
                  out_long=(8, 17), interactive_frac=0.5, batch_frac=0.25)
 SLO_TTFT = dict(interactive=10.0, batch=20.0, best_effort=20.0)
 SLO_PAGES = 48
+# the disaggregation stage: the serve trace on clock "tick", colocated,
+# then on these topologies ((prefill cells, decode cells), router, spec
+# k) over the same weights, only pools and mailboxes new; in f32 the f32
+# trace on 1+1 and 2+2 host cells
+DISAGG_RUNS = [((1, 1), "host", 0), ((1, 1), "amo", 0), ((2, 2), "host", 0),
+               ((2, 2), "amo", 0), ((2, 2), "host", SPEC_K)]
+DISAGG_RUNS_F32 = [((1, 1), "host", 0), ((2, 2), "host", 0)]
+# an f32 disagg stream may leave the colocated f32 stream only at a
+# near-tie: a top-2 margin at its first divergence below this share of
+# |top logit| (the f32 kernels' summation-order gap, phase 3)
+F32_NEAR_TIE = 1e-5
+DISAGG_PROFILE_TICKS = 10
 # the MoE stage: qwen3-moe-30b-a3b at full width in bf16 (61.1 GB of
 # weights, 512 pages of 1.57 MB) and qwen2-moe-a2.7b in f32, the
 # reference's serving dtype (60.6 GB of weights; 256 pages of 6.3 MB,
@@ -781,17 +810,22 @@ def serve_full(pa, dev):
     serve_slo_full(eng, cfg)
     print(f"serve spec/prefix/slo parts (bf16): "
           f"{time.monotonic() - t0:.1f} s", flush=True)
+    t0 = time.monotonic()
+    launches_disagg = serve_disagg_bf16(pa, eng, cfg)
+    print(f"serve disagg part (bf16): {time.monotonic() - t0:.1f} s",
+          flush=True)
     del eng
     torch.cuda.empty_cache()
-    return launches, launches_spec
+    return launches, launches_spec, launches_disagg
 
 
 def serve_full_f32(pa, dev) -> dict:
     """Full-width qwen3-8b served in f32, the reference's serving dtype:
     first-step logits of the kernel path against the plain path, then a
     seeded trace whose f32 paged-attention launches, zeroed just before,
-    must equal n_layers x the run's steps (and no bf16 body may run).
-    Returns the run's launches by (kernel, dtype)."""
+    must equal n_layers x the run's steps (and no bf16 body may run);
+    then speculation and the disaggregated cells on the same weights.
+    Returns the run's launches by (kernel, dtype) and the disagg runs'."""
     from repro_torch.launch.serve import build_engine
     from repro_torch.serve import TrafficConfig, make_requests
 
@@ -849,9 +883,13 @@ def serve_full_f32(pa, dev) -> dict:
     t0 = time.monotonic()
     serve_spec_f32(pa, eng, cfg, base_streams)
     print(f"serve spec part (f32): {time.monotonic() - t0:.1f} s", flush=True)
+    t0 = time.monotonic()
+    launches_disagg = serve_disagg_f32(pa, eng, cfg, base_streams)
+    print(f"serve disagg part (f32): {time.monotonic() - t0:.1f} s",
+          flush=True)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, launches_disagg
 
 
 def streams_of(done) -> dict:
@@ -895,7 +933,7 @@ def decode_margins(eng, cfg, cases) -> list:
     windows, outputs 0..j-1 through decode steps, on a fresh pool; a row
     that has nothing to feed in a step sits idle on page 0, as the
     engine's idle rows do.  Returns (top-1 minus top-2 logit, top-1
-    token) per case."""
+    token, top-1 logit) per case."""
     from repro_torch.models import embed as emb
     from repro_torch.serve import engine as se
 
@@ -953,7 +991,7 @@ def decode_margins(eng, cfg, cases) -> list:
     for lg in logits:
         top = lg.float().topk(2)
         out.append(((top.values[0] - top.values[1]).item(),
-                    int(top.indices[0])))
+                    int(top.indices[0]), top.values[0].item()))
     return out
 
 
@@ -1074,18 +1112,21 @@ def spec_proposer_runs(pa, eng, cfg, tcfg, tag, names, replay=None,
     return res, total
 
 
-def margin_text(eng, cfg, reqs, spec: dict, plain: dict) -> tuple:
+def margin_text(eng, cfg, reqs, spec: dict, plain: dict,
+                labels=("spec", "non-spec")) -> tuple:
     """Every stream where ``spec`` leaves ``plain`` (the non-spec run's
-    streams of ``reqs``): (number of equal streams, text with each first
-    divergence and the non-spec run's top-2 logit margin there)."""
+    streams of ``reqs``, or another run's named by ``labels``): (number
+    of equal streams, text with each first divergence and the plain
+    run's top-2 logit margin there)."""
     div = divergences(spec, plain)
     prompts = {r.rid: r.prompt for r in reqs}
     margins = decode_margins(eng, cfg, [(prompts[rid], plain[rid], j)
                                         for rid, j in div]) if div else []
+    a, b = labels
     text = "; ".join(
-        f"request {rid} output {j}: spec {spec[rid][j:j + 3]} vs non-spec "
-        f"{plain[rid][j:j + 3]}, non-spec top-2 margin {mg:.6g} (top-1 "
-        f"{top})" for (rid, j), (mg, top) in zip(div, margins))
+        f"request {rid} output {j}: {a} {spec[rid][j:j + 3]} vs {b} "
+        f"{plain[rid][j:j + 3]}, {b} top-2 margin {mg:.6g} (top-1 "
+        f"{top})" for (rid, j), (mg, top, _) in zip(div, margins))
     return len(plain) - len(div), text
 
 
@@ -1260,6 +1301,271 @@ def serve_slo_full(eng, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 4: disaggregated serving (the control plane)
+# ----------------------------------------------------------------------
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _mean(xs) -> float:
+    return sum(xs) / len(xs) if xs else 0.0
+
+
+def disagg_run(pa, eng, cfg, trace, topo, router, spec_k, tag):
+    """One run of ``trace`` (clock "tick") on ``topo`` = (P, D) cells over
+    ``eng``'s weights (only pools and the mailbox are new), gated: zero
+    quiets and fences on the handoff queue, and on the router and every
+    pool queue under ``router="amo"``; signals == pages > 0, waits ==
+    tickets; every cell's pool whole after the run with no table left;
+    the paged launches, zeroed just before, = n_layers x the steps summed
+    over the cells (verify windows through the prefill body), the other
+    dtype's bodies never.  Each topology tick is timed to a synchronize.
+    Returns (numbers, streams, launches by (kernel, dtype))."""
+    from repro_torch.serve import DisaggEngine, TrafficConfig, make_requests
+
+    class Timed(DisaggEngine):
+        """Times each topology tick to a synchronize, and notes whether
+        it issued a handoff ticket."""
+
+        def tick(self, now=0.0):
+            n0 = self.handoff["handoff_tickets"]
+            t0 = time.monotonic()
+            super().tick(now)
+            torch.cuda.synchronize()
+            ticks.append(((time.monotonic() - t0) * 1e3,
+                          self.handoff["handoff_tickets"] > n0))
+
+    dev = eng.device
+    name = f"{topo[0]}+{topo[1]} {router}" + (f" k={spec_k}" if spec_k
+                                               else "")
+    ticks = []                       # (wall ms, carried a handoff)
+    gc.collect()                     # earlier runs' pools and mailboxes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    d = Timed(eng.exec.params, cfg, spec_scfg(eng) if spec_k else eng.scfg,
+              device=dev, n_prefill=topo[0], n_decode=topo[1],
+              router=router)
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **trace))
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = d.run(reqs, clock="tick")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(pa.LAUNCHES_BY_DTYPE)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    m = d.metrics()
+    hs, steps = m["handoff"], m["steps"]
+    if len(done) != len(reqs) or any(len(r.out) != r.max_new for r in done):
+        fail(f"disagg {tag} {name}: {len(done)} of {len(reqs)} requests "
+             f"finished whole")
+    want = {k: 0 for k in launches}
+    want[("paged_prefill_attention", tag)] = cfg.n_layers * (
+        steps["prefill"] + steps["verify"])
+    want[("paged_decode_attention", tag)] = cfg.n_layers * steps["decode"]
+    if launches != want:
+        fail(f"disagg {tag} {name}: launches {launches} != n_layers x the "
+             f"cells' steps {steps}: {want}")
+    pool_q = [p.queue_stats() for p in d.pools]
+    if (hs["handoff_quiets"] or hs["router_quiets"]
+            or any(q["quiets"] or q["fences"] for q in pool_q)
+            or not hs["handoff_signals"] == hs["handoff_pages"] > 0
+            or hs["handoff_waits"] != hs["handoff_tickets"]):
+        fail(f"disagg {tag} {name}: handoff counters {hs}")
+    for c, e in zip(d.cells, d.engines):
+        if e.kv.n_free() != e.kv.n_pages - 1 - e.kv.pinned_pages \
+                or e.kv.tables:
+            fail(f"disagg {tag} {name}: cell {c.cell}'s pool is not whole: "
+                 f"{e.kv.n_free()} free of {e.kv.n_pages - 1}, tables "
+                 f"{sorted(e.kv.tables)}")
+    mail = d.hq.state["kv_mail"]
+    row_bytes = mail[0, 0].numel() * mail.element_size()
+    hand = [ms for ms, h in ticks if h]
+    rest = [ms for ms, h in ticks if not h]
+    out = {"ticks": m["ticks"], "steps": steps,
+           "tokens_out": m["tokens_out"], "wall_s": wall,
+           "tok_s": m["tokens_out"] / wall,
+           "ttft_p50_ticks": m["ttft_p50_s"],
+           "ttft_p99_ticks": m["ttft_p99_s"],
+           "itl_p50_ticks": m["decode_p50_s"],
+           "itl_p99_ticks": m["decode_p99_s"],
+           **{k: hs[k] for k in ("handoff_tickets", "handoff_pages",
+                                 "handoff_deferred", "handoff_signals",
+                                 "handoff_waits", "handoff_quiets",
+                                 "router_amos", "router_quiets", "steals",
+                                 "alloc_cas_retries")},
+           "handoff_bytes": hs["handoff_pages"] * row_bytes,
+           "page_row_bytes": row_bytes, "peak_gb": peak,
+           "tick_ms_handoff": _mean(hand), "ticks_handoff": len(hand),
+           "tick_ms_no_handoff": _mean(rest), "ticks_no_handoff": len(rest)}
+    print(f"serve disagg {tag} {name}: " + json.dumps(out), flush=True)
+    del d
+    torch.cuda.empty_cache()
+    return out, streams_of(done), launches
+
+
+def profile_disagg(eng, cfg, trace) -> None:
+    """Ten profiled ticks of 2+2 ``host`` cells on the trace, every
+    request submitted at tick 0: device time by kind, the tickets each
+    tick issued, and every memcpy the profiler saw by direction.  Fails
+    unless the window issues a ticket and holds no host<->device memcpy
+    of a page row's size or more: a handoff moves KV by device copies
+    only."""
+    import tempfile
+
+    from repro_torch.serve import DisaggEngine, TrafficConfig, make_requests
+
+    gc.collect()
+    d = DisaggEngine(eng.exec.params, cfg, eng.scfg, device=eng.device,
+                     n_prefill=2, n_decode=2, router="host")
+    for r in make_requests(TrafficConfig(vocab=cfg.vocab, **trace)):
+        d.submit(r)
+    mail = d.hq.state["kv_mail"]
+    row_bytes = mail[0, 0].numel() * mail.element_size()
+    tickets = []
+
+    def run():
+        for t in range(DISAGG_PROFILE_TICKS):
+            n0 = d.handoff["handoff_tickets"]
+            d.tick(t)
+            tickets.append(d.handoff["handoff_tickets"] - n0)
+
+    keep = []
+    window = _profiled(run, keep=keep)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "disagg_trace.json")
+        keep[0].export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    copies: dict = {}
+    for e in events:
+        nm = str(e.get("name", ""))
+        if not nm.startswith("Memcpy"):
+            continue
+        kind = next((k for k in ("HtoD", "DtoH", "DtoD") if k in nm), nm)
+        nbytes = e.get("args", {}).get("bytes")
+        if nbytes is None and kind in ("HtoD", "DtoH"):
+            fail(f"disagg profile: the trace gives no size for {nm}")
+        c = copies.setdefault(kind,
+                              {"count": 0, "bytes": 0, "max_bytes": 0})
+        c["count"] += 1
+        c["bytes"] += int(nbytes or 0)
+        c["max_bytes"] = max(c["max_bytes"], int(nbytes or 0))
+    big = {k: c["max_bytes"] for k, c in copies.items()
+           if k in ("HtoD", "DtoH") and c["max_bytes"] >= row_bytes}
+    if not sum(tickets) or big:
+        fail(f"disagg profile: tickets per tick {tickets}; host<->device "
+             f"copies of >= {row_bytes} bytes: {big}")
+    print("profile disagg 2+2 host: " + json.dumps(
+        {"tickets_per_tick": tickets, "page_row_bytes": row_bytes,
+         "memcpy": copies, "window": window}), flush=True)
+    del d
+    torch.cuda.empty_cache()
+
+
+def serve_disagg_bf16(pa, eng, cfg) -> dict:
+    """Full-width bf16 disaggregated serving on the same weights: the
+    serve trace on clock "tick" colocated, then ``DISAGG_RUNS``, each
+    gated (``disagg_run``); 1+1 ``amo`` must give 1+1 ``host``'s streams
+    bit for bit, and each 2+2 peak stays below twice the weights (the
+    cells share them).  Each run's streams that leave the colocated ones
+    are printed with the colocated path's top-2 margin at the first
+    divergence (not gated: bits cross kernel bodies in bf16).  Then ten
+    profiled 2+2 ticks (``profile_disagg``).  Returns the launches summed
+    over the disagg runs."""
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    tcfg = TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE)
+    weights_gb = _tensor_bytes(eng.exec.params) / 1e9
+    eng.reset_metrics()
+    t0 = time.monotonic()
+    colo = streams_of(eng.run(make_requests(tcfg), clock="tick"))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    mc = eng.metrics()
+    print("serve disagg bf16 colocated (clock tick): " + json.dumps(
+        {"ticks": mc["ticks"], "steps": mc["steps"], "wall_s": wall,
+         "tok_s": mc["tokens_out"] / wall,
+         "ttft_p50_ticks": mc["ttft_p50_s"],
+         "ttft_p99_ticks": mc["ttft_p99_s"],
+         "itl_p50_ticks": mc["decode_p50_s"],
+         "itl_p99_ticks": mc["decode_p99_s"]}), flush=True)
+    total: dict = {}
+    res = {}
+    for topo, router, k in DISAGG_RUNS:
+        out, streams, launches = disagg_run(pa, eng, cfg, SERVE_TRACE, topo,
+                                            router, k, "bf16")
+        res[(topo, router, k)] = (out, streams)
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+        if topo == (2, 2) and not out["peak_gb"] < 2 * weights_gb:
+            fail(f"disagg bf16 {topo} {router}: peak "
+                 f"{out['peak_gb']:.2f} GB is not below twice the "
+                 f"{weights_gb:.2f} GB of weights")
+        same, text = margin_text(eng, cfg, make_requests(tcfg), streams,
+                                 colo, labels=("disagg", "colocated"))
+        print(f"serve disagg bf16 {topo[0]}+{topo[1]} {router} k={k}: "
+              f"{same} of {len(colo)} streams == colocated"
+              + (f"; first divergences: {text}" if text else ""),
+              flush=True)
+    host, amo = (res[((1, 1), r, 0)][1] for r in ("host", "amo"))
+    if amo != host:
+        fail(f"disagg bf16: 1+1 amo streams differ from 1+1 host at "
+             f"{divergences(amo, host)}")
+    peaks = [o["peak_gb"] for (t, _, _), (o, _) in res.items()
+             if t == (2, 2)]
+    print(f"serve disagg bf16: 1+1 amo streams == 1+1 host streams; "
+          f"weights {weights_gb:.2f} GB, 2+2 peaks {peaks} GB", flush=True)
+    profile_disagg(eng, cfg, SERVE_TRACE)
+    return total
+
+
+def serve_disagg_f32(pa, eng, cfg, base_streams) -> dict:
+    """Full-width f32 disaggregated serving on the f32 weights:
+    ``DISAGG_RUNS_F32`` on the f32 trace, each gated (``disagg_run``),
+    whose streams must equal the f32 colocated run's; a stream may leave
+    it only where the colocated path's top-2 margin at the first
+    divergence is below ``F32_NEAR_TIE`` x |top logit| (printed), and
+    the 2+2 peak stays below twice the weights.  Returns the launches
+    summed over the runs."""
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE_F32))
+    prompts = {r.rid: r.prompt for r in reqs}
+    weights_gb = _tensor_bytes(eng.exec.params) / 1e9
+    total: dict = {}
+    for topo, router, k in DISAGG_RUNS_F32:
+        out, streams, launches = disagg_run(pa, eng, cfg, SERVE_TRACE_F32,
+                                            topo, router, k, "f32")
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+        if topo == (2, 2) and not out["peak_gb"] < 2 * weights_gb:
+            fail(f"disagg f32 {topo}: peak {out['peak_gb']:.2f} GB is not "
+                 f"below twice the {weights_gb:.2f} GB of weights")
+        div = divergences(streams, base_streams)
+        ties = []
+        if div:
+            margins = decode_margins(eng, cfg, [
+                (prompts[rid], base_streams[rid], j) for rid, j in div])
+            for (rid, j), (mg, top, val) in zip(div, margins):
+                if not mg < F32_NEAR_TIE * abs(val):
+                    fail(f"disagg f32 {topo}: request {rid} output {j} "
+                         f"{streams[rid][j:j + 3]} vs colocated "
+                         f"{base_streams[rid][j:j + 3]} at a top-2 margin "
+                         f"{mg:.6g} of top-1 logit {val:.6g}: no near-tie")
+                ties.append({"rid": rid, "output": j, "margin": mg,
+                             "top_logit": val, "top_token": top})
+        print(f"serve disagg f32 {topo[0]}+{topo[1]} {router}: "
+              f"{len(base_streams) - len(div)} of {len(base_streams)} "
+              f"streams == colocated f32; near-ties {json.dumps(ties)}; "
+              f"weights {weights_gb:.2f} GB", flush=True)
+    return total
+
+
 def first_step_logits(eng, cfg, reqs) -> None:
     """The first prefill chunk (64 tokens of each of the trace's first 8
     prompts) and the first decode step after it, through the engine's
@@ -1340,10 +1646,11 @@ def _kind(name: str) -> str:
     return "elementwise/reduce/copy"
 
 
-def _profiled(run, top: int = 6) -> dict:
+def _profiled(run, top: int = 6, keep=None) -> dict:
     """Run ``run()`` under the profiler: device time by kernel and by
     kind, and the device's busy share of the wall time (a lower bound:
-    the profiler adds host time)."""
+    the profiler adds host time).  ``keep``, a list, receives the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1352,6 +1659,8 @@ def _profiled(run, top: int = 6) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    if keep is not None:
+        keep.append(prof)
     kinds: dict = {}
     per: list = []
     for e in prof.key_averages():
@@ -2049,7 +2358,8 @@ def gathered(kp, vp, bt, s):
 
 
 def timing(pa, dev, launches, launches_f32, launches_spec, launches_moe,
-           launches_moe_f32, errs) -> list:
+           launches_moe_f32, errs, launches_disagg,
+           launches_disagg_f32) -> list:
     dt = torch.bfloat16
     rows = [dict(name="paged_decode_attention",
                  **decode_timing_case(pa, dev, dt),
@@ -2126,6 +2436,9 @@ def timing(pa, dev, launches, launches_f32, launches_spec, launches_moe,
                                 if name == row["name"]}
         row["launches_moe"] = launches_moe[(row["name"], "bf16")]
         row["launches_moe_f32"] = launches_moe_f32[(row["name"], "f32")]
+        row["launches_disagg"] = launches_disagg[(row["name"], "bf16")]
+        row["launches_disagg_f32"] = launches_disagg_f32[
+            (row["name"], "f32")]
     moe_timing(pa, dev, out)
     return out
 
@@ -2461,8 +2774,8 @@ def main(argv=None) -> int:
     flash_errs = flash_parity(fa, dev)
     flash_autograd_parity(fa, dev)
     comm_errs = comm_kernel_parity(sc, rc, dev)
-    launches, launches_spec = serve_full(pa, dev)
-    launches_f32 = serve_full_f32(pa, dev)
+    launches, launches_spec, launches_disagg = serve_full(pa, dev)
+    launches_f32, launches_disagg_f32 = serve_full_f32(pa, dev)
     launches_moe = serve_moe_bf16(pa, dev)
     launches_moe_f32 = serve_moe_f32(pa, dev)
     for arch in ("qwen3-8b", MOE_BF16, MOE_F32):
@@ -2472,7 +2785,8 @@ def main(argv=None) -> int:
     train_smoke_parity(dev)
     timing_floor(dev)
     kernels = timing(pa, dev, launches, launches_f32, launches_spec,
-                     launches_moe, launches_moe_f32, errs) + \
+                     launches_moe, launches_moe_f32, errs,
+                     launches_disagg, launches_disagg_f32) + \
         comm_timing(sc, rc, dev, comm_launches, comm_payloads, comm_errs) + \
         [flash_timing(fa, dev, flash_launches, flash_errs)]
 

@@ -18,16 +18,20 @@ prompt-lookup self-draft, or an arch name for a draft model drawn from
 ``--seed + 1``); ``--slo I+B`` mixes interactive / batch / best-effort
 traffic under the SLO policy (``--ttft``, ``--tenants``,
 ``--tenant-rate``); ``--prefix-keep`` keeps finished prompts' full
-pages as a migratable prefix cache.  For a dense model none of these
-changes a token: speculation and migration only change how many ticks
-a stream takes.  A MoE model's streams are the same only while no
-expert's capacity drops a token: drops depend on which tokens share a
-step, in the reference as here.
+pages as a migratable prefix cache.  ``--disagg P+D`` serves on P
+prefill and D decode cells over one weights dict, each finished prefill
+handing its pages to a decode cell by put-with-signal (speculation there
+drafts with the n-gram proposer; a draft model is refused); ``--router
+amo`` arbitrates admission, stealing and page grants by AMOs on
+symmetric words (colocated: the page pool alone).  For a dense model
+none of these changes a token: speculation, migration, cells and
+routers only change how many ticks a stream takes.  A MoE model's
+streams are the same only while no expert's capacity drops a token:
+drops depend on which tokens share a step, in the reference as here.
 Prints per-request traces with ``--trace``, then the
 throughput/latency summary (with its ``spec`` and ``slo`` blocks).
 
-Not ported yet (each raises ``NotImplementedError``): ``--disagg`` and
-``--router amo`` (A8, the control plane), ``--hot-swap`` (A9).
+Not ported yet (raises ``NotImplementedError``): ``--hot-swap`` (A9).
 """
 from __future__ import annotations
 
@@ -40,9 +44,10 @@ from repro_torch import configs
 from repro_torch.core.heap import SymmetricHeap
 from repro_torch.device import dtype_of, resolve
 from repro_torch.models import lm
-from repro_torch.serve import (DraftModelProposer, PagedKVCache, SLOConfig,
-                               ServeConfig, ServeEngine, TrafficConfig,
-                               make_requests)
+from repro_torch.serve import (DisaggEngine, DraftModelProposer,
+                               PagedKVCache, SLOConfig, ServeConfig,
+                               ServeEngine, SymmetricPagePool,
+                               TrafficConfig, make_requests)
 
 
 def parse_slo(spec: str) -> tuple[float, float]:
@@ -61,6 +66,19 @@ def parse_slo(spec: str) -> tuple[float, float]:
     return ifrac, bfrac
 
 
+def parse_disagg(spec: str) -> tuple[int, int]:
+    """``--disagg P+D`` topology spec -> (n_prefill, n_decode)."""
+    try:
+        p, d = spec.split("+")
+        n_prefill, n_decode = int(p), int(d)
+    except ValueError:
+        raise SystemExit(
+            f"--disagg wants P+D (e.g. 2+2), got {spec!r}") from None
+    if n_prefill < 1 or n_decode < 1:
+        raise SystemExit(f"--disagg {spec}: both cell counts must be >= 1")
+    return n_prefill, n_decode
+
+
 def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
                  dtype: str = "bf16", device=None, page_tokens: int = 16,
                  n_pages: int = 512, max_batch: int = 8,
@@ -69,21 +87,17 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
                  sample_seed: int = 0, seed: int = 0, spec_k: int = 0,
                  draft: str = "ngram", disagg: str = "",
                  router: str = "host", slo=None):
-    """The colocated serving engine over ``arch`` with random weights
-    drawn on ``device`` from ``seed``.  ``device=None`` is the GPU.
-    ``draft`` is ``"ngram"`` or an arch name: a draft model of that arch
-    (same ``config`` size, weights from ``seed + 1``) over a KV cache
-    shared with the target."""
-    if disagg:
-        raise NotImplementedError(
-            "disaggregated prefill/decode cells (serve/disagg.py) arrive "
-            "with the control-plane slice of the port (A8)")
+    """The serving engine over ``arch`` with random weights drawn on
+    ``device`` from ``seed``.  ``device=None`` is the GPU.  ``draft`` is
+    ``"ngram"`` or an arch name: a draft model of that arch (same
+    ``config`` size, weights from ``seed + 1``) over a KV cache shared
+    with the target.  ``disagg="P+D"`` returns a ``DisaggEngine`` of P
+    prefill and D decode cells (speculation there drafts with n-gram,
+    as in the reference; a draft model raises); ``router="amo"`` gives
+    it the AMO router and page pools, or, colocated, attaches a
+    ``SymmetricPagePool`` to the engine's cache."""
     if router not in ("host", "amo"):
-        raise ValueError(f"router must be 'host' or 'amo', got {router!r}")
-    if router == "amo":
-        raise NotImplementedError(
-            "the AMO page pool and router (serve/page_pool.py, "
-            "serve/amo_router.py) arrive with the control-plane slice (A8)")
+        raise SystemExit(f"--router wants 'host' or 'amo', got {router!r}")
     if config not in ("full", "smoke"):
         raise ValueError(f"config must be 'full' or 'smoke', got {config!r}")
     dev = resolve(device)
@@ -97,6 +111,16 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
         spec_k=spec_k, slo=slo)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = lm.init(gen, cfg, dtype=dt, device=dev)
+    if disagg:
+        n_prefill, n_decode = parse_disagg(disagg)
+        if spec_k > 0 and draft != "ngram":
+            raise SystemExit(
+                f"--disagg drafts with the n-gram proposer, as the "
+                f"reference's cells do: --draft {draft} is served only "
+                f"colocated")
+        return DisaggEngine(params, cfg, scfg, device=dev,
+                            n_prefill=n_prefill, n_decode=n_decode,
+                            router=router), cfg
     if spec_k > 0 and draft != "ngram":
         # a draft model on the same page geometry: the shared cache is
         # built first so draft and target index their pools through the
@@ -111,9 +135,15 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
         proposer = DraftModelProposer(
             lm.init(dgen, dcfg, dtype=dt, device=dev), dcfg, scfg, kv,
             target_vocab=cfg.vocab, device=dev)
-        return ServeEngine(params, cfg, scfg, device=dev, kv=kv,
-                           proposer=proposer), cfg
-    return ServeEngine(params, cfg, scfg, device=dev), cfg
+        eng = ServeEngine(params, cfg, scfg, device=dev, kv=kv,
+                          proposer=proposer)
+    else:
+        eng = ServeEngine(params, cfg, scfg, device=dev)
+    if router == "amo":
+        # colocated "amo" is the page allocator: the free list moves onto
+        # symmetric counter words (the same grants, so streams cannot move)
+        eng.kv.attach_pool(SymmetricPagePool(eng.kv.n_pages))
+    return eng, cfg
 
 
 def main(argv=None):
@@ -161,8 +191,11 @@ def main(argv=None):
                     help="keep finished prompts' full pages as a "
                          "migratable prefix cache")
     ap.add_argument("--disagg", default="",
-                    help="disaggregated topology P+D (not ported: A8)")
-    ap.add_argument("--router", default="host", choices=["host", "amo"])
+                    help="disaggregated topology P+D (e.g. 2+2): P prefill "
+                         "and D decode cells, put-with-signal page handoff")
+    ap.add_argument("--router", default="host", choices=["host", "amo"],
+                    help="'amo': CAS admission rings, work stealing and "
+                         "symmetric page pools (colocated: the pool only)")
     ap.add_argument("--slo", default="",
                     help="SLO traffic mix 'I+B' (e.g. 0.5+0.25): fractions "
                          "of interactive and batch requests, the rest "
@@ -223,7 +256,9 @@ def main(argv=None):
           f"attn={args.attn_impl} sampling=(T={args.temperature} "
           f"k={args.top_k} p={args.top_p}) spec=(k={args.spec_k} "
           f"draft={args.draft}) slo={args.slo or 'off'} "
-          f"prefix_keep={args.prefix_keep} requests={len(reqs)}")
+          f"prefix_keep={args.prefix_keep} "
+          f"topology={args.disagg or 'colocated'} router={args.router} "
+          f"requests={len(reqs)}")
     done = eng.run(reqs)
     if args.trace:
         for r in sorted(done, key=lambda r: r.rid):

@@ -1,6 +1,7 @@
 """Continuous-batching inference engine over the paged symmetric-heap
-KV cache — the counterpart of ``repro.serve.engine`` for colocated,
-single-device serving of a dense or MoE decoder.
+KV cache — the counterpart of ``repro.serve.engine`` for single-device
+serving of a dense or MoE decoder, colocated or as one cell of a
+disaggregated topology (``serve.disagg``).
 
 Two layers, as in the reference:
 
@@ -27,7 +28,10 @@ Two layers, as in the reference:
     chunked prefill, then one decode token — or one verify window — per
     decoding sequence.  With ``ServeConfig.slo`` the scheduler follows
     the SLO policy (``serve.slo``); with ``prefix_keep`` finished
-    prompts' full pages stay as a migratable prefix cache.
+    prompts' full pages stay as a migratable prefix cache.  A
+    ``role="prefill"`` engine stops a sequence at its first token and
+    parks it on ``handoff_ready``; a ``role="decode"`` engine receives
+    sequences through ``adopt_request``.
 
 The pool is updated IN PLACE: page writes are ``index_put_`` on the
 per-layer view of the pool tensor, where the reference does a
@@ -40,8 +44,8 @@ the null page table and length 0, which zeroes their attention output
 and routes their K/V writes to the null page.
 
 Not ported yet (raises ``NotImplementedError``): the sliding window
-over the paged cache.  Disaggregated cells, the AMO
-router and weight hot-swap live in ``launch/serve.py``'s refusals.
+over the paged cache.  Weight hot-swap (A9) lives in ``launch/serve.py``'s
+and ``serve.disagg``'s refusals.
 """
 from __future__ import annotations
 
@@ -321,11 +325,29 @@ class LocalExec:
 
     def migrate(self, pool, migrations):
         # whole-system view with one PE: a leading PE axis on a VIEW of
-        # the pool, so the drained puts land in the pool itself
+        # the pool, so the drained puts land in the pool itself.  A
+        # cell's prefix pages are its own, so every move is a loopback:
+        # its PE is row 0 of the view whatever the cell's PE id
         name = self.kv.handle.name
         state = {name: pool[None]}
         q = CommQueue(("data",), state, transport=_PoolTransport(1))
-        self.kv.issue_migrations(q, state[name], migrations)
+        self.kv.issue_migrations(
+            q, state[name],
+            [dataclasses.replace(m, src_pe=0, dst_pe=0) for m in migrations])
+        return pool
+
+    # pool-layout hooks for the disaggregated handoff (serve.disagg): a
+    # page "row" is the plain pool row, and it stays on the pool's device
+    def read_pages(self, pool, pages) -> list:
+        """Pool rows ``pages`` (the handoff payload) as views, one ``(1,
+        *row)`` per page, no copy: a put snapshots its row at issue."""
+        return [pool[p:p + 1] for p in pages]
+
+    def write_pages(self, pool, pages, rows) -> torch.Tensor:
+        """Land handed-off ``rows`` (one ``(1, *row)`` each) at pool rows
+        ``pages``, in place, one device copy per row."""
+        for p, r in zip(pages, rows):
+            pool[p:p + 1].copy_(r)
         return pool
 
 
@@ -339,13 +361,25 @@ class ServeEngine:
     ``device=None`` is the GPU (raises without one); tests pass
     ``device="cpu"``.  ``kv`` shares a cache with a draft model's
     proposer (``serve.spec.DraftModelProposer``); ``proposer`` overrides
-    ``scfg.draft``."""
+    ``scfg.draft``.  ``role`` is ``"both"`` (colocated), or a
+    disaggregated cell's ``"prefill"`` / ``"decode"``; ``my_pe`` is the
+    cell's PE id."""
 
     def __init__(self, params, cfg, scfg: ServeConfig, *, device=None,
-                 kv: Optional[PagedKVCache] = None, proposer=None):
+                 kv: Optional[PagedKVCache] = None, proposer=None,
+                 my_pe: int = 0, role: str = "both"):
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"unknown engine role {role!r}")
         _check_supported(cfg)
         self.cfg, self.scfg = cfg, scfg
         self.device = resolve(device)
+        # disaggregated cells: a "prefill" engine stops at the first
+        # token and parks the sequence on ``handoff_ready``; a "decode"
+        # engine receives sequences through ``adopt_request`` (it still
+        # re-prefills its own preemption victims: the counter-keyed
+        # sampler gives the same tokens wherever a position is computed)
+        self.role = role
+        self.handoff_ready: list = []
         if kv is None:
             kv = PagedKVCache(
                 SymmetricHeap(("data",)), n_layers=cfg.n_layers,
@@ -355,7 +389,7 @@ class ServeEngine:
         self.kv = kv
         self.slo = SLOPolicy(scfg.slo) if scfg.slo is not None else None
         self.sched = FCFSScheduler(kv, max_batch=scfg.max_batch,
-                                   max_seq=scfg.max_seq,
+                                   max_seq=scfg.max_seq, my_pe=my_pe,
                                    prefill_chunk=scfg.prefill_chunk,
                                    tick_tokens=scfg.tick_tokens,
                                    spec_k=scfg.spec_k, slo=self.slo)
@@ -441,11 +475,34 @@ class ServeEngine:
             self.sched.note_chunk(r, n, int(toks[i]), now)
             if not r.is_prefilling():
                 done.add(r.rid)
+                if self.role == "prefill" and not r.finished():
+                    # a prefill cell's part ends with the first token:
+                    # park the sequence for the page handoff (its pages
+                    # stay resident as the payload source until the
+                    # decode cell acknowledges)
+                    self.sched.release(r)
+                    self.handoff_ready.append(r)
+                    continue
                 self._last_tok[r.rid] = now
                 self._maybe_finish(r, now)
         return done
 
+    def adopt_request(self, req: Request, pages, now: float = 0.0) -> None:
+        """Decode-cell half of a handoff: attach the landing pages
+        (already filled by the producer's put-with-signal stream, drained
+        by ``signal_wait_until``) and enter the sequence into this cell's
+        scheduler mid-life."""
+        if self.role == "prefill":
+            raise RuntimeError("a prefill cell cannot adopt sequences")
+        self.kv.attach_seq(req.rid, pages)
+        self.sched.adopt(req)
+        # its first token was emitted on the producer cell; the next
+        # inter-token gap is measured from adoption
+        self._last_tok[req.rid] = now
+
     def _decode_tick(self, skip_rids, now):
+        if self.role == "prefill":
+            return
         batch = [r for r in self.sched.running
                  if not r.is_prefilling() and r.rid not in skip_rids]
         if not batch:

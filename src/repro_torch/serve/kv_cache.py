@@ -1,23 +1,31 @@
 """Paged KV cache on the symmetric heap.
 
-The counterpart of ``repro.serve.kv_cache.PagedKVCache`` for colocated
-serving.  The page pool is ONE symmetric allocation: a ``(n_pages, 2,
-n_layers, page_tokens, kv_heads, head_dim)`` tensor carved from
+The counterpart of ``repro.serve.kv_cache.PagedKVCache``.  The page
+pool is ONE symmetric allocation: a ``(n_pages, 2, n_layers,
+page_tokens, kv_heads, head_dim)`` tensor carved from
 ``SymmetricHeap``, so a *block table* — a plain array of page ids — is
 valid on every PE (Fact 1: the page id is the remote address).
 
 Page 0 is the *null page*: block tables are padded with it, and writes
 for masked-out batch slots land there.  Real allocations hand out ids
 1..n_pages-1 from a LIFO free list (freshly freed pages are reused
-while still warm in cache).  The bookkeeping is host-side Python; the
-pool tensor lives on the serving device and the engine writes it in
-place.
+while still warm in cache); ``attach_pool`` swaps the host list for a
+lock-free ``serve.page_pool.SymmetricPagePool`` with the same grant
+order.  The bookkeeping is host-side Python; the pool tensor lives on
+the serving device and the engine writes it in place.
 
 The prefix index publishes a finished prompt's full pages as migratable
 (pinned out of the free list, at most a quarter of the pool), and a
 later request with the same prefix resumes from them: one ``put_nbi``
 of one pool row per page on a ``CommQueue``, drained by ONE ``quiet()``
 per tick (``issue_migrations``; §3.2's point).
+
+A disaggregated handoff (``serve.disagg``) moves a sequence between two
+caches: ``export_seq`` detaches the producer's table with its pages
+still resident (the payload source), ``adopt_seq`` carves the
+consumer's landing pages (the block-table remap), and
+``release_pages`` returns the producer's pages once the consumer
+acknowledges.
 """
 from __future__ import annotations
 
@@ -61,8 +69,11 @@ class PagedKVCache:
             name, (n_pages, 2, n_layers, page_tokens, kv_heads, head_dim),
             dtype)
         self.dtype = self.handle.dtype
-        # LIFO free list over real pages (1..n-1); page 0 stays null
+        # LIFO free list over real pages (1..n-1); page 0 stays null.
+        # ``attach_pool`` swaps this host list for a SymmetricPagePool
+        # with the same grant order
         self._free: list[int] = list(range(n_pages - 1, 0, -1))
+        self._pool = None                 # SymmetricPagePool when attached
         self.tables: dict = {}            # seq id -> list[int] page ids
         # prefix index: tuple(prompt tokens of k full pages) ->
         # (owner_pe, [page ids on the owner]), the migration source.
@@ -72,7 +83,8 @@ class PagedKVCache:
         self.pin_budget = max((n_pages - 1) // 4, 2)
         self.pinned_pages = 0
         self.stats = {"page_allocs": 0, "page_frees": 0, "migrations": 0,
-                      "prefix_hits": 0, "rewound_pages": 0}
+                      "prefix_hits": 0, "rewound_pages": 0,
+                      "exported_pages": 0, "adopted_pages": 0}
 
     # ------------------------------------------------------------------
     @property
@@ -80,10 +92,50 @@ class PagedKVCache:
         return self.handle.shape[0]
 
     def n_free(self) -> int:
-        return len(self._free)
+        return self._pool.n_free() if self._pool is not None \
+            else len(self._free)
 
     def pages_for(self, n_tokens: int) -> int:
         return -(-int(n_tokens) // self.page_tokens)
+
+    # ------------------------------------------------------------------
+    # free-list backend: the host list, or an attached SymmetricPagePool
+    # ------------------------------------------------------------------
+    def attach_pool(self, pool) -> None:
+        """Swap the host free list for a lock-free
+        ``serve.page_pool.SymmetricPagePool``.  Legal only on a pristine
+        cache (no tables, full free list): the two backends grant the
+        same page ids only from the same starting point."""
+        if self.tables or len(self._free) != self.n_pages - 1:
+            raise ValueError(
+                "attach_pool needs a pristine cache (no live tables, "
+                "full free list)")
+        if pool.n_pages != self.n_pages:
+            raise ValueError(
+                f"pool covers {pool.n_pages} pages, cache has "
+                f"{self.n_pages}")
+        self._pool = pool
+        self._free = []
+
+    def _pop_page(self) -> Optional[int]:
+        if self._pool is not None:
+            return self._pool.pop_page()
+        return self._free.pop() if self._free else None
+
+    def _pop_pages(self, n: int) -> Optional[list[int]]:
+        """All-or-nothing claim; the free list is untouched on shortfall."""
+        if self._pool is not None:
+            return self._pool.pop_pages(n)
+        if n > len(self._free):
+            return None
+        return [self._free.pop() for _ in range(n)]
+
+    def _push_pages(self, pages: Sequence[int]) -> None:
+        """LIFO return: ``pages[0]`` ends on top on either backend."""
+        if self._pool is not None:
+            self._pool.push_pages(list(pages))
+        else:
+            self._free.extend(reversed(list(pages)))
 
     # ------------------------------------------------------------------
     # allocation — host side
@@ -94,9 +146,10 @@ class PagedKVCache:
         need = max(self.pages_for(n_tokens), 1)
         if seq_id in self.tables:
             raise ValueError(f"sequence {seq_id!r} already has pages")
-        if need > len(self._free):
+        pages = self._pop_pages(need)
+        if pages is None:
             return False
-        self.tables[seq_id] = [self._free.pop() for _ in range(need)]
+        self.tables[seq_id] = pages
         self.stats["page_allocs"] += need
         return True
 
@@ -105,9 +158,10 @@ class PagedKVCache:
         when out of pages — the scheduler then preempts someone."""
         table = self.tables[seq_id]
         while len(table) * self.page_tokens < n_tokens:
-            if not self._free:
+            page = self._pop_page()
+            if page is None:
                 return False
-            table.append(self._free.pop())
+            table.append(page)
             self.stats["page_allocs"] += 1
         return True
 
@@ -121,7 +175,7 @@ class PagedKVCache:
         freed = table[keep:]
         if freed:
             del table[keep:]
-            self._free.extend(reversed(freed))
+            self._push_pages(freed)
             self.stats["page_frees"] += len(freed)
             self.stats["rewound_pages"] += len(freed)
         return len(freed)
@@ -130,7 +184,7 @@ class PagedKVCache:
         pages = self.tables.pop(seq_id)
         self.stats["page_frees"] += len(pages)
         # LIFO: pages[0] ends on top of the free list
-        self._free.extend(reversed(pages))
+        self._push_pages(pages)
 
     def attach_seq(self, seq_id, pages: Sequence[int]) -> None:
         """Adopt already-filled pages (migrated prefix pages) as the head
@@ -142,10 +196,41 @@ class PagedKVCache:
     def take_pages(self, n: int) -> Optional[list[int]]:
         """Pop ``n`` pages ownerless (a migration's landing zone);
         all-or-nothing."""
-        if n > len(self._free):
+        pages = self._pop_pages(n)
+        if pages is None:
             return None
         self.stats["page_allocs"] += n
-        return [self._free.pop() for _ in range(n)]
+        return pages
+
+    # ------------------------------------------------------------------
+    # cross-cache handoff (disaggregated prefill/decode cells)
+    # ------------------------------------------------------------------
+    def export_seq(self, seq_id) -> list[int]:
+        """Detach a sequence's table for a handoff: the pages leave the
+        table but NOT the pool — they stay resident as the
+        put-with-signal payload source until the consumer acknowledges
+        (then ``release_pages``).  Returns the page ids in table order."""
+        pages = self.tables.pop(seq_id)
+        self.stats["exported_pages"] += len(pages)
+        return pages
+
+    def adopt_seq(self, seq_id, n: int) -> Optional[list[int]]:
+        """The consumer half of a handoff: carve ``n`` landing pages from
+        this pool and attach them as ``seq_id``'s table.  The landing ids
+        are this pool's own (the block-table remap; page rows are
+        position-independent).  All-or-nothing: None when the pool
+        cannot cover the sequence."""
+        pages = self.take_pages(n)
+        if pages is None:
+            return None
+        self.attach_seq(seq_id, pages)
+        self.stats["adopted_pages"] += n
+        return pages
+
+    def release_pages(self, pages: Sequence[int]) -> None:
+        """Return exported pages once the consumer has acknowledged."""
+        self.stats["page_frees"] += len(pages)
+        self._push_pages(list(pages))
 
     # ------------------------------------------------------------------
     def block_table(self, seq_ids, n_slots: int) -> np.ndarray:
@@ -209,3 +294,24 @@ class PagedKVCache:
     def zeros(self, device=None) -> torch.Tensor:
         return torch.zeros(self.handle.shape, dtype=self.dtype,
                            device=device)
+
+    def grow(self, extra_pages: int,
+             pool: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Extend the pool by ``extra_pages`` through ``heap.realloc`` (in
+        place when the heap has room next door, moved otherwise; the
+        offset stays symmetric).  The new ids join the free list lowest
+        first.  Returns the grown pool tensor, ``pool``'s pages carried
+        over (zeros on the CPU when no pool is given)."""
+        old_n = self.handle.shape[0]
+        new_n = old_n + int(extra_pages)
+        self.handle = self.heap.realloc(self.handle,
+                                        (new_n,) + self.handle.shape[1:])
+        if self._pool is not None:
+            self._pool.grow_pages(range(old_n, new_n))
+        else:
+            self._free.extend(range(new_n - 1, old_n - 1, -1))
+        if pool is None:
+            return self.zeros()
+        out = pool.new_zeros((new_n,) + tuple(pool.shape[1:]))
+        out[:old_n] = pool
+        return out

@@ -1,7 +1,5 @@
 """FCFS continuous batching with preempt-by-eviction and token-budgeted
-chunked prefill — the counterpart of ``repro.serve.scheduler`` for a
-colocated engine (the disaggregated handoff, ``release``/``adopt``, is
-not here).
+chunked prefill — the counterpart of ``repro.serve.scheduler``.
 
   * requests queue FCFS; a request is ADMITTED when a batch slot is
     free and the pool can cover its prompt + one decode page;
@@ -21,7 +19,9 @@ not here).
   * with an ``SLOPolicy`` (``serve.slo``) attached: expired best-effort
     waiters shed first, admission runs in (class, arrival) order,
     eviction inverse-priority, and best-effort traffic degrades (chunk
-    cap, draft strip) while higher classes have unmet demand.
+    cap, draft strip) while higher classes have unmet demand;
+  * a disaggregated cell (``serve.disagg``) hands a sequence off
+    mid-life: ``release`` on the producer, ``adopt`` on the consumer.
 
 ``Request`` identity is OBJECT identity (``eq=False``).  The scheduler
 is host-side and deterministic: the same arrival trace gives the same
@@ -36,10 +36,6 @@ from typing import Optional
 
 from .kv_cache import PagedKVCache, PageMigration
 from .sampling import GREEDY, SamplingParams
-
-# the colocated engine is one PE: migrations land on it, and the prefix
-# index names it as every prefix's owner
-LOCAL_PE = 0
 
 
 @dataclasses.dataclass(eq=False)
@@ -116,14 +112,17 @@ class FCFSScheduler:
     admission order); 0 resolves to ``max_batch * (1 + spec_k) +
     prefill_chunk``.  The oldest prefilling sequence always gets at
     least one token.  ``slo`` attaches an ``SLOPolicy``; None keeps
-    plain FCFS, bit for bit."""
+    plain FCFS, bit for bit.  ``my_pe`` is the PE this scheduler's
+    cache lives on: migrations land on it, and the prefix index names it
+    as the owner of what it registers."""
 
     def __init__(self, kv: PagedKVCache, *, max_batch: int,
-                 max_seq: int, prefill_chunk: int = 8,
+                 max_seq: int, my_pe: int = 0, prefill_chunk: int = 8,
                  tick_tokens: int = 0, spec_k: int = 0, slo=None):
         self.kv = kv
         self.max_batch = int(max_batch)
         self.max_seq = int(max_seq)
+        self.my_pe = int(my_pe)
         self.prefill_chunk = max(int(prefill_chunk), 1)
         self.spec_k = max(int(spec_k), 0)
         self.tick_tokens = int(tick_tokens) or (
@@ -139,7 +138,8 @@ class FCFSScheduler:
         self._arrive_idx: dict = {}      # rid -> submission ticket
         self.stats = {"admitted": 0, "resumed": 0, "preempted": 0,
                       "finished": 0, "ticks": 0, "prefill_tokens": 0,
-                      "shed": 0, "rate_deferred": 0}
+                      "released": 0, "adopted": 0, "shed": 0,
+                      "rate_deferred": 0}
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -325,7 +325,7 @@ class FCFSScheduler:
             self.kv.free_seq(req.rid)
             return False
         plan.migrations.extend(
-            PageMigration(owner_pe, LOCAL_PE, s, d)
+            PageMigration(owner_pe, self.my_pe, s, d)
             for s, d in zip(src_pages, landing))
         self.waiting.remove(req)             # identity (eq=False)
         self._start(req)
@@ -341,6 +341,30 @@ class FCFSScheduler:
     def _start(self, req: Request) -> None:
         self.running.append(req)
         self._admit_idx[req.rid] = next(self._admit_seq)
+
+    # ------------------------------------------------------------------
+    # disaggregated handoff (serve.disagg): a sequence leaves one cell's
+    # scheduler mid-life and joins another's
+    # ------------------------------------------------------------------
+    def release(self, req: Request) -> None:
+        """Hand a sequence off: remove it from the running set WITHOUT
+        freeing pages or resetting progress (contrast ``_preempt``) — its
+        K/V stays resident as the handoff payload source until the
+        consumer cell acknowledges."""
+        self.running.remove(req)             # identity (eq=False)
+        self.stats["released"] += 1
+
+    def adopt(self, req: Request) -> None:
+        """Receive a handed-off sequence mid-life (prompt consumed, first
+        token emitted), youngest in eviction order like any admission.
+        The caller has attached its landing pages
+        (``PagedKVCache.adopt_seq``)."""
+        if len(self.running) >= self.max_batch:
+            raise RuntimeError(
+                f"adopt of {req.rid}: cell batch is full "
+                f"({self.max_batch}) — the router must gate on slots")
+        self._start(req)
+        self.stats["adopted"] += 1
 
     # ------------------------------------------------------------------
     def advance(self, req: Request, token: int, now: float = 0.0) -> None:
@@ -379,7 +403,7 @@ class FCFSScheduler:
         if register_prefix:
             pages = self.kv.tables[req.rid]
             n_full = min(len(pages), req.n_prompt // self.kv.page_tokens)
-            if n_full and self.kv.register_prefix(req.prompt, LOCAL_PE,
+            if n_full and self.kv.register_prefix(req.prompt, self.my_pe,
                                                   pages[:n_full]):
                 self.kv.tables[req.rid] = pages[n_full:]
         self.kv.free_seq(req.rid)

@@ -3,11 +3,11 @@ their plain PyTorch versions over the reference's parity corpus
 (mid-page starts, full final pages, padded and inactive rows, the verify
 shape, GQA/MQA, f32/bf16, length 0), the edges of the bf16 prefill
 kernel's tiles and verify windows at qwen3-8b's width, and the engine's
-kernel path, speculative decoding included; the copy and combine
-kernels and the pallas backend; the flash-attention kernel against its
-plain version (its tile edges, the models' layouts, the 16-byte row
-check), the autograd path through it, and smoke-config training with
-it.
+kernel path, speculative decoding and disaggregated cells included;
+the copy and combine kernels and the pallas backend; the
+flash-attention kernel against its plain version (its tile edges, the
+models' layouts, the 16-byte row check), the autograd path through it,
+and smoke-config training with it.
 
 Every test here needs a CUDA GPU and skips without one (the kernels are
 CUDA C++ with no CPU mode); on the H100 host:
@@ -562,6 +562,53 @@ def test_cuda_spec_streams_equal_plain_decode_streams(cuda_device):
             assert eng.steps["decode"] == 0 and eng.steps["verify"] > 0
             assert eng.metrics()["spec"]["drafted"] > 0
     assert streams[2] == streams[0]
+
+
+@pytest.mark.parametrize("disagg,router,spec_k",
+                         [("1+1", "host", 0), ("2+2", "amo", 2)])
+def test_cuda_disagg_streams_equal_plain_streams(cuda_device, disagg, router,
+                                                 spec_k):
+    """Disaggregated cells on the card, smoke config in f32: the kernel
+    path's streams equal the plain path's, the handoff drains by
+    ``signal_wait_until`` alone, and the paged kernels launch n_layers x
+    the steps summed over the cells (verify windows through the prefill
+    body)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import Request
+
+    def reqs():
+        return [Request(rid=i, prompt=[5, 17, 42] * (4 - i), max_new=8,
+                        t_arrive=i) for i in range(4)]
+
+    streams = {}
+    for impl in ("ref", "kernel"):
+        eng, cfg = launch.build_engine(config="smoke", dtype="f32",
+                                       device=cuda_device, page_tokens=4,
+                                       n_pages=48, max_batch=3,
+                                       prefill_chunk=4, spec_k=spec_k,
+                                       disagg=disagg, router=router,
+                                       attn_impl=impl)
+        pa.reset_launches()
+        done = eng.run(reqs(), clock="tick")
+        streams[impl] = {r.rid: list(r.out) for r in done}
+        hs, steps = eng.stats(), eng.metrics()["steps"]
+        assert hs["handoff_quiets"] == 0 and hs["router_quiets"] == 0
+        assert hs["handoff_signals"] == hs["handoff_pages"] > 0
+        assert hs["handoff_waits"] == hs["handoff_tickets"] == 4
+        assert eng.hq.state["kv_mail"].device.type == "cuda"
+        want = {("paged_prefill_attention", "f32"): cfg.n_layers * (
+                    steps["prefill"] + steps["verify"]),
+                ("paged_decode_attention", "f32"):
+                    cfg.n_layers * steps["decode"]}
+        got = {k: v for k, v in pa.LAUNCHES_BY_DTYPE.items() if v}
+        if impl == "kernel":
+            assert got == {k: v for k, v in want.items() if v}
+            assert min(want.values()) > 0 or spec_k
+        else:
+            assert got == {}
+        for e in eng.engines:
+            assert e.kv.n_free() == e.kv.n_pages - 1 and not e.kv.tables
+    assert streams["kernel"] == streams["ref"]
 
 
 # ======================================================================

@@ -1,5 +1,6 @@
 """repro_torch stands alone: importing the package and every submodule
-(the serving slice, the communication library: core, comm, the copy
+(the serving slice with its control plane — disaggregated cells, the
+page pool, the AMO router — the communication library: core, comm, the copy
 and combine kernels, comm_bench, and the training slice: the flash
 kernel, flash/lm/registry, parallel, data, train, the train launcher,
 and the MoE slice: the MoE configs and the MoE layer in models/mlp),
@@ -85,7 +86,8 @@ def test_the_training_slice_is_covered():
 def test_the_serving_slice_is_covered():
     want = {"repro_torch.serve." + m for m in (
         "engine", "kv_cache", "scheduler", "sampling", "slo", "spec",
-        "threefry", "traffic")} | {"repro_torch.launch.serve"}
+        "threefry", "traffic", "disagg", "page_pool", "amo_router")} | {
+        "repro_torch.launch.serve"}
     assert want <= set(_modules())
 
 

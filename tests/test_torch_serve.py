@@ -308,17 +308,24 @@ def test_build_engine_without_device_raises_when_cuda_absent(monkeypatch):
     assert eng.device.type == "cpu" and cfg.n_layers == 2
 
 
-@pytest.mark.parametrize("what", ["ssm", "swa", "disagg", "router_amo",
-                                  "cli_hot_swap"])
+@pytest.mark.parametrize("what", ["ssm", "swa", "disagg_hot_swap",
+                                  "disagg_tp_cell", "cli_hot_swap"])
 def test_later_slices_raise_not_implemented(what):
     small = dict(config="smoke", dtype="f32", device="cpu", page_tokens=4,
                  n_pages=16, max_batch=2, prefill_chunk=4)
     cli = ["--config", "smoke", "--device", "cpu", "--dtype", "f32"]
-    with pytest.raises(NotImplementedError):
-        if what == "disagg":
-            launch.build_engine(disagg="1+1", **small)
-        elif what == "router_amo":
-            launch.build_engine(router="amo", **small)
+    cite = {"disagg_hot_swap": "A9", "disagg_tp_cell": "A7",
+            "cli_hot_swap": "A9"}.get(what, "")
+    with pytest.raises(NotImplementedError, match=cite):
+        if what == "disagg_hot_swap":
+            # weight hot-swap across the cells (A9)
+            eng, _ = launch.build_engine(disagg="1+1", **small)
+            eng.begin_hot_swap(eng.engines[0].exec.params)
+        elif what == "disagg_tp_cell":
+            # a tensor-parallel cell (A7)
+            cfg = configs.get_smoke("qwen3-8b")
+            serve.DisaggEngine({}, cfg, serve.ServeConfig(), device="cpu",
+                               pes_per_cell=2)
         elif what == "cli_hot_swap":
             launch.main(cli + ["--hot-swap"])
         else:
@@ -331,12 +338,17 @@ def test_later_slices_raise_not_implemented(what):
 
 @pytest.mark.parametrize("kw", [dict(spec_k=2), dict(spec_k=2, draft="qwen3-8b"),
                                 dict(prefix_keep=True),
-                                dict(slo=serve.SLOConfig())],
-                         ids=["spec", "draft", "prefix", "slo"])
+                                dict(slo=serve.SLOConfig()),
+                                dict(disagg="1+1"),
+                                dict(disagg="2+2", router="amo", spec_k=2),
+                                dict(router="amo")],
+                         ids=["spec", "draft", "prefix", "slo", "disagg",
+                              "disagg_amo_spec", "colocated_amo"])
 def test_new_paths_run_on_the_card_unless_asked(monkeypatch, kw):
-    """``build_engine`` with speculation, a draft model, prefix keeping or
-    the SLO policy raises without a GPU unless ``device="cpu"`` is
-    passed; on the CPU it builds and serves."""
+    """``build_engine`` with speculation, a draft model, prefix keeping,
+    the SLO policy, disaggregated cells or the AMO router raises without
+    a GPU unless ``device="cpu"`` is passed; on the CPU it builds and
+    serves."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     small = dict(config="smoke", dtype="f32", page_tokens=4, n_pages=16,
                  max_batch=2, prefill_chunk=4)
