@@ -154,7 +154,34 @@ caught):
                at every payload the comm phase staged, summed as launches
                x time, each payload's times printed); each row with its
                achieved TFLOP/s and GB/s and
-               its share of the bound (bound ms / kernel ms).
+               its share of the bound (bound ms / kernel ms);
+  8. hot-swap — weight hot-swap (``ckpt.hotswap``) on full-width
+               qwen3-8b in bf16 through the paged kernels: on the serve
+               stage's weights (``build_engine``, seed 0), generation 1
+               drawn from seed 1000 is streamed in 1 MiB rows, 512 a
+               tick (31 batches), while the serve trace runs on clock
+               "tick", then a second trace runs on the new weights;
+               colocated and on 1+1 host cells at 36 layers, on 2+2 host
+               cells at 2 (four stages of the full model would not fit).
+               Each run is gated: one flip, after the first tick, every
+               cell switched on it, zero fences and quiets on the swap
+               and handoff queues, ``swap_bytes`` the packed payload
+               (pinned on the host), every token before the flip equal
+               to the old weights' stream, launches n_layers x steps,
+               the peak under its gate; the post-flip streams must equal
+               a cold engine's on the new weights bit for bit.  Each
+               run's swap ticks, tick wall with a batch in flight, without
+               one and at the flip, and peak are printed;
+  9. ckpt    — checkpoint/restart of the trainer (``ckpt``, ``ft``):
+               gemma-2b at its published width cut to 2 of 18 layers,
+               f32, 6 steps uninterrupted; then 4 steps through
+               ``ft.run_with_restarts`` with a checkpoint every 2 steps
+               and a failure injected at step 3, restored from disk;
+               then ``launch.train --resume`` to step 6.  The resumed
+               losses must equal the uninterrupted run's within the gap
+               of its repeat (printed); bytes written, snapshot, write,
+               load + sha256 seconds and the free disk are printed, the
+               flash launches checked, the directory deleted.
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -171,7 +198,9 @@ summed over the bf16 / f32 disaggregated runs, ``launches_moe`` from the bf16
 qwen3-moe-30b-a3b run and ``launches_moe_f32`` from the f32
 qwen2-moe-a2.7b run), the communicator calls for
 the copy engine, the gemma-2b training steps for the flash kernel; 0
-for ``combine_blocked``, which is reached only through ``ops.combine``).
+for ``combine_blocked``, which is reached only through ``ops.combine``;
+``launches_swap`` on the paged kernels from the hot-swap runs, and
+``launches_ckpt`` on the flash kernel from the checkpoint stage's runs).
 It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits
@@ -309,6 +338,29 @@ MOE_F32_PAGES = 256
 # one bf16 ulp, so gates that are eight ulps apart (a share of 2^-4)
 # can swap; printed, not gated.
 MOE_TIE = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4}
+# the hot-swap stage (full-width qwen3-8b in bf16 on the serve stage's
+# weights, seed 0): generation 1 drawn from seed + 1000, as the serve
+# CLI's --hot-swap draws it, streamed in 1 MiB rows, 512 a tick (512 MiB:
+# the 16.38 GB land in 31 batches; the CLI's default, 4 rows of 16 KiB,
+# would take ~250,000 ticks); the serve trace on clock "tick" with the
+# stream in flight, then a second trace after the flip
+SWAP = dict(row_bytes=1 << 20, chunk_rows=512)
+SWAP_SEED = 1000
+SWAP_TRACE_POST = {**SERVE_TRACE, "seed": 1}
+# peak-memory gates (GB), from the PERF.md prediction: the old weights,
+# the new draw (alive while it is packed), one stage a PE, the pools and
+# the mailbox; 2+2 runs at 2 of qwen3-8b's 36 layers (4 stages of the
+# full model would not fit in 80 GB)
+SWAP_PEAK_GB = {(0, 0): 55.0, (1, 1): 74.0, (2, 2): 25.0}
+SWAP_2P2_LAYERS = 2
+# the checkpoint stage: gemma-2b at its published width cut to 2 of its
+# 18 layers (the full f32 state is ~30 GB on disk a checkpoint), the
+# training shape of phase 6; 6 steps uninterrupted, then 4 steps through
+# run_with_restarts with a checkpoint every 2 and a failure injected at
+# step 3, then launch.train --resume to step 6 on that directory
+CKPT = dict(arch="gemma-2b", layers=2, global_batch=8, microbatches=8,
+            steps=6, restart_steps=4, every=2, fail_at=3)
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 
 
 def fail(msg: str) -> None:
@@ -811,12 +863,12 @@ def serve_full(pa, dev):
     print(f"serve spec/prefix/slo parts (bf16): "
           f"{time.monotonic() - t0:.1f} s", flush=True)
     t0 = time.monotonic()
-    launches_disagg = serve_disagg_bf16(pa, eng, cfg)
+    launches_disagg, colo = serve_disagg_bf16(pa, eng, cfg)
     print(f"serve disagg part (bf16): {time.monotonic() - t0:.1f} s",
           flush=True)
     del eng
     torch.cuda.empty_cache()
-    return launches, launches_spec, launches_disagg
+    return launches, launches_spec, launches_disagg, colo
 
 
 def serve_full_f32(pa, dev) -> dict:
@@ -1476,7 +1528,7 @@ def serve_disagg_bf16(pa, eng, cfg) -> dict:
     are printed with the colocated path's top-2 margin at the first
     divergence (not gated: bits cross kernel bodies in bf16).  Then ten
     profiled 2+2 ticks (``profile_disagg``).  Returns the launches summed
-    over the disagg runs."""
+    over the disagg runs and the colocated run's streams."""
     from repro_torch.serve import TrafficConfig, make_requests
 
     tcfg = TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE)
@@ -1521,7 +1573,7 @@ def serve_disagg_bf16(pa, eng, cfg) -> dict:
     print(f"serve disagg bf16: 1+1 amo streams == 1+1 host streams; "
           f"weights {weights_gb:.2f} GB, 2+2 peaks {peaks} GB", flush=True)
     profile_disagg(eng, cfg, SERVE_TRACE)
-    return total
+    return total, colo
 
 
 def serve_disagg_f32(pa, eng, cfg, base_streams) -> dict:
@@ -2302,6 +2354,415 @@ def train_smoke_parity(dev) -> None:
 
 
 # ----------------------------------------------------------------------
+# phase 8: weight hot-swap
+# ----------------------------------------------------------------------
+def _watch_swap(eng) -> dict:
+    """Wrap ``eng.tick`` (a ServeEngine or a DisaggEngine): each tick's
+    wall to a synchronize of the serving stream (a batch's copy is on
+    it, ahead of the tick's forwards) and its kind — "stream" (a batch
+    is issued at its head), "flip" or "none" — and, at the flip, the
+    tokens each request of ``rec["reqs"]`` had emitted before that tick;
+    and each cell's ``set_params``, recording the tick it was called
+    on."""
+    rec = {"ticks": [], "flip_tick": None, "pre": None, "set_params": [],
+           "reqs": []}
+    tick = eng.tick
+
+    def timed(now=0.0):
+        streaming = eng.swap_in_flight()
+        before = {r.rid: len(r.out) for r in rec["reqs"]}
+        t0 = time.monotonic()
+        tick(now)
+        torch.cuda.current_stream(eng.device).synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        kind = ("flip" if streaming and not eng.swap_in_flight()
+                else "stream" if streaming else "none")
+        rec["ticks"].append((ms, kind))
+        if kind == "flip":
+            rec["flip_tick"], rec["pre"] = eng.ticks, before
+
+    eng.tick = timed
+    for e in getattr(eng, "engines", [eng]):
+        def record(params, set_params=e.exec.set_params):
+            rec["set_params"].append(eng.ticks)
+            set_params(params)
+
+        e.exec.set_params = record
+    return rec
+
+
+def swap_run(pa, eng, cfg, draw, base, name):
+    """Serve the serve trace on clock "tick" on ``eng`` twice without a
+    swap (the second run's tick walls are the baseline: the first warms
+    a new engine), then again while ``draw()`` streams in (``SWAP``'s
+    rows), then ``SWAP_TRACE_POST`` on the new weights,
+    gated: one flip, after the first tick, every cell's weights switched
+    on it; the stream batches + 1 ticks long (10-99 at full width); zero
+    fences and quiets on the swap queue and on the handoff queue;
+    ``swap_bytes`` the packed payload, its rows pinned on the host; every
+    token emitted before the flip equal to ``base``'s (the old weights'
+    streams); every request served whole; the paged launches, zeroed
+    just before the swap run, n_layers x its and the post trace's steps
+    in bf16; the peak under ``SWAP_PEAK_GB``.  A streaming tick's wall is
+    compared with the same tick of the baseline run (the same schedule:
+    the trace's work differs from tick to tick).  Returns (numbers,
+    post-flip streams, launches by (kernel, dtype))."""
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    dev = eng.device
+    cells = getattr(eng, "cells", None)
+    topo = (0, 0) if cells is None else (
+        sum(c.role == "prefill" for c in cells),
+        sum(c.role == "decode" for c in cells))
+    rec = _watch_swap(eng)
+    for _ in range(2):
+        rec["ticks"].clear()
+        eng.reset_metrics()
+        eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE)),
+                clock="tick")
+    base_ms = [ms for ms, _ in rec["ticks"]]
+    rec["ticks"].clear()
+    eng.reset_metrics()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    eng.begin_hot_swap(draw(), **SWAP)
+    torch.cuda.synchronize()
+    begin_s = time.monotonic() - t0
+    st = eng._swap
+    payload, batches = st.stats["bytes"], st.stats["batches"]
+    pinned = st._rows.is_pinned()
+    del st
+    reqs = rec["reqs"] = make_requests(TrafficConfig(vocab=cfg.vocab,
+                                                     **SERVE_TRACE))
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run(reqs, clock="tick")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    m = eng.metrics()
+    sw, steps = m["swap"], dict(m["steps"])
+    quiets = eng.stats()["handoff_quiets"] if cells else 0
+    eng.reset_metrics()
+    post = eng.run(make_requests(TrafficConfig(vocab=cfg.vocab,
+                                               **SWAP_TRACE_POST)),
+                   clock="tick")
+    torch.cuda.synchronize()
+    launches = dict(pa.LAUNCHES_BY_DTYPE)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    for k, v in eng.metrics()["steps"].items():
+        steps[k] += v
+    if cells:
+        quiets += eng.stats()["handoff_quiets"]
+
+    bad = []
+    if (sw["flips"] != 1 or sw["swap_extra_quiets"]
+            or sw["swap_bytes"] != payload or sw["swap_batches"] != batches
+            or sw["swap_ticks"] != batches + 1 or not pinned):
+        bad.append(f"swap stats {sw} (payload {payload}, {batches} "
+                   f"batches, rows pinned {pinned})")
+    if cfg.n_layers == 36 and not 10 <= sw["swap_ticks"] < 100:
+        bad.append(f"{sw['swap_ticks']} swap ticks at full width")
+    n_cells = len(cells) if cells else 1
+    if not (rec["flip_tick"] or 0) > 1 \
+            or rec["set_params"] != [rec["flip_tick"]] * n_cells:
+        bad.append(f"flip at tick {rec['flip_tick']}, set_params on ticks "
+                   f"{rec['set_params']} for {n_cells} cells")
+    if quiets:
+        bad.append(f"{quiets} handoff quiets")
+    if len(done) != len(reqs) or any(len(r.out) != r.max_new for r in done):
+        bad.append("the trace was not served whole")
+    pre = rec["pre"] or {}
+    pre_bad = [r.rid for r in reqs
+               if r.out[:pre.get(r.rid, 0)] != base[r.rid][:pre.get(r.rid, 0)]]
+    if pre_bad:
+        bad.append(f"pre-flip tokens differ from the old weights' streams "
+                   f"for requests {pre_bad}")
+    want = {k: 0 for k in launches}
+    want[("paged_prefill_attention", "bf16")] = cfg.n_layers * (
+        steps["prefill"] + steps["verify"])
+    want[("paged_decode_attention", "bf16")] = cfg.n_layers * steps["decode"]
+    if launches != want:
+        bad.append(f"launches {launches} != n_layers x steps {want}")
+    if not peak < SWAP_PEAK_GB[topo]:
+        bad.append(f"peak {peak:.2f} GB >= {SWAP_PEAK_GB[topo]} GB")
+    if len(base_ms) < m["ticks"]:
+        bad.append(f"the baseline run took {len(base_ms)} ticks, the swap "
+                   f"run {m['ticks']}")
+    if bad:
+        fail(f"hot-swap {name}: " + "; ".join(bad))
+
+    swap_ms = [ms for ms, _ in rec["ticks"][:m["ticks"]]]
+    kinds = [k for _, k in rec["ticks"][:m["ticks"]]]
+
+    def paired(kind):
+        """(mean wall of the ticks of ``kind``, mean of the same ticks in
+        the baseline run)"""
+        idx = [i for i, k in enumerate(kinds) if k == kind]
+        return (_mean([swap_ms[i] for i in idx]),
+                _mean([base_ms[i] for i in idx]))
+
+    out = {"layers": cfg.n_layers, "payload_bytes": payload,
+           "row_bytes": SWAP["row_bytes"], "chunk_rows": SWAP["chunk_rows"],
+           "batches": batches, "begin_s": begin_s,
+           "swap_ticks": sw["swap_ticks"], "flip_tick": rec["flip_tick"],
+           "flips": sw["flips"], "swap_extra_quiets": sw["swap_extra_quiets"],
+           "handoff_quiets": quiets, "ticks": m["ticks"], "steps": steps,
+           "wall_s": wall, "tokens_out": m["tokens_out"],
+           "tok_s": m["tokens_out"] / wall,
+           "base_wall_s": sum(base_ms) / 1e3,
+           "tick_ms_stream_vs_same_ticks_no_swap": paired("stream"),
+           "tick_ms_flip_vs_same_tick_no_swap": paired("flip"),
+           "tick_ms_after_flip_vs_same_ticks_no_swap": paired("none"),
+           "pre_flip_tokens": sum(pre.values()),
+           "finished_before_flip": sum(pre[r.rid] == r.max_new
+                                       for r in reqs),
+           "peak_gb": peak}
+    print(f"hot-swap bf16 {name}: " + json.dumps(out), flush=True)
+    return out, streams_of(post), launches
+
+
+def swap_stage(pa, dev, base) -> dict:
+    """Phase 8: weight hot-swap on full-width qwen3-8b in bf16, through
+    the paged kernels.  Colocated on the serve stage's weights (seed 0,
+    ``build_engine``), then 1+1 host cells on the same weights, both at
+    36 layers, then 2+2 host cells at ``SWAP_2P2_LAYERS`` layers; each a
+    gated ``swap_run``, whose post-flip streams must equal, bit for bit,
+    a cold colocated engine's on the new weights (drawn again from
+    ``SWAP_SEED``).  ``base`` is the serve stage's colocated tick-clock
+    streams.  Returns the paged launches summed over the swap runs (the
+    cold engines' are comparisons, not counted)."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import lm
+    from repro_torch.serve import (DisaggEngine, ServeEngine, TrafficConfig,
+                                   make_requests)
+
+    t_stage = time.monotonic()
+    print(f"hot-swap: row_bytes {SWAP['row_bytes']}, chunk_rows "
+          f"{SWAP['chunk_rows']} ({SWAP['row_bytes'] * SWAP['chunk_rows']} "
+          f"bytes a tick)", flush=True)
+
+    def draw(cfg, seed):
+        return lambda: lm.init(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, dtype=torch.bfloat16, device=dev)
+
+    def cold(cfg, scfg, trace, seed):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ServeEngine(draw(cfg, seed)(), cfg, scfg, device=dev)
+        return streams_of(eng.run(make_requests(TrafficConfig(
+            vocab=cfg.vocab, **trace)), clock="tick"))
+
+    total: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, cfg = build_engine("qwen3-8b", config="full", dtype="bf16",
+                            device=dev, page_tokens=P, n_pages=512,
+                            max_batch=B, prefill_chunk=64,
+                            attn_impl="kernel", seed=0)
+    scfg = eng.scfg
+    runs = []
+    _, post, launches = swap_run(pa, eng, cfg, draw(cfg, SWAP_SEED), base,
+                                 "colocated")
+    runs.append(("colocated", post, launches))
+    del eng
+    want = cold(cfg, scfg, SWAP_TRACE_POST, SWAP_SEED)
+    d = DisaggEngine(draw(cfg, 0)(), cfg, scfg, device=dev, n_prefill=1,
+                     n_decode=1)
+    _, post, launches = swap_run(pa, d, cfg, draw(cfg, SWAP_SEED), base,
+                                 "1+1 host")
+    runs.append(("1+1 host", post, launches))
+    del d
+    for name, post, _ in runs:
+        if post != want:
+            fail(f"hot-swap {name}: post-flip streams differ from the cold "
+                 f"engine's at {divergences(post, want)}")
+    print(f"hot-swap: colocated and 1+1 post-flip streams == a cold engine "
+          f"on the new weights ({len(want)} streams)", flush=True)
+    cfg2 = dataclasses.replace(cfg, n_layers=SWAP_2P2_LAYERS)
+    base2 = cold(cfg2, scfg, SERVE_TRACE, 0)
+    want2 = cold(cfg2, scfg, SWAP_TRACE_POST, SWAP_SEED)
+    d = DisaggEngine(draw(cfg2, 0)(), cfg2, scfg, device=dev, n_prefill=2,
+                     n_decode=2)
+    _, post, launches = swap_run(pa, d, cfg2, draw(cfg2, SWAP_SEED), base2,
+                                 f"2+2 host ({SWAP_2P2_LAYERS} layers)")
+    runs.append(("2+2 host", post, launches))
+    del d
+    if post != want2:
+        fail(f"hot-swap 2+2: post-flip streams differ from the cold "
+             f"engine's at {divergences(post, want2)}")
+    for _, _, launches in runs:
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"hot-swap stage: {time.monotonic() - t_stage:.1f} s; launches "
+          f"{total}", flush=True)
+    return total
+
+
+# ----------------------------------------------------------------------
+# phase 9: checkpoint / restart
+# ----------------------------------------------------------------------
+def ckpt_stage(fa, dev) -> int:
+    """Phase 9: checkpoint/restart of the single-card trainer, gemma-2b
+    at its published width cut to ``CKPT["layers"]`` layers, f32, through
+    the flash kernel.  ``CKPT["steps"]`` steps uninterrupted; then a new
+    trainer (the same seed) through ``ft.run_with_restarts`` with a
+    checkpoint every ``CKPT["every"]`` steps and a failure injected at
+    step ``CKPT["fail_at"]``, which restores the newest checkpoint from
+    disk and finishes ``CKPT["restart_steps"]``; then ``launch.train
+    --resume`` on that directory to ``CKPT["steps"]``.  Gates: the
+    restart restores step ``CKPT["every"]`` once; the resumed losses equal
+    the uninterrupted run's within the gap between the uninterrupted
+    run's first steps and their repeat in the restart run (0 on a
+    deterministic card: then equal); the flash launches, zeroed just
+    before the two runs, 2 x layers x microbatches x the steps they ran.
+    Prints bytes written, save (snapshot, background write), load +
+    sha256 seconds and the free disk before.  Deletes the directory.
+    Returns the flash launches."""
+    import shutil
+
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.ckpt import checkpoint as ckmod
+    from repro_torch.ft import run_with_restarts
+    from repro_torch.launch import train as launch
+    from repro_torch.train import state_to_tree
+
+    t_stage = time.monotonic()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free_gb = shutil.disk_usage(CKPT_DIR).free / 1e9
+    kw = dict(global_batch=CKPT["global_batch"],
+              microbatches=CKPT["microbatches"], device=dev, seed=0,
+              n_layers=CKPT["layers"])
+
+    def trainer():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launch.build_trainer(CKPT["arch"], **kw)
+
+    tr = trainer()
+    cfg = tr.cfg
+    state_gb = _tensor_bytes(state_to_tree(tr.state, device="meta")) / 1e9
+    print(f"checkpoint: {cfg.name} d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{cfg.n_layers} of 18 layers, f32 state {state_gb:.2f} GB; free "
+          f"disk {free_gb:.1f} GB under {CKPT_DIR}", flush=True)
+    if free_gb < 2.2 * state_gb:
+        fail(f"checkpoint: {free_gb:.1f} GB free, two checkpoints need "
+             f"{2 * state_gb:.1f} GB")
+    whole = [tr.step(s) for s in range(CKPT["steps"])]
+    del tr
+
+    tr = trainer()
+    ck = Checkpointer(CKPT_DIR, keep=3)
+    times: dict = {"snapshot_s": [], "write_s": [], "load_sha256_s": []}
+    write = ckmod.save_checkpoint
+
+    def timed_write(*a, **k):
+        t0 = time.monotonic()
+        out = write(*a, **k)
+        times["write_s"].append(time.monotonic() - t0)
+        return out
+
+    class TrainerCheckpointer:
+        """``run_with_restarts``' checkpointer over the trainer: its state
+        saved and restored in the reference's layout."""
+
+        def save_async(self, step, state):
+            t0 = time.monotonic()
+            tr.save(ck, step)
+            times["snapshot_s"].append(time.monotonic() - t0)
+
+        def wait(self):
+            ck.wait()
+
+        def restore(self, state):
+            t0 = time.monotonic()
+            step = tr.restore(ck)
+            torch.cuda.synchronize()
+            times["load_sha256_s"].append(time.monotonic() - t0)
+            return tr.state, step
+
+    def make_step(attempt):
+        return lambda state, sid: (tr.state, tr.step(sid))
+
+    fa.reset_launches()
+    ckmod.save_checkpoint = timed_write
+    try:
+        _, info = run_with_restarts(
+            make_step, lambda attempt: tr.state, TrainerCheckpointer(),
+            n_steps=CKPT["restart_steps"], ckpt_every=CKPT["every"],
+            failure_schedule={CKPT["fail_at"]: RuntimeError(
+                f"injected failure at step {CKPT['fail_at']}")})
+    finally:
+        ckmod.save_checkpoint = write
+    ran = len(info["losses"])
+    written = {d: sum(os.path.getsize(os.path.join(CKPT_DIR, d, f))
+                      for f in os.listdir(os.path.join(CKPT_DIR, d)))
+               for d in sorted(os.listdir(CKPT_DIR))}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    resumed = launch.main([
+        "--arch", CKPT["arch"], "--layers", str(CKPT["layers"]),
+        "--steps", str(CKPT["steps"]),
+        "--global-batch", str(CKPT["global_batch"]),
+        "--microbatches", str(CKPT["microbatches"]),
+        "--ckpt-dir", CKPT_DIR, "--ckpt-every", str(10 * CKPT["steps"]),
+        "--resume"])
+    resume_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    shutil.rmtree(CKPT_DIR)
+
+    every, fail_at = CKPT["every"], CKPT["fail_at"]
+    losses = [m["loss"] for m in whole]
+    repeat = info["losses"][:fail_at]               # before the failure
+    after = info["losses"][fail_at:]                # restored at `every`
+    got = after + [m["loss"] for m in resumed]
+    want_steps = list(range(every, CKPT["restart_steps"])) + list(
+        range(CKPT["restart_steps"], CKPT["steps"]))
+    repeat_gap = max(abs(a - b) for a, b in zip(repeat, losses))
+    gap = max(abs(a - losses[s]) for a, s in zip(got, want_steps))
+    want_launches = 2 * cfg.n_layers * CKPT["microbatches"] * (
+        ran + len(resumed))
+    res = {"losses": losses, "restart_losses": info["losses"],
+           "resumed_losses": [m["loss"] for m in resumed],
+           "resumed_steps": [m["step"] for m in resumed],
+           "restarts": info["restarts"], "final_step": info["final_step"],
+           "max_gap": gap, "repeat_gap": repeat_gap,
+           "bytes_written": written, "state_gb": state_gb,
+           **times, "resume_run_s": resume_s, "free_disk_gb": free_gb,
+           "flash_launches": launches,
+           "flash_launches_predicted": want_launches,
+           "step_s": [m["seconds"] for m in whole]}
+    print("checkpoint metrics: " + json.dumps(res), flush=True)
+    if (info["restarts"] != 1 or info["final_step"] != CKPT["restart_steps"]
+            or len(times["load_sha256_s"]) != 1
+            or set(written) != {f"step_{s}" for s in range(
+                every, CKPT["restart_steps"] + 1, every)}
+            or [m["step"] for m in resumed] != list(
+                range(CKPT["restart_steps"] + 1, CKPT["steps"] + 1))):
+        fail(f"checkpoint: restart bookkeeping {res}")
+    if not all(math.isfinite(x) for x in losses + got):
+        fail(f"checkpoint: non-finite losses {res}")
+    if not gap <= repeat_gap:
+        fail(f"checkpoint: resumed losses leave the uninterrupted run's by "
+             f"{gap}, more than its repeat gap {repeat_gap}")
+    if launches != want_launches:
+        fail(f"checkpoint: flash launches {launches} != {want_launches}")
+    print(f"checkpoint: resumed losses == uninterrupted (max gap {gap}, "
+          f"repeat gap {repeat_gap}); stage {time.monotonic() - t_stage:.1f}"
+          f" s", flush=True)
+    return launches
+
+
+# ----------------------------------------------------------------------
 # phase 7: timing
 # ----------------------------------------------------------------------
 def time_ms(fn, dev, iters=20) -> float:
@@ -2774,7 +3235,7 @@ def main(argv=None) -> int:
     flash_errs = flash_parity(fa, dev)
     flash_autograd_parity(fa, dev)
     comm_errs = comm_kernel_parity(sc, rc, dev)
-    launches, launches_spec, launches_disagg = serve_full(pa, dev)
+    launches, launches_spec, launches_disagg, colo = serve_full(pa, dev)
     launches_f32, launches_disagg_f32 = serve_full_f32(pa, dev)
     launches_moe = serve_moe_bf16(pa, dev)
     launches_moe_f32 = serve_moe_f32(pa, dev)
@@ -2789,6 +3250,13 @@ def main(argv=None) -> int:
                      launches_disagg, launches_disagg_f32) + \
         comm_timing(sc, rc, dev, comm_launches, comm_payloads, comm_errs) + \
         [flash_timing(fa, dev, flash_launches, flash_errs)]
+    launches_swap = swap_stage(pa, dev, colo)
+    launches_ckpt = ckpt_stage(fa, dev)
+    for row in kernels:
+        if row["name"].startswith("paged_"):
+            row["launches_swap"] = launches_swap[(row["name"], "bf16")]
+        elif row["name"] == "flash_attention":
+            row["launches_ckpt"] = launches_ckpt
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

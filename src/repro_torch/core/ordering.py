@@ -26,6 +26,10 @@ Data motion is pluggable through a :class:`Transport`:
                      team (default) — staged by the ``pallas`` backend's
                      copy engine when one is installed.
   LocalTransport     plain loops over the stacked tensors, the oracle.
+  InPlaceTransport   the oracle's loops landing each put in the state
+                     itself, with the source's rows alone as payload —
+                     for queues over large device objects (a pool, a
+                     mailbox, a weight stage).
 """
 from __future__ import annotations
 
@@ -204,6 +208,11 @@ class Transport:
     def concat_puts(self, datas):
         return None
 
+    def snapshot(self, data, dst) -> torch.Tensor:
+        """A put's issue-time copy of ``data`` (local completion);
+        ``dst`` is the destination object's state entry, or None."""
+        return _snapshot(data)
+
 
 class PermuteTransport(Transport):
     """The real data path: one ``p2p`` round per delivery over the
@@ -308,6 +317,40 @@ class LocalTransport(Transport):
         return _concat_puts(datas)
 
 
+class InPlaceTransport(LocalTransport):
+    """``LocalTransport`` that lands each put in the state entry itself,
+    on its device: no copy of the object per put.  A put's payload is
+    the source's rows alone, ``(1, rows, ...)`` (a one-sided put carries
+    what its source holds; the whole-system stack of the oracle would be
+    ``n_pe`` times the bytes, all zeros but one), and it lands in PE
+    ``d``'s rows of the entry, row block ``d - first_pe``: an entry may
+    hold row blocks for the PEs from ``first_pe`` on alone.  An entry is
+    a stacked tensor or a list of per-PE tensors (each PE's object its
+    own allocation, so one PE's copy can be freed apart from the rest).
+
+    The issue-time snapshot is taken on the destination's device: a
+    payload on the host crosses the bus once.  From pinned host memory
+    the copy is asynchronous on the current stream, so the put that
+    lands it, and every forward queued after it, follow it in stream
+    order."""
+
+    def __init__(self, n_pe: int, first_pe: int = 0):
+        super().__init__(n_pe)
+        self.first_pe = int(first_pe)
+
+    def snapshot(self, data, dst) -> torch.Tensor:
+        data = torch.as_tensor(data)
+        dev = (dst[0] if isinstance(dst, list) else dst).device
+        return data.to(dev, copy=True, non_blocking=data.is_pinned())
+
+    def put(self, state, handle, data, pairs, team, offset):
+        buf = state[handle.name]
+        rows = _put_rows(data)
+        for _, d in pairs:
+            buf[d - self.first_pe][offset:offset + rows] = data[0]
+        return state
+
+
 def _put_rows(data) -> int:
     """Rows one stacked ``(n_pe, rows, ...)`` payload covers."""
     return int(data.shape[1]) if data.dim() > 1 else 1
@@ -385,7 +428,7 @@ class CommQueue:
         pairs = [(int(s), int(d)) for s, d in pairs]
         # tensors are mutable: snapshot now so the caller may reuse the
         # buffer immediately (local completion)
-        data = _snapshot(data)
+        data = self.transport.snapshot(data, self._state.get(handle.name))
         op = PendingPut(self._next_seq(), handle, data, pairs, offset)
         self._puts.append(op)
         self._stats["puts"] += 1
@@ -408,7 +451,8 @@ class CommQueue:
         if sig_op not in ("set", "add"):
             raise ValueError(f"put_signal_nbi: bad sig_op {sig_op!r} "
                              "(want 'set' or 'add')")
-        data = _snapshot(data)            # local completion (see put_nbi)
+        # local completion (see put_nbi)
+        data = self.transport.snapshot(data, self._state.get(handle.name))
         payload = PendingPut(self._next_seq(), handle, data, pairs, offset)
         self._puts.append(payload)
         sig = PendingPut(self._next_seq(), sig_handle, None, pairs,

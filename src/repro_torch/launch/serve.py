@@ -21,22 +21,28 @@ traffic under the SLO policy (``--ttft``, ``--tenants``,
 pages as a migratable prefix cache.  ``--disagg P+D`` serves on P
 prefill and D decode cells over one weights dict, each finished prefill
 handing its pages to a decode cell by put-with-signal (speculation there
-drafts with the n-gram proposer; a draft model is refused); ``--router
+drafts with the n-gram proposer, as the reference's cells do: a
+``--draft`` model is replaced by it, with a notice on stderr); ``--router
 amo`` arbitrates admission, stealing and page grants by AMOs on
 symmetric words (colocated: the page pool alone).  For a dense model
 none of these changes a token: speculation, migration, cells and
 routers only change how many ticks a stream takes.  A MoE model's
 streams are the same only while no expert's capacity drops a token:
 drops depend on which tokens share a step, in the reference as here.
+``--hot-swap`` streams a second weight generation (drawn from ``--seed
++ 1000``) into the live engine during the run, with the reference's
+defaults: 4 rows of 16 KiB a tick, so a full-width model takes about
+250,000 ticks (``begin_hot_swap(chunk_rows=, row_bytes=)`` sizes it for
+a real stream); its accounting lands in ``metrics()["swap"]``.
 Prints per-request traces with ``--trace``, then the
-throughput/latency summary (with its ``spec`` and ``slo`` blocks).
-
-Not ported yet (raises ``NotImplementedError``): ``--hot-swap`` (A9).
+throughput/latency summary (with its ``spec``, ``slo`` and ``swap``
+blocks).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import torch
 
@@ -93,7 +99,8 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
     ``config`` size, weights from ``seed + 1``) over a KV cache shared
     with the target.  ``disagg="P+D"`` returns a ``DisaggEngine`` of P
     prefill and D decode cells (speculation there drafts with n-gram,
-    as in the reference; a draft model raises); ``router="amo"`` gives
+    as in the reference: a draft arch is replaced by it, with a notice
+    on stderr); ``router="amo"`` gives
     it the AMO router and page pools, or, colocated, attaches a
     ``SymmetricPagePool`` to the engine's cache."""
     if router not in ("host", "amo"):
@@ -114,10 +121,9 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
     if disagg:
         n_prefill, n_decode = parse_disagg(disagg)
         if spec_k > 0 and draft != "ngram":
-            raise SystemExit(
-                f"--disagg drafts with the n-gram proposer, as the "
-                f"reference's cells do: --draft {draft} is served only "
-                f"colocated")
+            print(f"--disagg: the cells draft with the n-gram proposer, as "
+                  f"the reference's do; --draft {draft} is not used",
+                  file=sys.stderr)
         return DisaggEngine(params, cfg, scfg, device=dev,
                             n_prefill=n_prefill, n_decode=n_decode,
                             router=router), cfg
@@ -212,14 +218,13 @@ def main(argv=None):
                     help="per-tenant admission token-bucket refill "
                          "(tokens/tick; 0 = fairness off)")
     ap.add_argument("--hot-swap", action="store_true",
-                    help="weight hot-swap (not ported: A9)")
+                    help="stream a second weight generation (drawn from "
+                         "seed+1000) into the live engine during the run "
+                         "and flip atomically mid-serve; swap accounting "
+                         "lands in metrics()['swap']")
     ap.add_argument("--trace", action="store_true",
                     help="print the per-request decode trace")
     args = ap.parse_args(argv)
-    if args.hot_swap:
-        raise NotImplementedError(
-            "weight hot-swap (ckpt/hotswap.py) arrives with the checkpoint "
-            "slice of the port (A9)")
 
     slo_cfg, slo_tkw = None, {}
     if args.slo:
@@ -250,6 +255,11 @@ def main(argv=None):
                          temperature=args.temperature, top_k=args.top_k,
                          top_p=args.top_p, **slo_tkw)
     reqs = make_requests(tcfg)
+    if args.hot_swap:
+        dev = eng.device
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1000)
+        eng.begin_hot_swap(lm.init(gen, cfg, dtype=dtype_of(args.dtype),
+                                   device=dev))
     print(f"arch={cfg.name} device={eng.device} dtype={args.dtype} "
           f"pages={args.n_pages}x{args.page_tokens} "
           f"batch={args.max_batch} chunk={args.prefill_chunk} "
@@ -258,7 +268,7 @@ def main(argv=None):
           f"draft={args.draft}) slo={args.slo or 'off'} "
           f"prefix_keep={args.prefix_keep} "
           f"topology={args.disagg or 'colocated'} router={args.router} "
-          f"requests={len(reqs)}")
+          f"hot_swap={args.hot_swap} requests={len(reqs)}")
     done = eng.run(reqs)
     if args.trace:
         for r in sorted(done, key=lambda r: r.rid):

@@ -5,31 +5,48 @@ AdamW, f32 parameters and f32 compute, as the reference's launcher.
         --steps 3 --global-batch 8 --microbatches 8
 
 Runs on the GPU; ``--device cpu`` runs the plain CPU versions (with
-``--smoke``, the reduced config).  On the card the attention forward
+``--smoke``, the reduced config).  ``--layers N`` keeps the first N
+layers of the published width, a depth cut the reference's CLI does
+not have: it exists for ``chip_smoke.py``'s checkpoint stage, which
+resumes a published-width gemma-2b through this CLI at 2 of 18 layers
+(a full f32 checkpoint is 30 GB).  On the card the attention forward
 runs the flash kernel (``build_trainer(attn_impl="ref")`` takes its
 plain version).  f32 matrix products are kept in full f32: TF32 is switched
 off for matmuls and cuDNN (``torch.backends.*.allow_tf32 = False``),
 since TF32 would change the numbers the reference computes.
 
+Checkpoint/restart as the reference's launcher: every ``--ckpt-every``
+steps the state is saved asynchronously under ``--ckpt-dir`` (default
+``repro_train_ckpt`` in the temporary directory; the newest 3 kept) in
+the reference's layout (``train.step.state_to_tree``), so a JAX
+checkpoint resumes here and the reverse; ``--resume`` loads the newest
+and continues from its step.  Each step's time is recorded with a
+``StragglerPolicy`` (600 s deadline).
+
 Not in this slice (the flags are not accepted): ``--backend``,
 ``--bucket-bytes`` and ``--overlap-grad-sync`` need dp > 1 (ROADMAP
-A5/A6); ``--ckpt-dir``, ``--ckpt-every`` and ``--resume`` wait for the
-checkpoint port (A9).
+A5/A6).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 
 import torch
 
 from repro_torch import configs
+from repro_torch.ckpt import Checkpointer
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
+from repro_torch.ft import StragglerPolicy
 from repro_torch.models import registry
 from repro_torch.parallel import ParallelCtx
-from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+from repro_torch.train import (AdamWConfig, init_train_state, make_train_step,
+                               state_from_tree, state_to_tree)
+from repro_torch.train.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -53,18 +70,38 @@ class Trainer:
         return {"step": m["step"], "loss": loss, "grad_norm": gnorm,
                 "seconds": time.monotonic() - t0}
 
+    def save(self, ck: Checkpointer, step: int) -> None:
+        """Save the state asynchronously as checkpoint ``step``, in the
+        reference's layout: restacked into new host tensors, which are
+        the snapshot (handed over as numpy arrays, which ``save_async``
+        takes as they are), then written on ``ck``'s worker thread."""
+        host = state_to_tree(self.state, device="cpu")
+        ck.save_async(step, tree_map(lambda t: t.numpy(), host))
+
+    def restore(self, ck: Checkpointer, step=None) -> int:
+        """Load the newest (or the given) checkpoint of ``ck`` into the
+        state in place; returns its step."""
+        tree, step = ck.restore(state_to_tree(self.state, device="meta"),
+                                step)
+        state_from_tree(self.state, tree)
+        return step
+
 
 def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
                   global_batch: int = 8, microbatches: int = 1,
                   zero: int = 0, lr: float = 3e-4, device=None,
-                  attn_impl: str = "kernel", seed: int = 0) -> Trainer:
-    """A trainer over ``arch`` (the published config, or ``smoke``) with
-    f32 parameters drawn on ``device`` (None: the GPU) from ``seed``,
-    data from ``SyntheticLM`` at ``cfg.max_seq`` tokens per row."""
+                  attn_impl: str = "kernel", seed: int = 0,
+                  n_layers: int = 0) -> Trainer:
+    """A trainer over ``arch`` (the published config, or ``smoke``; its
+    first ``n_layers`` layers when that is not 0) with f32 parameters
+    drawn on ``device`` (None: the GPU) from ``seed``, data from
+    ``SyntheticLM`` at ``cfg.max_seq`` tokens per row."""
     dev = resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     ctx = ParallelCtx(remat=True, attn_impl=attn_impl,
                       param_dtype=torch.float32, compute_dtype=torch.float32)
     api = registry.build(cfg)
@@ -77,15 +114,23 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
     return Trainer(cfg, ctx, state, step_fn, data, dev)
 
 
-def main(argv=None):
+def main(argv=None) -> list:
+    """The CLI; returns the per-step metrics of the steps it ran."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced-config variant")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the config's first N layers (0: all; a "
+                         "depth cut for chip_smoke.py's checkpoint stage)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--zero", type=int, default=0, choices=[0, 1])
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
@@ -94,15 +139,28 @@ def main(argv=None):
     tr = build_trainer(args.arch, smoke=args.smoke,
                        global_batch=args.global_batch,
                        microbatches=args.microbatches, zero=args.zero,
-                       lr=args.lr, device=args.device)
+                       lr=args.lr, device=args.device, n_layers=args.layers)
+    ck = Checkpointer(args.ckpt_dir, keep=3)
+    start = 0
+    if args.resume:
+        start = tr.restore(ck)
+        print(f"resumed at step {start}")
+    straggler = StragglerPolicy(deadline_s=600.0)
     print(f"device {tr.device} zero={args.zero} microbatches="
           f"{args.microbatches} arch={tr.cfg.name}", flush=True)
-    for s in range(args.steps):
+    out = []
+    for s in range(start, args.steps):
         m = tr.step(s)
+        straggler.record(0, m["seconds"])
+        out.append(m)
         if s % 5 == 0 or s == args.steps - 1:
             print(f"step {s:4d}  loss {m['loss']:.4f}  {m['seconds']:.2f}s",
                   flush=True)
+        if (s + 1) % args.ckpt_every == 0:
+            tr.save(ck, s + 1)
+    ck.wait()
     print("training complete")
+    return out
 
 
 if __name__ == "__main__":

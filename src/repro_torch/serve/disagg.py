@@ -48,9 +48,15 @@ Token streams do not depend on the topology: sampling is keyed ``(rid,
 position)`` off ``ServeConfig.sample_seed``, so a sequence decoded on
 another cell, in whatever batch, draws the colocated engine's tokens.
 
-Not ported (each raises ``NotImplementedError``): weight hot-swap over
-the cell space (A9) and tensor-parallel cells, ``pes_per_cell > 1``
-(A7).
+Weight hot-swap over the cell space (``begin_hot_swap``): ONE
+``ckpt.hotswap.WeightStreamer`` with a PE per cell streams the new
+generation between topology ticks, and on the flip tick every cell's
+``exec.set_params`` gets the same reassembled dict before any cell
+steps: the cells keep sharing one weights dict, and none keeps the old
+tensors.
+
+Not ported (raises ``NotImplementedError``): tensor-parallel cells,
+``pes_per_cell > 1`` (A7).
 """
 from __future__ import annotations
 
@@ -63,11 +69,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.heap import SymmetricHeap
-from repro_torch.core.ordering import CommQueue, LocalTransport
+from repro_torch.core.ordering import CommQueue, InPlaceTransport
 from repro_torch.core.signals import CMP_EQ, SignalPad
 from repro_torch.core.teams import ActiveSet
 
-from .engine import ServeConfig, ServeEngine, slo_summary
+from repro_torch.ckpt.hotswap import WeightStreamer
+
+from .engine import (ServeConfig, ServeEngine, add_swap_stats,
+                     reset_swap_stats, slo_summary)
 from .scheduler import Request
 
 
@@ -153,25 +162,6 @@ class CellRouter:
         self.inbound[cell] += delta
 
 
-class _MailTransport(LocalTransport):
-    """``LocalTransport`` that lands each put in the mailbox in place, on
-    its device.  The mailbox holds rows for the decode cells alone (cell
-    ``d`` is row block ``d - n_prefill``), and a put's payload is the
-    source's rows alone, ``(1, rows, *row)``: the whole-system stack of
-    the oracle would be ``n_cells`` times the bytes, all zeros but one."""
-
-    def __init__(self, n_pes: int, n_prefill: int):
-        super().__init__(n_pes)
-        self.n_prefill = n_prefill
-
-    def put(self, state, handle, data, pairs, team, offset):
-        buf = state[handle.name]
-        rows = data.shape[1]
-        for _, d in pairs:
-            buf[d - self.n_prefill, offset:offset + rows] = data[0]
-        return state
-
-
 class DisaggEngine:
     """P prefill + D decode ``ServeEngine`` cells behind one submit/run
     interface, handing sequences off through a put-with-signal mailbox.
@@ -253,7 +243,7 @@ class DisaggEngine:
         }
         del row0
         self.hq = CommQueue("cells", self._mail_state,
-                            transport=_MailTransport(n_cells, n_prefill),
+                            transport=InPlaceTransport(n_cells, n_prefill),
                             delivery_seed=delivery_seed)
         # a ticket word is reused only after its ticket was adopted — per
         # consumer cell, so concurrent handoffs never share a word
@@ -264,7 +254,9 @@ class DisaggEngine:
         self.ticks = 0
         self.handoff = {"handoff_tickets": 0, "handoff_pages": 0,
                         "handoff_deferred": 0}
-        # weight hot-swap (A9) is not ported: the schema stays, all zeros
+        # weight hot-swap: ONE streamer spans the cell space, so every cell
+        # flips to the new generation on the same topology tick
+        self._swap = None
         self.swap_stats = {"generation": 0, "flips": 0, "swap_ticks": 0,
                            "swap_batches": 0, "swap_bytes": 0,
                            "swap_extra_quiets": 0}
@@ -281,22 +273,36 @@ class DisaggEngine:
         return (any(e.sched.has_work() for e in self.engines)
                 or any(e.handoff_ready for e in self.engines)
                 or any(self._inbox.values())
+                or self._swap is not None
                 or (self.router_mode == "amo"
                     and self.router.pending() > 0))
 
     def begin_hot_swap(self, new_params, *, chunk_rows: int = 4,
-                       **kw) -> None:
-        """Zero-downtime weight swap across the topology: not ported."""
-        raise NotImplementedError(
-            "weight hot-swap over the cell space (ckpt/hotswap.py) arrives "
-            "with the checkpoint slice of the port (A9)")
+                       row_bytes: int = 1 << 14) -> None:
+        """Zero-downtime weight swap across the whole topology: one
+        ``WeightStreamer`` over the CELL space (a PE per cell) streams
+        the new generation between topology ticks; on the flip tick
+        every cell's weights switch together."""
+        if self._swap is not None:
+            raise RuntimeError("a weight hot-swap is already in flight")
+        self.swap_stats["generation"] += 1
+        self._swap = WeightStreamer(
+            new_params, n_pe=len(self.cells),
+            generation=self.swap_stats["generation"],
+            chunk_rows=chunk_rows, row_bytes=row_bytes, device=self.device)
+
+    def swap_in_flight(self) -> bool:
+        return self._swap is not None
 
     def _swap_step(self) -> None:
-        """One streaming step of a hot-swap: not ported (no swap can be
-        in flight, so ``tick`` never calls it)."""
-        raise NotImplementedError(
-            "weight hot-swap streaming arrives with the checkpoint slice "
-            "of the port (A9)")
+        st = self._swap
+        if not st.step():
+            return
+        params = st.result()
+        for e in self.engines:           # same tick, every cell
+            e.exec.set_params(params)
+        self._swap = None
+        add_swap_stats(self.swap_stats, st)
 
     def submit(self, req: Request) -> None:
         if self.router_mode == "amo":
@@ -312,6 +318,8 @@ class DisaggEngine:
         ticket out (put-with-signal per page), decode cells drain their
         inbox on signal fire, adopt, acknowledge, then advance."""
         self.ticks += 1
+        if self._swap is not None:
+            self._swap_step()
         if self.router_mode == "amo":
             self.router.admit()
         for c in self.router.prefill:
@@ -498,9 +506,7 @@ class DisaggEngine:
         self.ticks = 0
         for k in self.handoff:
             self.handoff[k] = 0
-        for k in self.swap_stats:
-            if k != "generation":        # generations keep counting up
-                self.swap_stats[k] = 0
+        reset_swap_stats(self.swap_stats)
         for k in self.hq._stats:
             self.hq._stats[k] = 0
         if self.router_mode == "amo":

@@ -43,9 +43,15 @@ Batch slots are fixed (``ServeConfig.max_batch``): empty slots carry
 the null page table and length 0, which zeroes their attention output
 and routes their K/V writes to the null page.
 
+Weight hot-swap (``begin_hot_swap``): a ``ckpt.hotswap.WeightStreamer``
+advances one put-with-signal batch at the head of each tick and, on
+the flip tick, ``LocalExec.set_params`` swaps in the reassembled
+weights before the tick's forwards; ``run`` drains an in-flight swap
+once the trace is served, and ``metrics()["swap"]`` carries its
+accounting.
+
 Not ported yet (raises ``NotImplementedError``): the sliding window
-over the paged cache.  Weight hot-swap (A9) lives in ``launch/serve.py``'s
-and ``serve.disagg``'s refusals.
+over the paged cache.
 """
 from __future__ import annotations
 
@@ -56,8 +62,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.ckpt.hotswap import WeightStreamer
 from repro_torch.core.heap import SymmetricHeap
-from repro_torch.core.ordering import CommQueue, LocalTransport
+from repro_torch.core.ordering import CommQueue, InPlaceTransport
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -274,20 +281,6 @@ def make_verify(cfg, scfg: ServeConfig):
 # ======================================================================
 # execution substrate
 # ======================================================================
-class _PoolTransport(LocalTransport):
-    """``LocalTransport`` that lands each put in the state tensor itself
-    (a view of the engine's pool), on its device: no copy of the pool
-    per put, only of the page payloads ``put_nbi`` snapshots."""
-
-    def put(self, state, handle, data, pairs, team, offset):
-        buf = state[handle.name]
-        data = torch.as_tensor(data, device=buf.device)
-        rows = data.shape[1] if data.dim() > 1 else 1
-        for s, d in pairs:
-            buf[d, offset:offset + rows] = data[s]
-        return state
-
-
 class LocalExec:
     """Single-device execution: the step functions over the pool on one
     device (host arrays go to the device per call), and a loopback
@@ -323,6 +316,12 @@ class LocalExec:
                             self._t(start), self._t(n_tok), self._t(bt),
                             samp)
 
+    def set_params(self, params) -> None:
+        """Swap the served weights (the hot-swap flip): the step
+        functions take ``params`` as an argument, so the next call runs
+        the new generation."""
+        self.params = params
+
     def migrate(self, pool, migrations):
         # whole-system view with one PE: a leading PE axis on a VIEW of
         # the pool, so the drained puts land in the pool itself.  A
@@ -330,7 +329,7 @@ class LocalExec:
         # its PE is row 0 of the view whatever the cell's PE id
         name = self.kv.handle.name
         state = {name: pool[None]}
-        q = CommQueue(("data",), state, transport=_PoolTransport(1))
+        q = CommQueue(("data",), state, transport=InPlaceTransport(1))
         self.kv.issue_migrations(
             q, state[name],
             [dataclasses.replace(m, src_pe=0, dst_pe=0) for m in migrations])
@@ -403,6 +402,12 @@ class ServeEngine:
         self.pool = self.exec.init_pool()
         self.finished: list = []
         self.shed: list = []             # deadline-shed, never served
+        # weight hot-swap (ckpt.hotswap): the in-flight streamer and its
+        # lifetime accounting
+        self._swap = None
+        self.swap_stats = {"generation": 0, "flips": 0, "swap_ticks": 0,
+                           "swap_batches": 0, "swap_bytes": 0,
+                           "swap_extra_quiets": 0}
         self.ticks = 0
         # step-function calls: each runs every layer once, so the
         # kernel launch counts of a run are n_layers x these (verify
@@ -423,12 +428,43 @@ class ServeEngine:
                 f"(raise ServeConfig.sample_candidates)")
         self.sched.submit(req)
 
+    def begin_hot_swap(self, new_params, *, chunk_rows: int = 4,
+                       row_bytes: int = 1 << 14) -> None:
+        """Start streaming a new weight generation (``ckpt.hotswap``):
+        each later tick advances the stream by one put-with-signal batch
+        of ``chunk_rows`` rows of ``row_bytes`` bytes, and the generation
+        flips at a tick boundary once everything has landed — serving
+        never pauses and the swap queue pays no global drain.  One card
+        is one PE."""
+        if self._swap is not None:
+            raise RuntimeError("a weight hot-swap is already in flight")
+        self.swap_stats["generation"] += 1
+        self._swap = WeightStreamer(
+            new_params, generation=self.swap_stats["generation"],
+            chunk_rows=chunk_rows, row_bytes=row_bytes, device=self.device)
+
+    def swap_in_flight(self) -> bool:
+        return self._swap is not None
+
+    def _swap_step(self) -> None:
+        """The per-tick hot-swap hook: one streaming step; on the flip
+        tick the reassembled generation replaces the served weights
+        BEFORE this tick's forwards."""
+        st = self._swap
+        if not st.step():
+            return
+        self.exec.set_params(st.result())
+        self._swap = None
+        add_swap_stats(self.swap_stats, st)
+
     def tick(self, now: float = 0.0) -> None:
-        """One engine tick: schedule -> migrate (one quiet) -> chunked
-        prefill for every prefilling sequence's quota -> one decode token
-        (or verify window) for every decoding sequence -> retire
-        finished."""
+        """One engine tick: hot-swap stream step (when one is in flight)
+        -> schedule -> migrate (one quiet) -> chunked prefill for every
+        prefilling sequence's quota -> one decode token (or verify
+        window) for every decoding sequence -> retire finished."""
         self.ticks += 1
+        if self._swap is not None:
+            self._swap_step()
         plan = self.sched.tick(now)
         for r in plan.shed:              # deadline drops: never served
             self.shed.append(r)
@@ -624,7 +660,10 @@ class ServeEngine:
                 self.submit(pending.pop(0))
             if not self.sched.has_work():
                 if not pending:
-                    return self.finished
+                    if self._swap is None:
+                        return self.finished
+                    self.tick(now)       # drain the in-flight hot swap
+                    continue
                 if clock == "wall":      # fast-forward idle gaps
                     skipped += pending[0].t_arrive - now
                     now = time.monotonic() - t0 + skipped
@@ -645,6 +684,7 @@ class ServeEngine:
         for stats in (self.sched.stats, self.kv.stats, self.spec_stats):
             for k in stats:
                 stats[k] = 0
+        reset_swap_stats(self.swap_stats)
         if self.slo is not None:
             self.slo.reset()
 
@@ -682,7 +722,23 @@ class ServeEngine:
             "slo": slo_summary(self.finished, self.shed,
                                self.slo.stats if self.slo is not None
                                else None),
+            "swap": dict(self.swap_stats),
         }
+
+
+def add_swap_stats(stats: dict, st) -> None:
+    """Fold a flipped streamer's accounting into ``stats``."""
+    stats["flips"] += st.stats["flips"]
+    stats["swap_ticks"] += st.stats["swap_ticks"]
+    stats["swap_batches"] += st.stats["batches"]
+    stats["swap_bytes"] += st.stats["bytes"]
+    stats["swap_extra_quiets"] += st.extra_global_drains()
+
+
+def reset_swap_stats(stats: dict) -> None:
+    for k in stats:
+        if k != "generation":            # generations keep counting up
+            stats[k] = 0
 
 
 def slo_summary(finished, shed, policy_stats=None) -> dict:

@@ -7,7 +7,10 @@ kernel path, speculative decoding and disaggregated cells included;
 the copy and combine kernels and the pallas backend; the
 flash-attention kernel against its plain version (its tile edges, the
 models' layouts, the 16-byte row check), the autograd path through it,
-and smoke-config training with it.
+and smoke-config training with it; and the checkpoint slice on the
+card: the weight stream's pinned rows and per-PE stages, a hot swap
+through the paged kernels equal to a cold start, a train state's
+checkpoint restored onto the card.
 
 Every test here needs a CUDA GPU and skips without one (the kernels are
 CUDA C++ with no CPU mode); on the H100 host:
@@ -955,3 +958,102 @@ def test_cuda_smoke_training_kernel_equals_plain(cuda_device, arch,
     kernel = _smoke_losses(arch, "kernel", cuda_device)
     assert fa.LAUNCHES["flash_attention"] == 2 * 2 * 3 * 2  # L x mb x steps x 2
     np.testing.assert_allclose(kernel, plain, rtol=1e-5)
+
+
+# ======================================================================
+# the checkpoint slice on the card: the weight stream and checkpoints
+# ======================================================================
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import serve as tserve  # noqa: E402
+from repro_torch.ckpt import (Checkpointer, hotswap, load_checkpoint,  # noqa: E402
+                              save_checkpoint)
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.train import state_to_tree, tree  # noqa: E402
+
+
+def _smoke_weights(device, seed, dtype=torch.float32):
+    cfg = tconfigs.get_smoke("qwen3-8b")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, lm.init(gen, cfg, dtype=dtype, device=device)
+
+
+def test_cuda_weight_streamer_stages_on_the_card(cuda_device):
+    """On the card the packed rows are pinned host memory, each PE's stage
+    its own allocation on the card, every batch landed through the side
+    stream's copy; ``result()`` is the new weights bit for bit, as views
+    of PE 0's stage."""
+    _, params = _smoke_weights(cuda_device, 3, torch.bfloat16)
+    st = hotswap.WeightStreamer(params, n_pe=2, chunk_rows=3,
+                                row_bytes=1 << 12, device=cuda_device)
+    assert st._rows.is_pinned() and st._rows.device.type == "cpu"
+    stage = st.q.state[st.handle.name]
+    assert [s.device.type for s in stage] == ["cuda", "cuda"]
+    assert stage[0].data_ptr() != stage[1].data_ptr()
+    while not st.step():
+        pass
+    out = st.result()
+    lo, hi = stage[0].data_ptr(), stage[0].data_ptr() + stage[0].numel()
+    for a, b in zip(tree.leaves(params), tree.leaves(out)):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        assert torch.equal(a, b) and lo <= b.data_ptr() < hi
+    assert st.extra_global_drains() == 0
+
+
+def test_cuda_engine_hot_swap_is_cold_start_identical(cuda_device):
+    """Smoke qwen3-8b in f32 on the card through the paged kernels: a
+    swap streamed during a trace leaves that trace on the old weights,
+    and the trace after the flip equals a cold engine's on the new
+    weights."""
+    cfg, old = _smoke_weights(cuda_device, 0)
+    new = _smoke_weights(cuda_device, 7)[1]
+    scfg = tserve.ServeConfig(page_tokens=4, n_pages=32, max_batch=3,
+                              max_seq=32)
+
+    def reqs(rids):
+        return [tserve.Request(rid=r, max_new=6, prompt=[
+            (7 * r + k) % cfg.vocab for k in range(5)]) for r in rids]
+
+    def streams(done):
+        return {r.rid: list(r.out) for r in done}
+
+    eng = tserve.ServeEngine(old, cfg, scfg, device=cuda_device)
+    eng.begin_hot_swap(new, chunk_rows=2, row_bytes=1 << 12)
+    pa.reset_launches()
+    pre = streams(eng.run(reqs(range(3)), clock="tick"))
+    assert eng.swap_stats["flips"] == 1
+    assert eng.swap_stats["swap_extra_quiets"] == 0
+    assert min(pa.LAUNCHES.values()) > 0
+    eng.reset_metrics()
+    post = streams(eng.run(reqs(range(10, 13)), clock="tick"))
+    cold = tserve.ServeEngine(new, cfg, scfg, device=cuda_device)
+    assert post == streams(cold.run(reqs(range(10, 13)), clock="tick"))
+    ref = tserve.ServeEngine(old, cfg, scfg, device=cuda_device)
+    assert pre == streams(ref.run(reqs(range(3)), clock="tick"))
+
+
+def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
+    """A smoke trainer's state on the card: saved in the reference's
+    layout and restored into another trainer on the card, bit for bit;
+    the next step's loss agrees (1e-5 relative, as the smoke training
+    test above); a tree on the card loads back onto the card."""
+    from repro_torch.launch.train import build_trainer
+    a = build_trainer("gemma-2b", smoke=True, device=cuda_device)
+    a.step(0)
+    ck = Checkpointer(str(tmp_path / "ck"))
+    a.save(ck, 1)
+    ck.wait()
+    b = build_trainer("gemma-2b", smoke=True, device=cuda_device, seed=4)
+    assert b.restore(ck) == 1
+    for x, y in zip(tree.leaves(state_to_tree(a.state)),
+                    tree.leaves(state_to_tree(b.state))):
+        assert x.device.type == y.device.type == "cuda"
+        assert torch.equal(x, y)
+    np.testing.assert_allclose(b.step(1)["loss"], a.step(1)["loss"],
+                               rtol=1e-5)
+    t = {"w": torch.arange(6.0, device=cuda_device),
+         "n": torch.ones(3, dtype=torch.int32, device=cuda_device)}
+    save_checkpoint(str(tmp_path / "t"), 2, t)
+    loaded, step = load_checkpoint(str(tmp_path / "t"), t)
+    assert step == 2
+    for x, y in zip(tree.leaves(t), tree.leaves(loaded)):
+        assert y.device.type == "cuda" and torch.equal(x, y)

@@ -36,6 +36,7 @@ import torch
 from repro import configs as jconfigs
 from repro import serve as jserve
 from repro.core.heap import SymmetricHeap as JHeap
+from repro.launch import serve as jlaunch
 from repro.models import registry
 from repro.parallel.ctx import ParallelCtx
 from repro_torch import configs, serve
@@ -414,7 +415,7 @@ def test_colocated_amo_pool_is_invisible(weights, jax_runs):
     assert qs["quiets"] == 0 and qs["fences"] == 0 and qs["amos"] > 0
 
 
-def test_disagg_cli_spec_and_builder(capsys):
+def test_disagg_cli_spec_and_builder(capsys, monkeypatch):
     assert launch.parse_disagg("2+2") == (2, 2)
     assert launch.parse_disagg("1+3") == (1, 3)
     for bad in ("2", "0+2", "2+0", "a+b"):
@@ -431,12 +432,26 @@ def test_disagg_cli_spec_and_builder(capsys):
     assert isinstance(eng.router, serve.AmoCellRouter)
     assert len(eng.pools) == len(eng.engines)
     # under disagg the proposer is the n-gram self-draft, as in the
-    # reference; a draft model the user asked for is refused, not dropped
+    # reference: a draft model the user asked for is replaced by it, with
+    # a notice, and the streams are the reference's build_engine's
     assert all(isinstance(e.proposer, serve.NgramProposer)
                for e in eng.engines)
-    with pytest.raises(SystemExit, match="n-gram"):
-        launch.build_engine(disagg="1+1", spec_k=2, draft="qwen3-8b",
-                            **small)
+    capsys.readouterr()
+    jeng, _ = jlaunch.build_engine("qwen3-8b", page_tokens=4, n_pages=32,
+                                   max_batch=2, prefill_chunk=4,
+                                   disagg="1+1", spec_k=2, draft="qwen3-8b")
+    jparams = from_jax(jax.tree.map(np.asarray,
+                                    jeng.engines[0].exec.params))
+    monkeypatch.setattr(launch.lm, "init", lambda *a, **k: jparams)
+    eng, _ = launch.build_engine(disagg="1+1", spec_k=2, draft="qwen3-8b",
+                                 **small)
+    err = capsys.readouterr().err
+    assert "n-gram" in err and "--draft qwen3-8b is not used" in err
+    assert all(isinstance(e.proposer, serve.NgramProposer)
+               for e in eng.engines)
+    got = _streams(eng.run(_mixed_requests(serve), clock="tick"))
+    assert got == _streams(jeng.run(_mixed_requests(jserve), clock="tick"))
+    monkeypatch.undo()
     eng, _ = launch.build_engine(router="amo", **small)   # colocated
     assert isinstance(eng, serve.ServeEngine)
     assert isinstance(eng.kv._pool, serve.SymmetricPagePool)

@@ -3,7 +3,8 @@
 page pool, the AMO router — the communication library: core, comm, the copy
 and combine kernels, comm_bench, and the training slice: the flash
 kernel, flash/lm/registry, parallel, data, train, the train launcher,
-and the MoE slice: the MoE configs and the MoE layer in models/mlp),
+the MoE slice: the MoE configs and the MoE layer in models/mlp, and the
+checkpoint slice: ckpt and ft),
 and ``chip_smoke.py``, pulls in no
 JAX and nothing of the JAX package ``repro`` — checked by a clean
 subprocess's ``sys.modules`` and by an AST scan of every import
@@ -95,6 +96,13 @@ def test_the_moe_slice_is_covered():
     want = {"repro_torch.configs.qwen3_moe_30b_a3b",
             "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.models.mlp",
             "repro_torch.models.lm", "repro_torch.weights"}
+    assert want <= set(_modules())
+
+
+def test_the_ckpt_slice_is_covered():
+    want = {"repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+            "repro_torch.ckpt.hotswap", "repro_torch.ft",
+            "repro_torch.ft.runtime"}
     assert want <= set(_modules())
 
 

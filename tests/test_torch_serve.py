@@ -308,26 +308,15 @@ def test_build_engine_without_device_raises_when_cuda_absent(monkeypatch):
     assert eng.device.type == "cpu" and cfg.n_layers == 2
 
 
-@pytest.mark.parametrize("what", ["ssm", "swa", "disagg_hot_swap",
-                                  "disagg_tp_cell", "cli_hot_swap"])
+@pytest.mark.parametrize("what", ["ssm", "swa", "disagg_tp_cell"])
 def test_later_slices_raise_not_implemented(what):
-    small = dict(config="smoke", dtype="f32", device="cpu", page_tokens=4,
-                 n_pages=16, max_batch=2, prefill_chunk=4)
-    cli = ["--config", "smoke", "--device", "cpu", "--dtype", "f32"]
-    cite = {"disagg_hot_swap": "A9", "disagg_tp_cell": "A7",
-            "cli_hot_swap": "A9"}.get(what, "")
+    cite = {"disagg_tp_cell": "A7"}.get(what, "")
     with pytest.raises(NotImplementedError, match=cite):
-        if what == "disagg_hot_swap":
-            # weight hot-swap across the cells (A9)
-            eng, _ = launch.build_engine(disagg="1+1", **small)
-            eng.begin_hot_swap(eng.engines[0].exec.params)
-        elif what == "disagg_tp_cell":
+        if what == "disagg_tp_cell":
             # a tensor-parallel cell (A7)
             cfg = configs.get_smoke("qwen3-8b")
             serve.DisaggEngine({}, cfg, serve.ServeConfig(), device="cpu",
                                pes_per_cell=2)
-        elif what == "cli_hot_swap":
-            launch.main(cli + ["--hot-swap"])
         else:
             # an SSM family, or the sliding window over the paged cache
             kw = (dict(family="ssm", ssm_state=16) if what == "ssm"

@@ -5,8 +5,9 @@ draws, and the engine under SLO traffic (sheds, attainment,
 ``slo_summary``) — the port on the CPU, the reference with
 ``attn_impl="ref"``, the same ``from_jax`` weights and requests.
 
-Mirrors the SLO cases of ``tests/test_slo.py`` (its hot-swap and
-disaggregation cases belong to modules not ported yet: A8, A9).  Every
+Mirrors the SLO cases of ``tests/test_slo.py`` (its hot-swap cases are
+in ``test_torch_hotswap.py``, its disaggregation case in
+``test_torch_disagg.py``).  Every
 plan, counter and stream must EQUAL the reference's; no tolerance.
 """
 import jax

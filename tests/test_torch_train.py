@@ -347,13 +347,17 @@ def test_loss_and_grad_returns_the_grads(jax_runs):
     _assert_tree_close(_stack(grads), ref["grads0"], rtol=1e-4, atol=1e-6)
 
 
-def test_train_cli_runs_on_cpu_only_when_asked(capsys):
+def test_train_cli_runs_on_cpu_only_when_asked(capsys, tmp_path):
     launch.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
-                 "--steps", "2", "--microbatches", "2"])
+                 "--steps", "2", "--microbatches", "2",
+                 "--ckpt-dir", str(tmp_path / "ck")])
     out = capsys.readouterr().out
     assert "arch=gemma-2b-smoke" in out and "training complete" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             launch.main(["--smoke", "--steps", "1"])
-    with pytest.raises(SystemExit):        # dp > 1 / checkpoint flags: later
-        launch.main(["--smoke", "--device", "cpu", "--resume"])
+    with pytest.raises(SystemExit):        # dp > 1 flags: later
+        launch.main(["--smoke", "--device", "cpu", "--bucket-bytes", "4096"])
+    with pytest.raises(FileNotFoundError):  # nothing to resume from
+        launch.main(["--smoke", "--device", "cpu", "--resume",
+                     "--ckpt-dir", str(tmp_path / "ck")])
