@@ -181,7 +181,39 @@ caught):
                losses must equal the uninterrupted run's within the gap
                of its repeat (printed); bytes written, snapshot, write,
                load + sha256 seconds and the free disk are printed, the
-               flash launches checked, the directory deleted.
+               flash launches checked, the directory deleted;
+ 10. tp      — tensor-parallel serving on the stacked team: full-width
+               qwen3-8b in bf16 at TP 4, one replica (weights drawn from
+               seed 0 as phase 4 draws them, stacked by
+               ``weights.shard_for_tp``), the serve trace on clock
+               "tick" under the xla, posh and pallas backends, each run
+               gated: paged launches n_layers x steps (one launch a layer
+               for all 4 PEs), 73 psums and one top-k merge a step, the
+               copy kernel exactly the staged rounds of the pallas run's
+               calls (xla and posh none), the peak under 1.25 x phase
+               4's tp = 1 colocated run's; pallas == posh bit for bit,
+               and xla vs posh and TP 4 vs phase 4's tp = 1 streams by
+               the near-tie rule (``near_tie_gate``): each first
+               divergence printed with its top-2 margin, passing at one
+               bf16 ulp, or where both computations, run over the same
+               history, give logits at most 5% of |top| apart and the
+               diverging token lies within that gap of the top; that 5%
+               checked against the gaps of the sound computations and of
+               planted faults (one psum dropped) on fixed cases; the
+               paged kernels held to the plain versions on the TP step's
+               own decode, prefill and verify inputs, every PE's page 0
+               read by no live row; tok/s, wall, peak, psum calls and
+               the psum ms a step modelled from isolated timings; then
+               spec k = 4 (n-gram) under posh, its streams held to the
+               posh run's by the rule (the verify rows' computation
+               replayed as one-row windows); then TP 2 under posh, held
+               to tp = 1 by the rule, and 2+2 host cells of TP 2 on one
+               stacked weights dict, phase 4's disagg gates, their
+               streams held to the colocated TP 2 run's by the rule;
+               then the smoke qwen3-8b in f32 at TP 2 and 4 with two
+               replicas, every backend: kernel streams == plain streams
+               without and with speculation and after a prefix resume
+               on replica 1.
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -200,7 +232,11 @@ qwen2-moe-a2.7b run), the communicator calls for
 the copy engine, the gemma-2b training steps for the flash kernel; 0
 for ``combine_blocked``, which is reached only through ``ops.combine``;
 ``launches_swap`` on the paged kernels from the hot-swap runs, and
-``launches_ckpt`` on the flash kernel from the checkpoint stage's runs).
+``launches_ckpt`` on the flash kernel from the checkpoint stage's runs;
+``launches_tp`` from phase 10's runs: the paged kernels', by dtype in
+``launches_tp_by_dtype``, and the copy kernel's).  ``max_abs_err_tp``
+on the paged kernels is their largest |kernel - plain| on phase 10's
+captured TP decode, prefill and verify inputs.
 It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits
@@ -209,6 +245,7 @@ non-zero and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -218,6 +255,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -361,6 +399,38 @@ SWAP_2P2_LAYERS = 2
 CKPT = dict(arch="gemma-2b", layers=2, global_batch=8, microbatches=8,
             steps=6, restart_steps=4, every=2, fail_at=3)
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+# the tensor-parallel stage: full-width qwen3-8b in bf16 at TP 4 (one
+# replica) under each communicator backend, then spec k = 4 (n-gram)
+# under posh, then 2+2 host cells of TP 2 under posh; each TP run's peak
+# under TP_PEAK x the tp = 1 colocated run's (phase 4); then the smoke
+# config in f32 at TP 2 and 4 with two replicas, kernels against plain
+TP_FULL, TP_CELLS = 4, 2
+TP_BACKENDS = ("xla", "posh", "pallas")
+TP_PEAK = 1.25
+TP_SMOKE = (2, 4)
+TP_SMOKE_REPLICAS = 2
+# a bf16 stream may leave another computation's (another backend's psum
+# order, tp = 1's single matmuls) where its token is within the two
+# computations' measured logit gap of the top; that gap must stay under
+# this share of |top logit|.  Every run also measures the gap on fixed
+# cases (TP_GAP_J: output 16 of each request) between the sound
+# computations and for planted faults, one psum of every forward
+# dropped (``tp_faults``: layer 19's attention psum, layer 36's MLP
+# psum), and fails unless this share lies between the two.  On the H100
+# (700 W) the sound gaps were 2.18-2.53% of |top| and the faults' 24.6%
+# and 10.2%: the cap is their geometric mean, 5%, a factor 2 from each
+NEAR_TIE_DELTA = 0.05
+TP_GAP_J = 16
+# the TP steps whose paged calls (their last layer's) are held against
+# the plain versions on their own inputs: decode step 20 and the 64-row
+# window of prefill step 0 of the pallas run, the verify window of
+# verify step 10 of the spec run
+TP_PICK_DECODE, TP_PICK_VERIFY = 20, 10
+# each TP engine's warm-up: two requests of the trace's prompts cut to
+# 4 outputs, so every shape of the run (64-row windows, 8-row decode
+# steps, their psum payloads) is seen once before the clock starts
+TP_WARMUP = {**SERVE_TRACE, "n_requests": 2, "seed": 99, "out_short": (4, 5),
+             "out_long": (4, 5)}
 
 
 def fail(msg: str) -> None:
@@ -863,12 +933,12 @@ def serve_full(pa, dev):
     print(f"serve spec/prefix/slo parts (bf16): "
           f"{time.monotonic() - t0:.1f} s", flush=True)
     t0 = time.monotonic()
-    launches_disagg, colo = serve_disagg_bf16(pa, eng, cfg)
+    launches_disagg, colo, colo_peak = serve_disagg_bf16(pa, eng, cfg)
     print(f"serve disagg part (bf16): {time.monotonic() - t0:.1f} s",
           flush=True)
     del eng
     torch.cuda.empty_cache()
-    return launches, launches_spec, launches_disagg, colo
+    return launches, launches_spec, launches_disagg, colo, colo_peak
 
 
 def serve_full_f32(pa, dev) -> dict:
@@ -978,18 +1048,21 @@ def first_divergence(got: dict, want: dict):
     return div[0] if div else None
 
 
-def decode_margins(eng, cfg, cases) -> list:
+def decode_logits(eng, cfg, cases, window_decode: bool = False) -> list:
     """The non-speculative path's logits for output ``j`` of each of
     ``cases`` ((prompt, outputs, j), at most max_batch of them), one case
     a row of the serve run's shapes: the prompts through 64-token prefill
     windows, outputs 0..j-1 through decode steps, on a fresh pool; a row
     that has nothing to feed in a step sits idle on page 0, as the
-    engine's idle rows do.  Returns (top-1 minus top-2 logit, top-1
-    token, top-1 logit) per case."""
+    engine's idle rows do.  ``window_decode`` feeds the outputs through
+    one-row windows of the prefill trunk instead, what a verify window's
+    rows compute.  Returns each case's (V,) logits."""
     from repro_torch.models import embed as emb
+    from repro_torch.parallel import tp_of
     from repro_torch.serve import engine as se
 
     scfg, params, dev = eng.scfg, eng.exec.params, eng.device
+    ctx = eng.ctx
     bm, c, pt = scfg.max_batch, scfg.prefill_chunk, scfg.page_tokens
     if len(cases) > bm:
         raise ValueError(f"{len(cases)} cases for {bm} rows")
@@ -1000,8 +1073,14 @@ def decode_margins(eng, cfg, cases) -> list:
         table[i, :need] = base + torch.arange(need, dtype=torch.int32)
         base += need
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    window = se._make_window_forward(cfg, scfg)
-    decode = se._make_decode_forward(cfg, scfg)
+    window = se._make_window_forward(cfg, scfg, ctx)
+    decode = se._make_decode_forward(cfg, scfg, ctx)
+
+    def full_logits(xrow):
+        # at tp > 1 each shard's logits, in vocab order
+        if tp_of(ctx) == 1:
+            return emb.lm_head_logits(head, xrow)
+        return emb.lm_head_logits(head, xrow[:, None], ctx).reshape(-1)
     pool = eng.exec.init_pool()
     z = lambda: torch.zeros((bm,), dtype=torch.int32)   # noqa: E731
     logits = [None] * len(cases)
@@ -1025,7 +1104,7 @@ def decode_margins(eng, cfg, cases) -> list:
                          n_tok.to(dev), rows(active))
         for i in active:
             if (k + 1) * c >= len(cases[i][0]):
-                logits[i] = emb.lm_head_logits(head, x[i, int(n_tok[i]) - 1])
+                logits[i] = full_logits(x[..., i, int(n_tok[i]) - 1, :])
     for t in range(max(j for _, _, j in cases)):
         tok, pos, lens, active = z(), z(), z(), []
         for i, (prompt, outs, j) in enumerate(cases):
@@ -1033,14 +1112,26 @@ def decode_margins(eng, cfg, cases) -> list:
                 n = len(prompt) + t
                 tok[i], pos[i], lens[i] = outs[t], n, n + 1
                 active.append(i)
-        x, pool = decode(params, pool, tok.to(dev), pos.to(dev),
-                         rows(active), lens.to(dev))
+        if window_decode:
+            x, pool = window(params, pool, tok[:, None].to(dev),
+                             pos.to(dev), (lens > 0).to(torch.int32).to(dev),
+                             rows(active))
+            x = x[..., 0, :]
+        else:
+            x, pool = decode(params, pool, tok.to(dev), pos.to(dev),
+                             rows(active), lens.to(dev))
         for i in active:
             if t == cases[i][2] - 1:
-                logits[i] = emb.lm_head_logits(head, x[i])
+                logits[i] = full_logits(x[..., i, :])
     del pool
+    return logits
+
+
+def decode_margins(eng, cfg, cases) -> list:
+    """(top-1 minus top-2 logit, top-1 token, top-1 logit) of
+    ``decode_logits`` per case."""
     out = []
-    for lg in logits:
+    for lg in decode_logits(eng, cfg, cases):
         top = lg.float().topk(2)
         out.append(((top.values[0] - top.values[1]).item(),
                     int(top.indices[0]), top.values[0].item()))
@@ -1368,7 +1459,8 @@ def _mean(xs) -> float:
 
 def disagg_run(pa, eng, cfg, trace, topo, router, spec_k, tag):
     """One run of ``trace`` (clock "tick") on ``topo`` = (P, D) cells over
-    ``eng``'s weights (only pools and the mailbox are new), gated: zero
+    ``eng``'s weights (only pools and the mailbox are new; cells of
+    ``eng.ctx``'s TP size, sharing its stacked weights), gated: zero
     quiets and fences on the handoff queue, and on the router and every
     pool queue under ``router="amo"``; signals == pages > 0, waits ==
     tickets; every cell's pool whole after the run with no table left;
@@ -1392,14 +1484,15 @@ def disagg_run(pa, eng, cfg, trace, topo, router, spec_k, tag):
 
     dev = eng.device
     name = f"{topo[0]}+{topo[1]} {router}" + (f" k={spec_k}" if spec_k
-                                               else "")
+                                               else "") + (
+        f" tp={eng.ctx.tp_size}" if eng.ctx.tp_size > 1 else "")
     ticks = []                       # (wall ms, carried a handoff)
     gc.collect()                     # earlier runs' pools and mailboxes
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     d = Timed(eng.exec.params, cfg, spec_scfg(eng) if spec_k else eng.scfg,
-              device=dev, n_prefill=topo[0], n_decode=topo[1],
+              ctx=eng.ctx, device=dev, n_prefill=topo[0], n_decode=topo[1],
               router=router)
     reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **trace))
     pa.reset_launches()
@@ -1528,19 +1621,24 @@ def serve_disagg_bf16(pa, eng, cfg) -> dict:
     are printed with the colocated path's top-2 margin at the first
     divergence (not gated: bits cross kernel bodies in bf16).  Then ten
     profiled 2+2 ticks (``profile_disagg``).  Returns the launches summed
-    over the disagg runs and the colocated run's streams."""
+    over the disagg runs, the colocated run's streams and its peak
+    memory in GB (the tensor-parallel stage's yardstick)."""
     from repro_torch.serve import TrafficConfig, make_requests
 
     tcfg = TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE)
     weights_gb = _tensor_bytes(eng.exec.params) / 1e9
     eng.reset_metrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(eng.device)
     t0 = time.monotonic()
     colo = streams_of(eng.run(make_requests(tcfg), clock="tick"))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    colo_peak = torch.cuda.max_memory_allocated(eng.device) / 1e9
     mc = eng.metrics()
     print("serve disagg bf16 colocated (clock tick): " + json.dumps(
         {"ticks": mc["ticks"], "steps": mc["steps"], "wall_s": wall,
+         "peak_gb": colo_peak,
          "tok_s": mc["tokens_out"] / wall,
          "ttft_p50_ticks": mc["ttft_p50_s"],
          "ttft_p99_ticks": mc["ttft_p99_s"],
@@ -1573,7 +1671,7 @@ def serve_disagg_bf16(pa, eng, cfg) -> dict:
     print(f"serve disagg bf16: 1+1 amo streams == 1+1 host streams; "
           f"weights {weights_gb:.2f} GB, 2+2 peaks {peaks} GB", flush=True)
     profile_disagg(eng, cfg, SERVE_TRACE)
-    return total, colo
+    return total, colo, colo_peak
 
 
 def serve_disagg_f32(pa, eng, cfg, base_streams) -> dict:
@@ -1628,6 +1726,7 @@ def first_step_logits(eng, cfg, reqs) -> None:
     import dataclasses
 
     from repro_torch.models import embed as emb
+    from repro_torch.parallel import tp_of
     from repro_torch.serve import engine as se
 
     scfg, params = eng.scfg, eng.exec.params
@@ -2763,6 +2862,643 @@ def ckpt_stage(fa, dev) -> int:
 
 
 # ----------------------------------------------------------------------
+# phase 10: tensor-parallel serving on the stacked team
+# ----------------------------------------------------------------------
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at |v| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 7)
+
+
+def full_from_tp(params: dict, cfg) -> dict:
+    """The full (tp = 1) parameters of a ``weights.shard_for_tp`` stack:
+    row splits viewed back, column splits copied back, a replicated KV
+    head taken from the first rank that holds it (the phase's tp = 1
+    yardstick engine)."""
+    tp = params["embed"]["table"].shape[0]
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    for name in ("embed", "head"):
+        if name in params:
+            t = params[name]["table"]
+            out[name] = {"table": t.reshape(-1, t.shape[-1])}
+    cols = lambda w: w.movedim(-3, -2).flatten(-2)        # noqa: E731
+    rows = lambda w: w.flatten(-3, -2)                    # noqa: E731
+    kv = cols
+    if cfg.n_kv % tp:
+        hpr, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv
+        first = [next(t for t in range(tp) if (t * hpr) // group == h)
+                 for h in range(cfg.n_kv)]
+        kv = lambda w: cols(w[:, first])                  # noqa: E731
+    b = params["blocks"]
+    out["blocks"] = {
+        **b, "attn": {**b["attn"], "wq": cols(b["attn"]["wq"]),
+                      "wk": kv(b["attn"]["wk"]), "wv": kv(b["attn"]["wv"]),
+                      "wo": rows(b["attn"]["wo"])},
+        "mlp": {**b["mlp"], **{k: cols(b["mlp"][k]) for k in ("wu", "wg")},
+                "wd": rows(b["mlp"]["wd"])}}
+    return out
+
+
+def near_tie_gate(eng, cfg, reqs, got: dict, want: dict, labels, tag,
+                  got_logits=None) -> int:
+    """Every stream of ``got`` that leaves ``want``'s is printed at its
+    first divergence with ``want``'s top-2 margin there (``eng`` is
+    ``want``'s computation, run over ``want``'s history).  It passes at a
+    margin of at most one bf16 ulp of the top logit.  With
+    ``got_logits`` (cases -> ``got``'s computation over them, as
+    ``decode_logits``), both are run over that history,
+    and it also passes when the gap from ``want``'s top logit to ``got``'s
+    token is within DELTA, the largest gap between the two computations'
+    logits there, and DELTA is at most NEAR_TIE_DELTA x |top logit|: two
+    correct reductions in another order.  A dropped psum moves them by
+    10-25% of |top| (``tp_faults``, measured in every run).  Fails on
+    any other divergence.  Returns the number of divergences."""
+    div = divergences(got, want)
+    if not div:
+        return 0
+    prompts = {r.rid: r.prompt for r in reqs}
+    cases = [(prompts[rid], want[rid], j) for rid, j in div]
+    mine = decode_logits(eng, cfg, cases)
+    other = got_logits(cases) if got_logits is not None \
+        else [None] * len(cases)
+    a, b = labels
+    bad = []
+    for (rid, j), lw, lg in zip(div, mine, other):
+        lw = lw.float()
+        vals, idx = lw.topk(2)
+        mg, top_v = (vals[0] - vals[1]).item(), vals[0].item()
+        ulp = bf16_ulp(top_v)
+        text = (f"tp {tag}: request {rid} output {j}: {a} {got[rid][j:j + 3]}"
+                f" vs {b} {want[rid][j:j + 3]}, top-2 margin {mg:.6g} (top-1 "
+                f"{int(idx[0])} at {top_v:.6g}, one bf16 ulp {ulp:.6g})")
+        ok = mg <= ulp
+        if lg is not None:
+            delta = (lw - lg.float()).abs().max().item()
+            gap = top_v - lw[got[rid][j]].item() if j < len(got[rid]) else mg
+            ok = ok or gap <= delta <= NEAR_TIE_DELTA * abs(top_v)
+            text += (f"; {a}'s token {gap:.6g} below the top, the two "
+                     f"computations' logits {delta:.6g} apart")
+        print(text, flush=True)
+        if not ok:
+            bad.append((rid, j, mg))
+    if bad:
+        fail(f"tp {tag}: {a} leaves {b} beyond a near-tie (rid, output, "
+             f"margin): {bad}")
+    return len(div)
+
+
+class DroppedPsum:
+    """A communicator whose psum number ``drop`` of every ``period``
+    calls returns its input unreduced: one layer's psum lost, the fault
+    the near-tie rule must not pass."""
+
+    def __init__(self, comm, drop: int, period: int):
+        self.comm, self.drop, self.period, self.calls = comm, drop, period, 0
+
+    def psum(self, x):
+        k, self.calls = self.calls % self.period, self.calls + 1
+        return x if k == self.drop else self.comm.psum(x)
+
+    def __getattr__(self, name):
+        return getattr(self.comm, name)
+
+
+def tp_faults(cfg) -> dict:
+    """The planted faults: name -> the psum dropped, as its index among
+    a forward's 1 + 2 n_layers psums (the embedding's, then each
+    layer's attention and MLP psums)."""
+    mid = cfg.n_layers // 2
+    return {f"layer {mid + 1}'s attention psum dropped": 1 + 2 * mid,
+            f"layer {cfg.n_layers}'s MLP psum dropped": 2 * cfg.n_layers}
+
+
+def faulty(eng, drop: int, n_layers: int):
+    """``eng``'s computation with one psum of every forward dropped, as
+    ``decode_logits`` takes an engine."""
+    comm = DroppedPsum(eng.ctx.tp_comm, drop, 1 + 2 * n_layers)
+    return types.SimpleNamespace(
+        scfg=eng.scfg, exec=eng.exec, device=eng.device,
+        ctx=dataclasses.replace(eng.ctx, tp_comm=comm))
+
+
+def gap_share(got: list, want: list) -> float:
+    """The largest gap between two computations' logits over cases, as a
+    share of |top logit| of ``want``'s (the near-tie rule's measure)."""
+    return max(((g.float() - w.float()).abs().max()
+                / w.float().abs().max()).item() for g, w in zip(got, want))
+
+
+def gap_cases(reqs, streams: dict) -> list:
+    """Output TP_GAP_J of each request (at most 8) over ``streams``'s
+    history: the fixed cases the gaps are read on."""
+    return [(r.prompt, streams[r.rid], TP_GAP_J) for r in reqs[:B]]
+
+
+@contextlib.contextmanager
+def captured_calls(n_layers: int, picks: dict):
+    """While open, the paged-attention calls of ``kernels.ops`` run as
+    before and the arguments of the last layer's call of chosen steps
+    are kept in the yielded dict: ``picks`` maps a name to (op, window
+    rows or None, step), the op's calls (of that window) counted in
+    steps of n_layers.  No copy and no sync: q, the tables and lengths
+    are new tensors each step, the pages views of the live pool."""
+    from repro_torch.kernels import ops
+
+    names = ("paged_attention", "paged_prefill_attention")
+    orig = {n: getattr(ops, n) for n in names}
+    seen, got = {}, {}
+
+    def wrap(name):
+        def call(q, *args, **kw):
+            for tag, (op, rows, step) in picks.items():
+                if op == name and (rows is None or q.shape[1] == rows):
+                    n = seen.get(tag, 0)
+                    seen[tag] = n + 1
+                    if n == step * n_layers + n_layers - 1:
+                        got[tag] = (q,) + args
+            return orig[name](q, *args, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, wrap(n))
+    try:
+        yield got
+    finally:
+        for n in names:
+            setattr(ops, n, orig[n])
+
+
+def tp_paged_parity(pa, got: dict, pool, replicas: int, tp: int,
+                    tag: str) -> dict:
+    """Each captured call of a TP step (``captured_calls``: decode, a
+    64-row prefill window, a verify window) through the kernel and its
+    plain version on the same inputs: the folded q (TP x R x B rows,
+    hpr heads), the per-layer view of the stacked pool (its (R, TP,
+    n_pages) axes merged) and the offset tables.  Gates: max |kernel -
+    plain| within phase 3's DECODE_TOL / TOL, idle or padded rows
+    exactly 0; every table row inside its PE's pages, the slots its
+    live tokens use never that PE's page 0 (the null page), an idle
+    row all null; then, every PE's page 0 overwritten in every layer,
+    neither output moves a bit (no live row reads a null page, so what
+    idle rows write there stays out of attention).  Returns the largest
+    error by kernel."""
+    n_pages = pool.shape[2]
+    errs, runs = {}, {}
+    for kind, args in sorted(got.items()):
+        q, bt = args[0], args[3]
+        decode = kind == "decode"
+        name = "paged_decode_attention" if decode else \
+            "paged_prefill_attention"
+        kern, ref = getattr(pa, name), getattr(pa, name + "_ref")
+        rows = bt.shape[0]
+        n = rows // tp
+        r = torch.arange(rows, device=bt.device)
+        pe = ((r % n) // (n // replicas)) * tp + r // n
+        low = (pe * n_pages)[:, None]
+        if decode:
+            used = (args[4].long() + P - 1) // P
+        else:
+            used = (args[4].long() + args[5].long() + P - 1) // P
+        live = torch.arange(bt.shape[1], device=bt.device)[None] < \
+            used[:, None]
+        b64 = bt.long()
+        null = b64 == low
+        if not (((b64 >= low) & (b64 < low + n_pages)).all().item()
+                and not (null & live).any().item()
+                and null[used == 0].all().item()):
+            fail(f"tp {tag} {kind}: a block table leaves its PE's pages, a "
+                 f"live slot reads its null page or an idle row is not null")
+        runs[kind] = (kern(*args), ref(*args))
+        torch.cuda.synchronize()
+        out, want = runs[kind]
+        err = (out.float() - want.float()).abs().max().item()
+        tol = (DECODE_TOL if decode else TOL)[q.dtype]
+        idle = args[4] == 0 if decode else \
+            torch.arange(q.shape[1], device=q.device)[None] >= \
+            args[5][:, None]
+        if not err <= tol or (idle.any().item()
+                              and out[idle].abs().max().item() != 0.0):
+            fail(f"tp {tag} {kind}: max |kernel - plain| {err} (tol {tol}) "
+                 f"on q {tuple(q.shape)}, pages {tuple(args[1].shape)}, or "
+                 f"an idle row is not exactly 0")
+        errs[name] = max(errs.get(name, 0.0), err)
+        n_live = int((args[4] if decode else args[5]).gt(0).sum())
+        print(f"tp {tag} {kind} parity on the step's own inputs: q "
+              f"{tuple(q.shape)} {str(q.dtype)[6:]} ({n_live} live rows), "
+              f"pages "
+              f"{tuple(args[1].shape)} (stride {args[1].stride(0)}), table "
+              f"{tuple(bt.shape)} with offsets to {int(b64.max())}; max "
+              f"|kernel - plain| {err:.3e} (tol {tol})", flush=True)
+    pool[:, :, 0] = 100.0
+    for kind, args in sorted(got.items()):
+        name = "paged_decode_attention" if kind == "decode" else \
+            "paged_prefill_attention"
+        again = (getattr(pa, name)(*args), getattr(pa, name + "_ref")(*args))
+        if not all(torch.equal(a, b) for a, b in zip(again, runs[kind])):
+            fail(f"tp {tag} {kind}: writing every PE's page 0 moved the "
+                 f"kernel's or the plain version's output")
+    print(f"tp {tag}: every PE's page 0 overwritten, {sorted(got)} outputs "
+          f"unchanged bit for bit", flush=True)
+    return errs
+
+
+def staged_copy_launches(comm) -> int:
+    """The copy-kernel launches a pallas communicator's calls must have
+    made: its calls by (op, per-PE bytes, dtype, algorithm), each priced
+    by the schedules' rounds (``comm_bench.expected_copy_launches``; a
+    top-k merge is one stacked all_gather)."""
+    from repro_torch.launch import comm_bench as cb
+
+    total = 0
+    for (op, nbytes, dtype, algo), calls in comm.payload_stats().items():
+        dt = getattr(torch, dtype)
+        item = torch.empty((), dtype=dt).element_size()
+        total += calls * cb.expected_copy_launches(
+            "all_gather" if op == "top_k_merge" else op, algo, comm.size,
+            nbytes // item, dt)
+    return total
+
+
+def psum_model_ms_per_step(comm, steps: int, dev) -> float:
+    """A model of the ms a step spends in psums, from isolated timings:
+    each psum payload the run made, timed alone on a fresh communicator
+    of the same backend (``time_ms``) on random data, times its calls,
+    over the run's steps.  Not a device time taken in the step."""
+    from repro_torch.comm import make_communicator
+
+    fresh = make_communicator("model", size=comm.size,
+                              backend=comm.backend_name)
+    total = 0.0
+    for (op, nbytes, dtype, _), calls in comm.payload_stats().items():
+        if op != "psum":
+            continue
+        dt = getattr(torch, dtype)
+        item = torch.empty((), dtype=dt).element_size()
+        x = torch.randn((comm.size, nbytes // item), device=dev).to(dt)
+        total += calls * time_ms(lambda: fresh.psum(x), dev, iters=5)
+    return total / max(steps, 1)
+
+
+def tp_serve_run(pa, sc, eng, cfg, tag, picks=None) -> dict:
+    """The serve trace on clock "tick" on a TP engine, its launch
+    counters and communicator stats zeroed just before, gated: every
+    request whole; the bf16 paged bodies n_layers x the prefill and
+    decode steps, the f32 bodies never; the copy kernel exactly the
+    staged rounds of the pallas communicator's calls, under xla and posh
+    never.  ``picks`` keeps chosen paged calls' arguments
+    (``captured_calls``).  Returns the numbers, the streams, the
+    launches, the copy launches and the captured calls."""
+    from repro_torch.serve import TrafficConfig, make_requests
+
+    dev, comm = eng.device, eng.ctx.tp_comm
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng.reset_metrics()
+    comm.reset_stats()
+    pa.reset_launches()
+    sc.reset_launches()
+    t0 = time.monotonic()
+    with captured_calls(cfg.n_layers, picks or {}) as got:
+        done = eng.run(reqs, clock="tick")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(pa.LAUNCHES_BY_DTYPE)
+    copies = sc.LAUNCHES["copy_blocked"]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    m = eng.metrics()
+    if len(done) != len(reqs) or any(len(r.out) != r.max_new for r in done):
+        fail(f"tp {tag}: {len(done)} of {len(reqs)} requests finished whole")
+    steps = m["steps"]
+    want = {k: 0 for k in launches}
+    want[("paged_prefill_attention", "bf16")] = cfg.n_layers * (
+        steps["prefill"] + steps["verify"])
+    want[("paged_decode_attention", "bf16")] = cfg.n_layers * steps["decode"]
+    if launches != want or not steps["prefill"]:
+        fail(f"tp {tag}: paged launches {launches} != n_layers x steps "
+             f"{want}")
+    staged = staged_copy_launches(comm) \
+        if comm.backend_name == "pallas" else 0
+    if copies != staged or (comm.backend_name == "pallas") != (copies > 0):
+        fail(f"tp {tag}: copy-kernel launches {copies} != the staged rounds "
+             f"of the communicator's calls {staged}")
+    st = comm.stats()
+    n_steps = sum(steps.values())
+    want_psums = n_steps * (1 + 2 * cfg.n_layers)
+    if st["psum"]["calls"] != want_psums or \
+            st["top_k_merge"]["calls"] != n_steps:
+        fail(f"tp {tag}: {st['psum']['calls']} psums / "
+             f"{st['top_k_merge']['calls']} merges over {n_steps} steps "
+             f"(want {want_psums} / {n_steps})")
+    out = {"backend": comm.backend_name, "tp": comm.size,
+           "ticks": m["ticks"], "steps": steps,
+           "tokens_out": m["tokens_out"], "wall_s": wall,
+           "tok_s": m["tokens_out"] / wall, "peak_gb": peak,
+           "psum_calls_per_step": {a: n / n_steps for a, n
+                                   in st["psum"]["algos"].items()},
+           "psum_bytes_per_step": st["psum"]["bytes"] / n_steps,
+           "top_k_merge_algos": st["top_k_merge"]["algos"],
+           "copy_launches": copies,
+           "launches": {f"{k[0]}/{k[1]}": v for k, v in launches.items()
+                        if v}}
+    return out, streams_of(done), launches, copies, got
+
+
+def tp_smoke_streams(pa, dev) -> dict:
+    """The smoke qwen3-8b in f32 at TP 2 and 4 with two replicas, every
+    backend: greedy streams through the kernels == through the plain
+    versions, without and with speculation (k = 2) and after a prefix
+    resume on replica 1 (pages migrated from replica 0, one put_nbi per
+    TP rank and one quiet); each kernel run launches n_layers x its
+    steps, each plain run none.  Returns the kernel runs' launches."""
+    from repro_torch import configs
+    from repro_torch.core.heap import SymmetricHeap
+    from repro_torch.models import lm
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.serve import (PagedKVCache, Request, ServeConfig,
+                                   ServeEngine, StackedExec)
+
+    t0 = time.monotonic()
+    cfg = configs.get_smoke("qwen3-8b")
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev)
+    prompts = [list(range(3, 11)), list(range(40, 46)), [7, 3, 99, 12, 55]]
+    prefix = list(range(3, 14))
+    total: dict = {}
+
+    def engine(ctx, impl, kv=None, my_pe=0, **kw):
+        scfg = ServeConfig(page_tokens=4, n_pages=24, max_batch=3,
+                           max_seq=32, prefill_chunk=3, attn_impl=impl, **kw)
+        kv = kv or PagedKVCache(
+            SymmetricHeap(("data", "model")), n_layers=cfg.n_layers,
+            kv_heads=cfg.kv_per_rank(ctx.tp_size), head_dim=cfg.head_dim,
+            n_pages=scfg.n_pages, page_tokens=scfg.page_tokens)
+        ex = StackedExec(params, cfg, ctx, scfg, kv, dev,
+                         replicas=TP_SMOKE_REPLICAS, my_pe=my_pe)
+        return ServeEngine(params, cfg, scfg, ctx=ctx, exec_=ex, device=dev,
+                           kv=kv, my_pe=my_pe)
+
+    def counted(eng, impl, what):
+        torch.cuda.synchronize()
+        n = cfg.n_layers if impl == "kernel" else 0
+        want = {"paged_decode_attention": n * eng.steps["decode"],
+                "paged_prefill_attention": n * (eng.steps["prefill"]
+                                                + eng.steps["verify"])}
+        if dict(pa.LAUNCHES) != want:
+            fail(f"tp smoke {what} ({impl}): launches {dict(pa.LAUNCHES)}, "
+                 f"want {want}")
+        for k, v in pa.LAUNCHES_BY_DTYPE.items():
+            total[k] = total.get(k, 0) + v
+
+    for tp in TP_SMOKE:
+        for backend in TP_BACKENDS:
+            ctx = ParallelCtx(tp_size=tp, backend=backend)
+            streams = {}
+            for impl in ("kernel", "ref"):
+                for mode, kw in (("plain", {}), ("spec", dict(spec_k=2))):
+                    pa.reset_launches()
+                    eng = engine(ctx, impl, **kw)
+                    done = eng.run([Request(rid=i, prompt=list(p), max_new=6)
+                                    for i, p in enumerate(prompts)],
+                                   clock="tick")
+                    counted(eng, impl, f"tp={tp} {backend} {mode}")
+                    if mode == "spec" and not eng.steps["verify"]:
+                        fail(f"tp smoke tp={tp} {backend}: spec verified "
+                             f"nothing")
+                    streams[mode, impl] = streams_of(done)
+                pa.reset_launches()
+                a = engine(ctx, impl, prefix_keep=True)
+                first = a.run([Request(rid=0, prompt=list(prefix),
+                                       max_new=6)], clock="tick")
+                b = engine(ctx, impl, kv=a.kv, my_pe=1, prefix_keep=True)
+                b.pool = a.pool
+                b.submit(Request(rid=100, prompt=list(prefix), max_new=6))
+                while b.sched.has_work():
+                    b.tick()
+                (res,) = b.finished
+                if b.sched.stats["resumed"] != 1 or \
+                        b.kv.stats["migrations"] < 2 or \
+                        list(res.out) != list(first[0].out):
+                    fail(f"tp smoke tp={tp} {backend} ({impl}): prefix "
+                         f"resume on replica 1 {b.sched.stats} "
+                         f"{b.kv.stats} {res.out} vs {first[0].out}")
+                a.steps = {k: a.steps[k] + b.steps[k] for k in a.steps}
+                counted(a, impl, f"tp={tp} {backend} prefix")
+                streams["prefix", impl] = {0: list(first[0].out),
+                                           100: list(res.out)}
+            for mode in ("plain", "spec", "prefix"):
+                if streams[mode, "kernel"] != streams[mode, "ref"]:
+                    fail(f"tp smoke tp={tp} {backend} {mode}: kernel streams "
+                         f"{streams[mode, 'kernel']} != plain "
+                         f"{streams[mode, 'ref']}")
+            if streams["spec", "ref"] != streams["plain", "ref"]:
+                fail(f"tp smoke tp={tp} {backend}: spec streams differ from "
+                     f"non-spec")
+    print(f"tp smoke f32 (qwen3-8b-smoke, tp {TP_SMOKE}, "
+          f"{TP_SMOKE_REPLICAS} replicas, {TP_BACKENDS}): kernel streams == "
+          f"plain streams without and with spec (k=2) and after a replica "
+          f"prefix resume; launches n_layers x steps; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return total
+
+
+def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
+    """Phase 10.  Full-width qwen3-8b in bf16 at TP 4 (one replica): the
+    weights drawn from seed 0 as phase 4 draws them and stacked by
+    ``shard_for_tp``; the serve trace on clock "tick" under each backend
+    (``tp_serve_run``); pallas == posh bit for bit; the paged kernels
+    against their plain versions on the pallas run's own decode and
+    64-row prefill inputs (``tp_paged_parity``); xla vs posh and TP 4
+    (posh) vs phase 4's tp = 1 streams (``colo``; the tp = 1 side
+    recomputed on the weights unstacked, ``full_from_tp``) held by the
+    near-tie rule; the gap between those computations' logits on fixed
+    cases below NEAR_TIE_DELTA and the gap of each planted fault
+    (``tp_faults``) above it; every peak under TP_PEAK x ``colo_peak``;
+    the modelled psum ms a step by backend.  Then spec k = 4 (n-gram)
+    under posh: its streams vs the posh run's by the near-tie rule, the
+    prefill body n_layers x (prefill + verify steps), the kernels
+    against their plain versions on a verify window of the run.  Then,
+    weights redrawn and stacked for TP 2, the colocated TP 2 run under
+    posh (vs tp = 1 by the near-tie rule, its gap on the fixed cases
+    below NEAR_TIE_DELTA) and 2+2 host cells of TP 2 on the one stacked
+    dict (``disagg_run``'s gates), their streams vs the colocated TP 2
+    run's by the near-tie rule.  Then the smoke configs
+    (``tp_smoke_streams``).  Returns the phase's paged launches by
+    (kernel, dtype), its copy-kernel launches and the largest error of
+    each paged kernel on the TP steps' inputs."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.serve import ServeEngine, TrafficConfig, make_requests
+
+    t0 = time.monotonic()
+    total: dict = {}
+    copies = 0
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, cfg = build_engine(
+        "qwen3-8b", config="full", dtype="bf16", device=dev, page_tokens=P,
+        n_pages=512, max_batch=B, prefill_chunk=64, attn_impl="kernel",
+        seed=0, ctx=ParallelCtx(tp_size=TP_FULL, backend="xla"))
+    params, scfg = eng.exec.params, eng.scfg
+    del eng
+    gc.collect()
+    torch.cuda.synchronize()
+    weights_gb = _tensor_bytes(params) / 1e9
+    print(f"tp: qwen3-8b full width at TP {TP_FULL}, bf16 weights stacked "
+          f"(TP, ...) {weights_gb:.2f} GB, {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB allocated; init and stacking {time.monotonic() - t0:.1f} s",
+          flush=True)
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE))
+    runs, streams = {}, {}
+    eng = got = None
+    for backend in TP_BACKENDS:
+        eng = got = None              # the last backend's pool goes first
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ServeEngine(params, cfg, scfg, device=dev,
+                          ctx=ParallelCtx(tp_size=TP_FULL, backend=backend))
+        eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **TP_WARMUP)))
+        picks = {"decode": ("paged_attention", None, TP_PICK_DECODE),
+                 "prefill": ("paged_prefill_attention", scfg.prefill_chunk,
+                             0)} if backend == TP_BACKENDS[-1] else None
+        out, streams[backend], launches, n_copy, got = tp_serve_run(
+            pa, sc, eng, cfg, f"tp{TP_FULL} {backend}", picks)
+        out["psum_model_ms_per_step"] = psum_model_ms_per_step(
+            eng.ctx.tp_comm, sum(out["steps"].values()), dev)
+        if not out["peak_gb"] < TP_PEAK * colo_peak:
+            fail(f"tp {backend}: peak {out['peak_gb']:.2f} GB is not below "
+                 f"{TP_PEAK} x the tp = 1 run's {colo_peak:.2f} GB")
+        runs[backend] = out
+        add(launches)
+        copies += n_copy
+        print(f"tp{TP_FULL} {backend}: " + json.dumps(out), flush=True)
+    if streams["pallas"] != streams["posh"]:
+        fail(f"tp: pallas streams differ from posh at "
+             f"{divergences(streams['pallas'], streams['posh'])}")
+    if sorted(got) != ["decode", "prefill"]:
+        fail(f"tp: captured {sorted(got)} of the pallas run's paged calls")
+    errs = tp_paged_parity(pa, got, eng.pool, 1, TP_FULL, f"tp{TP_FULL}")
+    got = None
+    # ``eng`` (pallas) computes what posh does, bit for bit; the gaps
+    # between computations, read on fixed cases of the posh streams
+    cases = gap_cases(reqs, streams["posh"])
+    mine = decode_logits(eng, cfg, cases)
+    xla = ServeEngine(params, cfg, scfg, device=dev,
+                      ctx=ParallelCtx(tp_size=TP_FULL, backend="xla"))
+    gaps = {"xla vs posh": gap_share(decode_logits(xla, cfg, cases), mine)}
+    n_xla = near_tie_gate(
+        eng, cfg, reqs, streams["xla"], streams["posh"], ("xla", "posh"),
+        f"tp{TP_FULL}", got_logits=lambda c: decode_logits(xla, cfg, c))
+    del xla
+    tp1 = ServeEngine(full_from_tp(params, cfg), cfg, scfg, device=dev)
+    tp1_logits = decode_logits(tp1, cfg, cases)
+    gaps[f"tp{TP_FULL} vs tp1"] = gap_share(mine, tp1_logits)
+    n_tp1 = near_tie_gate(
+        tp1, cfg, reqs, streams["posh"], colo, (f"tp{TP_FULL}", "tp1"),
+        f"tp{TP_FULL}", got_logits=lambda c: decode_logits(eng, cfg, c))
+    del tp1
+    faults = {name: gap_share(decode_logits(faulty(eng, k, cfg.n_layers),
+                                            cfg, cases), mine)
+              for name, k in tp_faults(cfg).items()}
+    print(f"tp{TP_FULL}: pallas == posh bit for bit; xla leaves posh in "
+          f"{n_xla} of {len(reqs)} streams, TP {TP_FULL} leaves tp = 1 in "
+          f"{n_tp1}, each within the near-tie rule; peaks "
+          f"{ {b: r['peak_gb'] for b, r in runs.items()} } GB vs tp = 1 "
+          f"{colo_peak:.2f} GB", flush=True)
+
+    # speculation under posh on the same stacked weights
+    posh = ParallelCtx(tp_size=TP_FULL, backend="posh")
+    eng = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2 = ServeEngine(params, cfg, spec_scfg(types.SimpleNamespace(scfg=scfg)),
+                     device=dev, ctx=posh)
+    pa.reset_launches()
+    t1 = time.monotonic()
+    with captured_calls(cfg.n_layers, {"verify": (
+            "paged_prefill_attention", SPEC_K + 1, TP_PICK_VERIFY)}) as got:
+        done = e2.run(reqs, clock="tick")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    launches = dict(pa.LAUNCHES_BY_DTYPE)
+    m = e2.metrics()
+    if len(done) != len(reqs) or m["steps"]["decode"]:
+        fail(f"tp spec: {len(done)} requests, steps {m['steps']}")
+    spec_launches_ok(launches, cfg, m, {"prefill": 0, "decode": 0}, "bf16")
+    add(launches)
+    if sorted(got) != ["verify"]:
+        fail(f"tp spec: no verify window captured of {m['steps']}")
+    for k, v in tp_paged_parity(pa, got, e2.pool, 1, TP_FULL,
+                                f"tp{TP_FULL} spec").items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    got = None
+    n_spec = near_tie_gate(
+        e2, cfg, reqs, streams_of(done), streams["posh"],
+        ("spec", "non-spec"), f"tp{TP_FULL} spec",
+        got_logits=lambda c: decode_logits(e2, cfg, c, window_decode=True))
+    print(f"tp{TP_FULL} spec k={SPEC_K} (ngram, posh): " + json.dumps(
+        {"ticks": m["ticks"], "steps": m["steps"], "wall_s": wall,
+         "tok_s": m["tokens_out"] / wall,
+         "accept_rate": m["spec"]["accept_rate"],
+         "tokens_per_tick": m["spec"]["tokens_per_tick"],
+         "diverging_streams": n_spec}), flush=True)
+    del e2, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2+2 cells of TP 2 under posh on one stacked weights dict
+    eng, cfg = build_engine(
+        "qwen3-8b", config="full", dtype="bf16", device=dev, page_tokens=P,
+        n_pages=512, max_batch=B, prefill_chunk=64, attn_impl="kernel",
+        seed=0, ctx=ParallelCtx(tp_size=TP_CELLS, backend="posh"))
+    out, colo2, launches, _, _ = tp_serve_run(pa, sc, eng, cfg,
+                                              f"tp{TP_CELLS} posh")
+    add(launches)
+    print(f"tp{TP_CELLS} posh (colocated): " + json.dumps(out), flush=True)
+    gaps[f"tp{TP_CELLS} vs tp1"] = gap_share(decode_logits(eng, cfg, cases),
+                                             tp1_logits)
+    tp1 = ServeEngine(full_from_tp(eng.exec.params, cfg), cfg, scfg,
+                      device=dev)
+    n_tp2 = near_tie_gate(
+        tp1, cfg, reqs, colo2, colo, (f"tp{TP_CELLS}", "tp1"),
+        f"tp{TP_CELLS}", got_logits=lambda c: decode_logits(eng, cfg, c))
+    del tp1
+    sound, planted = max(gaps.values()), min(faults.values())
+    print("tp logit gaps on the fixed cases (output "
+          f"{TP_GAP_J} of each request), as shares of |top logit|: sound "
+          + json.dumps(gaps) + "; planted faults " + json.dumps(faults)
+          + f"; NEAR_TIE_DELTA {NEAR_TIE_DELTA}", flush=True)
+    if not sound < NEAR_TIE_DELTA < planted:
+        fail(f"tp: the near-tie cap {NEAR_TIE_DELTA} does not separate the "
+             f"sound computations' gap {sound:.4g} from a dropped psum's "
+             f"{planted:.4g}")
+    dout, dstreams, launches = disagg_run(pa, eng, cfg, SERVE_TRACE, (2, 2),
+                                          "host", 0, "bf16")
+    add(launches)
+    if not dout["peak_gb"] < 2 * weights_gb:
+        fail(f"tp disagg: peak {dout['peak_gb']:.2f} GB is not below twice "
+             f"the {weights_gb:.2f} GB of weights")
+    n_dis = near_tie_gate(eng, cfg, reqs, dstreams, colo2,
+                          ("disagg", "colocated"), f"tp{TP_CELLS} 2+2")
+    print(f"tp{TP_CELLS}: leaves tp = 1 in {n_tp2} of {len(reqs)} streams "
+          f"within the near-tie rule; 2+2 host cells (posh): "
+          f"{len(reqs) - n_dis} of {len(reqs)} streams == colocated TP "
+          f"{TP_CELLS}", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(tp_smoke_streams(pa, dev))
+    print(f"tp stage: {time.monotonic() - t0:.1f} s", flush=True)
+    return total, copies, errs
+
+
+# ----------------------------------------------------------------------
 # phase 7: timing
 # ----------------------------------------------------------------------
 def time_ms(fn, dev, iters=20) -> float:
@@ -3235,7 +3971,8 @@ def main(argv=None) -> int:
     flash_errs = flash_parity(fa, dev)
     flash_autograd_parity(fa, dev)
     comm_errs = comm_kernel_parity(sc, rc, dev)
-    launches, launches_spec, launches_disagg, colo = serve_full(pa, dev)
+    launches, launches_spec, launches_disagg, colo, colo_peak = \
+        serve_full(pa, dev)
     launches_f32, launches_disagg_f32 = serve_full_f32(pa, dev)
     launches_moe = serve_moe_bf16(pa, dev)
     launches_moe_f32 = serve_moe_f32(pa, dev)
@@ -3252,11 +3989,19 @@ def main(argv=None) -> int:
         [flash_timing(fa, dev, flash_launches, flash_errs)]
     launches_swap = swap_stage(pa, dev, colo)
     launches_ckpt = ckpt_stage(fa, dev)
+    launches_tp, copies_tp, errs_tp = tp_stage(pa, sc, dev, colo, colo_peak)
     for row in kernels:
         if row["name"].startswith("paged_"):
             row["launches_swap"] = launches_swap[(row["name"], "bf16")]
+            by = {tag: n for (name, tag), n in launches_tp.items()
+                  if name == row["name"]}
+            row["launches_tp"] = sum(by.values())
+            row["launches_tp_by_dtype"] = by
+            row["max_abs_err_tp"] = errs_tp[row["name"]]
         elif row["name"] == "flash_attention":
             row["launches_ckpt"] = launches_ckpt
+        elif row["name"] == "copy_blocked":
+            row["launches_tp"] = copies_tp
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -373,6 +373,7 @@ class Communicator:
         self.heap = heap
         self.name = name or f"{backend}:{'x'.join(self.team.axes)}"
         self._stats: dict = {}
+        self._payloads: dict = {}
 
     def _key(self):
         return (self.backend_name, self.team, self.size, self.dispatch,
@@ -389,20 +390,29 @@ class Communicator:
                 f"size={self.size}, backend={self.backend_name!r})")
 
     # -- instrumentation ----------------------------------------------
-    def _record(self, op: str, nbytes: int, algo: str) -> None:
+    def _record(self, op: str, nbytes: int, algo: str, dtype) -> None:
         s = self._stats.setdefault(
             op, {"calls": 0, "bytes": 0, "algos": {}})
         s["calls"] += 1
         s["bytes"] += nbytes
         s["algos"][algo] = s["algos"].get(algo, 0) + 1
+        key = (op, nbytes, str(dtype).removeprefix("torch."), algo)
+        self._payloads[key] = self._payloads.get(key, 0) + 1
 
     def stats(self) -> dict:
         """``{op: {"calls": int, "bytes": int, "algos": {algo: count}}}``;
         bytes are per-PE payload bytes."""
         return copy.deepcopy(self._stats)
 
+    def payload_stats(self) -> dict:
+        """Calls by ``(op, per-PE payload bytes, dtype, algorithm)``:
+        what a model of the schedules needs to count their p2p rounds
+        (e.g. the pallas backend's copy-kernel launches)."""
+        return dict(self._payloads)
+
     def reset_stats(self) -> None:
         self._stats.clear()
+        self._payloads.clear()
 
     def _begin(self, op: str, x: torch.Tensor) -> Optional[str]:
         """Dispatch + record; None for the 1-PE identity short-circuit."""
@@ -411,10 +421,10 @@ class Communicator:
                              f"tensor, got shape {tuple(x.shape)}")
         nbytes = _nbytes(x)
         if self.size == 1:
-            self._record(op, nbytes, "identity")
+            self._record(op, nbytes, "identity", x.dtype)
             return None
         algo = self.backend.select(op, nbytes, self.size, self.dispatch)
-        self._record(op, nbytes, algo)
+        self._record(op, nbytes, algo, x.dtype)
         return algo
 
     # -- collectives ---------------------------------------------------

@@ -47,13 +47,12 @@ import sys
 import torch
 
 from repro_torch import configs
-from repro_torch.core.heap import SymmetricHeap
 from repro_torch.device import dtype_of, resolve
 from repro_torch.models import lm
 from repro_torch.serve import (DisaggEngine, DraftModelProposer,
-                               PagedKVCache, SLOConfig, ServeConfig,
-                               ServeEngine, SymmetricPagePool,
-                               TrafficConfig, make_requests)
+                               SLOConfig, ServeConfig, ServeEngine,
+                               SymmetricPagePool, TrafficConfig,
+                               make_kv_cache, make_requests)
 
 
 def parse_slo(spec: str) -> tuple[float, float]:
@@ -92,7 +91,7 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
                  prefill_chunk: int = 64, tick_tokens: int = 0,
                  sample_seed: int = 0, seed: int = 0, spec_k: int = 0,
                  draft: str = "ngram", disagg: str = "",
-                 router: str = "host", slo=None):
+                 router: str = "host", slo=None, ctx=None):
     """The serving engine over ``arch`` with random weights drawn on
     ``device`` from ``seed``.  ``device=None`` is the GPU.  ``draft`` is
     ``"ngram"`` or an arch name: a draft model of that arch (same
@@ -102,7 +101,10 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
     as in the reference: a draft arch is replaced by it, with a notice
     on stderr); ``router="amo"`` gives
     it the AMO router and page pools, or, colocated, attaches a
-    ``SymmetricPagePool`` to the engine's cache."""
+    ``SymmetricPagePool`` to the engine's cache.  ``ctx`` (a
+    ``ParallelCtx``; default tp = 1) serves tensor-parallel on the
+    stacked team, disaggregated cells one TP group each; the CLI has no
+    TP flag, as the reference's has none."""
     if router not in ("host", "amo"):
         raise SystemExit(f"--router wants 'host' or 'amo', got {router!r}")
     if config not in ("full", "smoke"):
@@ -124,27 +126,24 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
             print(f"--disagg: the cells draft with the n-gram proposer, as "
                   f"the reference's do; --draft {draft} is not used",
                   file=sys.stderr)
-        return DisaggEngine(params, cfg, scfg, device=dev,
+        return DisaggEngine(params, cfg, scfg, ctx=ctx, device=dev,
                             n_prefill=n_prefill, n_decode=n_decode,
                             router=router), cfg
     if spec_k > 0 and draft != "ngram":
         # a draft model on the same page geometry: the shared cache is
         # built first so draft and target index their pools through the
         # same block tables
-        kv = PagedKVCache(
-            SymmetricHeap(("data",)), n_layers=cfg.n_layers,
-            kv_heads=cfg.kv_per_rank(1), head_dim=cfg.head_dim,
-            n_pages=n_pages, page_tokens=page_tokens, dtype=dt)
+        kv = make_kv_cache(cfg, scfg, ctx)
         dcfg = configs.get(draft) if config == "full" \
             else configs.get_smoke(draft)
         dgen = torch.Generator(device=dev).manual_seed(seed + 1)
         proposer = DraftModelProposer(
             lm.init(dgen, dcfg, dtype=dt, device=dev), dcfg, scfg, kv,
-            target_vocab=cfg.vocab, device=dev)
-        eng = ServeEngine(params, cfg, scfg, device=dev, kv=kv,
+            target_vocab=cfg.vocab, device=dev, ctx=ctx)
+        eng = ServeEngine(params, cfg, scfg, ctx=ctx, device=dev, kv=kv,
                           proposer=proposer)
     else:
-        eng = ServeEngine(params, cfg, scfg, device=dev)
+        eng = ServeEngine(params, cfg, scfg, ctx=ctx, device=dev)
     if router == "amo":
         # colocated "amo" is the page allocator: the free list moves onto
         # symmetric counter words (the same grants, so streams cannot move)

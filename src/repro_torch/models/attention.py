@@ -1,10 +1,20 @@
-"""Attention in the head layout at tensor-parallel size 1.
+"""Attention in the head layout.
 
 The counterparts of ``repro.models.attention.project_qkv`` — q/k/v
 projection, then qk-norm, then rope: the single projection convention
 the serving engine uses for both its decode step and its prefill window
-— and of ``self_attention`` (head layout), which training runs through
-the blocked flash attention.
+— and of ``self_attention`` (head layout, tp = 1), which training runs
+through the blocked flash attention.
+
+At tp > 1 (serving) the projections are stacked on the PE axis
+(``weights.shard_for_tp``): rank ``t`` holds query heads ``t * hpr ..``
+(hpr = H / tp) and, when ``n_kv % tp == 0``, KV heads ``t * kvpr ..``;
+otherwise the reference keeps ``wk``/``wv`` replicated and each rank
+slices the one KV head its query group reads, ``my_kv = (t * hpr) //
+group`` — ``shard_for_tp`` pre-slices that head per rank, the same
+numbers.  ``tp_mm`` is the per-rank product, one batched matmul over
+the PE axis, and ``out_proj`` the row-parallel output projection,
+partial sums the caller reduces with ``ctx.tp_comm.psum``.
 """
 from __future__ import annotations
 
@@ -12,19 +22,38 @@ from typing import Optional
 
 import torch
 
+from repro_torch.parallel.ctx import tp_of
+
 from .common import apply_rope, rmsnorm
 from .flash import blocked_attention
 
 
-def project_qkv(p: dict, xf: torch.Tensor, pos: torch.Tensor, cfg):
+def tp_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-rank product: x (tp, ..., d) @ w (tp, d, n) -> (tp, ..., n), one
+    batched matmul (the weights are never broadcast against ``x``)."""
+    tp, d, n = w.shape
+    out = torch.bmm(x.reshape(tp, -1, d), w.to(x.dtype))
+    return out.reshape(x.shape[:-1] + (n,))
+
+
+def project_qkv(p: dict, xf: torch.Tensor, pos: torch.Tensor, cfg,
+                ctx=None):
     """xf (b, t, d) in the compute dtype; pos (b, t) or (t,) absolute
     positions.
-    Returns q (b, t, H, dh) and k, v (b, t, H_kv, dh)."""
+    Returns q (b, t, H, dh) and k, v (b, t, H_kv, dh).  At tp > 1, xf
+    (tp, b, t, d) -> q (tp, b, t, H/tp, dh), k/v (tp, b, t, kvpr, dh)
+    from the stacked weights."""
     dh = cfg.head_dim
-    b, t, _ = xf.shape
-    q = (xf @ p["wq"].to(xf.dtype)).reshape(b, t, cfg.n_heads, dh)
-    k = (xf @ p["wk"].to(xf.dtype)).reshape(b, t, cfg.n_kv, dh)
-    v = (xf @ p["wv"].to(xf.dtype)).reshape(b, t, cfg.n_kv, dh)
+    if tp_of(ctx) > 1:
+        lead = xf.shape[:-1]
+        q = tp_mm(xf, p["wq"]).reshape(lead + (-1, dh))
+        k = tp_mm(xf, p["wk"]).reshape(lead + (-1, dh))
+        v = tp_mm(xf, p["wv"]).reshape(lead + (-1, dh))
+    else:
+        b, t, _ = xf.shape
+        q = (xf @ p["wq"].to(xf.dtype)).reshape(b, t, cfg.n_heads, dh)
+        k = (xf @ p["wk"].to(xf.dtype)).reshape(b, t, cfg.n_kv, dh)
+        v = (xf @ p["wv"].to(xf.dtype)).reshape(b, t, cfg.n_kv, dh)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"]["scale"], q)
         k = rmsnorm(p["k_norm"]["scale"], k)
@@ -32,6 +61,16 @@ def project_qkv(p: dict, xf: torch.Tensor, pos: torch.Tensor, cfg):
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     return q, k, v
+
+
+def out_proj(o: torch.Tensor, wo: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Attention output (..., heads, dh) -> (..., d): ``o @ wo``.  At
+    tp > 1, o (tp, ..., hpr, dh) and wo (tp, hpr * dh, d) give each
+    rank's partial sum, which the caller psums."""
+    o = o.reshape(o.shape[:-2] + (-1,))
+    if tp_of(ctx) > 1:
+        return tp_mm(o, wo)
+    return o @ wo.to(o.dtype)
 
 
 def self_attention(p: dict, x: torch.Tensor, ctx, cfg, *, causal=True,

@@ -1,10 +1,18 @@
 """Embedding lookup, LM head, cross-entropy and the greedy/top-k
-candidate selection.
+candidate selection — the counterparts of ``repro.models.embed``.
 
-The counterparts of ``repro.models.embed`` at tensor-parallel size 1:
-the vocab is one shard, so the lookup is a masked gather, the
-vocab-parallel cross-entropy's psum/pmax are identities and the
-candidate merge across shards has nothing to merge.
+At tensor-parallel size 1 the vocab is one shard: the lookup is a
+masked gather, the vocab-parallel cross-entropy's psum/pmax are
+identities and the candidate merge has nothing to merge.
+
+At tp > 1 (serving, with a ``ctx``) the table is vocab-sharded and
+stacked on the PE axis, ``(tp, V/tp, d)`` (``weights.shard_for_tp``),
+and activations carry that axis first: the lookup is each shard's
+masked gather, then ``ctx.tp_comm.psum``; the head gives each shard's
+logits ``(tp, ..., V/tp)``; the candidates are each shard's stable top
+``k`` with global indices, merged by ``ctx.tp_comm.top_k_merge`` (ties
+to the lowest global index), so every PE holds the same list.  The
+cross-entropy trains at tp = 1 only (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -13,12 +21,31 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel.ctx import tp_of
+
+def _ranks(ctx, like: torch.Tensor) -> torch.Tensor:
+    """(tp, 1, ..., 1) ranks broadcasting against ``like`` (tp, ...)."""
+    r = ctx.tp_rank(like.device).long()
+    return r.view((-1,) + (1,) * (like.dim() - 1))
+
 
 def embed_lookup(params: dict, ids: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype, ctx=None) -> torch.Tensor:
     """ids (b, t) -> rows (b, t, d) in ``dtype``.  Ids outside the table
-    give zero rows, as the reference's masked shard gather does."""
+    give zero rows, as the reference's masked shard gather does.  At
+    tp > 1 the table is ``(tp, V/tp, d)``: each shard gathers the ids in
+    its range, and the psum over the PE axis gives every PE the rows,
+    ``(tp, b, t, d)``."""
     table = params["table"]
+    if tp_of(ctx) > 1:
+        tp, vloc, d = table.shape
+        loc = ids.long()[None] - _ranks(ctx, ids[None]) * vloc
+        ok = (loc >= 0) & (loc < vloc)
+        flat = loc.clamp(0, vloc - 1) + _ranks(ctx, loc) * vloc
+        rows = table.reshape(tp * vloc, d)[flat]
+        rows = torch.where(ok[..., None], rows,
+                           torch.zeros_like(rows)).to(dtype)
+        return ctx.tp_comm.psum(rows)
     vloc = table.shape[0]
     ids = ids.long()
     ok = (ids >= 0) & (ids < vloc)
@@ -26,8 +53,14 @@ def embed_lookup(params: dict, ids: torch.Tensor,
     return torch.where(ok[..., None], rows, torch.zeros_like(rows)).to(dtype)
 
 
-def lm_head_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """(b, d) -> (b, V) logits in ``x``'s dtype."""
+def lm_head_logits(params: dict, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """(b, d) -> (b, V) logits in ``x``'s dtype.  At tp > 1, x (tp, ...,
+    d) -> each shard's logits (tp, ..., V/tp)."""
+    if tp_of(ctx) > 1:
+        t = params["table"]
+        out = torch.bmm(x.reshape(t.shape[0], -1, t.shape[2]),
+                        t.to(x.dtype).transpose(1, 2))
+        return out.reshape(x.shape[:-1] + (t.shape[1],))
     return x @ params["table"].to(x.dtype).T
 
 
@@ -77,17 +110,28 @@ def lm_head_loss(params: dict, x: torch.Tensor, targets: torch.Tensor, ctx,
     return torch.cat(losses).mean()
 
 
-def tp_sample_candidates(logits: torch.Tensor, k: int):
+def tp_sample_candidates(logits: torch.Tensor, k: int, ctx=None):
     """Top-``k`` ``(values, indices)`` along the last axis, sorted
     descending, with equal values in ascending index order — the
     reference's contract (``jax.lax.top_k`` breaks ties toward the lower
     index).  ``torch.topk`` promises no tie order, so this is a stable
-    descending sort, cut to ``k``."""
+    descending sort, cut to ``k``.
+
+    At tp > 1, ``logits`` (tp, ..., V/tp) are the shards: phase 1 takes
+    each shard's top ``min(k, V/tp)`` with its GLOBAL index (``rank *
+    V/tp`` added), phase 2 merges the lists through
+    ``ctx.tp_comm.top_k_merge`` (lowest global index wins a tie).
+    Returns (tp, ..., k) lists, the same on every PE, values in f32."""
     kk = min(int(k), logits.shape[-1])
     vals, order = torch.sort(logits, dim=-1, descending=True, stable=True)
-    return vals[..., :kk], order[..., :kk].to(torch.int32)
+    vals, order = vals[..., :kk], order[..., :kk].to(torch.int32)
+    if tp_of(ctx) == 1:
+        return vals, order
+    gidx = order + (_ranks(ctx, order) * logits.shape[-1]).to(torch.int32)
+    return ctx.tp_comm.top_k_merge(vals, gidx, kk)
 
 
-def tp_argmax(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy token: the ``k = 1`` case, ties to the lowest index."""
-    return tp_sample_candidates(logits, 1)[1][..., 0]
+def tp_argmax(logits: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Greedy token: the ``k = 1`` case, ties to the lowest (global)
+    index."""
+    return tp_sample_candidates(logits, 1, ctx)[1][..., 0]

@@ -175,9 +175,10 @@ def loss_fn(params: dict, batch: dict, ctx, cfg,
     return lm_head_loss(head, x, targets, ctx)
 
 
-def _decode_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _decode_mlp(p: dict, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
     """Single-token MLP or MoE: x (b, d) -> (b, d); the MoE routes the b
-    slots together, as one window of b tokens."""
+    slots together, as one window of b tokens.  At tp > 1 x is (tp, b,
+    d) and the dense MLP ends in its psum."""
     if cfg.moe:
-        return moe_apply(p, x[:, None], cfg)[:, 0]
-    return mlp_apply(p, x, cfg)
+        return moe_apply(p, x[:, None], cfg, ctx)[:, 0]
+    return mlp_apply(p, x, cfg, ctx)

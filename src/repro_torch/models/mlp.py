@@ -1,8 +1,15 @@
-"""Feed-forward layers at tensor-parallel size 1 — the counterparts of
-``repro.models.mlp``: the dense MLP (``mlp_apply``: the GLU forms
-swiglu and geglu, the plain activations relu2 and gelu) and the MoE
-layer (``moe_apply``: top-k routing with the reference's capacity
-drops, the expert products over every expert, a fused shared expert).
+"""Feed-forward layers — the counterparts of ``repro.models.mlp``: the
+dense MLP (``mlp_apply``: the GLU forms swiglu and geglu, the plain
+activations relu2 and gelu) and the MoE layer (``moe_apply``: top-k
+routing with the reference's capacity drops, the expert products over
+every expert, a fused shared expert).
+
+The dense MLP also serves at tp > 1, Megatron column -> row parallel
+with the weights stacked on the PE axis (``weights.shard_for_tp``):
+``wu``/``wg`` split by columns, ``wd`` by rows, and the closing
+``ctx.tp_comm.psum`` (the reference's ``sp_scatter`` with sequence
+parallelism off).  MoE at tp > 1 — expert parallelism, the
+``alltoall`` dispatch — is ROADMAP A7's remainder and raises.
 
 At tp = 1 the reference's MoE takes its ``_moe_einsum`` branch with one
 rank owning every expert: the router runs on all tokens, each
@@ -18,6 +25,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.ctx import tp_of
+
+from .attention import tp_mm
 from .common import act_fn
 
 
@@ -31,10 +41,17 @@ def _glu_act(act: str):
     return act_fn("silu" if act == "swiglu" else "gelu")
 
 
-def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
     """x (..., d) in the compute dtype -> (..., d): ``(act(x @ wg) *
     (x @ wu)) @ wd`` for a GLU, ``act(x @ wu) @ wd`` otherwise.  geglu's
-    gelu is the tanh approximation, as ``jax.nn.gelu``'s default."""
+    gelu is the tanh approximation, as ``jax.nn.gelu``'s default.  At
+    tp > 1, x (tp, ..., d) -> the psum of the ranks' partial outputs,
+    (tp, ..., d)."""
+    if tp_of(ctx) > 1:
+        u = tp_mm(x, p["wu"])
+        h = (_glu_act(cfg.act)(tp_mm(x, p["wg"])) * u if is_glu(cfg.act)
+             else act_fn(cfg.act)(u))
+        return ctx.tp_comm.psum(tp_mm(h, p["wd"]))
     u = x @ p["wu"].to(x.dtype)
     if is_glu(cfg.act):
         h = _glu_act(cfg.act)(x @ p["wg"].to(x.dtype)) * u
@@ -100,16 +117,20 @@ def expert_ffn(wu, wg, wd, xb: torch.Tensor, act: str) -> torch.Tensor:
     return torch.bmm(g * u, wd.to(cd))
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def moe_apply(p: dict, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
     """x (b, t, d) in the compute dtype -> (b, t, d): the reference's
     ``moe_apply`` at tp = 1, where it takes the ``_moe_einsum`` branch
     whatever its ``moe_dispatch`` (the all-to-all dispatch exchanges
-    tokens between tensor-parallel ranks and arrives with TP serving,
-    ROADMAP A7).  Capacity ``int(n k cf / E) + 1`` slots per expert for
-    n = b t tokens; pairs past it are dropped (they add zeros at the
+    tokens between tensor-parallel ranks: A7's remainder).  Capacity
+    ``int(n k cf / E) + 1`` slots per expert for n = b t tokens; pairs past it are dropped (they add zeros at the
     last slot and gather nothing); the kept outputs are weighted by the
     gates in the compute dtype and summed over the k choices; the shared
-    expert, if any, is added last."""
+    expert, if any, is added last.  A ctx at tp > 1 raises: expert
+    parallelism is A7's remainder."""
+    if tp_of(ctx) > 1:
+        raise NotImplementedError(
+            f"MoE at tp={ctx.tp_size}: expert parallelism and the alltoall "
+            f"dispatch are ROADMAP A7's remainder; MoE serves at tp = 1")
     m = cfg.moe
     cd = x.dtype
     ep = m.experts_padded(1)

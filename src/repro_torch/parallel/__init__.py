@@ -1,4 +1,5 @@
-"""How a step is distributed (``ParallelCtx``) — one card in this slice."""
-from .ctx import ParallelCtx
+"""How a step is distributed (``ParallelCtx``): data-parallel size 1,
+tensor parallelism on the stacked team."""
+from .ctx import ParallelCtx, tp_of
 
-__all__ = ["ParallelCtx"]
+__all__ = ["ParallelCtx", "tp_of"]

@@ -1,13 +1,19 @@
-"""ParallelCtx — the static description of how a training step runs.
+"""ParallelCtx — the static description of how a step is distributed.
 
-The counterpart of ``repro.parallel.ctx.ParallelCtx`` at data- and
-tensor-parallel size 1, the sizes at which the reference's
-communicators are identities: the loss display
-``dp_comm.pmean(tp_comm.psum(x))`` is ``x``, sequence-parallel gathers
-and scatters are no-ops, and gradients need no combine.  Sizes above 1
-raise ``NotImplementedError``: multi-process data parallelism, the
-bucketed/compressed reductions and tensor parallelism arrive with
-ROADMAP A5, A6 and A7.
+The counterpart of ``repro.parallel.ctx.ParallelCtx``.  Data-parallel
+size 1 only: multi-PE data parallelism and its reductions arrive with
+ROADMAP A5/A6, and ``dp_size > 1`` raises ``NotImplementedError``.
+
+Tensor parallelism serves on the stacked team (ROADMAP A7): every PE of
+the TP group lives on one tensor's leading axis, and ``tp_comm`` — built
+in ``__post_init__`` from ``tp_size``, ``backend`` and ``dispatch``, as
+the reference builds it — reduces over that axis.  The layers take
+activations ``(tp, ...)`` and weights stacked once ``(tp, ...)``
+(``weights.shard_for_tp``) and call ``ctx.tp_comm.psum`` /
+``top_k_merge`` where the reference does.  At ``tp_size == 1`` the
+communicator is the identity and the layers take unstacked tensors,
+as before; ``tp_of`` is the one test of which layout a layer takes.
+The trainer runs at tp = 1 only (tp > 1: ROADMAP A10).
 
 ``attn_impl`` takes the place of the reference's ``use_pallas`` (which
 the reference declares and never reads): ``"kernel"`` runs the flash
@@ -17,14 +23,26 @@ PyTorch version — the serving engine's switch of the same name.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+from repro_torch.comm import Communicator, DispatchTable, make_communicator
+
+
+def tp_of(ctx) -> int:
+    """The TP size a layer runs at (1 without a ctx): above 1 it takes
+    the stacked ``(tp, ...)`` layout, at 1 unstacked tensors."""
+    return 1 if ctx is None else ctx.tp_size
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     dp_size: int = 1
     tp_size: int = 1
+    backend: str = "xla"                # "xla" | "posh" | "pallas"
+    dispatch: DispatchTable = DispatchTable()
+    tp_comm: Optional[Communicator] = None   # built from the fields above
     remat: bool = True                  # per-layer activation checkpoint
     attn_impl: str = "kernel"           # | "ref" (counterpart of use_pallas)
     ce_mode: str = "vocab_parallel"     # | "gathered" (naive full logits)
@@ -35,15 +53,26 @@ class ParallelCtx:
     ce_chunk: int = 4096
 
     def __post_init__(self):
-        if self.dp_size != 1 or self.tp_size != 1:
+        if self.dp_size != 1:
             raise NotImplementedError(
-                f"repro_torch trains on one card (dp = tp = 1), got "
-                f"dp={self.dp_size}, tp={self.tp_size}: data parallelism "
-                f"and its reductions arrive with ROADMAP A5/A6, tensor "
-                f"parallelism with A7")
+                f"repro_torch runs at dp = 1, got dp={self.dp_size}: data "
+                f"parallelism and its reductions arrive with ROADMAP A5/A6")
+        if self.tp_size < 1:
+            raise ValueError(f"tp_size must be >= 1, got {self.tp_size}")
         if self.attn_impl not in ("kernel", "ref"):
             raise ValueError(f"attn_impl must be 'kernel' or 'ref', got "
                              f"{self.attn_impl!r}")
         if self.ce_mode not in ("vocab_parallel", "gathered"):
             raise ValueError(f"ce_mode must be 'vocab_parallel' or "
                              f"'gathered', got {self.ce_mode!r}")
+        if self.tp_comm is None:
+            object.__setattr__(self, "tp_comm", make_communicator(
+                "model", size=self.tp_size, backend=self.backend,
+                dispatch=self.dispatch, name=f"tp:{self.backend}"))
+        elif self.tp_comm.size != self.tp_size:
+            raise ValueError(f"tp_comm spans {self.tp_comm.size} PEs, "
+                             f"tp_size is {self.tp_size}")
+
+    def tp_rank(self, device=None) -> torch.Tensor:
+        """Every TP PE's rank, along the stacked PE axis."""
+        return self.tp_comm.rank(device)

@@ -14,8 +14,10 @@ by put-with-signal (``serve.disagg``), the lock-free page pool
 from .amo_router import AmoCellRouter
 from .disagg import (CellRouter, CellSpec, DisaggEngine, HandoffTicket,
                      make_cells)
-from .engine import (LocalExec, ServeConfig, ServeEngine, make_decode_step,
-                     make_prefill, make_verify, slo_summary)
+from .engine import (LocalExec, ServeConfig, ServeEngine, StackedExec,
+                     make_kv_cache,
+                     make_decode_step, make_prefill, make_verify,
+                     slo_summary)
 from .kv_cache import NULL_PAGE, PagedKVCache, PageMigration
 from .page_pool import SymmetricPagePool
 from .sampling import (GREEDY, SamplingParams, batch_state,
@@ -28,7 +30,7 @@ from .spec import (DraftModelProposer, FixedProposer, NgramProposer,
 from .traffic import TrafficConfig, make_requests
 
 __all__ = [
-    "ServeConfig", "ServeEngine", "LocalExec",
+    "ServeConfig", "ServeEngine", "LocalExec", "StackedExec", "make_kv_cache",
     "DisaggEngine", "CellRouter", "AmoCellRouter", "CellSpec",
     "HandoffTicket", "make_cells", "SymmetricPagePool",
     "make_decode_step", "make_prefill", "make_verify", "slo_summary",

@@ -55,8 +55,12 @@ generation between topology ticks, and on the flip tick every cell's
 steps: the cells keep sharing one weights dict, and none keeps the old
 tensors.
 
-Not ported (raises ``NotImplementedError``): tensor-parallel cells,
-``pes_per_cell > 1`` (A7).
+Tensor-parallel cells (``ctx.tp_size > 1``: each cell one TP group, the
+reference's ``make_cells(..., pes_per_cell=TP)``): every cell's engine
+gets a one-replica ``engine.StackedExec``, all of them over ONE stacked
+weights dict (stacked here once, never per cell), and the mailbox
+carries each page as its TP shards, ``(TP, *page_row)`` a row.  There
+is still one ``signal_wait_until`` per ticket and no quiet.
 """
 from __future__ import annotations
 
@@ -72,11 +76,13 @@ from repro_torch.core.heap import SymmetricHeap
 from repro_torch.core.ordering import CommQueue, InPlaceTransport
 from repro_torch.core.signals import CMP_EQ, SignalPad
 from repro_torch.core.teams import ActiveSet
+from repro_torch.parallel import ParallelCtx
+from repro_torch.weights import shard_for_tp
 
 from repro_torch.ckpt.hotswap import WeightStreamer
 
-from .engine import (ServeConfig, ServeEngine, add_swap_stats,
-                     reset_swap_stats, slo_summary)
+from .engine import (ServeConfig, ServeEngine, _check_supported,
+                     add_swap_stats, reset_swap_stats, slo_summary)
 from .scheduler import Request
 
 
@@ -174,28 +180,29 @@ class DisaggEngine:
     remap); the consumer drains with ONE ``signal_wait_until`` per
     ticket, copies the landed rows into its pool, and acknowledges, so
     the producer frees its source pages.  ``device=None`` is the GPU
-    (tests pass ``device="cpu"``)."""
+    (tests pass ``device="cpu"``).  ``ctx`` (default: tp = 1) sets the
+    cells' TP size: a cell is one TP group of ``ctx.tp_size`` PEs."""
 
-    def __init__(self, params, cfg, scfg: ServeConfig, *, device=None,
-                 n_prefill: int = 1, n_decode: int = 1,
-                 pes_per_cell: int = 1,
+    def __init__(self, params, cfg, scfg: ServeConfig, *, ctx=None,
+                 device=None, n_prefill: int = 1, n_decode: int = 1,
                  delivery_seed: Optional[int] = 0,
                  router: str = "host"):
         if router not in ("host", "amo"):
             raise ValueError(f"router must be 'host' or 'amo', "
                              f"got {router!r}")
-        if pes_per_cell != 1:
-            raise NotImplementedError(
-                f"pes_per_cell={pes_per_cell}: a tensor-parallel cell "
-                f"arrives with TP serving (A7); cells are one PE each")
+        self.cfg = cfg
+        self.ctx = ParallelCtx() if ctx is None else ctx
+        _check_supported(cfg, self.ctx)
         self.scfg = scfg
         self.router_mode = router
-        self.cells = make_cells(n_prefill, n_decode, pes_per_cell)
+        self.cells = make_cells(n_prefill, n_decode, self.ctx.tp_size)
         n_cells = len(self.cells)
-        # one weights dict for every cell: shared, never copied
+        # one weights dict for every cell: shared, never copied (stacked
+        # for TP once, here)
+        params = shard_for_tp(params, cfg, self.ctx.tp_size)
         self.engines = [
-            ServeEngine(params, cfg, scfg, device=device, role=c.role,
-                        my_pe=c.pes[0])
+            ServeEngine(params, cfg, scfg, ctx=self.ctx, device=device,
+                        role=c.role, my_pe=c.pes[0])
             for c in self.cells
         ]
         self.device = self.engines[0].device
@@ -298,7 +305,7 @@ class DisaggEngine:
         st = self._swap
         if not st.step():
             return
-        params = st.result()
+        params = shard_for_tp(st.result(), self.cfg, self.ctx.tp_size)
         for e in self.engines:           # same tick, every cell
             e.exec.set_params(params)
         self._swap = None
@@ -430,7 +437,7 @@ class DisaggEngine:
             inbox.popleft()
             mail = st["kv_mail"][cell - len(self.router.prefill)]
             dst.pool = dst.exec.write_pages(
-                dst.pool, t.dst_pages, dst.exec.read_pages(mail, t.dst_pages))
+                dst.pool, t.dst_pages, [mail[p:p + 1] for p in t.dst_pages])
             dst.adopt_request(t.req, dst.kv.tables.pop(t.req.rid), now)
             # ack: the producer's copy served its purpose
             self.engines[t.src_cell].kv.release_pages(t.src_pages)

@@ -1,7 +1,8 @@
 """Continuous-batching inference engine over the paged symmetric-heap
-KV cache — the counterpart of ``repro.serve.engine`` for single-device
-serving of a dense or MoE decoder, colocated or as one cell of a
-disaggregated topology (``serve.disagg``).
+KV cache — the counterpart of ``repro.serve.engine`` for serving a
+dense or MoE decoder, colocated or as one cell of a disaggregated
+topology (``serve.disagg``), on one PE or tensor-parallel on the stacked
+team (a dense decoder; ``ctx.tp_size > 1``).
 
 Two layers, as in the reference:
 
@@ -33,6 +34,16 @@ Two layers, as in the reference:
     parks it on ``handoff_ready``; a ``role="decode"`` engine receives
     sequences through ``adopt_request``.
 
+Tensor parallelism (``ParallelCtx(tp_size=T)``): the step functions
+take ``ctx`` and add ``ctx.tp_comm.psum`` after ``wo`` and after the MLP
+(and the embedding's), as the reference's, in the compute dtype; the
+weights are stacked once
+``(T, ...)`` (``weights.shard_for_tp``); activations carry the PE axis
+first; the sampler merges the vocab shards' candidates with
+``top_k_merge``.  ``StackedExec`` is the substrate: R replicas x T PEs
+on the leading axes of one pool, ONE paged-kernel launch a layer for
+all of them.
+
 The pool is updated IN PLACE: page writes are ``index_put_`` on the
 per-layer view of the pool tensor, where the reference does a
 functional ``.at[].set`` and threads the new pool through ``scan``.
@@ -45,13 +56,14 @@ and routes their K/V writes to the null page.
 
 Weight hot-swap (``begin_hot_swap``): a ``ckpt.hotswap.WeightStreamer``
 advances one put-with-signal batch at the head of each tick and, on
-the flip tick, ``LocalExec.set_params`` swaps in the reassembled
-weights before the tick's forwards; ``run`` drains an in-flight swap
+the flip tick, the exec's ``set_params`` swaps in the reassembled
+weights before the tick's forwards (``StackedExec`` stacks them for
+TP); ``run`` drains an in-flight swap
 once the trace is served, and ``metrics()["swap"]`` carries its
 accounting.
 
 Not ported yet (raises ``NotImplementedError``): the sliding window
-over the paged cache.
+over the paged cache; MoE at tp > 1 (ROADMAP A7's remainder).
 """
 from __future__ import annotations
 
@@ -65,6 +77,7 @@ import torch
 from repro_torch.ckpt.hotswap import WeightStreamer
 from repro_torch.core.heap import SymmetricHeap
 from repro_torch.core.ordering import CommQueue, InPlaceTransport
+from repro_torch.core.teams import Team
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -72,6 +85,8 @@ from repro_torch.models import embed as emb
 from repro_torch.models import lm
 from repro_torch.models import mlp as ff
 from repro_torch.models.common import rmsnorm
+from repro_torch.parallel import ParallelCtx, tp_of
+from repro_torch.weights import shard_for_tp
 
 from . import sampling
 from .kv_cache import NULL_PAGE, PagedKVCache
@@ -111,10 +126,19 @@ class ServeConfig:
         return -(-self.max_seq // self.page_tokens)
 
 
-def _check_supported(cfg) -> None:
+def _check_supported(cfg, ctx=None) -> None:
+    tp = tp_of(ctx)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"repro_torch.serve drives dense/moe decoders; got {cfg.family}")
+    if cfg.attn_layout(tp) != "head":
+        raise NotImplementedError(
+            "repro_torch.serve requires the head-parallel attention layout "
+            f"({cfg.n_heads} heads, tp={tp})")
+    if cfg.moe and tp > 1:
+        raise NotImplementedError(
+            f"MoE serving at tp={tp}: expert parallelism and the alltoall "
+            f"dispatch are ROADMAP A7's remainder; MoE serves at tp = 1")
     if cfg.swa_window is not None:
         raise NotImplementedError("sliding-window + paged cache: not yet")
 
@@ -125,81 +149,158 @@ def _check_supported(cfg) -> None:
 def _write_pages(pool, li, k, v, page, slot):
     """Write K/V rows into layer ``li`` of the pool, in place:
     ``pool[page, 0|1, li, slot] = k|v``.  ``page``/``slot`` index tensors
-    of any shape S, k/v of shape S + (kvh, dh).  Inactive slots carry
-    the null page, so their rows land in page 0."""
+    broadcasting to a shape S, k/v of shape S + (kvh, dh).  Inactive
+    slots carry the null page, so their rows land in page 0."""
     idx = (page.long(), slot.long())
     pool[:, 0, li].index_put_(idx, k.to(pool.dtype))
     pool[:, 1, li].index_put_(idx, v.to(pool.dtype))
 
 
-def _make_decode_forward(cfg, scfg: ServeConfig):
+# At tp > 1 the step functions take the stacked pool ``(R, TP, n_pages,
+# *page_row)`` (R serving replicas, each a TP group) and host arrays of
+# N = R * B rows, replica-major, and activations carry the PE axis
+# first: ``(TP, N, ...)``.  The helpers below give the paged kernels ONE
+# launch per layer for every PE and replica: the pool's (R, TP, n_pages)
+# axes merge into one page axis (a view), the block tables get each
+# PE's page offset, and q folds to (TP * N, ...).  At tp = 1 they are
+# identities.
+def make_kv_cache(cfg, scfg: ServeConfig, ctx=None) -> PagedKVCache:
+    """The page geometry one PE holds for ``cfg`` under ``scfg`` at the
+    ctx's TP size: its share of the KV heads, ``kv_per_rank(tp)``."""
+    tp = tp_of(ctx)
+    return PagedKVCache(
+        SymmetricHeap(("model",) if tp > 1 else ("data",)),
+        n_layers=cfg.n_layers, kv_heads=cfg.kv_per_rank(tp),
+        head_dim=cfg.head_dim, n_pages=scfg.n_pages,
+        page_tokens=scfg.page_tokens, dtype=scfg.dtype)
+
+
+def pe_pool(shape, ctx, *, dtype, device, replicas: int = 1):
+    """A zero pool of one PE's ``shape`` for every PE of the layout: as
+    it is at tp = 1, ``(replicas, TP, *shape)`` at tp > 1."""
+    lead = (replicas, ctx.tp_size) if tp_of(ctx) > 1 else ()
+    if not lead and replicas != 1:
+        raise ValueError(f"{replicas} replicas need the stacked layout")
+    return torch.zeros(lead + tuple(shape), dtype=dtype, device=device)
+
+
+def _pages_view(pool, ctx):
+    """The page axis the kernels index, as a view of the pool."""
+    return pool if tp_of(ctx) == 1 else pool.flatten(0, 2)
+
+
+def _pe_pages(pages, pool, ctx):
+    """Host page ids (N, ...) -> the kernels' ids, (TP, N, ...) at tp > 1:
+    PE (replica r, rank t) adds ``(r * TP + t) * n_pages``, so each PE's
+    page 0 stays its own null page."""
+    if tp_of(ctx) == 1:
+        return pages
+    reps, tp, n_pages = pool.shape[:3]
+    ar = lambda n: torch.arange(n, dtype=pages.dtype,     # noqa: E731
+                                device=pages.device)
+    r = ar(reps).repeat_interleave(pages.shape[0] // reps)
+    off = (r[None] * tp + ar(tp)[:, None]) * n_pages        # (TP, N)
+    return pages[None] + off.view(off.shape + (1,) * (pages.dim() - 1))
+
+
+def _fold(x, ctx):
+    """(TP, N, ...) -> (TP * N, ...), contiguous (the kernels' rows)."""
+    return x if tp_of(ctx) == 1 else x.flatten(0, 1).contiguous()
+
+
+def _unfold(x, ctx):
+    return x if tp_of(ctx) == 1 else x.unflatten(0, (ctx.tp_size, -1))
+
+
+def _rep(v, ctx):
+    """A per-row vector (N,) for every PE's rows, (TP * N,)."""
+    return v if tp_of(ctx) == 1 else v.repeat(ctx.tp_size)
+
+
+def _psum(x, ctx):
+    return x if tp_of(ctx) == 1 else ctx.tp_comm.psum(x)
+
+
+def _make_decode_forward(cfg, scfg: ServeConfig, ctx=None):
     """The decode trunk: (params, pool, tokens, pos, bt, lens) -> (x,
     pool), ``x`` (b, d_model) the final-norm hidden state of each slot's
-    token.
+    token ((TP, N, d_model) at tp > 1).
 
     tokens (b,) input token per slot; pos (b,) its position; bt
     (b, table_slots) int32 block tables; lens (b,) int32 valid tokens
     AFTER this write (pos+1 for live slots, 0 for empty ones)."""
-    _check_supported(cfg)
+    _check_supported(cfg, ctx)
     P = scfg.page_tokens
     cd = scfg.dtype
 
     def forward(params, pool, tokens, pos, bt, lens):
-        x = emb.embed_lookup(params["embed"], tokens[:, None], cd)[:, 0]
-        b = x.shape[0]
+        x = emb.embed_lookup(params["embed"], tokens[:, None], cd,
+                             ctx)[..., 0, :]
         page = bt.gather(1, (pos // P)[:, None].long())[:, 0]
         slot = pos % P
+        kv = _pages_view(pool, ctx)
+        wpage = _pe_pages(page, pool, ctx)
+        bt_k = _fold(_pe_pages(bt, pool, ctx), ctx)
+        lens_k = _rep(lens, ctx)
         for li in range(cfg.n_layers):
             p = lm.layer(params["blocks"], li)
             h = rmsnorm(p["ln1"]["scale"], x).to(cd)
-            q, k, v = attn.project_qkv(p["attn"], h[:, None], pos[:, None],
-                                       cfg)
-            _write_pages(pool, li, k[:, 0], v[:, 0], page, slot)
-            o = ops.paged_attention(q[:, 0], pool[:, 0, li], pool[:, 1, li],
-                                    bt, lens, impl=scfg.attn_impl)
-            x = x + o.reshape(b, -1).to(cd) @ p["attn"]["wo"].to(cd)
+            q, k, v = attn.project_qkv(p["attn"], h[..., None, :],
+                                       pos[:, None], cfg, ctx)
+            _write_pages(kv, li, k[..., 0, :, :], v[..., 0, :, :], wpage,
+                         slot)
+            o = ops.paged_attention(_fold(q[..., 0, :, :], ctx), kv[:, 0, li],
+                                    kv[:, 1, li], bt_k, lens_k,
+                                    impl=scfg.attn_impl)
+            x = x + _psum(attn.out_proj(_unfold(o, ctx).to(cd),
+                                        p["attn"]["wo"], ctx), ctx)
             x = x + lm._decode_mlp(p["mlp"], rmsnorm(p["ln2"]["scale"], x),
-                                   cfg)
+                                   cfg, ctx)
         return rmsnorm(params["ln_f"]["scale"], x), pool
 
     return forward
 
 
-def make_decode_step(cfg, scfg: ServeConfig):
+def _head(params, cfg):
+    return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def make_decode_step(cfg, scfg: ServeConfig, *, ctx=None):
     """One decode tick: (params, pool, tokens, pos, bt, lens, samp) ->
     (next_tokens, pool): the decode trunk, then the sampler (``samp``
-    the ``sampling.batch_state`` arrays)."""
-    forward = _make_decode_forward(cfg, scfg)
+    the ``sampling.batch_state`` arrays).  ``ctx`` (default: tp = 1)
+    gives the tensor-parallel layout described above."""
+    forward = _make_decode_forward(cfg, scfg, ctx)
     cd = scfg.dtype
 
     def step(params, pool, tokens, pos, bt, lens, samp):
         x, pool = forward(params, pool, tokens, pos, bt, lens)
-        head = params["embed"] if cfg.tie_embeddings else params["head"]
-        logits = emb.lm_head_logits(head, x.to(cd))
+        logits = emb.lm_head_logits(_head(params, cfg), x.to(cd), ctx)
         nxt = sampling.sample_tokens(logits, samp, pos + 1,
-                                     n_candidates=scfg.sample_candidates)
+                                     n_candidates=scfg.sample_candidates,
+                                     ctx=ctx)
         return nxt.to(torch.int32), pool
 
     return step
 
 
-def _make_window_forward(cfg, scfg: ServeConfig):
+def _make_window_forward(cfg, scfg: ServeConfig, ctx=None):
     """The chunk-window trunk: (params, pool, ids, start, n_tok, bt) ->
     (x, pool), ``x`` the final-norm hidden state at every window
-    position.
+    position ((TP, N, C, d_model) at tp > 1).
 
     ids (b, C) a right-padded token window per sequence; start (b,) the
     absolute position of ids[:, 0]; n_tok (b,) valid tokens in the
     window (0 = inactive slot).  Writes every valid position's K/V into
     the pages and attends each position against the pages written so
     far (position j sees ``start + j + 1`` tokens)."""
-    _check_supported(cfg)
+    _check_supported(cfg, ctx)
     P = scfg.page_tokens
     cd = scfg.dtype
 
     def window(params, pool, ids, start, n_tok, bt):
-        x = emb.embed_lookup(params["embed"], ids, cd)
-        b, t = ids.shape
+        x = emb.embed_lookup(params["embed"], ids, cd, ctx)
+        t = ids.shape[1]
         ar = torch.arange(t, dtype=torch.int32, device=ids.device)
         pos = start[:, None] + ar[None]                       # (b, t)
         valid = ar[None] < n_tok[:, None]
@@ -209,47 +310,52 @@ def _make_window_forward(cfg, scfg: ServeConfig):
         page = bt.gather(1, sidx.long())
         page = torch.where(valid, page, torch.full_like(page, NULL_PAGE))
         slot = pos % P
+        kv = _pages_view(pool, ctx)
+        wpage = _pe_pages(page, pool, ctx)
+        bt_k = _fold(_pe_pages(bt, pool, ctx), ctx)
+        start_k, n_tok_k = _rep(start, ctx), _rep(n_tok, ctx)
         for li in range(cfg.n_layers):
             p = lm.layer(params["blocks"], li)
             h = rmsnorm(p["ln1"]["scale"], x).to(cd)
-            q, k, v = attn.project_qkv(p["attn"], h, pos, cfg)
-            _write_pages(pool, li, k, v, page, slot)
+            q, k, v = attn.project_qkv(p["attn"], h, pos, cfg, ctx)
+            _write_pages(kv, li, k, v, wpage, slot)
             # whole-window paged attention in one call: the window's K/V
             # were just written above
-            o = ops.paged_prefill_attention(q, pool[:, 0, li],
-                                            pool[:, 1, li], bt, start, n_tok,
-                                            impl=scfg.attn_impl)
-            x = x + o.reshape(b, t, -1).to(cd) @ p["attn"]["wo"].to(cd)
+            o = ops.paged_prefill_attention(_fold(q, ctx), kv[:, 0, li],
+                                            kv[:, 1, li], bt_k, start_k,
+                                            n_tok_k, impl=scfg.attn_impl)
+            x = x + _psum(attn.out_proj(_unfold(o, ctx).to(cd),
+                                        p["attn"]["wo"], ctx), ctx)
             x = x + (ff.moe_apply if cfg.moe else ff.mlp_apply)(
-                p["mlp"], rmsnorm(p["ln2"]["scale"], x), cfg)
+                p["mlp"], rmsnorm(p["ln2"]["scale"], x), cfg, ctx)
         return rmsnorm(params["ln_f"]["scale"], x), pool
 
     return window
 
 
-def make_prefill(cfg, scfg: ServeConfig):
+def make_prefill(cfg, scfg: ServeConfig, *, ctx=None):
     """Chunked prefill: (params, pool, ids, start, n_tok, bt, samp) ->
     (next_tokens, pool): the window trunk, then the token sampled after
     position ``start + n_tok - 1`` with RNG counter ``start + n_tok`` —
     meaningful only for slots whose chunk completes the prompt."""
-    window = _make_window_forward(cfg, scfg)
+    window = _make_window_forward(cfg, scfg, ctx)
     cd = scfg.dtype
 
     def prefill(params, pool, ids, start, n_tok, bt, samp):
         x, pool = window(params, pool, ids, start, n_tok, bt)
         b, t = ids.shape
         last = (n_tok - 1).clamp(0, t - 1).long()
-        xl = x[torch.arange(b, device=x.device), last]
-        head = params["embed"] if cfg.tie_embeddings else params["head"]
-        logits = emb.lm_head_logits(head, xl.to(cd))
+        xl = x[..., torch.arange(b, device=x.device), last, :]
+        logits = emb.lm_head_logits(_head(params, cfg), xl.to(cd), ctx)
         nxt = sampling.sample_tokens(logits, samp, start + n_tok,
-                                     n_candidates=scfg.sample_candidates)
+                                     n_candidates=scfg.sample_candidates,
+                                     ctx=ctx)
         return nxt.to(torch.int32), pool
 
     return prefill
 
 
-def make_verify(cfg, scfg: ServeConfig):
+def make_verify(cfg, scfg: ServeConfig, *, ctx=None):
     """Speculative verify: (params, pool, ids, start, n_tok, bt, samp) ->
     (target_tokens, pool), one forward over a (b, k+1) window through
     the chunked-prefill trunk, sampling at EVERY row.
@@ -261,18 +367,17 @@ def make_verify(cfg, scfg: ServeConfig):
     the non-speculative key ``(rid, start + j + 1)``: row 0 IS the
     non-speculative next token, row j what the (j+1)-th sequential step
     would give if all j fed drafts matched."""
-    window = _make_window_forward(cfg, scfg)
+    window = _make_window_forward(cfg, scfg, ctx)
     cd = scfg.dtype
 
     def verify(params, pool, ids, start, n_tok, bt, samp):
         x, pool = window(params, pool, ids, start, n_tok, bt)
         t = ids.shape[1]
-        head = params["embed"] if cfg.tie_embeddings else params["head"]
-        logits = emb.lm_head_logits(head, x.to(cd))          # (b, t, V)
+        logits = emb.lm_head_logits(_head(params, cfg), x.to(cd), ctx)
         ar = torch.arange(t, dtype=torch.int32, device=ids.device)
         pos = start[:, None] + ar[None] + 1                  # counters
         nxt = sampling.sample_window_tokens(
-            logits, samp, pos, n_candidates=scfg.sample_candidates)
+            logits, samp, pos, n_candidates=scfg.sample_candidates, ctx=ctx)
         return nxt.to(torch.int32), pool
 
     return verify
@@ -286,6 +391,8 @@ class LocalExec:
     device (host arrays go to the device per call), and a loopback
     ``CommQueue`` (1 PE) for the migration drain: the reference's
     ``put_nbi`` + one ``quiet()`` path, landing pages in place."""
+
+    n_pe = 1
 
     def __init__(self, params, cfg, scfg: ServeConfig, kv: PagedKVCache,
                  device: torch.device):
@@ -350,6 +457,107 @@ class LocalExec:
         return pool
 
 
+class StackedExec:
+    """Tensor-parallel execution on the stacked team — the counterpart of
+    the reference's ``MeshExec`` (``tests/multipe/run_serve.py``): ``R``
+    serving replicas (the mesh's "data" axis), each a TP group of
+    ``ctx.tp_size`` PEs ("model"), every PE on the leading axes of one
+    pool tensor ``(R, TP, *page_geometry)``.
+
+    Every step runs on every replica row, as ``shard_map`` does: the
+    host arrays are tiled R times (replica-major rows), so each replica
+    writes its own pool rows with the same batch and the pools equal the
+    reference's; the host reads replica ``my_pe``'s tokens (the rows
+    differ once pages migrate).  Weights are stacked once, ``(TP,
+    ...)``, through ``weights.shard_for_tp`` (already-stacked parameters
+    are kept as given, so cells can share one dict), never per replica.
+    ``migrate`` moves a page between replicas as one ``put_nbi`` per TP
+    rank over the flattened ``("data", "model")`` team and ONE
+    ``quiet()``; ``read_pages`` / ``write_pages`` expose a page as its
+    TP shards, ``(1, TP, *page_row)``, for the disaggregated handoff."""
+
+    def __init__(self, params, cfg, ctx, scfg: ServeConfig,
+                 kv: PagedKVCache, device: torch.device, *,
+                 replicas: int = 1, my_pe: int = 0):
+        if not 0 <= int(my_pe) < int(replicas):
+            raise ValueError(f"my_pe {my_pe} outside {replicas} replicas")
+        self.cfg, self.ctx, self.kv, self.device = cfg, ctx, kv, device
+        self.replicas, self.my_pe = int(replicas), int(my_pe)
+        self.tp = ctx.tp_size
+        self.n_pe = self.replicas * self.tp
+        self.set_params(params)
+        self._prefill = make_prefill(cfg, scfg, ctx=ctx)
+        self._decode = make_decode_step(cfg, scfg, ctx=ctx)
+        self._verify = make_verify(cfg, scfg, ctx=ctx)
+        self._team = Team(("data", "model"), (self.replicas, self.tp))
+
+    def _tile(self, a):
+        """A host array's rows for every replica, replica-major."""
+        if self.replicas == 1 or np.ndim(a) == 0:
+            return a
+        return np.concatenate([a] * self.replicas)
+
+    def _t(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(self._tile(a))).to(
+            self.device)
+
+    def _samp(self, samp: dict) -> dict:
+        return {k: self._tile(v) for k, v in samp.items()}
+
+    def _mine(self, toks: torch.Tensor) -> torch.Tensor:
+        return toks.unflatten(0, (self.replicas, -1))[self.my_pe]
+
+    def init_pool(self) -> torch.Tensor:
+        return pe_pool(self.kv.handle.shape, self.ctx, dtype=self.kv.dtype,
+                       device=self.device, replicas=self.replicas)
+
+    def _run(self, fn, pool, arrays, samp):
+        toks, pool = fn(self.params, pool, *map(self._t, arrays),
+                        self._samp(samp))
+        return self._mine(toks), pool
+
+    def prefill(self, pool, ids, start, n_tok, bt, samp):
+        return self._run(self._prefill, pool, (ids, start, n_tok, bt), samp)
+
+    def decode(self, pool, tokens, pos, bt, lens, samp):
+        return self._run(self._decode, pool, (tokens, pos, bt, lens), samp)
+
+    def verify(self, pool, ids, start, n_tok, bt, samp):
+        return self._run(self._verify, pool, (ids, start, n_tok, bt), samp)
+
+    def set_params(self, params) -> None:
+        """Serve ``params`` (the hot-swap flip): full parameters are
+        stacked for TP here, stacked ones kept as they are."""
+        self.params = shard_for_tp(params, self.cfg, self.tp)
+
+    def migrate(self, pool, migrations):
+        """Each planned move (``src_pe`` / ``dst_pe`` are replicas) as one
+        ``put_nbi`` per TP rank, ``(src * TP + t) -> (dst * TP + t)``,
+        over the flattened team, drained by ONE ``quiet()``; the puts land
+        in the pool in place (the queue's state is a view of it)."""
+        name = self.kv.handle.name
+        state = {name: pool.flatten(0, 1)}
+        q = CommQueue(self._team, state, transport=InPlaceTransport(self.n_pe))
+        tp = self.tp
+        self.kv.issue_migrations(
+            q, state[name], migrations,
+            pairs_of=lambda m: [(m.src_pe * tp + t, m.dst_pe * tp + t)
+                                for t in range(tp)])
+        return pool
+
+    def read_pages(self, pool, pages) -> list:
+        """Replica ``my_pe``'s pool rows ``pages`` as their TP shards, one
+        ``(1, TP, *page_row)`` view per page, no copy."""
+        return [pool[self.my_pe, :, p:p + 1].transpose(0, 1) for p in pages]
+
+    def write_pages(self, pool, pages, rows) -> torch.Tensor:
+        """Land ``(1, TP, *page_row)`` rows at replica ``my_pe``'s pool
+        rows ``pages``, in place."""
+        for p, r in zip(pages, rows):
+            pool[self.my_pe, :, p:p + 1].copy_(r.transpose(0, 1))
+        return pool
+
+
 # ======================================================================
 # the host loop
 # ======================================================================
@@ -362,15 +570,20 @@ class ServeEngine:
     proposer (``serve.spec.DraftModelProposer``); ``proposer`` overrides
     ``scfg.draft``.  ``role`` is ``"both"`` (colocated), or a
     disaggregated cell's ``"prefill"`` / ``"decode"``; ``my_pe`` is the
-    cell's PE id."""
+    cell's PE id.  ``ctx`` (default: tp = 1) with ``tp_size > 1`` serves
+    tensor-parallel on the stacked team (``StackedExec``, one replica,
+    unless ``exec_`` gives another substrate, e.g. a ``StackedExec``
+    with replicas)."""
 
-    def __init__(self, params, cfg, scfg: ServeConfig, *, device=None,
+    def __init__(self, params, cfg, scfg: ServeConfig, *, ctx=None,
+                 exec_=None, device=None,
                  kv: Optional[PagedKVCache] = None, proposer=None,
                  my_pe: int = 0, role: str = "both"):
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"unknown engine role {role!r}")
-        _check_supported(cfg)
-        self.cfg, self.scfg = cfg, scfg
+        ctx = ParallelCtx() if ctx is None else ctx
+        _check_supported(cfg, ctx)
+        self.cfg, self.ctx, self.scfg = cfg, ctx, scfg
         self.device = resolve(device)
         # disaggregated cells: a "prefill" engine stops at the first
         # token and parks the sequence on ``handoff_ready``; a "decode"
@@ -379,20 +592,19 @@ class ServeEngine:
         # sampler gives the same tokens wherever a position is computed)
         self.role = role
         self.handoff_ready: list = []
-        if kv is None:
-            kv = PagedKVCache(
-                SymmetricHeap(("data",)), n_layers=cfg.n_layers,
-                kv_heads=cfg.kv_per_rank(1), head_dim=cfg.head_dim,
-                n_pages=scfg.n_pages, page_tokens=scfg.page_tokens,
-                dtype=scfg.dtype)
-        self.kv = kv
+        self.kv = kv = make_kv_cache(cfg, scfg, ctx) if kv is None else kv
         self.slo = SLOPolicy(scfg.slo) if scfg.slo is not None else None
         self.sched = FCFSScheduler(kv, max_batch=scfg.max_batch,
                                    max_seq=scfg.max_seq, my_pe=my_pe,
                                    prefill_chunk=scfg.prefill_chunk,
                                    tick_tokens=scfg.tick_tokens,
                                    spec_k=scfg.spec_k, slo=self.slo)
-        self.exec = LocalExec(params, cfg, scfg, kv, self.device)
+        if exec_ is not None:
+            self.exec = exec_
+        elif ctx.tp_size > 1:
+            self.exec = StackedExec(params, cfg, ctx, scfg, kv, self.device)
+        else:
+            self.exec = LocalExec(params, cfg, scfg, kv, self.device)
         self.proposer = proposer
         if scfg.spec_k > 0 and proposer is None:
             from . import spec                 # engine <-> spec cycle
@@ -434,13 +646,16 @@ class ServeEngine:
         each later tick advances the stream by one put-with-signal batch
         of ``chunk_rows`` rows of ``row_bytes`` bytes, and the generation
         flips at a tick boundary once everything has landed — serving
-        never pauses and the swap queue pays no global drain.  One card
-        is one PE."""
+        never pauses and the swap queue pays no global drain.  The stream
+        spans the exec's PEs (replicas x TP; one at tp = 1), as the
+        reference's spans dp x tp; ``new_params`` are full parameters
+        (a TP exec stacks them at the flip)."""
         if self._swap is not None:
             raise RuntimeError("a weight hot-swap is already in flight")
         self.swap_stats["generation"] += 1
         self._swap = WeightStreamer(
-            new_params, generation=self.swap_stats["generation"],
+            new_params, n_pe=self.exec.n_pe,
+            generation=self.swap_stats["generation"],
             chunk_rows=chunk_rows, row_bytes=row_bytes, device=self.device)
 
     def swap_in_flight(self) -> bool:

@@ -4,7 +4,10 @@ The counterpart of ``repro.serve.kv_cache.PagedKVCache``.  The page
 pool is ONE symmetric allocation: a ``(n_pages, 2, n_layers,
 page_tokens, kv_heads, head_dim)`` tensor carved from
 ``SymmetricHeap``, so a *block table* — a plain array of page ids — is
-valid on every PE (Fact 1: the page id is the remote address).
+valid on every PE (Fact 1: the page id is the remote address).  At
+tensor-parallel size > 1, ``kv_heads`` is each PE's share and the
+serving exec stacks one such pool per PE (``engine.StackedExec``),
+each with its own null page.
 
 Page 0 is the *null page*: block tables are padded with it, and writes
 for masked-out batch slots land there.  Real allocations hand out ids
@@ -279,15 +282,25 @@ class PagedKVCache:
         return None
 
     def issue_migrations(self, queue, pool: torch.Tensor,
-                         migrations: Sequence[PageMigration]):
+                         migrations: Sequence[PageMigration], *,
+                         pairs_of=None):
         """Issue every planned page move as a nonblocking one-sided put
         and drain with ONE ``quiet()``: however many pages move, the
         tick pays one completion barrier.  ``pool`` is the stacked
         ``(n_pe, n_pages, ...)`` state the payload rows are sliced from;
-        returns the drained heap state."""
+        returns the drained heap state.  ``pairs_of`` maps a migration to
+        its (src, dst) PE pairs — a tensor-parallel cell moves each TP
+        rank's page shard to its counterpart — and then each pair is its
+        own put carrying its source PE's row alone."""
         for m in migrations:
-            queue.put_nbi(self.handle, pool[:, m.src_page:m.src_page + 1],
-                          [(m.src_pe, m.dst_pe)], offset=m.dst_page)
+            rows = slice(m.src_page, m.src_page + 1)
+            if pairs_of is None:
+                queue.put_nbi(self.handle, pool[:, rows],
+                              [(m.src_pe, m.dst_pe)], offset=m.dst_page)
+                continue
+            for s, d in pairs_of(m):
+                queue.put_nbi(self.handle, pool[s:s + 1, rows], [(s, d)],
+                              offset=m.dst_page)
         self.stats["migrations"] += len(migrations)
         return queue.quiet()
 

@@ -1,8 +1,10 @@
 """Per-request batched sampling for the serving engine.
 
-The counterpart of ``repro.serve.sampling`` at tensor-parallel size 1:
-candidate selection is the vocab's top-k with ties to the lowest index
-(``models.embed.tp_sample_candidates``), and the draw is a counter-based
+The counterpart of ``repro.serve.sampling``, two-phase: candidate
+selection is the vocab's top-k with ties to the lowest index
+(``models.embed.tp_sample_candidates``; at tp > 1 each vocab shard's
+top-k, merged by ``ctx.tp_comm.top_k_merge``, the same list on every PE,
+so the draw reads PE 0's), and the draw is a counter-based
 stream per sequence keyed ``fold_in(fold_in(PRNGKey(seed), rid),
 position)`` — reproduced bit for bit by ``serve.threefry`` — so no RNG
 state threads through the engine and sampled token streams equal the
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.kernels.paged_attention import NEG_INF
 from repro_torch.models import embed as emb
+from repro_torch.parallel.ctx import tp_of
 
 from . import threefry
 
@@ -100,25 +103,35 @@ def sample_from_candidates(vals: torch.Tensor, idxs: torch.Tensor,
     return torch.gather(idxs, 1, choice[:, None])[:, 0]
 
 
+def _candidates(logits, n_candidates, ctx):
+    """The merged candidate lists; at tp > 1 PE 0's row of the stack
+    (every PE holds the same lists after the merge)."""
+    vals, idxs = emb.tp_sample_candidates(logits, n_candidates, ctx)
+    if tp_of(ctx) > 1:
+        return vals[0], idxs[0]
+    return vals, idxs
+
+
 def sample_tokens(logits: torch.Tensor, state: dict, pos: torch.Tensor,
-                  n_candidates: int = 8) -> torch.Tensor:
+                  n_candidates: int = 8, ctx=None) -> torch.Tensor:
     """Candidates then the per-sequence counter-RNG draw: (b, V) logits
-    -> (b,) int32 tokens."""
-    vals, idxs = emb.tp_sample_candidates(logits, n_candidates)
+    -> (b,) int32 tokens; at tp > 1 the shards' (tp, b, V/tp) logits."""
+    vals, idxs = _candidates(logits, n_candidates, ctx)
     return sample_from_candidates(vals, idxs, state, pos)
 
 
 def sample_window_tokens(logits: torch.Tensor, state: dict,
                          pos: torch.Tensor,
-                         n_candidates: int = 8) -> torch.Tensor:
+                         n_candidates: int = 8, ctx=None) -> torch.Tensor:
     """The window form of :func:`sample_tokens`, what speculative verify
     uses: one draw per (sequence, window row).  ``logits`` (b, C, V);
     ``pos`` (b, C) the absolute position of the token GENERATED at each
     row (the RNG counter).  Row ``(i, j)`` draws with the key a decode
     step at that position would use, ``fold_in(fold_in(PRNGKey(seed),
     rid), pos[i, j])``, so a verified window reproduces the sequential
-    stream wherever the fed tokens match.  Returns (b, C) tokens."""
-    vals, idxs = emb.tp_sample_candidates(logits, n_candidates)
+    stream wherever the fed tokens match.  Returns (b, C) tokens (at
+    tp > 1 from the shards' (tp, b, C, V/tp) logits)."""
+    vals, idxs = _candidates(logits, n_candidates, ctx)
     b, c, k = vals.shape
     flat = {name: np.repeat(state[name], c)
             for name in ("temperature", "top_k", "top_p", "rid")}

@@ -57,9 +57,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.parallel import tp_of
+from repro_torch.weights import shard_for_tp
 
 from . import sampling
-from .engine import ServeConfig, make_decode_step, make_prefill
+from .engine import ServeConfig, make_decode_step, make_prefill, pe_pool
 from .kv_cache import PagedKVCache
 
 
@@ -164,18 +166,22 @@ class DraftModelProposer(SpecProposer):
     construction requires matching vocabularies."""
 
     def __init__(self, params, cfg, scfg: ServeConfig, kv: PagedKVCache,
-                 *, target_vocab: int | None = None, device=None):
+                 *, target_vocab: int | None = None, device=None, ctx=None):
         if target_vocab is not None and cfg.vocab != target_vocab:
             raise ValueError(
                 f"draft model vocab {cfg.vocab} != target vocab "
                 f"{target_vocab}: draft tokens would be meaningless")
-        self.params, self.cfg, self.scfg, self.kv = params, cfg, scfg, kv
+        self.cfg, self.scfg, self.kv = cfg, scfg, kv
         self.device = resolve(device)
-        self._prefill = make_prefill(cfg, scfg)
-        self._decode = make_decode_step(cfg, scfg)
-        self.pool = torch.zeros(
+        tp = tp_of(ctx)
+        # under a TP target the draft runs on the target's ctx: its
+        # weights stacked once, its pool one replica of TP PEs
+        self.params = shard_for_tp(params, cfg, tp)
+        self._prefill = make_prefill(cfg, scfg, ctx=ctx)
+        self._decode = make_decode_step(cfg, scfg, ctx=ctx)
+        self.pool = pe_pool(
             (kv.n_pages, 2, cfg.n_layers, kv.page_tokens,
-             cfg.kv_per_rank(1), cfg.head_dim), dtype=scfg.dtype,
+             cfg.kv_per_rank(tp), cfg.head_dim), ctx, dtype=scfg.dtype,
             device=self.device)
         # drafts are the draft model's GREEDY continuations: argmax
         # needs no RNG, so drafting is deterministic by construction

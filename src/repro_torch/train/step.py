@@ -1,7 +1,8 @@
 """Train-step factory: loss -> grads (microbatches accumulated) -> global
 grad-norm clip -> AdamW, on one card.
 
-The counterpart of ``repro.train.step`` at dp = tp = 1.  The train state
+The counterpart of ``repro.train.step`` at dp = tp = 1 (a ctx at tp > 1
+raises ``NotImplementedError``: TP training is ROADMAP A10).  The train state
 is ``{"params", "opt", "step"}``; ``params`` keeps the per-layer form of
 ``repro_torch.models.lm.unstack`` (each layer's weights their own leaves
 requiring grad, views into the stacked tensors), so each layer's
@@ -36,9 +37,17 @@ def init_train_state(gen: torch.Generator, cfg, ctx, model_api,
     return train_state_from(params, ctx, opt_cfg)
 
 
+def _check_tp(ctx) -> None:
+    if ctx.tp_size != 1:
+        raise NotImplementedError(
+            f"repro_torch trains at tp = 1, got tp={ctx.tp_size}: "
+            f"tensor-parallel training arrives with ROADMAP A10")
+
+
 def train_state_from(params: dict, ctx, opt_cfg: AdamWConfig) -> dict:
     """A train state over given (stacked or per-layer) parameters; they
     are aliased, not copied."""
+    _check_tp(ctx)
     params = trainable(lm.unstack(params))
     return {"params": params, "opt": adamw_init(params, ctx, opt_cfg),
             "step": 0}
@@ -50,6 +59,7 @@ def make_train_step(cfg, ctx, model_api, opt_cfg: AdamWConfig, *,
                     clip_norm: Optional[float] = 1.0):
     """Returns ``step(state, batch) -> (state, metrics)``.  The batch's
     leading dim must divide by ``microbatches``."""
+    _check_tp(ctx)
     if bucket_bytes or compress != "none" or overlap_grad_sync:
         raise NotImplementedError(f"DP gradient bucketing, compression and "
                                   f"overlap {_A6}")

@@ -46,3 +46,80 @@ def from_jax(params_np: Mapping) -> dict:
             f"from_jax converts dense and MoE blocks; unexpected "
             f"blocks.mlp keys {sorted(unknown)}")
     return _convert(params_np)
+
+
+def _split_cols(w: torch.Tensor, tp: int) -> torch.Tensor:
+    """(..., d, n) -> (..., tp, d, n/tp): rank t's columns, contiguous."""
+    *lead, d, n = w.shape
+    return w.reshape(*lead, d, tp, n // tp).movedim(-2, -3).contiguous()
+
+
+def _split_rows(w: torch.Tensor, tp: int) -> torch.Tensor:
+    """(..., n, d) -> (..., tp, n/tp, d): rank t's rows (a view)."""
+    *lead, n, d = w.shape
+    return w.reshape(*lead, tp, n // tp, d)
+
+
+def is_tp_sharded(params: Mapping) -> bool:
+    """Whether ``params`` are already in the stacked layout of
+    ``shard_for_tp`` (the vocab table then has a PE axis)."""
+    return params["embed"]["table"].dim() == 3
+
+
+def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
+    """Full dense-LM parameters -> the stacked ``(tp, ...)`` layout.
+
+    The reference's specs: ``embed_specs`` (the vocab table split by
+    rows, ``(tp, V/tp, d)``, also the untied head); ``attn_specs`` (head
+    layout: ``wq`` by columns, ``(L, tp, d, hpr*dh)``; ``wk``/``wv`` by
+    columns when ``n_kv % tp == 0``, else replicated there — here each
+    rank gets the one KV head its query group reads, ``my_kv = (t*hpr)
+    // group``, as the reference slices it; ``wo`` by rows); ``mlp_specs``
+    (``wu``/``wg`` by columns, ``wd`` by rows).  Norm scales stay
+    replicated, one copy.  Row splits are views of the full tensors,
+    column splits copies.  Raises when the vocab, heads or d_ff do not
+    divide by ``tp``, for a MoE block, or for the ctx attention layout.
+    Parameters already stacked, or ``tp == 1``, come back as given (so
+    engines that share one dict keep sharing it)."""
+    tp = int(tp)
+    if tp == 1 or is_tp_sharded(params):
+        return params
+    if cfg.moe:
+        raise NotImplementedError(
+            "shard_for_tp: MoE expert parallelism is ROADMAP A7's remainder")
+    if cfg.n_heads % tp:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} heads do not divide by "
+                         f"tp={tp} (the head layout needs them to)")
+    for name in ("embed", "head"):
+        if name in params and params[name]["table"].shape[0] % tp:
+            raise ValueError(
+                f"{cfg.name}: the {name} table's {params[name]['table'].shape[0]}"
+                f" rows (vocab) do not divide by tp={tp}")
+    if cfg.d_ff % tp:
+        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not divide by "
+                         f"tp={tp}")
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    for name in ("embed", "head"):
+        if name in params:
+            out[name] = {"table": _split_rows(params[name]["table"], tp)}
+    blocks = params["blocks"]
+    attn = dict(blocks["attn"])
+    dh, hkv = cfg.head_dim, cfg.n_kv
+    attn["wq"] = _split_cols(attn["wq"], tp)
+    attn["wo"] = _split_rows(attn["wo"], tp)
+    for name in ("wk", "wv"):
+        w = attn[name]
+        if hkv % tp == 0:
+            attn[name] = _split_cols(w, tp)
+        else:
+            hpr, group = cfg.n_heads // tp, cfg.n_heads // hkv
+            my_kv = [(t * hpr) // group for t in range(tp)]
+            heads = w.reshape(w.shape[:-1] + (hkv, dh))[..., my_kv, :]
+            attn[name] = heads.movedim(-2, -3).contiguous()
+    mlp = dict(blocks["mlp"])
+    for name in ("wu", "wg"):
+        if name in mlp:
+            mlp[name] = _split_cols(mlp[name], tp)
+    mlp["wd"] = _split_rows(mlp["wd"], tp)
+    out["blocks"] = {**blocks, "attn": attn, "mlp": mlp}
+    return out

@@ -1057,3 +1057,56 @@ def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
     assert step == 2
     for x, y in zip(tree.leaves(t), tree.leaves(loaded)):
         assert y.device.type == "cuda" and torch.equal(x, y)
+
+
+# ======================================================================
+# tensor-parallel serving on the stacked team
+# ======================================================================
+from repro_torch.core.heap import SymmetricHeap  # noqa: E402
+from repro_torch.parallel import ParallelCtx  # noqa: E402
+
+
+@pytest.mark.parametrize("backend", ["xla", "posh", "pallas"])
+def test_cuda_tp_engine_folds_every_pe_into_one_launch(cuda_device,
+                                                       backend):
+    """Smoke qwen3-8b in f32 at TP 4 with two replicas on the card: the
+    paged kernels launch once per layer per step for all 8 PEs (not once
+    per PE), the streams equal the plain versions', and the pallas
+    backend stages its psum rounds through the copy kernel exactly as
+    the schedules' rounds say (xla and posh never launch it)."""
+    cfg, params = _smoke_weights(cuda_device, 0)
+    ctx = ParallelCtx(tp_size=4, backend=backend)
+    streams = {}
+    for impl in ("kernel", "ref"):
+        scfg = tserve.ServeConfig(page_tokens=4, n_pages=24, max_batch=3,
+                                  max_seq=32, prefill_chunk=3,
+                                  attn_impl=impl)
+        kv = tserve.PagedKVCache(
+            SymmetricHeap(("data", "model")),
+            n_layers=cfg.n_layers, kv_heads=cfg.kv_per_rank(4),
+            head_dim=cfg.head_dim, n_pages=24, page_tokens=4)
+        ex = tserve.StackedExec(params, cfg, ctx, scfg, kv, cuda_device,
+                                replicas=2)
+        eng = tserve.ServeEngine(params, cfg, scfg, ctx=ctx, exec_=ex,
+                                 kv=kv, device=cuda_device)
+        pa.reset_launches()
+        sc.reset_launches()
+        ctx.tp_comm.reset_stats()
+        done = eng.run([tserve.Request(rid=i, prompt=list(p), max_new=6)
+                        for i, p in enumerate(PROMPTS)], clock="tick")
+        torch.cuda.synchronize()
+        streams[impl] = {r.rid: list(r.out) for r in done}
+        n = cfg.n_layers if impl == "kernel" else 0
+        assert dict(pa.LAUNCHES) == {
+            "paged_decode_attention": n * eng.steps["decode"],
+            "paged_prefill_attention": n * eng.steps["prefill"]}
+        want = 0
+        if backend == "pallas":
+            for (op, nbytes, dtype, algo), calls in \
+                    ctx.tp_comm.payload_stats().items():
+                want += calls * cb.expected_copy_launches(
+                    "all_gather" if op == "top_k_merge" else op, algo, 4,
+                    nbytes // 4, torch.float32)
+        assert sc.LAUNCHES["copy_blocked"] == want
+        assert (want > 0) == (backend == "pallas")
+    assert streams["kernel"] == streams["ref"]

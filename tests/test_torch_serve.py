@@ -308,15 +308,16 @@ def test_build_engine_without_device_raises_when_cuda_absent(monkeypatch):
     assert eng.device.type == "cpu" and cfg.n_layers == 2
 
 
-@pytest.mark.parametrize("what", ["ssm", "swa", "disagg_tp_cell"])
+@pytest.mark.parametrize("what", ["ssm", "swa", "moe_tp"])
 def test_later_slices_raise_not_implemented(what):
-    cite = {"disagg_tp_cell": "A7"}.get(what, "")
+    cite = {"moe_tp": "A7"}.get(what, "")
     with pytest.raises(NotImplementedError, match=cite):
-        if what == "disagg_tp_cell":
-            # a tensor-parallel cell (A7)
-            cfg = configs.get_smoke("qwen3-8b")
-            serve.DisaggEngine({}, cfg, serve.ServeConfig(), device="cpu",
-                               pes_per_cell=2)
+        if what == "moe_tp":
+            # a MoE config at tp = 2: expert parallelism is A7's remainder
+            from repro_torch.parallel import ParallelCtx as TorchCtx
+            cfg = configs.get_smoke("qwen3-moe-30b-a3b")
+            serve.ServeEngine({}, cfg, serve.ServeConfig(), device="cpu",
+                              ctx=TorchCtx(tp_size=2))
         else:
             # an SSM family, or the sliding window over the paged cache
             kw = (dict(family="ssm", ssm_state=16) if what == "ssm"

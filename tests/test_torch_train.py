@@ -316,10 +316,11 @@ def test_ce_chunks_and_gathered_mode_agree():
 def test_later_slices_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="A5"):
         ParallelCtx(dp_size=2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ParallelCtx(tp_size=2)
     cfg = configs.get_smoke("qwen3-8b")
     api = registry.build(cfg)
+    with pytest.raises(NotImplementedError, match="A10"):
+        # the trainer at tp = 2 (TP serving is A7; TP training is A10)
+        make_train_step(cfg, ParallelCtx(tp_size=2), api, AdamWConfig())
     for kw in (dict(bucket_bytes=4096), dict(compress="bf16"),
                dict(overlap_grad_sync=True)):
         with pytest.raises(NotImplementedError, match="A6"):
