@@ -61,9 +61,11 @@ caught):
                served streams must equal an FCFS run's and whose
                interactive attainment must beat FCFS's; and
                disaggregated serving (only pools and mailboxes new): the
-               trace on clock "tick" colocated, then on 1+1 and 2+2
-               prefill+decode cells under the host and the AMO router
-               and on 2+2 host with k = 4 n-gram, each run gated (zero
+               trace with its outputs cut to 16-32 (``TICK_TRACE``) on
+               clock "tick" colocated (the yardstick of phases 8 and 10),
+               then on 1+1 prefill+decode cells under the host and the
+               AMO router, 2+2 under both, and 2+2 host with k = 4
+               n-gram, each run gated (zero
                quiets on the handoff, router and pool queues, signals =
                pages, waits = tickets, every pool whole after the run,
                launches n_layers x the cells' steps), 1+1 amo's streams
@@ -91,7 +93,8 @@ caught):
                then, that engine freed, the MoE stage: qwen3-moe-30b-a3b
                at full width in bf16 (48 layers, 128 experts top-8,
                30.5 B parameters drawn on the card from seed 0) serves
-               the seeded 8-request trace twice (clock "tick", the same
+               the f32 runs' trace (the 8 requests, outputs cut to
+               16-32: ``MOE_TRACE``) twice (clock "tick", the same
                streams both times), launches n_layers x steps, ten
                profiled decode-only ticks beside the decode step's
                weight-read bound, and the routing-aware first-step
@@ -128,11 +131,11 @@ caught):
   6. train   — ``repro_torch.launch.train.build_trainer`` on full-width
                gemma-2b (18 layers, f32 parameters and compute, AdamW,
                weights drawn on the card from a seed), sequences of
-               4096 tokens, global batch 8 in 8 microbatches, 3 steps:
-               per-step loss, seconds, tokens/s and peak memory; the
+               4096 tokens, global batch 8 in 8 microbatches, 1 step:
+               its loss, seconds, tokens/s and peak memory; the
                flash launch counter, zeroed just before, must equal the
                count predicted in PERF.md (18 layers x 8 microbatches x
-               3 steps x 2, the recompute under remat included); then
+               1 step x 2, the recompute under remat included); then
                one more step under the profiler; then gemma-2b-smoke and
                qwen3-8b-smoke in f32 on the card must give the same
                3-step losses with the flash kernel as with the plain
@@ -159,8 +162,9 @@ caught):
                qwen3-8b in bf16 through the paged kernels: on the serve
                stage's weights (``build_engine``, seed 0), generation 1
                drawn from seed 1000 is streamed in 1 MiB rows, 512 a
-               tick (31 batches), while the serve trace runs on clock
-               "tick", then a second trace runs on the new weights;
+               tick (31 batches), while ``TICK_TRACE`` runs on clock
+               "tick", then a second trace (outputs cut to 16-32) runs
+               on the new weights;
                colocated and on 1+1 host cells at 36 layers, on 2+2 host
                cells at 2 (four stages of the full model would not fit).
                Each run is gated: one flip, after the first tick, every
@@ -174,10 +178,10 @@ caught):
                one and at the flip, and peak are printed;
   9. ckpt    — checkpoint/restart of the trainer (``ckpt``, ``ft``):
                gemma-2b at its published width cut to 2 of 18 layers,
-               f32, 6 steps uninterrupted; then 4 steps through
-               ``ft.run_with_restarts`` with a checkpoint every 2 steps
-               and a failure injected at step 3, restored from disk;
-               then ``launch.train --resume`` to step 6.  The resumed
+               f32, 3 steps uninterrupted; then 2 steps through
+               ``ft.run_with_restarts`` with a checkpoint every step
+               and a failure injected at step 1, restored from disk;
+               then ``launch.train --resume`` to step 3.  The resumed
                losses must equal the uninterrupted run's within the gap
                of its repeat (printed); bytes written, snapshot, write,
                load + sha256 seconds and the free disk are printed, the
@@ -185,7 +189,7 @@ caught):
  10. tp      — tensor-parallel serving on the stacked team: full-width
                qwen3-8b in bf16 at TP 4, one replica (weights drawn from
                seed 0 as phase 4 draws them, stacked by
-               ``weights.shard_for_tp``), the serve trace on clock
+               ``weights.shard_for_tp``), ``TICK_TRACE`` on clock
                "tick" under the xla, posh and pallas backends, each run
                gated: paged launches n_layers x steps (one launch a layer
                for all 4 PEs), 73 psums and one top-k merge a step, the
@@ -213,7 +217,36 @@ caught):
                then the smoke qwen3-8b in f32 at TP 2 and 4 with two
                replicas, every backend: kernel streams == plain streams
                without and with speculation and after a prefix resume
-               on replica 1.
+               on replica 1;
+ 11. moe tp  — MoE serving at tp > 1 (expert parallelism): full-width
+               qwen3-moe-30b-a3b in bf16 at TP 4, one replica, posh,
+               the einsum dispatch (weights drawn from seed 0 as phase 4
+               draws them, the experts stacked as views), phase 4's
+               trace on clock "tick" twice (the same streams), each run
+               gated: paged launches n_layers x steps, 97 psums and one
+               top-k merge a step, the peak under 1.25 x phase 4's tp = 1
+               MoE peak and under 80 GB; the paged kernels held to the
+               plain versions on the run's own decode and prefill inputs
+               and timed there (the per-PE layout); the second run
+               recorded (``MoeRecorder``) and its divergences from phase
+               4's recorded tp = 1 run printed with their top-2 margins
+               and the first routing flip, the first step's routing flips
+               printed (bf16: not gated); then pallas on the trace with
+               its outputs cut, == posh on the same cut trace bit for
+               bit, the copy launches the staged rounds; then
+               qwen2-moe-a2.7b in f32 at TP 4 (posh) under einsum and then
+               alltoall (2 all_to_all a layer, no routed psum) on phase
+               4's f32 trace: the first step's logits within 1e-3 x max
+               |logit| of tp = 1 on rows no routing flip reaches, every
+               first flip a near-tie, and every stream equal to tp = 1's
+               but at a near-tie (``moe_streams_verdict``: a top-2 margin
+               below 1e-5 x |top logit|, or after a first routing flip
+               whose gate gap is below 1e-5), alltoall held to einsum the
+               same way, the kernels held to the plain versions on the
+               einsum run's inputs and timed there; then the smoke MoE
+               configs in f32 at TP 2 and 4 with two replicas, every
+               backend and dispatch: kernel streams == plain streams,
+               with speculation (k = 2) too, and 2+2 cells of TP 2.
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -234,9 +267,11 @@ for ``combine_blocked``, which is reached only through ``ops.combine``;
 ``launches_swap`` on the paged kernels from the hot-swap runs, and
 ``launches_ckpt`` on the flash kernel from the checkpoint stage's runs;
 ``launches_tp`` from phase 10's runs: the paged kernels', by dtype in
-``launches_tp_by_dtype``, and the copy kernel's).  ``max_abs_err_tp``
-on the paged kernels is their largest |kernel - plain| on phase 10's
-captured TP decode, prefill and verify inputs.
+``launches_tp_by_dtype``, and the copy kernel's; ``launches_moe_tp``
+likewise from phase 11's).  ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
+on the paged kernels is their largest |kernel - plain| on phase 10's /
+11's captured TP inputs, and ``moe_tp_layouts`` their timing at phase
+11's per-PE layouts.
 It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits
@@ -318,7 +353,7 @@ FLASH_CASES = [(FLASH_FULL, dict(causal=True)),
                 dict(causal=True, window=96)),
                (dict(b=1, h=4, hkv=4, t=777, s=777, d=128),
                 dict(causal=False))]
-TRAIN = dict(arch="gemma-2b", global_batch=8, microbatches=8, steps=3)
+TRAIN = dict(arch="gemma-2b", global_batch=8, microbatches=8, steps=1)
 
 SERVE_TRACE = dict(n_requests=8, rate=8.0, seed=0,
                    prompt_short=(64, 257), prompt_long=(257, 513),
@@ -326,6 +361,11 @@ SERVE_TRACE = dict(n_requests=8, rate=8.0, seed=0,
 # the f32 serve run (the reference's serving dtype): the same 8 requests
 # with their outputs cut to 16-32 tokens, so the phase stays near 30 s
 SERVE_TRACE_F32 = {**SERVE_TRACE, "out_short": (16, 33), "out_long": (16, 33)}
+# an engine's warm-up: two requests of the trace's prompts cut to 4
+# outputs, so every shape of a run (64-row windows, 8-row decode steps,
+# their psum payloads) is seen once before the clock starts
+WARMUP_TRACE = {**SERVE_TRACE, "n_requests": 2, "seed": 99,
+                "out_short": (4, 5), "out_long": (4, 5)}
 # first-step logits of the kernel path against the plain path, as a share
 # of max |logit| (f32: the two differ by summation order only)
 LOGIT_TOL = 1e-3
@@ -347,12 +387,17 @@ SLO_TRACE = dict(n_requests=12, rate=8.0, seed=0, prompt_short=(64, 129),
                  out_long=(8, 17), interactive_frac=0.5, batch_frac=0.25)
 SLO_TTFT = dict(interactive=10.0, batch=20.0, best_effort=20.0)
 SLO_PAGES = 48
-# the disaggregation stage: the serve trace on clock "tick", colocated,
+# the disaggregation stage: TICK_TRACE on clock "tick", colocated,
 # then on these topologies ((prefill cells, decode cells), router, spec
 # k) over the same weights, only pools and mailboxes new; in f32 the f32
 # trace on 1+1 and 2+2 host cells
 DISAGG_RUNS = [((1, 1), "host", 0), ((1, 1), "amo", 0), ((2, 2), "host", 0),
                ((2, 2), "amo", 0), ((2, 2), "host", SPEC_K)]
+# the tick-clock runs of full-width qwen3-8b in bf16 (the disagg
+# topologies, the hot swap, phase 10's TP runs) serve the serve trace's
+# 8 requests with outputs cut to 16-32, as the f32 runs do; phase 4's
+# colocated run of it is their yardstick
+TICK_TRACE = SERVE_TRACE_F32
 DISAGG_RUNS_F32 = [((1, 1), "host", 0), ((2, 2), "host", 0)]
 # an f32 disagg stream may leave the colocated f32 stream only at a
 # near-tie: a top-2 margin at its first divergence below this share of
@@ -366,6 +411,9 @@ DISAGG_PROFILE_TICKS = 10
 # of the 80 for the plain path's comparison and the step's activations)
 MOE_BF16, MOE_F32 = "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"
 MOE_F32_PAGES = 256
+# both MoE runs serve the f32 runs' trace (the serve trace's 8 requests,
+# outputs cut to 16-32): phase 11 serves it again at TP 4, three times
+MOE_TRACE = SERVE_TRACE_F32
 # The routing comparison calls a row's routing a near-tie when the gap
 # between its k-th and (k+1)-th gate, as a share of the k-th, is below
 # this.  f32: the kernels differ from the plain versions by summation
@@ -380,11 +428,11 @@ MOE_TIE = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4}
 # weights, seed 0): generation 1 drawn from seed + 1000, as the serve
 # CLI's --hot-swap draws it, streamed in 1 MiB rows, 512 a tick (512 MiB:
 # the 16.38 GB land in 31 batches; the CLI's default, 4 rows of 16 KiB,
-# would take ~250,000 ticks); the serve trace on clock "tick" with the
+# would take ~250,000 ticks); TICK_TRACE on clock "tick" with the
 # stream in flight, then a second trace after the flip
 SWAP = dict(row_bytes=1 << 20, chunk_rows=512)
 SWAP_SEED = 1000
-SWAP_TRACE_POST = {**SERVE_TRACE, "seed": 1}
+SWAP_TRACE_POST = {**SERVE_TRACE_F32, "seed": 1}
 # peak-memory gates (GB), from the PERF.md prediction: the old weights,
 # the new draw (alive while it is packed), one stage a PE, the pools and
 # the mailbox; 2+2 runs at 2 of qwen3-8b's 36 layers (4 stages of the
@@ -393,11 +441,11 @@ SWAP_PEAK_GB = {(0, 0): 55.0, (1, 1): 74.0, (2, 2): 25.0}
 SWAP_2P2_LAYERS = 2
 # the checkpoint stage: gemma-2b at its published width cut to 2 of its
 # 18 layers (the full f32 state is ~30 GB on disk a checkpoint), the
-# training shape of phase 6; 6 steps uninterrupted, then 4 steps through
-# run_with_restarts with a checkpoint every 2 and a failure injected at
-# step 3, then launch.train --resume to step 6 on that directory
+# training shape of phase 6; 3 steps uninterrupted, then 2 steps through
+# run_with_restarts with a checkpoint every step and a failure injected
+# at step 1, then launch.train --resume to step 3 on that directory
 CKPT = dict(arch="gemma-2b", layers=2, global_batch=8, microbatches=8,
-            steps=6, restart_steps=4, every=2, fail_at=3)
+            steps=3, restart_steps=2, every=1, fail_at=1)
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 # the tensor-parallel stage: full-width qwen3-8b in bf16 at TP 4 (one
 # replica) under each communicator backend, then spec k = 4 (n-gram)
@@ -426,12 +474,6 @@ TP_GAP_J = 16
 # window of prefill step 0 of the pallas run, the verify window of
 # verify step 10 of the spec run
 TP_PICK_DECODE, TP_PICK_VERIFY = 20, 10
-# each TP engine's warm-up: two requests of the trace's prompts cut to
-# 4 outputs, so every shape of the run (64-row windows, 8-row decode
-# steps, their psum payloads) is seen once before the clock starts
-TP_WARMUP = {**SERVE_TRACE, "n_requests": 2, "seed": 99, "out_short": (4, 5),
-             "out_long": (4, 5)}
-
 
 def fail(msg: str) -> None:
     print(f"CHIP_SMOKE_FAIL: {msg}", file=sys.stderr, flush=True)
@@ -888,8 +930,7 @@ def serve_full(pa, dev):
     tcfg = TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE)
     # warm-up on a throwaway trace (cuBLAS handles, the kernels' first
     # launches), then a clean measured run on the same engine
-    eng.run(make_requests(TrafficConfig(
-        vocab=cfg.vocab, **{**SERVE_TRACE, "n_requests": 2, "seed": 99})))
+    eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **WARMUP_TRACE)))
     eng.reset_metrics()
     reqs = make_requests(tcfg)
 
@@ -1613,8 +1654,9 @@ def profile_disagg(eng, cfg, trace) -> None:
 
 
 def serve_disagg_bf16(pa, eng, cfg) -> dict:
-    """Full-width bf16 disaggregated serving on the same weights: the
-    serve trace on clock "tick" colocated, then ``DISAGG_RUNS``, each
+    """Full-width bf16 disaggregated serving on the same weights:
+    ``TICK_TRACE`` on clock "tick" colocated (the yardstick of phases 8
+    and 10), then on ``DISAGG_RUNS``, each
     gated (``disagg_run``); 1+1 ``amo`` must give 1+1 ``host``'s streams
     bit for bit, and each 2+2 peak stays below twice the weights (the
     cells share them).  Each run's streams that leave the colocated ones
@@ -1625,13 +1667,13 @@ def serve_disagg_bf16(pa, eng, cfg) -> dict:
     memory in GB (the tensor-parallel stage's yardstick)."""
     from repro_torch.serve import TrafficConfig, make_requests
 
-    tcfg = TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE)
+    dcfg = TrafficConfig(vocab=cfg.vocab, **TICK_TRACE)
     weights_gb = _tensor_bytes(eng.exec.params) / 1e9
     eng.reset_metrics()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(eng.device)
     t0 = time.monotonic()
-    colo = streams_of(eng.run(make_requests(tcfg), clock="tick"))
+    colo = streams_of(eng.run(make_requests(dcfg), clock="tick"))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     colo_peak = torch.cuda.max_memory_allocated(eng.device) / 1e9
@@ -1647,7 +1689,7 @@ def serve_disagg_bf16(pa, eng, cfg) -> dict:
     total: dict = {}
     res = {}
     for topo, router, k in DISAGG_RUNS:
-        out, streams, launches = disagg_run(pa, eng, cfg, SERVE_TRACE, topo,
+        out, streams, launches = disagg_run(pa, eng, cfg, TICK_TRACE, topo,
                                             router, k, "bf16")
         res[(topo, router, k)] = (out, streams)
         for key, n in launches.items():
@@ -1656,7 +1698,7 @@ def serve_disagg_bf16(pa, eng, cfg) -> dict:
             fail(f"disagg bf16 {topo} {router}: peak "
                  f"{out['peak_gb']:.2f} GB is not below twice the "
                  f"{weights_gb:.2f} GB of weights")
-        same, text = margin_text(eng, cfg, make_requests(tcfg), streams,
+        same, text = margin_text(eng, cfg, make_requests(dcfg), streams,
                                  colo, labels=("disagg", "colocated"))
         print(f"serve disagg bf16 {topo[0]}+{topo[1]} {router} k={k}: "
               f"{same} of {len(colo)} streams == colocated"
@@ -1950,12 +1992,16 @@ def serve_smoke_streams(pa, dev, arch):
 # ----------------------------------------------------------------------
 # phase 4: MoE serving
 # ----------------------------------------------------------------------
-def moe_engine(arch, dtype, dev, n_pages):
+def moe_engine(arch, dtype, dev, n_pages, ctx=None):
     """``build_engine`` on ``arch``: weights drawn on ``dev`` from seed 0;
-    prints the parameter count and the bytes the weights take."""
+    with a ``ctx`` at tp > 1 stacked by ``shard_for_tp`` (the experts as
+    views, the column splits replacing their sources: the tp = 1 dict
+    is dropped once stacked).  Prints the parameter count, the bytes the
+    weights take and the build's peak."""
     import gc
 
     from repro_torch.launch.serve import build_engine
+    from repro_torch.parallel import tp_of
     from repro_torch.train.tree import leaves
 
     gc.collect()                 # earlier engines' cycles, then their memory
@@ -1965,13 +2011,18 @@ def moe_engine(arch, dtype, dev, n_pages):
     t0 = time.monotonic()
     eng, cfg = build_engine(arch, config="full", dtype=dtype, device=dev,
                             page_tokens=P, n_pages=n_pages, max_batch=B,
-                            prefill_chunk=WINDOW, attn_impl="kernel", seed=0)
+                            prefill_chunk=WINDOW, attn_impl="kernel", seed=0,
+                            ctx=ctx)
+    gc.collect()
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in leaves(eng.exec.params))
     w_bytes = sum(t.numel() * t.element_size()
                   for t in leaves(eng.exec.params))
     m = cfg.moe
-    print(f"serve moe: {cfg.name}, {cfg.n_layers} layers, d_model "
+    tp = (f"at TP {ctx.tp_size} ({ctx.backend}, {ctx.moe_dispatch}; experts "
+          f"{tuple(eng.exec.params['blocks']['mlp']['wu'].shape)}, a view), "
+          if tp_of(ctx) > 1 else "")
+    print(f"serve moe: {cfg.name}, {tp}{cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, head_dim "
           f"{cfg.head_dim}, {m.num_experts} experts (padded "
           f"{m.experts_padded(1)}) top-{m.top_k} of ff {m.expert_ff}, "
@@ -1980,18 +2031,21 @@ def moe_engine(arch, dtype, dev, n_pages):
           f"{w_bytes / 1e9:.2f} GB, pool {n_pages} pages "
           f"{eng.pool.numel() * eng.pool.element_size() / 1e9:.3f} GB, on "
           f"the card {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB (held "
-          f"before {held / 1e9:.2f}), init {time.monotonic() - t0:.1f} s",
-          flush=True)
+          f"before {held / 1e9:.2f}, build peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}), init "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
     return eng, cfg
 
 
-def moe_serve_run(pa, eng, cfg, trace, tag) -> tuple:
+def moe_serve_run(pa, eng, cfg, trace, tag, record: bool = False) -> tuple:
     """One run of the seeded ``trace`` on ``eng`` (clock "tick": arrivals
     by tick, so a second run has the same batches and, under the
     capacity's drops, the same streams); the paged-attention launches,
     zeroed just before, must equal n_layers x the run's prefill and
-    decode steps.  Returns (streams, launches by (kernel, dtype),
-    metrics with wall seconds, tok/s and peak memory)."""
+    decode steps.  With ``record`` the routing and the draws are
+    recorded (``MoeRecorder``).  Returns (streams, launches by (kernel,
+    dtype), metrics with wall seconds, tok/s and peak memory, the
+    recorded events or None)."""
     from repro_torch.serve import TrafficConfig, make_requests
 
     reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **trace))
@@ -2000,7 +2054,8 @@ def moe_serve_run(pa, eng, cfg, trace, tag) -> tuple:
     pa.reset_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    done = eng.run(reqs, clock="tick")
+    with (MoeRecorder(cfg) if record else contextlib.nullcontext()) as rec:
+        done = eng.run(reqs, clock="tick")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = dict(pa.LAUNCHES_BY_DTYPE)
@@ -2031,7 +2086,7 @@ def moe_serve_run(pa, eng, cfg, trace, tag) -> tuple:
           f"{launches[('paged_prefill_attention', dt)]} decode "
           f"{launches[('paged_decode_attention', dt)]} ({cfg.n_layers} x "
           f"steps); " + json.dumps(out), flush=True)
-    return streams_of(done), launches, out
+    return streams_of(done), launches, out, rec.done() if record else None
 
 
 def moe_decode_profile(eng, cfg, trace) -> dict:
@@ -2065,31 +2120,113 @@ def moe_decode_profile(eng, cfg, trace) -> dict:
     return out
 
 
-def moe_routing_compare(eng, cfg, reqs, gated: bool) -> dict:
-    """The first prefill chunk (64 tokens of each of the trace's first 8
-    prompts) and the first decode step after it, through the engine's own
-    trunks on its weights, once with the kernels and once with the plain
-    versions, each on a fresh pool, the port's ``route`` and
-    ``positions_in_expert`` wrapped here to record every layer's top-k
-    set, keep mask and gate gap.  A flip is a row whose top-k set or
-    kept set differs between the two; it reaches later layers of its
-    row, later rows of its sequence (attention) and, in the decode step,
-    its sequence.  Rows no flip reaches must give logits within
-    LOGIT_TOL x max |logit| of the plain path's, and every flip no
-    earlier flip reached must change the top-k set at a near-tie (the
-    relative gap below MOE_TIE), and every keep-only flip no earlier flip
-    reached must follow a set change at an earlier row of its layer (the
-    capacity cascade); with ``gated`` False (bf16) this is printed, not
-    checked."""
-    import dataclasses
+class MoeRecorder:
+    """While open, every routing call of ``models.mlp`` (``route`` and the
+    capacity slots ``positions_in_expert``) and every token draw of
+    ``serve.sampling.sample_tokens`` is recorded in call
+    order, as ``events``: a route event holds the top-k experts of each
+    row (n, k), which of them kept a slot and the gap between the k-th
+    and (k+1)-th gate as a share of the k-th; a sample event the slots'
+    request ids, generated positions, top-2 logits and argmax.  At
+    tp > 1 PE 0's view is kept and every PE's experts are checked equal
+    to it (the router is replicated: routing is the same on every PE).
+    Nothing syncs while open; ``done()`` moves the events to the host
+    and fails if any PE routed otherwise."""
 
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.events: list = []
+        self._alike: list = []
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+        from repro_torch.parallel import tp_of
+        from repro_torch.serve import sampling
+
+        m = self.cfg.moe
+        k = m.top_k
+        self._mods = (mlp, sampling)
+        self._orig = (mlp.route, mlp.positions_in_expert,
+                      sampling.sample_tokens)
+        route0, slots0, sample0 = self._orig
+
+        def route(router_w, xt, cfg_):
+            gate_k, idx_k = route0(router_w, xt, cfg_)
+            idx = idx_k.reshape((-1,) + idx_k.shape[-2:])
+            self._alike.append((idx == idx[:1]).all())
+            x0 = xt.reshape((-1,) + xt.shape[-2:])[0]
+            logits = (x0 @ router_w.to(x0.dtype)).float()
+            logits[:, m.num_experts:] = -1e30
+            top = torch.softmax(logits, -1).topk(k + 1, dim=-1).values
+            self.events.append({                  # a copy, not a view
+                "kind": "route", "idx": idx[0].clone(),
+                "gap": (top[:, k - 1] - top[:, k]) / top[:, k - 1]})
+            return gate_k, idx_k
+
+        def slots(idx_k, n_experts):
+            pos = slots0(idx_k, n_experts)
+            n = idx_k.shape[-2]
+            cap = int(n * k * m.capacity_factor / n_experts) + 1
+            self.events[-1]["kept"] = (
+                pos.reshape(-1, pos.shape[-1])[0] < cap).view(n, k)
+            return pos
+
+        def sample(logits, state, pos, n_candidates=8, ctx=None):
+            full = logits if tp_of(ctx) == 1 else \
+                logits.movedim(0, -2).flatten(-2)
+            top = full.float().topk(2, dim=-1)
+            self.events.append({
+                "kind": "sample",
+                "rid": torch.as_tensor(state["rid"]).clone(),
+                "pos": pos.clone(), "top": top.values,
+                "tok": top.indices[..., 0].clone()})
+            return sample0(logits, state, pos, n_candidates=n_candidates,
+                           ctx=ctx)
+
+        mlp.route, mlp.positions_in_expert = route, slots
+        sampling.sample_tokens = sample
+        return self
+
+    def __exit__(self, *exc):
+        mlp, sampling = self._mods
+        mlp.route, mlp.positions_in_expert, sampling.sample_tokens = \
+            self._orig
+        return False
+
+    def done(self) -> list:
+        if self._alike and not torch.stack(self._alike).all().item():
+            fail(f"moe {self.cfg.name}: the PEs of a TP group routed a "
+                 f"token to other experts")
+        self.events = [{k: v.cpu() if torch.is_tensor(v) else v
+                        for k, v in e.items()} for e in self.events]
+        self._alike = []
+        return self.events
+
+
+def route_sets(ev, n_exp: int) -> tuple:
+    """A route event's (rows, experts) membership of the top-k set and of
+    the kept pairs."""
+    idx = ev["idx"].long()
+    n = idx.shape[0]
+    member = torch.zeros((n, n_exp), dtype=torch.bool).scatter_(1, idx, True)
+    kept = torch.zeros((n, n_exp), dtype=torch.bool).scatter_(
+        1, idx, ev["kept"])
+    return member, kept
+
+
+def moe_first_step(eng, cfg, reqs, impl: str, tok=None) -> dict:
+    """The first prefill chunk (64 tokens of each of the trace's first 8
+    prompts) and the first decode step after it, through ``eng``'s own
+    trunks and weights (its ctx: tp = 1 or the stacked TP layout) with
+    the ``impl`` attention on a fresh pool, the routing recorded
+    (``MoeRecorder``).  The decode step feeds ``tok`` (default: this
+    window's argmax).  Returns the full-vocab logits of both steps, their
+    route events, the fed tokens and the window's geometry."""
     from repro_torch.models import embed as emb
-    from repro_torch.models import mlp
+    from repro_torch.parallel import tp_of
     from repro_torch.serve import engine as se
 
-    scfg, params, dev = eng.scfg, eng.exec.params, eng.device
-    m, tie = cfg.moe, MOE_TIE[scfg.dtype]
-    n_exp, k = m.experts_padded(1), m.top_k
+    scfg, params, dev, ctx = eng.scfg, eng.exec.params, eng.device, eng.ctx
     c = scfg.prefill_chunk
     prompts = [r.prompt[:c] for r in reqs[:scfg.max_batch]]
     b = len(prompts)
@@ -2107,63 +2244,59 @@ def moe_routing_compare(eng, cfg, reqs, gated: bool) -> dict:
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     rows = torch.arange(b, device=dev)
 
-    route0, slots0 = mlp.route, mlp.positions_in_expert
-    rec: list = []
+    def full(x):
+        # at tp > 1 the vocab shards (tp, b, V/tp) side by side
+        lg = emb.lm_head_logits(head, x, ctx).float()
+        return lg if tp_of(ctx) == 1 else lg.movedim(0, -2).flatten(-2)
 
-    def route(router_w, xt, cfg_):
-        gate_k, idx_k = route0(router_w, xt, cfg_)
-        logits = (xt @ router_w.to(xt.dtype)).float()
-        logits[:, m.num_experts:] = -1e30
-        top = torch.softmax(logits, -1).topk(k + 1, dim=-1).values
-        member = torch.zeros((xt.shape[0], n_exp), dtype=torch.bool,
-                             device=xt.device)
-        rec.append({"member": member.scatter_(1, idx_k, True), "idx": idx_k,
-                    "gap": (top[:, k - 1] - top[:, k]) / top[:, k - 1]})
-        return gate_k, idx_k
-
-    def slots(idx_k, n_experts):
-        pos = slots0(idx_k, n_experts)
-        n = idx_k.shape[0]
-        cap = int(n * k * m.capacity_factor / n_experts) + 1
-        kept = torch.zeros((n, n_experts), dtype=torch.bool,
-                           device=idx_k.device)
-        rec[-1]["kept"] = kept.scatter_(1, idx_k, (pos < cap).view(n, k))
-        return pos
-
-    got = {}
-    mlp.route, mlp.positions_in_expert = route, slots
-    try:
-        for impl in ("kernel", "ref"):
-            sc2 = dataclasses.replace(scfg, attn_impl=impl)
-            pool = eng.exec.init_pool()
-            rec = []
-            x, pool = se._make_window_forward(cfg, sc2)(params, pool, ids,
-                                                        start, n_tok, bt)
-            lp = emb.lm_head_logits(head, x[rows, n_tok.long() - 1]).float()
-            win_rec = rec
-            # both paths decode the token the kernel path's logits pick
-            tok = (lp if impl == "kernel" else got["kernel"][0]).argmax(-1)
-            rec = []
-            x, pool = se._make_decode_forward(cfg, sc2)(
-                params, pool, tok.to(torch.int32), n_tok, bt, n_tok + 1)
-            got[impl] = (lp, emb.lm_head_logits(head, x).float(), win_rec,
-                         rec)
-            del pool, x
-    finally:
-        mlp.route, mlp.positions_in_expert = route0, slots0
+    sc2 = dataclasses.replace(scfg, attn_impl=impl)
+    pool = eng.exec.init_pool()
+    with MoeRecorder(cfg) as rw:
+        x, pool = se._make_window_forward(cfg, sc2, ctx)(
+            params, pool, ids, start, n_tok, bt)
+        lp = full(x[..., rows, n_tok.long() - 1, :])
+    tok = lp.argmax(-1) if tok is None else tok
+    with MoeRecorder(cfg) as rd:
+        x, pool = se._make_decode_forward(cfg, sc2, ctx)(
+            params, pool, tok.to(torch.int32), n_tok, bt, n_tok + 1)
+        ld = full(x)
+    del pool, x
     torch.cuda.synchronize()
+    return {"prefill": lp, "decode": ld, "win": rw.done(), "dec": rd.done(),
+            "tok": tok, "b": b, "c": c, "n_tok": n_tok.cpu(),
+            "dtype": scfg.dtype}
+
+
+def moe_logits_verdict(cfg, got: dict, want: dict, gated: bool,
+                       labels=("kernel", "plain")) -> dict:
+    """Two ``moe_first_step`` results (``got`` against ``want``) by the
+    routing-aware rule.  A flip is a row whose top-k set or kept set
+    differs between the two; it reaches later layers of its row, later
+    rows of its sequence (attention) and, in the decode step, its
+    sequence.  Rows no flip reaches must give logits within LOGIT_TOL x
+    max |logit| of ``want``'s, every flip no earlier flip reached must
+    change the top-k set at a near-tie (the relative gap below
+    MOE_TIE), and every keep-only flip no earlier flip reached must
+    follow a set change at an earlier row of its layer (the capacity
+    cascade); with ``gated`` False (bf16) this is printed, not
+    checked."""
+    m, tie = cfg.moe, MOE_TIE[want["dtype"]]
+    n_exp = m.experts_padded(1)
+    b, c, n_tok = want["b"], want["c"], want["n_tok"]
+    a_lab, b_lab = labels
 
     def walk(kr, rr, shape, tainted):
         """Flips layer by layer; returns (tainted rows after the last
         layer, flips [(layer, row, set changed, gap, reached before)])."""
         flips = []
         for li, (a, z) in enumerate(zip(kr, rr)):
-            setf = (a["member"] != z["member"]).any(1).view(shape)
-            fl = setf | (a["kept"] != z["kept"]).any(1).view(shape)
+            (ma, ka), (mz, kz) = route_sets(a, n_exp), route_sets(z, n_exp)
+            setf = (ma != mz).any(1).view(shape)
+            fl = setf | (ka != kz).any(1).view(shape)
             rows_ = torch.nonzero(fl.flatten()).flatten().tolist()
             if rows_:
-                sf, gp, tn = (t.flatten().cpu().tolist()
-                              for t in (setf, a["gap"], tainted))
+                sf, gp, tn = (t.flatten().tolist()
+                              for t in (setf, z["gap"], tainted))
                 flips += [(li, r, sf[r], gp[r], tn[r]) for r in rows_]
             tainted = tainted | fl
             if len(shape) == 2:       # attention: later rows of the sequence
@@ -2171,14 +2304,13 @@ def moe_routing_compare(eng, cfg, reqs, gated: bool) -> dict:
         return tainted, flips
 
     out = {"tie": tie, "gated": gated}
-    t_win, f_win = walk(got["kernel"][2], got["ref"][2], (b, c),
-                        torch.zeros((b, c), dtype=torch.bool, device=dev))
-    t_dec, f_dec = walk(got["kernel"][3], got["ref"][3], (b,),
-                        t_win.any(1))
+    t_win, f_win = walk(got["win"], want["win"], (b, c),
+                        torch.zeros((b, c), dtype=torch.bool))
+    t_dec, f_dec = walk(got["dec"], want["dec"], (b,), t_win.any(1))
+    rows = torch.arange(b)
     held = {"prefill": ~t_win[rows, n_tok.long() - 1], "decode": ~t_dec}
-    for i, (step, flips) in enumerate((("prefill", f_win),
-                                       ("decode", f_dec))):
-        kl, rl = got["kernel"][i], got["ref"][i]
+    for step, flips in (("prefill", f_win), ("decode", f_dec)):
+        kl, rl = got[step].cpu(), want[step].cpu()
         if not (torch.isfinite(kl).all() and kl.shape == (b, cfg.vocab)):
             fail(f"moe {cfg.name}: first {step} logits not finite of shape "
                  f"({b}, {cfg.vocab})")
@@ -2187,9 +2319,9 @@ def moe_routing_compare(eng, cfg, reqs, gated: bool) -> dict:
         err = ((kl - rl).abs().max(1).values[hold].max().item()
                if hold.any() else float("nan"))
         # flips no earlier flip reached: a changed top-k set there can come
-        # only from the two paths' rounding, so it must sit at a near-tie;
-        # a changed keep mask alone is the capacity cascade of a set change
-        # at an earlier row of the same layer
+        # only from the two computations' rounding, so it must sit at a
+        # near-tie; a changed keep mask alone is the capacity cascade of a
+        # set change at an earlier row of the same layer
         new = [f for f in flips if not f[4]]
         roots = [f for f in new if f[2]]
         cascades = [f for f in new if not f[2]]
@@ -2204,16 +2336,17 @@ def moe_routing_compare(eng, cfg, reqs, gated: bool) -> dict:
             "roots": [{"layer": f[0], "row": f[1], "gap": f[3]}
                       for f in roots],
             "cascades": [{"layer": f[0], "row": f[1]} for f in cascades]}
-        print(f"moe {cfg.name} {step}: {len(flips)} flips (row = sequence"
+        print(f"moe {cfg.name} {step} ({a_lab} vs {b_lab}): {len(flips)} "
+              f"flips (row = sequence"
               f"{f' x {c} + position' if step == 'prefill' else ''}); "
               f"{len(roots)} set flips no earlier flip reached (layer:row:"
               f"gap) " + " ".join(f"{f[0]}:{f[1]}:{f[3]:.2e}" for f in roots)
               + f"; {len(cascades)} keep-only cascades (layer:row) "
               + " ".join(f"{f[0]}:{f[1]}" for f in cascades)
-              + f"; held rows {int(hold.sum())} of {b}, max |kernel - plain| "
-              f"{err:.3e} (tol {LOGIT_TOL} x max |logit| {scale:.3f}); near-"
-              f"tie bar {tie:.3e}{'' if gated else ' (printed, not gated)'}",
-              flush=True)
+              + f"; held rows {int(hold.sum())} of {b}, max |{a_lab} - "
+              f"{b_lab}| {err:.3e} (tol {LOGIT_TOL} x max |logit| "
+              f"{scale:.3f}); near-tie bar {tie:.3e}"
+              f"{'' if gated else ' (printed, not gated)'}", flush=True)
         if not gated:
             continue
         if not hold.any():
@@ -2229,51 +2362,70 @@ def moe_routing_compare(eng, cfg, reqs, gated: bool) -> dict:
     return out
 
 
-def serve_moe_bf16(pa, dev) -> dict:
-    """qwen3-moe-30b-a3b in bf16: the seeded trace served twice on the
-    same engine (the same streams both times), launches = n_layers x
-    steps; a profiled decode-only window against the weight-read bound;
+def moe_routing_compare(eng, cfg, reqs, gated: bool) -> dict:
+    """The first step through the kernels and through the plain versions
+    on ``eng`` (``moe_first_step``), held by the routing-aware rule
+    (``moe_logits_verdict``).  Returns the kernel side, which phase 11
+    holds its TP runs to."""
+    kern = moe_first_step(eng, cfg, reqs, "kernel")
+    plain = moe_first_step(eng, cfg, reqs, "ref", tok=kern["tok"])
+    moe_logits_verdict(cfg, kern, plain, gated)
+    return kern
+
+
+def serve_moe_bf16(pa, dev) -> tuple:
+    """qwen3-moe-30b-a3b in bf16: ``MOE_TRACE`` served twice on the same
+    engine (the same streams both times; the second recorded), launches
+    = n_layers x steps; a profiled decode-only window against the
+    weight-read bound;
     the routing comparison, printed.  Returns the counted run's launches
-    by (kernel, dtype)."""
+    by (kernel, dtype) and what phase 11 holds its TP runs to: the
+    streams, the recorded run, the first step through the kernels, the
+    peak."""
     from repro_torch.serve import TrafficConfig, make_requests
 
     t0 = time.monotonic()
     eng, cfg = moe_engine(MOE_BF16, "bf16", dev, 512)
     # warm-up on a throwaway trace (cuBLAS handles, first launches)
-    eng.run(make_requests(TrafficConfig(
-        vocab=cfg.vocab, **{**SERVE_TRACE, "n_requests": 2, "seed": 99})),
-        clock="tick")
-    first, launches, _ = moe_serve_run(pa, eng, cfg, SERVE_TRACE, "moe bf16")
-    again, _, _ = moe_serve_run(pa, eng, cfg, SERVE_TRACE, "moe bf16 again")
+    eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **WARMUP_TRACE)),
+            clock="tick")
+    first, launches, out, _ = moe_serve_run(pa, eng, cfg, MOE_TRACE,
+                                            "moe bf16")
+    again, _, _, rec = moe_serve_run(pa, eng, cfg, MOE_TRACE,
+                                     "moe bf16 again", record=True)
     if again != first:
         bad = sorted(r for r in first if again.get(r) != first[r])
         fail(f"serve moe bf16: the second run's streams differ (requests "
              f"{bad})")
     print("serve moe bf16: the second run gave the same streams", flush=True)
-    moe_decode_profile(eng, cfg, SERVE_TRACE)
-    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE))
-    moe_routing_compare(eng, cfg, reqs, gated=False)
+    moe_decode_profile(eng, cfg, MOE_TRACE)
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **MOE_TRACE))
+    kern = moe_routing_compare(eng, cfg, reqs, gated=False)
     del eng
     torch.cuda.empty_cache()
     print(f"serve moe bf16 stage: {time.monotonic() - t0:.1f} s", flush=True)
-    return launches
+    return launches, {"streams": first, "rec": rec, "first": kern,
+                      "peak_gb": out["peak_memory_gb"], "run": out}
 
 
-def serve_moe_f32(pa, dev) -> dict:
+def serve_moe_f32(pa, dev) -> tuple:
     """qwen2-moe-a2.7b in f32, the reference's serving dtype: the routing
-    comparison, gated; then the seeded f32 trace, launches = n_layers x
-    steps.  Returns the run's launches by (kernel, dtype)."""
+    comparison, gated; then the seeded f32 trace, recorded, launches =
+    n_layers x steps.  Returns the run's launches by (kernel, dtype) and
+    what phase 11 holds its TP runs to (as ``serve_moe_bf16``)."""
     from repro_torch.serve import TrafficConfig, make_requests
 
     t0 = time.monotonic()
     eng, cfg = moe_engine(MOE_F32, "f32", dev, MOE_F32_PAGES)
-    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE_F32))
-    moe_routing_compare(eng, cfg, reqs, gated=True)
-    _, launches, _ = moe_serve_run(pa, eng, cfg, SERVE_TRACE_F32, "moe f32")
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **MOE_TRACE))
+    kern = moe_routing_compare(eng, cfg, reqs, gated=True)
+    streams, launches, out, rec = moe_serve_run(
+        pa, eng, cfg, MOE_TRACE, "moe f32", record=True)
     del eng
     torch.cuda.empty_cache()
     print(f"serve moe f32 stage: {time.monotonic() - t0:.1f} s", flush=True)
-    return launches
+    return launches, {"streams": streams, "rec": rec, "first": kern,
+                      "peak_gb": out["peak_memory_gb"], "run": out}
 
 
 # ----------------------------------------------------------------------
@@ -2491,9 +2643,9 @@ def _watch_swap(eng) -> dict:
 
 
 def swap_run(pa, eng, cfg, draw, base, name):
-    """Serve the serve trace on clock "tick" on ``eng`` twice without a
-    swap (the second run's tick walls are the baseline: the first warms
-    a new engine), then again while ``draw()`` streams in (``SWAP``'s
+    """Serve a warm-up trace, then ``TICK_TRACE`` on clock "tick" on
+    ``eng`` without a swap (its tick walls are the baseline), then again
+    while ``draw()`` streams in (``SWAP``'s
     rows), then ``SWAP_TRACE_POST`` on the new weights,
     gated: one flip, after the first tick, every cell's weights switched
     on it; the stream batches + 1 ticks long (10-99 at full width); zero
@@ -2514,10 +2666,10 @@ def swap_run(pa, eng, cfg, draw, base, name):
         sum(c.role == "prefill" for c in cells),
         sum(c.role == "decode" for c in cells))
     rec = _watch_swap(eng)
-    for _ in range(2):
+    for trace in (WARMUP_TRACE, TICK_TRACE):
         rec["ticks"].clear()
         eng.reset_metrics()
-        eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE)),
+        eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **trace)),
                 clock="tick")
     base_ms = [ms for ms, _ in rec["ticks"]]
     rec["ticks"].clear()
@@ -2535,7 +2687,7 @@ def swap_run(pa, eng, cfg, draw, base, name):
     pinned = st._rows.is_pinned()
     del st
     reqs = rec["reqs"] = make_requests(TrafficConfig(vocab=cfg.vocab,
-                                                     **SERVE_TRACE))
+                                                     **TICK_TRACE))
     pa.reset_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -2682,7 +2834,7 @@ def swap_stage(pa, dev, base) -> dict:
     print(f"hot-swap: colocated and 1+1 post-flip streams == a cold engine "
           f"on the new weights ({len(want)} streams)", flush=True)
     cfg2 = dataclasses.replace(cfg, n_layers=SWAP_2P2_LAYERS)
-    base2 = cold(cfg2, scfg, SERVE_TRACE, 0)
+    base2 = cold(cfg2, scfg, TICK_TRACE, 0)
     want2 = cold(cfg2, scfg, SWAP_TRACE_POST, SWAP_SEED)
     d = DisaggEngine(draw(cfg2, 0)(), cfg2, scfg, device=dev, n_prefill=2,
                      n_decode=2)
@@ -3138,19 +3290,26 @@ def psum_model_ms_per_step(comm, steps: int, dev) -> float:
     return total / max(steps, 1)
 
 
-def tp_serve_run(pa, sc, eng, cfg, tag, picks=None) -> dict:
-    """The serve trace on clock "tick" on a TP engine, its launch
-    counters and communicator stats zeroed just before, gated: every
-    request whole; the bf16 paged bodies n_layers x the prefill and
-    decode steps, the f32 bodies never; the copy kernel exactly the
-    staged rounds of the pallas communicator's calls, under xla and posh
-    never.  ``picks`` keeps chosen paged calls' arguments
-    (``captured_calls``).  Returns the numbers, the streams, the
-    launches, the copy launches and the captured calls."""
+def tp_serve_run(pa, sc, eng, cfg, tag, picks=None, trace=TICK_TRACE,
+                 record: bool = False) -> tuple:
+    """``trace`` on clock "tick" on a TP engine, its launch counters and
+    communicator stats zeroed just before, gated: every request whole;
+    the paged bodies of the serving dtype n_layers x the prefill (and
+    verify) and decode steps (one launch a layer for every PE), the
+    other dtype's never; the copy kernel exactly the staged rounds of a
+    pallas communicator's calls, under xla and posh never; a step's
+    collectives: the embed's psum and, a layer, the attention's and the
+    MLP's psums (a MoE block: the shared expert's, if any, and the routed
+    experts' under the einsum dispatch, or two all_to_all under
+    alltoall); one top-k merge.  ``picks`` keeps chosen paged calls'
+    arguments (``captured_calls``), ``record`` the routing and draws
+    (``MoeRecorder``).  Returns the numbers, the streams, the launches,
+    the copy launches, the captured calls and the recorded events (or
+    None)."""
     from repro_torch.serve import TrafficConfig, make_requests
 
     dev, comm = eng.device, eng.ctx.tp_comm
-    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE))
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **trace))
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3160,7 +3319,8 @@ def tp_serve_run(pa, sc, eng, cfg, tag, picks=None) -> dict:
     pa.reset_launches()
     sc.reset_launches()
     t0 = time.monotonic()
-    with captured_calls(cfg.n_layers, picks or {}) as got:
+    with captured_calls(cfg.n_layers, picks or {}) as got, \
+            (MoeRecorder(cfg) if record else contextlib.nullcontext()) as rec:
         done = eng.run(reqs, clock="tick")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -3168,13 +3328,15 @@ def tp_serve_run(pa, sc, eng, cfg, tag, picks=None) -> dict:
     copies = sc.LAUNCHES["copy_blocked"]
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     m = eng.metrics()
-    if len(done) != len(reqs) or any(len(r.out) != r.max_new for r in done):
+    if len(done) != len(reqs) or any(len(r.out) != r.max_new or not all(
+            0 <= t < cfg.vocab for t in r.out) for r in done):
         fail(f"tp {tag}: {len(done)} of {len(reqs)} requests finished whole")
     steps = m["steps"]
+    dt = "bf16" if eng.scfg.dtype == torch.bfloat16 else "f32"
     want = {k: 0 for k in launches}
-    want[("paged_prefill_attention", "bf16")] = cfg.n_layers * (
+    want[("paged_prefill_attention", dt)] = cfg.n_layers * (
         steps["prefill"] + steps["verify"])
-    want[("paged_decode_attention", "bf16")] = cfg.n_layers * steps["decode"]
+    want[("paged_decode_attention", dt)] = cfg.n_layers * steps["decode"]
     if launches != want or not steps["prefill"]:
         fail(f"tp {tag}: paged launches {launches} != n_layers x steps "
              f"{want}")
@@ -3183,14 +3345,19 @@ def tp_serve_run(pa, sc, eng, cfg, tag, picks=None) -> dict:
     if copies != staged or (comm.backend_name == "pallas") != (copies > 0):
         fail(f"tp {tag}: copy-kernel launches {copies} != the staged rounds "
              f"of the communicator's calls {staged}")
-    st = comm.stats()
-    n_steps = sum(steps.values())
-    want_psums = n_steps * (1 + 2 * cfg.n_layers)
+    st, n_steps = comm.stats(), sum(steps.values())
+    alltoall = bool(cfg.moe) and eng.ctx.moe_dispatch == "alltoall"
+    mlp_psums = (bool(cfg.moe.shared_ff) + (not alltoall)) if cfg.moe else 1
+    want_psums = n_steps * (1 + (1 + mlp_psums) * cfg.n_layers)
+    want_a2a = n_steps * 2 * cfg.n_layers if alltoall else 0
+    a2a = st.get("all_to_all", {})
     if st["psum"]["calls"] != want_psums or \
+            a2a.get("calls", 0) != want_a2a or \
             st["top_k_merge"]["calls"] != n_steps:
         fail(f"tp {tag}: {st['psum']['calls']} psums / "
+             f"{a2a.get('calls', 0)} all_to_all / "
              f"{st['top_k_merge']['calls']} merges over {n_steps} steps "
-             f"(want {want_psums} / {n_steps})")
+             f"(want {want_psums} / {want_a2a} / {n_steps})")
     out = {"backend": comm.backend_name, "tp": comm.size,
            "ticks": m["ticks"], "steps": steps,
            "tokens_out": m["tokens_out"], "wall_s": wall,
@@ -3202,7 +3369,53 @@ def tp_serve_run(pa, sc, eng, cfg, tag, picks=None) -> dict:
            "copy_launches": copies,
            "launches": {f"{k[0]}/{k[1]}": v for k, v in launches.items()
                         if v}}
-    return out, streams_of(done), launches, copies, got
+    if cfg.moe:
+        out["moe_dispatch"] = eng.ctx.moe_dispatch
+        out["all_to_all_calls_per_step"] = {
+            a: n / n_steps for a, n in a2a.get("algos", {}).items()}
+    return (out, streams_of(done), launches, copies, got,
+            rec.done() if record else None)
+
+
+SMOKE_PROMPTS = [list(range(3, 11)), list(range(40, 46)), [7, 3, 99, 12, 55]]
+
+
+def smoke_tp_engine(params, cfg, ctx, impl, dev, kv=None, my_pe=0, **kw):
+    """A ServeEngine on a StackedExec of TP_SMOKE_REPLICAS replicas of
+    ``ctx``'s TP group, the smoke serving geometry, ``impl`` attention,
+    reading replica ``my_pe``; ``kv`` shares a cache."""
+    from repro_torch.core.heap import SymmetricHeap
+    from repro_torch.serve import (PagedKVCache, ServeConfig, ServeEngine,
+                                   StackedExec)
+
+    scfg = ServeConfig(page_tokens=4, n_pages=24, max_batch=3, max_seq=32,
+                       prefill_chunk=3, attn_impl=impl, **kw)
+    kv = kv or PagedKVCache(
+        SymmetricHeap(("data", "model")), n_layers=cfg.n_layers,
+        kv_heads=cfg.kv_per_rank(ctx.tp_size), head_dim=cfg.head_dim,
+        n_pages=scfg.n_pages, page_tokens=scfg.page_tokens)
+    ex = StackedExec(params, cfg, ctx, scfg, kv, dev,
+                     replicas=TP_SMOKE_REPLICAS, my_pe=my_pe)
+    return ServeEngine(params, cfg, scfg, ctx=ctx, exec_=ex, device=dev,
+                       kv=kv, my_pe=my_pe)
+
+
+def smoke_launches_ok(pa, cfg, steps: dict, impl: str, what: str,
+                      total: dict) -> None:
+    """A smoke run's paged launches, zeroed just before: n_layers x its
+    steps through the kernels (verify windows through the prefill body),
+    none through the plain versions; added into ``total`` by (kernel,
+    dtype)."""
+    torch.cuda.synchronize()
+    n = cfg.n_layers if impl == "kernel" else 0
+    want = {"paged_decode_attention": n * steps["decode"],
+            "paged_prefill_attention": n * (steps["prefill"]
+                                            + steps["verify"])}
+    if dict(pa.LAUNCHES) != want:
+        fail(f"tp smoke {what} ({impl}): launches {dict(pa.LAUNCHES)}, "
+             f"want {want}")
+    for k, v in pa.LAUNCHES_BY_DTYPE.items():
+        total[k] = total.get(k, 0) + v
 
 
 def tp_smoke_streams(pa, dev) -> dict:
@@ -3213,43 +3426,23 @@ def tp_smoke_streams(pa, dev) -> dict:
     TP rank and one quiet); each kernel run launches n_layers x its
     steps, each plain run none.  Returns the kernel runs' launches."""
     from repro_torch import configs
-    from repro_torch.core.heap import SymmetricHeap
     from repro_torch.models import lm
     from repro_torch.parallel import ParallelCtx
-    from repro_torch.serve import (PagedKVCache, Request, ServeConfig,
-                                   ServeEngine, StackedExec)
+    from repro_torch.serve import Request
 
     t0 = time.monotonic()
     cfg = configs.get_smoke("qwen3-8b")
     params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
                      device=dev)
-    prompts = [list(range(3, 11)), list(range(40, 46)), [7, 3, 99, 12, 55]]
+    prompts = SMOKE_PROMPTS
     prefix = list(range(3, 14))
     total: dict = {}
 
     def engine(ctx, impl, kv=None, my_pe=0, **kw):
-        scfg = ServeConfig(page_tokens=4, n_pages=24, max_batch=3,
-                           max_seq=32, prefill_chunk=3, attn_impl=impl, **kw)
-        kv = kv or PagedKVCache(
-            SymmetricHeap(("data", "model")), n_layers=cfg.n_layers,
-            kv_heads=cfg.kv_per_rank(ctx.tp_size), head_dim=cfg.head_dim,
-            n_pages=scfg.n_pages, page_tokens=scfg.page_tokens)
-        ex = StackedExec(params, cfg, ctx, scfg, kv, dev,
-                         replicas=TP_SMOKE_REPLICAS, my_pe=my_pe)
-        return ServeEngine(params, cfg, scfg, ctx=ctx, exec_=ex, device=dev,
-                           kv=kv, my_pe=my_pe)
+        return smoke_tp_engine(params, cfg, ctx, impl, dev, kv, my_pe, **kw)
 
     def counted(eng, impl, what):
-        torch.cuda.synchronize()
-        n = cfg.n_layers if impl == "kernel" else 0
-        want = {"paged_decode_attention": n * eng.steps["decode"],
-                "paged_prefill_attention": n * (eng.steps["prefill"]
-                                                + eng.steps["verify"])}
-        if dict(pa.LAUNCHES) != want:
-            fail(f"tp smoke {what} ({impl}): launches {dict(pa.LAUNCHES)}, "
-                 f"want {want}")
-        for k, v in pa.LAUNCHES_BY_DTYPE.items():
-            total[k] = total.get(k, 0) + v
+        smoke_launches_ok(pa, cfg, eng.steps, impl, what, total)
 
     for tp in TP_SMOKE:
         for backend in TP_BACKENDS:
@@ -3306,7 +3499,7 @@ def tp_smoke_streams(pa, dev) -> dict:
 def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
     """Phase 10.  Full-width qwen3-8b in bf16 at TP 4 (one replica): the
     weights drawn from seed 0 as phase 4 draws them and stacked by
-    ``shard_for_tp``; the serve trace on clock "tick" under each backend
+    ``shard_for_tp``; ``TICK_TRACE`` on clock "tick" under each backend
     (``tp_serve_run``); pallas == posh bit for bit; the paged kernels
     against their plain versions on the pallas run's own decode and
     64-row prefill inputs (``tp_paged_parity``); xla vs posh and TP 4
@@ -3354,7 +3547,7 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
           f"(TP, ...) {weights_gb:.2f} GB, {torch.cuda.memory_allocated() / 1e9:.2f}"
           f" GB allocated; init and stacking {time.monotonic() - t0:.1f} s",
           flush=True)
-    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **SERVE_TRACE))
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **TICK_TRACE))
     runs, streams = {}, {}
     eng = got = None
     for backend in TP_BACKENDS:
@@ -3363,11 +3556,11 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
         torch.cuda.empty_cache()
         eng = ServeEngine(params, cfg, scfg, device=dev,
                           ctx=ParallelCtx(tp_size=TP_FULL, backend=backend))
-        eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **TP_WARMUP)))
+        eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **WARMUP_TRACE)))
         picks = {"decode": ("paged_attention", None, TP_PICK_DECODE),
                  "prefill": ("paged_prefill_attention", scfg.prefill_chunk,
                              0)} if backend == TP_BACKENDS[-1] else None
-        out, streams[backend], launches, n_copy, got = tp_serve_run(
+        out, streams[backend], launches, n_copy, got, _ = tp_serve_run(
             pa, sc, eng, cfg, f"tp{TP_FULL} {backend}", picks)
         out["psum_model_ms_per_step"] = psum_model_ms_per_step(
             eng.ctx.tp_comm, sum(out["steps"].values()), dev)
@@ -3457,8 +3650,8 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
         "qwen3-8b", config="full", dtype="bf16", device=dev, page_tokens=P,
         n_pages=512, max_batch=B, prefill_chunk=64, attn_impl="kernel",
         seed=0, ctx=ParallelCtx(tp_size=TP_CELLS, backend="posh"))
-    out, colo2, launches, _, _ = tp_serve_run(pa, sc, eng, cfg,
-                                              f"tp{TP_CELLS} posh")
+    out, colo2, launches, _, _, _ = tp_serve_run(pa, sc, eng, cfg,
+                                                 f"tp{TP_CELLS} posh")
     add(launches)
     print(f"tp{TP_CELLS} posh (colocated): " + json.dumps(out), flush=True)
     gaps[f"tp{TP_CELLS} vs tp1"] = gap_share(decode_logits(eng, cfg, cases),
@@ -3478,7 +3671,7 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
         fail(f"tp: the near-tie cap {NEAR_TIE_DELTA} does not separate the "
              f"sound computations' gap {sound:.4g} from a dropped psum's "
              f"{planted:.4g}")
-    dout, dstreams, launches = disagg_run(pa, eng, cfg, SERVE_TRACE, (2, 2),
+    dout, dstreams, launches = disagg_run(pa, eng, cfg, TICK_TRACE, (2, 2),
                                           "host", 0, "bf16")
     add(launches)
     if not dout["peak_gb"] < 2 * weights_gb:
@@ -3496,6 +3689,368 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
     add(tp_smoke_streams(pa, dev))
     print(f"tp stage: {time.monotonic() - t0:.1f} s", flush=True)
     return total, copies, errs
+
+
+# ----------------------------------------------------------------------
+# phase 11: MoE serving at tp > 1
+# ----------------------------------------------------------------------
+def moe_streams_verdict(cfg, reqs, got: dict, want: dict, rec_got: list,
+                        rec_want: list, labels, tag: str,
+                        gated: bool) -> int:
+    """``got``'s streams against ``want``'s, both runs recorded
+    (``MoeRecorder``) on the same trace: the scheduler does not see the
+    tokens (every request runs to ``max_new``), so both runs make the
+    same steps over the same rows, event for event.  The root flip is
+    the first row (in step, layer, row order) whose top-k set or kept
+    set differs; each stream's first divergence is printed with
+    ``want``'s top-2 logits at the token (its draw event) and whether
+    the root flip came before it.  A divergence the root flip precedes
+    passes when that flip changed the top-k set at a near-tie (the
+    relative gate gap below F32_NEAR_TIE); one no flip precedes when
+    ``want``'s top-2 margin there is below F32_NEAR_TIE x |top logit|.
+    With ``gated`` False (bf16) this is printed, not checked.  Returns
+    the number of diverging streams."""
+    n_exp = cfg.moe.experts_padded(1)
+    a_lab, b_lab = labels
+    kinds = [(e["kind"], tuple(e["idx"].shape) if e["kind"] == "route"
+              else len(e["rid"])) for e in rec_got]
+    if kinds != [(e["kind"], tuple(e["idx"].shape) if e["kind"] == "route"
+                  else len(e["rid"])) for e in rec_want]:
+        fail(f"moe tp {tag}: the two runs' steps differ ({len(rec_got)} vs "
+             f"{len(rec_want)} recorded calls)")
+    root, n_flips, step, layer = None, 0, 0, 0
+    for i, (x, y) in enumerate(zip(rec_got, rec_want)):
+        if x["kind"] == "sample":
+            step, layer = step + 1, 0
+            continue
+        (mx, kx), (my, ky) = route_sets(x, n_exp), route_sets(y, n_exp)
+        rows = torch.nonzero((mx != my).any(1) | (kx != ky).any(1)).flatten()
+        if len(rows):
+            n_flips += 1
+            if root is None:
+                r = int(rows[0])
+                root = {"event": i, "step": step, "layer": layer, "row": r,
+                        "set": bool((mx[r] != my[r]).any()),
+                        "gap": float(y["gap"][r]),
+                        f"gap_{a_lab}": float(x["gap"][r])}
+        layer += 1
+    div = divergences(got, want)
+    n_prompt = {r.rid: len(r.prompt) for r in reqs}
+    bad = []
+    for rid, j in div:
+        pos = n_prompt[rid] + j
+        hit = [(i, int(k)) for i, e in enumerate(rec_want)
+               if e["kind"] == "sample"
+               for k in torch.nonzero((e["rid"] == rid)
+                                      & (e["pos"] == pos)).flatten()]
+        if not hit:
+            fail(f"moe tp {tag}: no draw of request {rid} output {j}")
+        e, row = hit[-1]
+        top = rec_want[e]["top"][row]
+        mg, top_v = float(top[0] - top[1]), float(top[0])
+        reached = root is not None and root["event"] < e
+        ok = (root["set"] and root["gap"] < F32_NEAR_TIE) if reached \
+            else mg < F32_NEAR_TIE * abs(top_v)
+        print(f"moe tp {tag}: request {rid} output {j}: {a_lab} "
+              f"{got[rid][j:j + 3]} vs {b_lab} {want[rid][j:j + 3]}; "
+              f"{b_lab}'s top-2 margin {mg:.6g} at top {top_v:.6g} "
+              f"({mg / max(abs(top_v), 1e-30):.3e} of it); "
+              + ("after the root flip" if reached else "no flip before it"),
+              flush=True)
+        if not ok:
+            bad.append((rid, j, mg, reached))
+    print(f"moe tp {tag}: {len(div)} of {len(want)} streams leave {b_lab}; "
+          f"{n_flips} routing calls differ; root flip "
+          + (json.dumps(root) if root else "none")
+          + f"; near-tie bar {F32_NEAR_TIE}"
+          + ("" if gated else " (printed, not gated)"), flush=True)
+    if gated and bad:
+        fail(f"moe tp {tag}: {a_lab} leaves {b_lab} beyond a near-tie "
+             f"(rid, output, margin, after the root flip): {bad}")
+    return len(div)
+
+
+def tp_layout_timing(pa, got: dict, tag: str) -> dict:
+    """Each captured paged call of a TP step (``captured_calls``: the
+    per-PE layout, every PE's rows in one launch) timed as phase 7 times
+    the kernels: the kernel, its plain version, SDPA on the K/V gathered
+    per row (the lengths' or the window's mask) and the bound (each live
+    K/V token read once per KV head, q read and out written once).
+    Returns {kernel name: the row}."""
+    import torch.nn.functional as F
+
+    out = {}
+    for kind, args in sorted(got.items()):
+        decode = kind == "decode"
+        name = "paged_decode_attention" if decode else \
+            "paged_prefill_attention"
+        q, kp, vp, bt = args[:4]
+        dt, isz = q.dtype, q.element_size()
+        hkv, h = kp.shape[-2], q.shape[-2]
+        rows = bt.shape[0]
+        if decode:
+            lim = args[4].long()[:, None]
+            qs = q[:, :, None]
+        else:
+            start, n_tok = args[4].long(), args[5].long()
+            j = torch.arange(q.shape[1], device=q.device)[None]
+            lim = torch.where(j < n_tok[:, None], start[:, None] + j + 1,
+                              torch.zeros_like(j))
+            qs = q.transpose(1, 2)
+        s = max(int(lim.max()), 1)
+        bl = bt.long()
+        kc = kp[bl].reshape(rows, -1, hkv, D)[:, :s].transpose(1, 2) \
+            .contiguous()
+        vc = vp[bl].reshape(rows, -1, hkv, D)[:, :s].transpose(1, 2) \
+            .contiguous()
+        # (rows, 1, 1 | C, s): key j visible to a query row below its limit
+        mask = (torch.arange(s, device=q.device)[None, None]
+                < lim[..., None])[:, None]
+        seen = int(lim.max(-1).values.sum())
+        flops = 4 * h * D * int(lim.sum())
+        nbytes = (2 * q.numel() * isz + seen * hkv * D * isz * 2
+                  + bt.numel() * 4 + 2 * rows * 4)
+        ms = time_ms(lambda: getattr(pa, name)(*args), q.device)
+        plain_ms = time_ms(lambda: getattr(pa, name + "_ref")(*args),
+                           q.device)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kc, vc, attn_mask=mask, enable_gqa=True), q.device)
+        bound_ms, by = bound_of(nbytes, flops, dt)
+        got_r = rates(ms, nbytes, flops, bound_ms)
+        out[name] = {"q": list(q.shape), "kv_heads": hkv, "rows": rows,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "bound_bytes": nbytes, **got_r}
+        print(f"timing {name} at the {tag} per-PE layout (q "
+              f"{tuple(q.shape)} {str(dt)[6:]}, {hkv} KV heads a row, "
+              f"{rows} rows = PEs x sequences): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}); {rate_text(got_r)}", flush=True)
+        del kc, vc
+    return out
+
+
+def moe_tp_stage(pa, sc, dev, moe1: dict, moe1_f32: dict) -> tuple:
+    """Phase 11.  qwen3-moe-30b-a3b in bf16 at TP 4, one replica, posh,
+    einsum: phase 4's ``MOE_TRACE`` served twice (the same streams;
+    launches, collectives, peak under TP_PEAK x phase 4's tp = 1 peak
+    and under 80 GB: ``tp_serve_run``), the paged kernels against their
+    plain versions on the run's own decode and prefill inputs and timed
+    there (the per-PE layout), the divergences from phase 4's tp = 1
+    streams (``moe1``, carried as data) and the first step's routing
+    flips printed; then pallas on the same trace, == posh bit for bit,
+    the copy launches the staged rounds.  Then qwen2-moe-a2.7b in f32 at
+    TP 4 (posh) under einsum and alltoall on the same trace,
+    each held to the tp = 1 run (``moe1_f32``) by the f32 rules: the
+    first step's held rows within LOGIT_TOL, every stream equal but at
+    a near-tie (``moe_streams_verdict``); alltoall held to einsum the
+    same way.  Then the smoke configs (``moe_tp_smoke``).  Returns the
+    phase's paged launches by (kernel, dtype), its copy-kernel launches,
+    the largest error of each paged kernel on the TP steps' inputs and
+    the per-PE layout timings."""
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.serve import ServeEngine, TrafficConfig, make_requests
+
+    t0 = time.monotonic()
+    total: dict = {}
+    errs: dict = {}
+    layouts: dict = {}
+    copies = 0
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def worst(e):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    # ---- qwen3-moe-30b-a3b, bf16, TP 4
+    posh = ParallelCtx(tp_size=TP_FULL, backend="posh")
+    eng, cfg = moe_engine(MOE_BF16, "bf16", dev, 512, posh)
+    params, scfg = eng.exec.params, eng.scfg
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **MOE_TRACE))
+    eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **WARMUP_TRACE)),
+            clock="tick")
+    picks = {"decode": ("paged_attention", None, TP_PICK_DECODE),
+             "prefill": ("paged_prefill_attention", scfg.prefill_chunk, 0)}
+    out, first, launches, _, got, _ = tp_serve_run(
+        pa, sc, eng, cfg, f"{cfg.name} bf16 posh", picks, MOE_TRACE)
+    print(f"moe tp {cfg.name} bf16 posh: " + json.dumps(out), flush=True)
+    add(launches)
+    gate = min(TP_PEAK * moe1["peak_gb"], 80.0)
+    if not out["peak_gb"] < gate:
+        fail(f"moe tp bf16: peak {out['peak_gb']:.2f} GB is not below "
+             f"{gate:.2f} GB ({TP_PEAK} x the tp = 1 run's "
+             f"{moe1['peak_gb']:.2f} GB, and 80)")
+    if sorted(got) != ["decode", "prefill"]:
+        fail(f"moe tp bf16: captured {sorted(got)} of the run's paged calls")
+    worst(tp_paged_parity(pa, got, eng.pool, 1, TP_FULL, f"moe{TP_FULL}"))
+    layouts[MOE_BF16] = tp_layout_timing(pa, got, f"{MOE_BF16} TP {TP_FULL}")
+    got = None
+    again_out, again, launches, _, _, rec = tp_serve_run(
+        pa, sc, eng, cfg, f"{cfg.name} bf16 posh again", trace=MOE_TRACE,
+        record=True)
+    print(f"moe tp {cfg.name} bf16 posh again: " + json.dumps(again_out),
+          flush=True)
+    add(launches)
+    if again != first:
+        fail(f"moe tp bf16: the second run's streams differ at "
+             f"{divergences(again, first)}")
+    n_div = moe_streams_verdict(cfg, reqs, first, moe1["streams"], rec,
+                                moe1["rec"], (f"tp{TP_FULL}", "tp1"),
+                                f"{cfg.name} bf16", gated=False)
+    rec = None
+    moe_logits_verdict(cfg, moe_first_step(eng, cfg, reqs, "kernel",
+                                           tok=moe1["first"]["tok"]),
+                       moe1["first"], gated=False,
+                       labels=(f"tp{TP_FULL}", "tp1"))
+    print(f"moe tp bf16: the second run gave the same streams; {n_div} of "
+          f"{len(reqs)} streams leave tp = 1 (printed, not gated); tok/s "
+          f"{out['tok_s']:.2f} vs tp = 1 {moe1['run']['tok_s']:.2f}, peak "
+          f"{out['peak_gb']:.2f} vs {moe1['peak_gb']:.2f} GB", flush=True)
+    eng = None
+    gc.collect()
+    eng = ServeEngine(params, cfg, scfg, device=dev, ctx=ParallelCtx(
+        tp_size=TP_FULL, backend="pallas"))
+    pout, streams, launches, copies, _, _ = tp_serve_run(
+        pa, sc, eng, cfg, f"{cfg.name} bf16 pallas", trace=MOE_TRACE)
+    print(f"moe tp {cfg.name} bf16 pallas: " + json.dumps(pout), flush=True)
+    add(launches)
+    if streams != first:
+        fail(f"moe tp bf16: pallas streams differ from posh at "
+             f"{divergences(streams, first)}")
+    print("moe tp bf16: pallas == posh bit for bit", flush=True)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- qwen2-moe-a2.7b, f32, TP 4, einsum then alltoall
+    eng, cfg = moe_engine(MOE_F32, "f32", dev, MOE_F32_PAGES, posh)
+    params, scfg = eng.exec.params, eng.scfg
+    reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **MOE_TRACE))
+    moe_logits_verdict(cfg, moe_first_step(eng, cfg, reqs, "kernel",
+                                           tok=moe1_f32["first"]["tok"]),
+                       moe1_f32["first"], gated=True,
+                       labels=(f"tp{TP_FULL}", "tp1"))
+    runs, recs = {}, {}
+    for dispatch in ("einsum", "alltoall"):
+        if dispatch != "einsum":
+            eng = None
+            gc.collect()
+            eng = ServeEngine(params, cfg, scfg, device=dev, ctx=ParallelCtx(
+                tp_size=TP_FULL, backend="posh", moe_dispatch=dispatch))
+        out, runs[dispatch], launches, _, got, recs[dispatch] = tp_serve_run(
+            pa, sc, eng, cfg, f"{cfg.name} f32 {dispatch}",
+            picks if dispatch == "einsum" else None, MOE_TRACE, record=True)
+        print(f"moe tp {cfg.name} f32 {dispatch}: " + json.dumps(out),
+              flush=True)
+        add(launches)
+        gate = min(TP_PEAK * moe1_f32["peak_gb"], 80.0)
+        if not out["peak_gb"] < gate:
+            fail(f"moe tp f32 {dispatch}: peak {out['peak_gb']:.2f} GB is "
+                 f"not below {gate:.2f} GB")
+        if got:
+            if sorted(got) != ["decode", "prefill"]:
+                fail(f"moe tp f32: captured {sorted(got)} of the paged calls")
+            worst(tp_paged_parity(pa, got, eng.pool, 1, TP_FULL,
+                                  f"moe{TP_FULL} f32"))
+            layouts[MOE_F32] = tp_layout_timing(pa, got,
+                                                f"{MOE_F32} TP {TP_FULL}")
+            got = None
+        moe_streams_verdict(cfg, reqs, runs[dispatch], moe1_f32["streams"],
+                            recs[dispatch], moe1_f32["rec"],
+                            (f"tp{TP_FULL} {dispatch}", "tp1"),
+                            f"{cfg.name} f32 {dispatch}", gated=True)
+    moe_streams_verdict(cfg, reqs, runs["alltoall"], runs["einsum"],
+                        recs["alltoall"], recs["einsum"],
+                        ("alltoall", "einsum"), f"{cfg.name} f32",
+                        gated=True)
+    del eng, params, recs
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(moe_tp_smoke(pa, dev))
+    print(f"moe tp stage: {time.monotonic() - t0:.1f} s", flush=True)
+    return total, copies, errs, layouts
+
+
+def moe_tp_smoke(pa, dev) -> dict:
+    """The smoke MoE configs in f32 at TP 2 and 4 with two replicas,
+    every backend and dispatch: greedy streams through the kernels ==
+    through the plain versions, and with speculation (k = 2) through the
+    kernels == the same; 2+2 cells of TP 2 (posh, both dispatches)
+    through the kernels == the plain colocated TP 2 streams; each kernel
+    run launches n_layers x its steps, each plain run none.  Returns the
+    kernel runs' launches."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.serve import DisaggEngine, Request, ServeConfig
+
+    t0 = time.monotonic()
+    total: dict = {}
+    n_runs = 0
+
+    def reqs():
+        return [Request(rid=i, prompt=list(p), max_new=6)
+                for i, p in enumerate(SMOKE_PROMPTS)]
+
+    for arch in (MOE_BF16, MOE_F32):
+        cfg = configs.get_smoke(arch)
+        params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+        for tp in TP_SMOKE:
+            for backend in TP_BACKENDS:
+                for dispatch in ("einsum", "alltoall"):
+                    ctx = ParallelCtx(tp_size=tp, backend=backend,
+                                      moe_dispatch=dispatch)
+                    what = f"{arch} tp={tp} {backend} {dispatch}"
+                    streams = {}
+                    for mode, impl, kw in (("plain", "ref", {}),
+                                           ("plain", "kernel", {}),
+                                           ("spec", "kernel",
+                                            dict(spec_k=2))):
+                        eng = smoke_tp_engine(params, cfg, ctx, impl, dev,
+                                              **kw)
+                        pa.reset_launches()
+                        done = eng.run(reqs(), clock="tick")
+                        smoke_launches_ok(pa, cfg, eng.steps, impl,
+                                          f"{what} {mode}", total)
+                        if mode == "spec" and not eng.steps["verify"]:
+                            fail(f"moe tp smoke {what}: spec verified "
+                                 f"nothing")
+                        streams[mode, impl] = streams_of(done)
+                        n_runs += 1
+                    for key in (("plain", "kernel"), ("spec", "kernel")):
+                        if streams[key] != streams["plain", "ref"]:
+                            fail(f"moe tp smoke {what}: {key} streams "
+                                 f"{streams[key]} != plain "
+                                 f"{streams['plain', 'ref']}")
+                    if tp == TP_CELLS and backend == "posh":
+                        pa.reset_launches()
+                        d = DisaggEngine(params, cfg, ServeConfig(
+                            page_tokens=4, n_pages=24, max_batch=3,
+                            max_seq=32, prefill_chunk=3, attn_impl="kernel"),
+                            ctx=ctx, device=dev, n_prefill=2, n_decode=2)
+                        done = d.run(reqs(), clock="tick")
+                        steps = {k: sum(e.steps[k] for e in d.engines)
+                                 for k in ("prefill", "decode", "verify")}
+                        smoke_launches_ok(pa, cfg, steps, "kernel",
+                                          f"{what} 2+2", total)
+                        n_runs += 1
+                        if streams_of(done) != streams["plain", "ref"] or \
+                                d.stats()["handoff_quiets"]:
+                            fail(f"moe tp smoke {what} 2+2: streams "
+                                 f"{streams_of(done)} != colocated "
+                                 f"{streams['plain', 'ref']} or "
+                                 f"{d.stats()['handoff_quiets']} quiets")
+    print(f"moe tp smoke f32 ({MOE_BF16}, {MOE_F32} smoke, tp {TP_SMOKE}, "
+          f"{TP_SMOKE_REPLICAS} replicas, {TP_BACKENDS}, einsum and "
+          f"alltoall): kernel streams == plain streams without and with "
+          f"spec (k=2), 2+2 TP {TP_CELLS} cells == colocated; launches "
+          f"n_layers x steps; {n_runs} runs in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    return total
 
 
 # ----------------------------------------------------------------------
@@ -3966,42 +4521,64 @@ def main(argv=None) -> int:
         if src not in build.BUILD_LOG:
             print(f"{src}: library already built", flush=True)
     print_resources(fa, pa, sc, rc)
+    mark = [time.monotonic()]
+
+    def phase_done(name):
+        now = time.monotonic()
+        print(f"phase {name}: {now - mark[0]:.1f} s", flush=True)
+        mark[0] = now
 
     errs = parity(pa, dev)
     flash_errs = flash_parity(fa, dev)
     flash_autograd_parity(fa, dev)
     comm_errs = comm_kernel_parity(sc, rc, dev)
+    phase_done("3 parity")
     launches, launches_spec, launches_disagg, colo, colo_peak = \
         serve_full(pa, dev)
     launches_f32, launches_disagg_f32 = serve_full_f32(pa, dev)
-    launches_moe = serve_moe_bf16(pa, dev)
-    launches_moe_f32 = serve_moe_f32(pa, dev)
+    launches_moe, moe1 = serve_moe_bf16(pa, dev)
+    launches_moe_f32, moe1_f32 = serve_moe_f32(pa, dev)
     for arch in ("qwen3-8b", MOE_BF16, MOE_F32):
         serve_smoke_streams(pa, dev, arch)
+    phase_done("4 serve")
     comm_launches, comm_payloads = comm_phase(sc, rc, dev, args.comm_out)
+    phase_done("5 comm")
     flash_launches = train_full(fa, dev)
     train_smoke_parity(dev)
+    phase_done("6 train")
     timing_floor(dev)
     kernels = timing(pa, dev, launches, launches_f32, launches_spec,
                      launches_moe, launches_moe_f32, errs,
                      launches_disagg, launches_disagg_f32) + \
         comm_timing(sc, rc, dev, comm_launches, comm_payloads, comm_errs) + \
         [flash_timing(fa, dev, flash_launches, flash_errs)]
+    phase_done("7 timing")
     launches_swap = swap_stage(pa, dev, colo)
+    phase_done("8 hot-swap")
     launches_ckpt = ckpt_stage(fa, dev)
+    phase_done("9 ckpt")
     launches_tp, copies_tp, errs_tp = tp_stage(pa, sc, dev, colo, colo_peak)
+    phase_done("10 tp")
+    launches_mtp, copies_mtp, errs_mtp, layouts_mtp = moe_tp_stage(
+        pa, sc, dev, moe1, moe1_f32)
+    phase_done("11 moe tp")
     for row in kernels:
         if row["name"].startswith("paged_"):
             row["launches_swap"] = launches_swap[(row["name"], "bf16")]
-            by = {tag: n for (name, tag), n in launches_tp.items()
-                  if name == row["name"]}
-            row["launches_tp"] = sum(by.values())
-            row["launches_tp_by_dtype"] = by
-            row["max_abs_err_tp"] = errs_tp[row["name"]]
+            for key, launches, errs in (("tp", launches_tp, errs_tp),
+                                        ("moe_tp", launches_mtp, errs_mtp)):
+                by = {tag: n for (name, tag), n in launches.items()
+                      if name == row["name"]}
+                row[f"launches_{key}"] = sum(by.values())
+                row[f"launches_{key}_by_dtype"] = by
+                row[f"max_abs_err_{key}"] = errs[row["name"]]
+            row["moe_tp_layouts"] = {arch: t[row["name"]]
+                                     for arch, t in layouts_mtp.items()}
         elif row["name"] == "flash_attention":
             row["launches_ckpt"] = launches_ckpt
         elif row["name"] == "copy_blocked":
             row["launches_tp"] = copies_tp
+            row["launches_moe_tp"] = copies_mtp
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

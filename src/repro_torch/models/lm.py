@@ -175,10 +175,12 @@ def loss_fn(params: dict, batch: dict, ctx, cfg,
     return lm_head_loss(head, x, targets, ctx)
 
 
-def _decode_mlp(p: dict, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
+def _decode_mlp(p: dict, x: torch.Tensor, cfg, ctx=None,
+                replicas: int = 1) -> torch.Tensor:
     """Single-token MLP or MoE: x (b, d) -> (b, d); the MoE routes the b
-    slots together, as one window of b tokens.  At tp > 1 x is (tp, b,
-    d) and the dense MLP ends in its psum."""
+    slots together, as one window of b tokens (each replica's slots on
+    their own).  At tp > 1 x is (tp, b, d) and the MLP ends in its
+    psum."""
     if cfg.moe:
-        return moe_apply(p, x[:, None], cfg, ctx)[:, 0]
+        return moe_apply(p, x[..., None, :], cfg, ctx, replicas)[..., 0, :]
     return mlp_apply(p, x, cfg, ctx)

@@ -8,17 +8,31 @@ The dense MLP also serves at tp > 1, Megatron column -> row parallel
 with the weights stacked on the PE axis (``weights.shard_for_tp``):
 ``wu``/``wg`` split by columns, ``wd`` by rows, and the closing
 ``ctx.tp_comm.psum`` (the reference's ``sp_scatter`` with sequence
-parallelism off).  MoE at tp > 1 — expert parallelism, the
-``alltoall`` dispatch — is ROADMAP A7's remainder and raises.
+parallelism off).
 
-At tp = 1 the reference's MoE takes its ``_moe_einsum`` branch with one
-rank owning every expert: the router runs on all tokens, each
-(token, choice) pair gets a slot in its expert's capacity-bounded
-buffer in token-major order, pairs past the capacity are dropped, and
-the experts' outputs are gathered back and weighted by the gates.
-Which pairs are dropped depends on every token routed together, so a
-token's output depends on the batch it shares a call with whenever
-the capacity bites.
+The MoE layer routes every token on every rank (the router is
+replicated): each (token, choice) pair gets a slot in its expert's
+capacity-bounded buffer in token-major order, pairs past the capacity
+are dropped, and the experts' outputs are gathered back and weighted by
+the gates.  Which pairs are dropped depends on every token routed
+together, so a token's output depends on the batch it shares a call
+with whenever the capacity bites.  At tp = 1 one rank owns every
+expert (the reference's ``_moe_einsum`` with ``e_loc = E``).  At tp > 1
+the experts are split on their own axis, rank ``t`` owning ``E/tp`` of
+them (``weights.shard_for_tp``), and ``ctx.moe_dispatch`` picks the
+reference's route: ``"einsum"`` (``_moe_einsum``: each rank fills and
+runs only its own experts' buffers, zeros elsewhere, and one psum sums
+the ranks' partial outputs) or ``"alltoall"`` (``_moe_alltoall``: each
+rank fills every expert's buffer, ``all_to_all`` sends each block to its
+experts' owner, which runs them over the ``tp`` copies it receives, and
+a second ``all_to_all`` brings the outputs home; no psum).  The shared
+expert is column -> row parallel with a psum of its own, added after
+the routed output, as the reference adds it.
+
+Capacity is counted per serving replica: ``StackedExec`` folds R
+replicas into the batch rows, but each of the reference's replicas (a
+data-parallel rank) routes only its own rows, so ``moe_apply`` takes
+``replicas`` and routes each replica's ``B * t`` tokens on their own.
 """
 from __future__ import annotations
 
@@ -80,12 +94,12 @@ def moe_shapes(cfg) -> dict:
 
 
 def route(router_w: torch.Tensor, xt: torch.Tensor, cfg):
-    """Top-k routing of tokens xt (n, d): (gates (n, k) f32, experts
-    (n, k) int64).  Padded experts get logit -1e30 (zero mass); the
-    softmax is f32; top-k breaks ties toward the lowest expert index, as
-    ``jax.lax.top_k`` does (a stable descending sort); the k gates are
-    renormalised to sum one.  The reference's auxiliary loss is not
-    computed: ``moe_apply`` discards it."""
+    """Top-k routing of tokens xt (..., n, d): (gates (..., n, k) f32,
+    experts (..., n, k) int64).  Padded experts get logit -1e30 (zero
+    mass); the softmax is f32; top-k breaks ties toward the lowest expert
+    index, as ``jax.lax.top_k`` does (a stable descending sort); the k
+    gates are renormalised to sum one.  The reference's auxiliary loss
+    is not computed: ``moe_apply`` discards it."""
     m = cfg.moe
     logits = (xt @ router_w.to(xt.dtype)).float()
     if m.padded_experts and m.padded_experts > m.num_experts:
@@ -95,17 +109,18 @@ def route(router_w: torch.Tensor, xt: torch.Tensor, cfg):
     gates_all = torch.softmax(logits, dim=-1)
     gate_k, idx_k = torch.sort(gates_all, dim=-1, descending=True,
                                stable=True)
-    gate_k, idx_k = gate_k[:, :m.top_k], idx_k[:, :m.top_k]
+    gate_k, idx_k = gate_k[..., :m.top_k], idx_k[..., :m.top_k]
     gate_k = gate_k / gate_k.sum(-1, keepdim=True).clamp_min(1e-9)
     return gate_k, idx_k
 
 
 def positions_in_expert(idx_k: torch.Tensor, n_experts: int) -> torch.Tensor:
-    """The slot of each (token, choice) pair in its expert's buffer,
-    counted in flattened (token-major, then choice) order: (n * k,)."""
-    flat = idx_k.reshape(-1)
-    pos = F.one_hot(flat, n_experts).cumsum(0) - 1            # (nk, E)
-    return pos.gather(1, flat[:, None])[:, 0]
+    """The slot of each (token, choice) pair of idx_k (..., n, k) in its
+    expert's buffer, counted in flattened (token-major, then choice)
+    order over the n tokens of each leading index: (..., n * k)."""
+    flat = idx_k.flatten(-2)
+    pos = F.one_hot(flat, n_experts).cumsum(-2) - 1           # (.., nk, E)
+    return pos.gather(-1, flat[..., None])[..., 0]
 
 
 def expert_ffn(wu, wg, wd, xb: torch.Tensor, act: str) -> torch.Tensor:
@@ -117,44 +132,104 @@ def expert_ffn(wu, wg, wd, xb: torch.Tensor, act: str) -> torch.Tensor:
     return torch.bmm(g * u, wd.to(cd))
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
+def moe_apply(p: dict, x: torch.Tensor, cfg, ctx=None,
+              replicas: int = 1) -> torch.Tensor:
     """x (b, t, d) in the compute dtype -> (b, t, d): the reference's
-    ``moe_apply`` at tp = 1, where it takes the ``_moe_einsum`` branch
-    whatever its ``moe_dispatch`` (the all-to-all dispatch exchanges
-    tokens between tensor-parallel ranks: A7's remainder).  Capacity
-    ``int(n k cf / E) + 1`` slots per expert for n = b t tokens; pairs past it are dropped (they add zeros at the
-    last slot and gather nothing); the kept outputs are weighted by the
-    gates in the compute dtype and summed over the k choices; the shared
-    expert, if any, is added last.  A ctx at tp > 1 raises: expert
-    parallelism is A7's remainder."""
-    if tp_of(ctx) > 1:
-        raise NotImplementedError(
-            f"MoE at tp={ctx.tp_size}: expert parallelism and the alltoall "
-            f"dispatch are ROADMAP A7's remainder; MoE serves at tp = 1")
+    ``moe_apply`` with sequence parallelism off, as its serving engine
+    calls it.  Capacity ``int(n k cf / E) + 1`` slots per expert for n =
+    b t tokens; pairs past it are dropped (they add zeros at the last
+    slot and gather nothing); the kept outputs are weighted by the gates
+    in the compute dtype and summed over the k choices; the shared
+    expert, if any, is added last.  At tp > 1, x (tp, R b, t, d) with
+    the rows of ``replicas`` R replicas replica-major -> (tp, R b, t,
+    d), each replica routed alone (n = b t), through
+    ``ctx.moe_dispatch``."""
     m = cfg.moe
-    cd = x.dtype
-    ep = m.experts_padded(1)
-    b, t, d = x.shape
-    n = b * t
-    xt = x.reshape(n, d)
-    gate_k, idx_k = route(p["router"], xt, cfg)
-    cap = int(n * m.top_k * m.capacity_factor / ep) + 1
-
-    flat_e = idx_k.reshape(-1)                                # (n k,)
-    pos = positions_in_expert(idx_k, ep)
-    keep = (pos < cap)[:, None]
-    lp = pos.clamp(0, cap - 1)
-    xtk = xt.repeat_interleave(m.top_k, dim=0)                # (n k, d)
-    buf = torch.zeros((ep, cap, d), dtype=cd, device=x.device)
-    buf.index_put_((flat_e, lp), torch.where(keep, xtk, 0),
-                   accumulate=True)
-    yb = expert_ffn(p["wu"], p["wg"], p["wd"], buf, cfg.act)
-    gathered = torch.where(keep, yb[flat_e, lp], 0)
-    w = gate_k.reshape(-1)[:, None].to(cd)
-    out = (gathered * w).reshape(n, m.top_k, d).sum(1).reshape(b, t, d)
+    if m.shared_ff and not is_glu(cfg.act):
+        raise ValueError(f"the shared expert is a GLU; act {cfg.act!r} is "
+                         f"not one")
+    tp = tp_of(ctx)
+    if tp > 1:
+        out = _moe_tp(p, x, cfg, ctx, int(replicas))
+    else:
+        if replicas != 1:
+            raise ValueError(f"{replicas} replicas need the stacked layout")
+        b, t, d = x.shape
+        out = _moe_routed(p, x.reshape(1, 1, b * t, d), cfg, 1, None)
+        out = out.reshape(b, t, d)
     if m.shared_ff:
-        sh = p["shared"]
-        u = x @ sh["wu"].to(cd)
-        g = _glu_act(cfg.act)(x @ sh["wg"].to(cd))
-        out = out + (g * u) @ sh["wd"].to(cd)
+        out = out + mlp_apply(p["shared"], x, cfg, ctx)
     return out
+
+
+def _moe_tp(p, x, cfg, ctx, replicas: int) -> torch.Tensor:
+    """The routed experts at tp > 1: x (tp, R b, t, d) -> (tp, R b, t, d)
+    through the dispatch ``ctx.moe_dispatch`` names."""
+    tp, rows, t, d = x.shape
+    if rows % replicas:
+        raise ValueError(f"{rows} rows do not split into {replicas} "
+                         f"replicas")
+    xr = x.reshape(tp, replicas, rows // replicas * t, d)
+    if ctx.moe_dispatch == "alltoall":
+        out = _moe_routed(p, xr, cfg, tp, ctx, alltoall=True)
+    else:
+        out = ctx.tp_comm.psum(_moe_routed(p, xr, cfg, tp, ctx))
+    return out.reshape(x.shape)
+
+
+def _moe_routed(p, x, cfg, tp: int, ctx, alltoall: bool = False):
+    """Route and run the experts of x (tp, R, n, d) — every PE's copy of
+    each replica's n tokens — with the experts split over ``tp`` ranks
+    (``p``'s ``wu``/``wg``/``wd`` (tp, E/tp, ...) at tp > 1, (E, ...) at
+    tp = 1).  Returns (tp, R, n, d): under the einsum dispatch each
+    rank's partial output (its own experts' pairs, zeros for the rest;
+    the caller psums); under ``alltoall`` every rank's whole routed
+    output, its buffers exchanged with the experts' owners by two
+    ``all_to_all`` calls."""
+    m = cfg.moe
+    cd, dev = x.dtype, x.device
+    ep = m.experts_padded(1)
+    e_loc, k = ep // tp, m.top_k
+    _, reps, n, d = x.shape
+    gate_k, idx_k = route(p["router"], x, cfg)            # (tp, R, n, k)
+    cap = int(n * k * m.capacity_factor / ep) + 1
+    flat_e = idx_k.reshape(tp, reps, n * k)
+    pos = positions_in_expert(idx_k, ep)
+    keep = pos < cap
+    lp = pos.clamp(0, cap - 1)
+    pe = torch.arange(tp, device=dev).view(tp, 1, 1).expand_as(flat_e)
+    rep = torch.arange(reps, device=dev).view(1, reps, 1).expand_as(flat_e)
+    xtk = x.repeat_interleave(k, dim=2)                   # (tp, R, n k, d)
+    w = [p[name].reshape((ep,) + p[name].shape[-2:])      # (E, ..), a view
+         for name in ("wu", "wg", "wd")]
+    if alltoall:
+        # every rank fills every expert's buffer; the block of experts
+        # rank j owns goes to rank j, which runs them over the tp copies
+        send = torch.zeros((tp, reps, ep, cap, d), dtype=cd, device=dev)
+        send.index_put_((pe, rep, flat_e, lp),
+                        torch.where(keep[..., None], xtk, 0), accumulate=True)
+        send = send.view(tp, reps, tp, e_loc * cap, d).transpose(1, 2)
+        recv = ctx.tp_comm.all_to_all(send.contiguous(), split_axis=0,
+                                      concat_axis=0)  # (tp, src, R, ..)
+        xb = recv.view(tp, tp, reps, e_loc, cap, d).permute(0, 3, 1, 2, 4, 5)
+        yb = expert_ffn(*w, xb.reshape(ep, tp * reps * cap, d), cfg.act)
+        back = yb.view(tp, e_loc, tp, reps, cap, d).permute(0, 2, 3, 1, 4, 5)
+        ret = ctx.tp_comm.all_to_all(
+            back.reshape(tp, tp, reps, e_loc * cap, d), split_axis=0,
+            concat_axis=0)                            # (tp, owner, R, ..)
+        ret = ret.view(tp, tp, reps, e_loc, cap, d).transpose(1, 2)
+        yb = ret.reshape(tp, reps, ep, cap, d)
+        gathered = torch.where(keep[..., None], yb[pe, rep, flat_e, lp], 0)
+    else:
+        # each rank fills and runs only its own experts' buffers
+        e_lo = (torch.arange(tp, device=dev) * e_loc).view(tp, 1, 1)
+        local = (flat_e >= e_lo) & (flat_e < e_lo + e_loc) & keep
+        le = (flat_e - e_lo).clamp(0, e_loc - 1)
+        buf = torch.zeros((tp, e_loc, reps, cap, d), dtype=cd, device=dev)
+        buf.index_put_((pe, le, rep, lp),
+                       torch.where(local[..., None], xtk, 0), accumulate=True)
+        yb = expert_ffn(*w, buf.view(ep, reps * cap, d), cfg.act)
+        yb = yb.view(tp, e_loc, reps, cap, d)
+        gathered = torch.where(local[..., None], yb[pe, le, rep, lp], 0)
+    wt = gate_k.reshape(tp, reps, n * k, 1).to(cd)
+    return (gathered * wt).reshape(tp, reps, n, k, d).sum(3)

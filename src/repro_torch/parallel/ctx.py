@@ -15,6 +15,13 @@ communicator is the identity and the layers take unstacked tensors,
 as before; ``tp_of`` is the one test of which layout a layer takes.
 The trainer runs at tp = 1 only (tp > 1: ROADMAP A10).
 
+``moe_dispatch`` picks the MoE layer's route between the TP ranks, as
+the reference's field of the same name: ``"einsum"`` (every rank routes
+every token, runs its own experts' share and the ranks' partial outputs
+are psummed) or ``"alltoall"`` (tokens travel to their experts' owners
+and back through ``tp_comm.all_to_all``).  At tp = 1 both are the same
+single-rank computation.
+
 ``attn_impl`` takes the place of the reference's ``use_pallas`` (which
 the reference declares and never reads): ``"kernel"`` runs the flash
 kernel in the attention forward on a CUDA tensor, ``"ref"`` the plain
@@ -46,6 +53,7 @@ class ParallelCtx:
     remat: bool = True                  # per-layer activation checkpoint
     attn_impl: str = "kernel"           # | "ref" (counterpart of use_pallas)
     ce_mode: str = "vocab_parallel"     # | "gathered" (naive full logits)
+    moe_dispatch: str = "einsum"        # | "alltoall"
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     attn_block_q: int = 1024
@@ -65,6 +73,9 @@ class ParallelCtx:
         if self.ce_mode not in ("vocab_parallel", "gathered"):
             raise ValueError(f"ce_mode must be 'vocab_parallel' or "
                              f"'gathered', got {self.ce_mode!r}")
+        if self.moe_dispatch not in ("einsum", "alltoall"):
+            raise ValueError(f"moe_dispatch must be 'einsum' or 'alltoall', "
+                             f"got {self.moe_dispatch!r}")
         if self.tp_comm is None:
             object.__setattr__(self, "tp_comm", make_communicator(
                 "model", size=self.tp_size, backend=self.backend,

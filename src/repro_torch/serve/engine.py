@@ -2,7 +2,7 @@
 KV cache — the counterpart of ``repro.serve.engine`` for serving a
 dense or MoE decoder, colocated or as one cell of a disaggregated
 topology (``serve.disagg``), on one PE or tensor-parallel on the stacked
-team (a dense decoder; ``ctx.tp_size > 1``).
+team (``ctx.tp_size > 1``; a MoE decoder through ``ctx.moe_dispatch``).
 
 Two layers, as in the reference:
 
@@ -16,7 +16,10 @@ Two layers, as in the reference:
     composition or prefill chunking.  A MoE block routes every row of
     the call together (``mlp.moe_apply``), padded and inactive rows
     included, as the reference does: where the expert capacity drops
-    tokens, the streams do depend on what shares a step.
+    tokens, the streams do depend on what shares a step.  With several
+    serving replicas folded into the rows (``StackedExec``), each
+    replica's rows are routed on their own, as each of the reference's
+    data-parallel replicas routes only its own batch.
     ``make_verify`` is the speculative-decoding twin of the prefill
     window: the same trunk over a ``(B, k+1)`` window of the pending
     token plus the proposed drafts, sampling at EVERY row with the
@@ -36,7 +39,10 @@ Two layers, as in the reference:
 
 Tensor parallelism (``ParallelCtx(tp_size=T)``): the step functions
 take ``ctx`` and add ``ctx.tp_comm.psum`` after ``wo`` and after the MLP
-(and the embedding's), as the reference's, in the compute dtype; the
+(and the embedding's), as the reference's, in the compute dtype; a MoE
+block psums its routed experts' partials under the einsum dispatch (or
+exchanges its buffers by two ``all_to_all`` under ``alltoall``) and its
+shared expert apart (``mlp.moe_apply``); the
 weights are stacked once
 ``(T, ...)`` (``weights.shard_for_tp``); activations carry the PE axis
 first; the sampler merges the vocab shards' candidates with
@@ -63,7 +69,7 @@ once the trace is served, and ``metrics()["swap"]`` carries its
 accounting.
 
 Not ported yet (raises ``NotImplementedError``): the sliding window
-over the paged cache; MoE at tp > 1 (ROADMAP A7's remainder).
+over the paged cache.
 """
 from __future__ import annotations
 
@@ -135,10 +141,6 @@ def _check_supported(cfg, ctx=None) -> None:
         raise NotImplementedError(
             "repro_torch.serve requires the head-parallel attention layout "
             f"({cfg.n_heads} heads, tp={tp})")
-    if cfg.moe and tp > 1:
-        raise NotImplementedError(
-            f"MoE serving at tp={tp}: expert parallelism and the alltoall "
-            f"dispatch are ROADMAP A7's remainder; MoE serves at tp = 1")
     if cfg.swa_window is not None:
         raise NotImplementedError("sliding-window + paged cache: not yet")
 
@@ -221,10 +223,10 @@ def _psum(x, ctx):
     return x if tp_of(ctx) == 1 else ctx.tp_comm.psum(x)
 
 
-def _make_decode_forward(cfg, scfg: ServeConfig, ctx=None):
+def _make_decode_forward(cfg, scfg: ServeConfig, ctx=None, replicas=1):
     """The decode trunk: (params, pool, tokens, pos, bt, lens) -> (x,
     pool), ``x`` (b, d_model) the final-norm hidden state of each slot's
-    token ((TP, N, d_model) at tp > 1).
+    token ((TP, N, d_model) at tp > 1, N = ``replicas`` x B rows).
 
     tokens (b,) input token per slot; pos (b,) its position; bt
     (b, table_slots) int32 block tables; lens (b,) int32 valid tokens
@@ -255,7 +257,7 @@ def _make_decode_forward(cfg, scfg: ServeConfig, ctx=None):
             x = x + _psum(attn.out_proj(_unfold(o, ctx).to(cd),
                                         p["attn"]["wo"], ctx), ctx)
             x = x + lm._decode_mlp(p["mlp"], rmsnorm(p["ln2"]["scale"], x),
-                                   cfg, ctx)
+                                   cfg, ctx, replicas)
         return rmsnorm(params["ln_f"]["scale"], x), pool
 
     return forward
@@ -265,12 +267,13 @@ def _head(params, cfg):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
-def make_decode_step(cfg, scfg: ServeConfig, *, ctx=None):
+def make_decode_step(cfg, scfg: ServeConfig, *, ctx=None, replicas=1):
     """One decode tick: (params, pool, tokens, pos, bt, lens, samp) ->
     (next_tokens, pool): the decode trunk, then the sampler (``samp``
     the ``sampling.batch_state`` arrays).  ``ctx`` (default: tp = 1)
-    gives the tensor-parallel layout described above."""
-    forward = _make_decode_forward(cfg, scfg, ctx)
+    gives the tensor-parallel layout described above, ``replicas`` the
+    number of serving replicas folded into its rows."""
+    forward = _make_decode_forward(cfg, scfg, ctx, replicas)
     cd = scfg.dtype
 
     def step(params, pool, tokens, pos, bt, lens, samp):
@@ -284,7 +287,7 @@ def make_decode_step(cfg, scfg: ServeConfig, *, ctx=None):
     return step
 
 
-def _make_window_forward(cfg, scfg: ServeConfig, ctx=None):
+def _make_window_forward(cfg, scfg: ServeConfig, ctx=None, replicas=1):
     """The chunk-window trunk: (params, pool, ids, start, n_tok, bt) ->
     (x, pool), ``x`` the final-norm hidden state at every window
     position ((TP, N, C, d_model) at tp > 1).
@@ -326,19 +329,20 @@ def _make_window_forward(cfg, scfg: ServeConfig, ctx=None):
                                             n_tok_k, impl=scfg.attn_impl)
             x = x + _psum(attn.out_proj(_unfold(o, ctx).to(cd),
                                         p["attn"]["wo"], ctx), ctx)
-            x = x + (ff.moe_apply if cfg.moe else ff.mlp_apply)(
-                p["mlp"], rmsnorm(p["ln2"]["scale"], x), cfg, ctx)
+            h = rmsnorm(p["ln2"]["scale"], x)
+            x = x + (ff.moe_apply(p["mlp"], h, cfg, ctx, replicas) if cfg.moe
+                     else ff.mlp_apply(p["mlp"], h, cfg, ctx))
         return rmsnorm(params["ln_f"]["scale"], x), pool
 
     return window
 
 
-def make_prefill(cfg, scfg: ServeConfig, *, ctx=None):
+def make_prefill(cfg, scfg: ServeConfig, *, ctx=None, replicas=1):
     """Chunked prefill: (params, pool, ids, start, n_tok, bt, samp) ->
     (next_tokens, pool): the window trunk, then the token sampled after
     position ``start + n_tok - 1`` with RNG counter ``start + n_tok`` —
     meaningful only for slots whose chunk completes the prompt."""
-    window = _make_window_forward(cfg, scfg, ctx)
+    window = _make_window_forward(cfg, scfg, ctx, replicas)
     cd = scfg.dtype
 
     def prefill(params, pool, ids, start, n_tok, bt, samp):
@@ -355,7 +359,7 @@ def make_prefill(cfg, scfg: ServeConfig, *, ctx=None):
     return prefill
 
 
-def make_verify(cfg, scfg: ServeConfig, *, ctx=None):
+def make_verify(cfg, scfg: ServeConfig, *, ctx=None, replicas=1):
     """Speculative verify: (params, pool, ids, start, n_tok, bt, samp) ->
     (target_tokens, pool), one forward over a (b, k+1) window through
     the chunked-prefill trunk, sampling at EVERY row.
@@ -367,7 +371,7 @@ def make_verify(cfg, scfg: ServeConfig, *, ctx=None):
     the non-speculative key ``(rid, start + j + 1)``: row 0 IS the
     non-speculative next token, row j what the (j+1)-th sequential step
     would give if all j fed drafts matched."""
-    window = _make_window_forward(cfg, scfg, ctx)
+    window = _make_window_forward(cfg, scfg, ctx, replicas)
     cd = scfg.dtype
 
     def verify(params, pool, ids, start, n_tok, bt, samp):
@@ -486,9 +490,10 @@ class StackedExec:
         self.tp = ctx.tp_size
         self.n_pe = self.replicas * self.tp
         self.set_params(params)
-        self._prefill = make_prefill(cfg, scfg, ctx=ctx)
-        self._decode = make_decode_step(cfg, scfg, ctx=ctx)
-        self._verify = make_verify(cfg, scfg, ctx=ctx)
+        rep = dict(ctx=ctx, replicas=self.replicas)
+        self._prefill = make_prefill(cfg, scfg, **rep)
+        self._decode = make_decode_step(cfg, scfg, **rep)
+        self._verify = make_verify(cfg, scfg, **rep)
         self._team = Team(("data", "model"), (self.replicas, self.tp))
 
     def _tile(self, a):

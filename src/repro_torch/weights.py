@@ -60,6 +60,36 @@ def _split_rows(w: torch.Tensor, tp: int) -> torch.Tensor:
     return w.reshape(*lead, tp, n // tp, d)
 
 
+def _split_mlp(mlp: Mapping, tp: int) -> dict:
+    """A GLU or plain MLP, column -> row parallel: ``wu``/``wg`` by
+    columns, ``wd`` by rows."""
+    out = dict(mlp)
+    for name in ("wu", "wg"):
+        if name in out:
+            out[name] = _split_cols(out[name], tp)
+    out["wd"] = _split_rows(out["wd"], tp)
+    return out
+
+
+def _check_moe_split(cfg, tp: int) -> None:
+    """The reference's MoE layout at ``tp``: ``experts_padded(tp)`` experts,
+    ``E/tp`` a rank, the shared expert split by columns.  The port's
+    tensors hold ``experts_padded(1)``: where the reference would pad
+    otherwise at ``tp`` it draws other tensors, so that raises too."""
+    m = cfg.moe
+    ep, ep1 = m.experts_padded(tp), m.experts_padded(1)
+    if ep != ep1:
+        raise ValueError(
+            f"{cfg.name}: the reference pads {m.num_experts} experts to {ep} "
+            f"at tp={tp} but to {ep1} at tp=1 (other tensors)")
+    if ep % tp:
+        raise ValueError(f"{cfg.name}: {ep} (padded) experts do not divide "
+                         f"by tp={tp}")
+    if m.shared_ff % tp:
+        raise ValueError(f"{cfg.name}: the shared expert's ff {m.shared_ff} "
+                         f"does not divide by tp={tp}")
+
+
 def is_tp_sharded(params: Mapping) -> bool:
     """Whether ``params`` are already in the stacked layout of
     ``shard_for_tp`` (the vocab table then has a PE axis)."""
@@ -67,7 +97,7 @@ def is_tp_sharded(params: Mapping) -> bool:
 
 
 def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
-    """Full dense-LM parameters -> the stacked ``(tp, ...)`` layout.
+    """Full dense- or MoE-LM parameters -> the stacked ``(tp, ...)`` layout.
 
     The reference's specs: ``embed_specs`` (the vocab table split by
     rows, ``(tp, V/tp, d)``, also the untied head); ``attn_specs`` (head
@@ -75,18 +105,21 @@ def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
     columns when ``n_kv % tp == 0``, else replicated there — here each
     rank gets the one KV head its query group reads, ``my_kv = (t*hpr)
     // group``, as the reference slices it; ``wo`` by rows); ``mlp_specs``
-    (``wu``/``wg`` by columns, ``wd`` by rows).  Norm scales stay
-    replicated, one copy.  Row splits are views of the full tensors,
-    column splits copies.  Raises when the vocab, heads or d_ff do not
-    divide by ``tp``, for a MoE block, or for the ctx attention layout.
-    Parameters already stacked, or ``tp == 1``, come back as given (so
-    engines that share one dict keep sharing it)."""
+    (``wu``/``wg`` by columns, ``wd`` by rows); ``moe_specs`` for a MoE
+    block (the experts ``wu``/``wg``/``wd`` split on their own axis,
+    ``(L, E, ...)`` -> ``(L, tp, E/tp, ...)``, rank ``t`` owning experts
+    ``t*E/tp ..``; the router replicated; the shared expert as the dense
+    MLP).  Norm scales and the router stay replicated, one copy.  Row and
+    expert splits are views of the full tensors, column splits copies
+    (the caller drops the full dict, so a copy replaces its source).
+    Raises when the vocab, heads, d_ff, the padded experts or the shared
+    expert's width do not divide by ``tp``, when the padding the
+    reference draws at ``tp`` is not the tp = 1 tensors', or for the ctx
+    attention layout.  Parameters already stacked, or ``tp == 1``, come
+    back as given (so engines that share one dict keep sharing it)."""
     tp = int(tp)
     if tp == 1 or is_tp_sharded(params):
         return params
-    if cfg.moe:
-        raise NotImplementedError(
-            "shard_for_tp: MoE expert parallelism is ROADMAP A7's remainder")
     if cfg.n_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} heads do not divide by "
                          f"tp={tp} (the head layout needs them to)")
@@ -95,7 +128,9 @@ def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
             raise ValueError(
                 f"{cfg.name}: the {name} table's {params[name]['table'].shape[0]}"
                 f" rows (vocab) do not divide by tp={tp}")
-    if cfg.d_ff % tp:
+    if cfg.moe:
+        _check_moe_split(cfg, tp)
+    elif cfg.d_ff % tp:
         raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not divide by "
                          f"tp={tp}")
     out = {k: v for k, v in params.items() if k != "blocks"}
@@ -117,9 +152,13 @@ def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
             heads = w.reshape(w.shape[:-1] + (hkv, dh))[..., my_kv, :]
             attn[name] = heads.movedim(-2, -3).contiguous()
     mlp = dict(blocks["mlp"])
-    for name in ("wu", "wg"):
-        if name in mlp:
-            mlp[name] = _split_cols(mlp[name], tp)
-    mlp["wd"] = _split_rows(mlp["wd"], tp)
+    if cfg.moe:
+        for name in ("wu", "wg", "wd"):
+            w = mlp[name]                           # (L, E, ...): a view
+            mlp[name] = w.reshape(w.shape[:1] + (tp, -1) + w.shape[2:])
+        if "shared" in mlp:
+            mlp["shared"] = _split_mlp(mlp["shared"], tp)
+    else:
+        mlp = _split_mlp(mlp, tp)
     out["blocks"] = {**blocks, "attn": attn, "mlp": mlp}
     return out

@@ -1110,3 +1110,48 @@ def test_cuda_tp_engine_folds_every_pe_into_one_launch(cuda_device,
         assert sc.LAUNCHES["copy_blocked"] == want
         assert (want > 0) == (backend == "pallas")
     assert streams["kernel"] == streams["ref"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dispatch", ["einsum", "alltoall"])
+def test_cuda_moe_tp_engine_kernel_streams_equal_plain(cuda_device, arch, tp,
+                                                       dispatch):
+    """The smoke MoE configs in f32 at TP 2 and 4 with two replicas on the
+    card, under each MoE dispatch (posh): the kernel streams equal the
+    plain versions', the paged kernels launch once per layer per step
+    for every PE, and the step's collectives are the dispatch's (einsum:
+    a psum of the routed experts a layer; alltoall: two all_to_all)."""
+    cfg = tconfigs.get_smoke(arch)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init(gen, cfg, device=cuda_device)
+    ctx = ParallelCtx(tp_size=tp, backend="posh", moe_dispatch=dispatch)
+    streams = {}
+    for impl in ("kernel", "ref"):
+        scfg = tserve.ServeConfig(page_tokens=4, n_pages=24, max_batch=3,
+                                  max_seq=32, prefill_chunk=3,
+                                  attn_impl=impl)
+        kv = tserve.PagedKVCache(
+            SymmetricHeap(("data", "model")),
+            n_layers=cfg.n_layers, kv_heads=cfg.kv_per_rank(tp),
+            head_dim=cfg.head_dim, n_pages=24, page_tokens=4)
+        ex = tserve.StackedExec(params, cfg, ctx, scfg, kv, cuda_device,
+                                replicas=2)
+        eng = tserve.ServeEngine(params, cfg, scfg, ctx=ctx, exec_=ex,
+                                 kv=kv, device=cuda_device)
+        pa.reset_launches()
+        ctx.tp_comm.reset_stats()
+        done = eng.run([tserve.Request(rid=i, prompt=list(p), max_new=6)
+                        for i, p in enumerate(PROMPTS)], clock="tick")
+        torch.cuda.synchronize()
+        streams[impl] = {r.rid: list(r.out) for r in done}
+        n = cfg.n_layers if impl == "kernel" else 0
+        assert dict(pa.LAUNCHES) == {
+            "paged_decode_attention": n * eng.steps["decode"],
+            "paged_prefill_attention": n * eng.steps["prefill"]}
+        st, steps = ctx.tp_comm.stats(), sum(eng.steps.values())
+        per_layer = 1 + bool(cfg.moe.shared_ff) + (dispatch == "einsum")
+        assert st["psum"]["calls"] == steps * (1 + per_layer * cfg.n_layers)
+        assert st.get("all_to_all", {}).get("calls", 0) == \
+            (2 * cfg.n_layers * steps if dispatch == "alltoall" else 0)
+    assert streams["kernel"] == streams["ref"]

@@ -308,22 +308,33 @@ def test_build_engine_without_device_raises_when_cuda_absent(monkeypatch):
     assert eng.device.type == "cpu" and cfg.n_layers == 2
 
 
-@pytest.mark.parametrize("what", ["ssm", "swa", "moe_tp"])
+@pytest.mark.parametrize("what", ["ssm", "swa"])
 def test_later_slices_raise_not_implemented(what):
-    cite = {"moe_tp": "A7"}.get(what, "")
-    with pytest.raises(NotImplementedError, match=cite):
-        if what == "moe_tp":
-            # a MoE config at tp = 2: expert parallelism is A7's remainder
-            from repro_torch.parallel import ParallelCtx as TorchCtx
-            cfg = configs.get_smoke("qwen3-moe-30b-a3b")
-            serve.ServeEngine({}, cfg, serve.ServeConfig(), device="cpu",
-                              ctx=TorchCtx(tp_size=2))
-        else:
-            # an SSM family, or the sliding window over the paged cache
-            kw = (dict(family="ssm", ssm_state=16) if what == "ssm"
-                  else dict(swa_window=8))
-            cfg = dataclasses.replace(configs.get_smoke("qwen3-8b"), **kw)
-            serve.ServeEngine({}, cfg, serve.ServeConfig(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        # an SSM family, or the sliding window over the paged cache
+        kw = (dict(family="ssm", ssm_state=16) if what == "ssm"
+              else dict(swa_window=8))
+        cfg = dataclasses.replace(configs.get_smoke("qwen3-8b"), **kw)
+        serve.ServeEngine({}, cfg, serve.ServeConfig(), device="cpu")
+
+
+def test_moe_serves_at_tp2():
+    """A MoE config builds and serves at tp = 2 (expert parallelism, the
+    einsum dispatch) with the tp = 1 engine's streams; ``shard_for_tp``
+    stacks its experts."""
+    from repro_torch.parallel import ParallelCtx as TorchCtx
+    kw = dict(config="smoke", dtype="f32", device="cpu", page_tokens=4,
+              n_pages=16, max_batch=2, prefill_chunk=4)
+    out = {}
+    for tp in (1, 2):
+        eng, cfg = launch.build_engine("qwen3-moe-30b-a3b",
+                                       ctx=TorchCtx(tp_size=tp), **kw)
+        done = eng.run([serve.Request(rid=i, prompt=list(p), max_new=4)
+                        for i, p in enumerate([[5, 17, 42], [3, 9]])],
+                       clock="tick")
+        out[tp] = {r.rid: list(r.out) for r in done}
+    assert eng.exec.params["blocks"]["mlp"]["wu"].shape[1] == 2
+    assert out[2] == out[1]
 
 
 @pytest.mark.parametrize("kw", [dict(spec_k=2), dict(spec_k=2, draft="qwen3-8b"),

@@ -548,8 +548,9 @@ def test_shard_for_tp_first_step_logits(ref, port):
 def test_shard_for_tp_layout_and_refusals(port):
     """The stacked layout: row splits are views of the full tensors; the
     replicated KV heads (n_kv 2 < tp 4) are each rank's ``my_kv``;
-    stacked parameters come back as given; a vocab that does not
-    divide, a MoE block and the ctx layout raise."""
+    stacked parameters come back as given; a MoE block's experts split
+    on their own axis; a vocab that does not divide and the ctx layout
+    raise."""
     import dataclasses
 
     from repro_torch import configs
@@ -579,8 +580,11 @@ def test_shard_for_tp_layout_and_refusals(port):
     odd = {**params, "embed": {"table": table[:-1]}}
     with pytest.raises(ValueError, match="vocab"):
         shard_for_tp(odd, cfg, TP)
-    with pytest.raises(NotImplementedError, match="A7"):
-        shard_for_tp(params, configs.get_smoke("qwen3-moe-30b-a3b"), 2)
+    moe = configs.get_smoke("qwen3-moe-30b-a3b")     # experts split, no raise
+    from repro_torch.models import lm
+    mp = lm.init(torch.Generator().manual_seed(0), moe)
+    assert shard_for_tp(mp, moe, 2)["blocks"]["mlp"]["wu"].shape[:3] == \
+        (moe.n_layers, 2, moe.moe.experts_padded(2) // 2)
     with pytest.raises(ValueError, match="heads"):
         shard_for_tp(params, dataclasses.replace(cfg, n_heads=6), 4)
 

@@ -397,17 +397,22 @@ def test_tp2_hot_swap_disagg_flips_every_cell_with_one_dict(port):
 
 def test_tp_cell_refusals(port):
     """Cells of a TP size that does not divide the query heads raise
-    (the head-parallel layout); a MoE config at TP raises citing A7."""
+    (the head-parallel layout); a MoE config's cells build at TP, its
+    experts stacked once for every cell."""
     from repro_torch import configs
+    from repro_torch.models import lm
     from repro_torch.parallel import ParallelCtx
 
     serve, cfg, params = port
     with pytest.raises(NotImplementedError, match="head-parallel"):
         serve.DisaggEngine(params, cfg, _scfg(serve), device="cpu",
                            ctx=ParallelCtx(tp_size=3, backend="xla"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        serve.DisaggEngine({}, configs.get_smoke("qwen3-moe-30b-a3b"),
-                           _scfg(serve), ctx=_ctx("xla"), device="cpu")
+    moe = configs.get_smoke("qwen3-moe-30b-a3b")
+    d = serve.DisaggEngine(lm.init(torch.Generator().manual_seed(0), moe),
+                           moe, _scfg(serve), ctx=_ctx("xla"), device="cpu")
+    wu = {id(e.exec.params["blocks"]["mlp"]["wu"]) for e in d.engines}
+    assert len(wu) == 1 and d.engines[0].exec.params["blocks"]["mlp"][
+        "wu"].shape[1] == TP
 
 
 def test_cli_builder_accepts_a_tp_ctx(port):
