@@ -136,7 +136,7 @@ caught):
                flash launch counter, zeroed just before, must equal the
                count predicted in PERF.md (18 layers x 8 microbatches x
                1 step x 2, the recompute under remat included); then
-               one more step under the profiler; then gemma-2b-smoke and
+               gemma-2b-smoke and
                qwen3-8b-smoke in f32 on the card must give the same
                3-step losses with the flash kernel as with the plain
                forward;
@@ -246,7 +246,25 @@ caught):
                einsum run's inputs and timed there; then the smoke MoE
                configs in f32 at TP 2 and 4 with two replicas, every
                backend and dispatch: kernel streams == plain streams,
-               with speculation (k = 2) too, and 2+2 cells of TP 2.
+               with speculation (k = 2) too, and 2+2 cells of TP 2;
+ 12. dp      — data-parallel training on the stacked team
+               (``build_trainer(dp_size=2, ...)``): (a) full-width
+               gemma-2b (18 layers, f32, seed 0) at DP 2 under pallas
+               with 4 MiB buckets, overlapped, one step of phase 6's
+               global batch (4 rows a replica in 4 microbatches): the
+               loss and grad norm within 1e-5 / 1e-4 of phase 6's dp = 1
+               step, flash launches 2 x 18 x 4 x 2, copy launches the
+               staged rounds of ``dp_comm``'s calls, every reduced row
+               row 0's bits (``DpProbe``); its seconds, tok/s, the
+               reduction's and the drain's share of the step (CUDA
+               events) and the peaks beside the PERF.md predictions
+               printed; (b) at 2 of 18 layers, a row a replica, 2 steps
+               a run: overlapped == blocking per-leaf and with 4 MiB
+               buckets, pallas == posh bit for bit, xla within 1e-5 of
+               posh and bf16 compression within 1e-3 of f32 on the
+               loss, ZeRO-1's chunks ``(2, c)`` and ``state_to_tree``'s
+               ``(2 c,)`` leaves and its repeat's losses the same, each
+               run's launches counted.
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -268,7 +286,8 @@ for ``combine_blocked``, which is reached only through ``ops.combine``;
 ``launches_ckpt`` on the flash kernel from the checkpoint stage's runs;
 ``launches_tp`` from phase 10's runs: the paged kernels', by dtype in
 ``launches_tp_by_dtype``, and the copy kernel's; ``launches_moe_tp``
-likewise from phase 11's).  ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
+likewise from phase 11's; ``launches_dp`` on the flash and copy
+kernels from phase 12's runs).  ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
 on the paged kernels is their largest |kernel - plain| on phase 10's /
 11's captured TP inputs, and ``moe_tp_layouts`` their timing at phase
 11's per-PE layouts.
@@ -447,6 +466,33 @@ SWAP_2P2_LAYERS = 2
 CKPT = dict(arch="gemma-2b", layers=2, global_batch=8, microbatches=8,
             steps=3, restart_steps=2, every=1, fail_at=1)
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+# the data-parallel stage: gemma-2b at its published width, f32, DP 2 on
+# the stacked team.  (a) full depth, one step of phase 6's global batch
+# (8 rows: 4 a replica in 4 microbatches, one row in flight as in phase
+# 6) under pallas, 4 MiB buckets, overlapped; (b) at phase 9's depth cut
+# (2 of 18 layers), a global batch of 2 (a row a replica), 2 steps a
+# run: each schedule under pallas, then posh and xla per-leaf, bf16
+# compression, ZeRO-1 twice
+DP = dict(arch="gemma-2b", dp=2, global_batch=8, microbatches=4,
+          backend="pallas", bucket_bytes=4 << 20, cut_layers=2,
+          cut_batch=2, cut_steps=2)
+# the PERF.md predictions (GB): params 10.03 + stacked grads 20.06 + m/v
+# 20.06 + ~13.3 of activations at the backward's end; at the drain the
+# largest bucket's psum temporaries (~4 x its 4.83 GB) stand where the
+# activations were (each sum is written back into the rows)
+DP_PEAK_PRED = dict(backward=63.5, drain=69.0)
+# the 2-layer runs: (name, backend, step options)
+DP_CUT_RUNS = (
+    ("leaf", "pallas", {}),
+    ("overlap_leaf", "pallas", {"overlap_grad_sync": True}),
+    ("bucket", "pallas", {"bucket_bytes": 4 << 20}),
+    ("overlap_bucket", "pallas", {"bucket_bytes": 4 << 20,
+                                  "overlap_grad_sync": True}),
+    ("posh_leaf", "posh", {}),
+    ("xla_leaf", "xla", {}),
+    ("bf16", "pallas", {"compress": "bf16"}),
+    ("zero1", "pallas", {"zero": 1}),
+    ("zero1_repeat", "pallas", {"zero": 1}))
 # the tensor-parallel stage: full-width qwen3-8b in bf16 at TP 4 (one
 # replica) under each communicator backend, then spec k = 4 (n-gram)
 # under posh, then 2+2 host cells of TP 2 under posh; each TP run's peak
@@ -2521,9 +2567,9 @@ def comm_profile(dev) -> None:
 # ----------------------------------------------------------------------
 # phase 6: train
 # ----------------------------------------------------------------------
-def train_full(fa, dev) -> int:
+def train_full(fa, dev) -> tuple:
     """Full-width gemma-2b training steps through build_trainer; returns
-    the flash launches of the measured steps."""
+    the flash launches of the measured steps and step 0's metrics."""
     from repro_torch.launch.train import build_trainer
 
     torch.cuda.empty_cache()
@@ -2576,11 +2622,9 @@ def train_full(fa, dev) -> int:
         "steps": steps, "flash_launches": launches,
         "flash_launches_predicted": want, "peak_memory_gb": peak}),
         flush=True)
-    prof = _profiled(lambda: tr.step(TRAIN["steps"]), top=8)
-    print("train profile (one step): " + json.dumps(prof), flush=True)
     del tr
     torch.cuda.empty_cache()
-    return launches
+    return launches, steps[0]
 
 
 def train_smoke_parity(dev) -> None:
@@ -4054,6 +4098,238 @@ def moe_tp_smoke(pa, dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 12: data-parallel training
+# ----------------------------------------------------------------------
+class DpProbe:
+    """Watches a DP train step from outside: ``combine_grads`` (the
+    reduction, issue to unpack) and ``CommQueue.quiet`` (the drain)
+    timed with CUDA events, the peak memory when the reduction starts
+    (the backward's end), and whether every reduced row is row 0's
+    bits."""
+
+    def __init__(self):
+        self.reduce_ms, self.drain_ms = [], []
+        self.rows_equal, self.peak_at_reduce = [], []
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.core import ordering
+        from repro_torch.train import step as tstep
+        from repro_torch.tree import leaves
+
+        combine, quiet = tstep.combine_grads, ordering.CommQueue.quiet
+
+        def timed(fn, out):
+            def run(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                res = fn(*a, **k)
+                e1.record()
+                out.append((e0, e1))
+                return res
+            return run
+
+        def reduce(grads, *a, **k):
+            self.peak_at_reduce.append(torch.cuda.max_memory_allocated())
+            res = timed_combine(grads, *a, **k)
+            self.rows_equal.append(all(
+                torch.equal(g, g[:1].expand_as(g)) for g in leaves(res[0])))
+            return res
+
+        timed_combine = timed(combine, self.reduce_ms)
+        tstep.combine_grads = reduce
+        ordering.CommQueue.quiet = timed(quiet, self.drain_ms)
+        try:
+            yield self
+        finally:
+            tstep.combine_grads = combine
+            ordering.CommQueue.quiet = quiet
+
+    @staticmethod
+    def ms(events) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in events)
+
+
+def dp_full(fa, sc, dev, base: dict) -> tuple:
+    """Phase 12 (a): one full-depth DP 2 step (pallas, 4 MiB buckets,
+    overlapped) on phase 6's global batch and seed.  Gates: the loss
+    and grad norm within 1e-5 / 1e-4 of phase 6's step 0, the flash
+    launches 2 x layers x microbatches x dp, the copy launches the
+    staged rounds of ``dp_comm``'s calls, every reduced row row 0's bits,
+    the peak under 80 GB.  Returns (flash, copy) launches."""
+    from repro_torch.launch.train import build_trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    tr = build_trainer(DP["arch"], global_batch=DP["global_batch"],
+                       microbatches=DP["microbatches"], device=dev, seed=0,
+                       dp_size=DP["dp"], backend=DP["backend"],
+                       bucket_bytes=DP["bucket_bytes"],
+                       overlap_grad_sync=True)
+    torch.cuda.synchronize()
+    cfg, comm = tr.cfg, tr.ctx.dp_comm
+    init_s = time.monotonic() - t0
+    probe = DpProbe()
+    fa.reset_launches()
+    sc.reset_launches()
+    comm.reset_stats()
+    with probe.installed():
+        m = tr.step(0)
+    torch.cuda.synchronize()
+    flash, copies = fa.LAUNCHES["flash_attention"], sc.LAUNCHES["copy_blocked"]
+    staged = staged_copy_launches(comm)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = DP["global_batch"] * cfg.max_seq
+    res = {"loss": m["loss"], "grad_norm": m["grad_norm"],
+           "dp1_loss": base["loss"], "dp1_grad_norm": base["grad_norm"],
+           "seconds": m["seconds"], "tokens_per_s": tokens / m["seconds"],
+           "init_s": init_s, "reduce_ms": DpProbe.ms(probe.reduce_ms),
+           "drain_ms": DpProbe.ms(probe.drain_ms),
+           "psum_calls": comm.stats().get("psum", {}).get("calls", 0),
+           "peak_backward_gb": probe.peak_at_reduce[0] / 1e9,
+           "peak_gb": peak, "peak_predicted_gb": DP_PEAK_PRED,
+           "flash_launches": flash, "copy_launches": copies,
+           "copy_launches_staged": staged,
+           "rows_equal_row0": probe.rows_equal}
+    res["reduce_share"] = res["reduce_ms"] / (m["seconds"] * 1e3)
+    res["drain_share"] = res["drain_ms"] / (m["seconds"] * 1e3)
+    print("dp full: " + json.dumps(res), flush=True)
+    print(f"dp full: {cfg.name} DP {DP['dp']} {DP['backend']} step "
+          f"{m['seconds']:.2f} s ({res['tokens_per_s']:.0f} tok/s), "
+          f"reduction {res['reduce_ms']:.1f} ms ({res['reduce_share']:.1%}"
+          f"; drain {res['drain_ms']:.1f} ms), peak "
+          f"{res['peak_backward_gb']:.2f} GB at the backward's end "
+          f"(predicted {DP_PEAK_PRED['backward']}) and {peak:.2f} GB "
+          f"overall (predicted {DP_PEAK_PRED['drain']} at the drain)",
+          flush=True)
+    want = 2 * cfg.n_layers * DP["microbatches"] * DP["dp"]
+    if flash != want:
+        fail(f"dp full: flash launches {flash} != {want}")
+    if copies != staged or not copies:
+        fail(f"dp full: copy launches {copies} != the staged rounds {staged}")
+    if probe.rows_equal != [True]:
+        fail(f"dp full: a reduced row is not row 0's bits "
+             f"{probe.rows_equal}")
+    if not (math.isclose(m["loss"], base["loss"], rel_tol=1e-5)
+            and math.isclose(m["grad_norm"], base["grad_norm"],
+                             rel_tol=1e-4)):
+        fail(f"dp full: loss / grad norm {m['loss']} / {m['grad_norm']} "
+             f"leave phase 6's dp = 1 step {base['loss']} / "
+             f"{base['grad_norm']}")
+    if peak >= 80.0:
+        fail(f"dp full: peak memory {peak:.2f} GB")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash, copies
+
+
+def dp_cut(fa, sc, dev) -> tuple:
+    """Phase 12 (b): gemma-2b at 2 of 18 layers, DP 2, a row a replica,
+    2 steps a run (``DP_CUT_RUNS``).  Gates: overlapped == blocking
+    (per-leaf and 4 MiB buckets) and pallas == posh bit for bit (losses,
+    grad norms, parameters); xla within 1e-5 of posh on the loss; bf16
+    compression within 1e-3 of uncompressed on the loss; ZeRO-1's chunks
+    ``(dp, c)``, ``state_to_tree``'s ``(dp * c,)`` leaves and its repeat's
+    losses the same; every run's flash launches 2 x layers x dp x steps,
+    each pallas run's copy launches its staged rounds.  Returns (flash,
+    copy) launches."""
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.train import state_to_tree
+    from repro_torch.tree import leaves
+
+    t_stage = time.monotonic()
+    runs, keep = {}, {}
+    flash_all = copy_all = 0
+    for name, backend, kw in DP_CUT_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = build_trainer(DP["arch"], global_batch=DP["cut_batch"],
+                           microbatches=1, device=dev, seed=0,
+                           n_layers=DP["cut_layers"], dp_size=DP["dp"],
+                           backend=backend, **kw)
+        comm = tr.ctx.dp_comm
+        fa.reset_launches()
+        sc.reset_launches()
+        comm.reset_stats()
+        ms = [tr.step(s) for s in range(DP["cut_steps"])]
+        torch.cuda.synchronize()
+        flash, copies = (fa.LAUNCHES["flash_attention"],
+                         sc.LAUNCHES["copy_blocked"])
+        staged = staged_copy_launches(comm) if backend == "pallas" else 0
+        want = 2 * DP["cut_layers"] * DP["dp"] * DP["cut_steps"]
+        if flash != want or copies != staged:
+            fail(f"dp {name}: flash {flash} (want {want}), copies {copies} "
+                 f"(staged rounds {staged})")
+        flash_all += flash
+        copy_all += copies
+        runs[name] = {"losses": [m["loss"] for m in ms],
+                      "grad_norms": [m["grad_norm"] for m in ms],
+                      "step_s": [m["seconds"] for m in ms],
+                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                      "copy_launches": copies}
+        if name in ("leaf", "bucket", "zero1"):
+            keep[name] = [p.detach().clone()
+                          for p in leaves(tr.state["params"])]
+        if name in ("overlap_leaf", "overlap_bucket", "posh_leaf",
+                    "zero1_repeat"):
+            other = {"overlap_leaf": "leaf", "overlap_bucket": "bucket",
+                     "posh_leaf": "leaf", "zero1_repeat": "zero1"}[name]
+            same = (runs[name]["losses"] == runs[other]["losses"]
+                    and runs[name]["grad_norms"] == runs[other]["grad_norms"]
+                    and all(torch.equal(a, b.detach()) for a, b in zip(
+                        keep[other], leaves(tr.state["params"]))))
+            runs[name]["bits_equal_" + other] = same
+            if not same:
+                fail(f"dp {name} != {other} bit for bit: {runs[name]} vs "
+                     f"{runs[other]}")
+        if name == "zero1":
+            opt = tr.state["opt"]
+            tree = state_to_tree(tr.state, device="meta")["opt"]["m"]
+            for m_, t_ in zip(leaves(opt["m"]), leaves(tree)):
+                if m_.dim() != 2 or m_.shape[0] != DP["dp"] or \
+                        tuple(t_.shape) != (m_.numel(),):
+                    fail(f"dp zero1: chunk {tuple(m_.shape)} -> tree leaf "
+                         f"{tuple(t_.shape)}")
+            runs[name]["chunks"] = [tuple(m_.shape)
+                                    for m_ in leaves(opt["m"])][:4]
+            del opt, tree
+        del tr, ms
+    posh, xla = runs["posh_leaf"]["losses"], runs["xla_leaf"]["losses"]
+    bf16, plain = runs["bf16"]["losses"], runs["leaf"]["losses"]
+    gaps = {"xla_vs_posh": max(abs(a - b) / abs(b)
+                               for a, b in zip(xla, posh)),
+            "bf16_vs_f32": max(abs(a - b) / abs(b)
+                               for a, b in zip(bf16, plain))}
+    print("dp cut: " + json.dumps({"runs": runs, "gaps": gaps}), flush=True)
+    if not gaps["xla_vs_posh"] <= 1e-5:
+        fail(f"dp cut: xla leaves posh by {gaps['xla_vs_posh']}")
+    if not gaps["bf16_vs_f32"] <= 1e-3:
+        fail(f"dp cut: bf16 compression moves the loss by "
+             f"{gaps['bf16_vs_f32']}")
+    if not all(math.isfinite(x) for r in runs.values() for x in r["losses"]):
+        fail(f"dp cut: non-finite losses {runs}")
+    print(f"dp cut: {len(runs)} runs, overlapped == blocking, pallas == "
+          f"posh bit for bit; xla vs posh {gaps['xla_vs_posh']:.2e}, bf16 "
+          f"vs f32 {gaps['bf16_vs_f32']:.2e}; zero1 peak "
+          f"{runs['zero1']['peak_gb']:.2f} GB; stage "
+          f"{time.monotonic() - t_stage:.1f} s", flush=True)
+    return flash_all, copy_all
+
+
+def dp_stage(fa, sc, dev, base: dict) -> tuple:
+    """Phase 12: (a) then (b); returns the flash and copy launches."""
+    fa_full, sc_full = dp_full(fa, sc, dev, base)
+    fa_cut, sc_cut = dp_cut(fa, sc, dev)
+    return fa_full + fa_cut, sc_full + sc_cut
+
+
+# ----------------------------------------------------------------------
 # phase 7: timing
 # ----------------------------------------------------------------------
 def time_ms(fn, dev, iters=20) -> float:
@@ -4543,7 +4819,7 @@ def main(argv=None) -> int:
     phase_done("4 serve")
     comm_launches, comm_payloads = comm_phase(sc, rc, dev, args.comm_out)
     phase_done("5 comm")
-    flash_launches = train_full(fa, dev)
+    flash_launches, train_base = train_full(fa, dev)
     train_smoke_parity(dev)
     phase_done("6 train")
     timing_floor(dev)
@@ -4562,6 +4838,8 @@ def main(argv=None) -> int:
     launches_mtp, copies_mtp, errs_mtp, layouts_mtp = moe_tp_stage(
         pa, sc, dev, moe1, moe1_f32)
     phase_done("11 moe tp")
+    flash_dp, copies_dp = dp_stage(fa, sc, dev, train_base)
+    phase_done("12 dp")
     for row in kernels:
         if row["name"].startswith("paged_"):
             row["launches_swap"] = launches_swap[(row["name"], "bf16")]
@@ -4576,9 +4854,11 @@ def main(argv=None) -> int:
                                      for arch, t in layouts_mtp.items()}
         elif row["name"] == "flash_attention":
             row["launches_ckpt"] = launches_ckpt
+            row["launches_dp"] = flash_dp
         elif row["name"] == "copy_blocked":
             row["launches_tp"] = copies_tp
             row["launches_moe_tp"] = copies_mtp
+            row["launches_dp"] = copies_dp
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -545,23 +545,24 @@ class Communicator:
     def axis_name(self):
         return self.team.axis_name
 
-    # -- tree-level reductions: the training slice of the port --------
+    # -- tree-level reductions (delegates, kept as methods so that call
+    #    sites stay on the communicator surface) -----------------------
     def tree_psum(self, tree):
-        raise NotImplementedError("tree_psum arrives with the training "
-                                  "slice of the port")
+        return _tree_map(self.psum, tree)
 
     def tree_pmean(self, tree):
-        raise NotImplementedError("tree_pmean arrives with the training "
-                                  "slice of the port")
+        return _tree_map(self.pmean, tree)
 
     def bucketed_psum(self, tree, *, bucket_bytes: int = 4 << 20, heap=None):
-        raise NotImplementedError("bucketed_psum (comm.bucketing) arrives "
-                                  "with the training slice of the port")
+        from .bucketing import bucketed_allreduce
+        return bucketed_allreduce(tree, self, bucket_bytes=bucket_bytes,
+                                  heap=heap if heap is not None else self.heap)
 
     def compressed_psum(self, tree, *, scheme: str = "bf16", state=None,
                         mean: bool = True):
-        raise NotImplementedError("compressed_psum (comm.compress) arrives "
-                                  "with the training slice of the port")
+        from .compress import compressed_allreduce
+        return compressed_allreduce(tree, self, scheme=scheme, state=state,
+                                    mean=mean)
 
 
 def make_communicator(team: TeamAxes, *, size: Optional[int] = None,

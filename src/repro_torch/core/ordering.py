@@ -589,6 +589,7 @@ class CommQueue:
         reduces, self._reduces = self._reduces, []
         for r in sorted(reduces, key=lambda r: r.seq):
             r.result._deliver(r.deliver(r.data))
+            r.data = None                 # the payload's memory goes now
             self._stats["drained"] += 1
         return self._state
 

@@ -23,9 +23,13 @@ checkpoint resumes here and the reverse; ``--resume`` loads the newest
 and continues from its step.  Each step's time is recorded with a
 ``StragglerPolicy`` (600 s deadline).
 
-Not in this slice (the flags are not accepted): ``--backend``,
-``--bucket-bytes`` and ``--overlap-grad-sync`` need dp > 1 (ROADMAP
-A5/A6).
+``--backend`` (posh | xla, default posh), ``--bucket-bytes`` and
+``--overlap-grad-sync`` are the reference's: they pick the DP
+communicator's transport and the DP gradient reduction's schedule.  As
+in the reference, the CLI's DP size is the device count, one here, so at
+dp = 1 they change nothing.  ``build_trainer(dp_size=N, ...)`` trains N
+replicas on the stacked team of one card (ROADMAP A6), with the same
+options and ``compress`` (none | bf16 | int8) besides.
 """
 from __future__ import annotations
 
@@ -91,24 +95,34 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
                   global_batch: int = 8, microbatches: int = 1,
                   zero: int = 0, lr: float = 3e-4, device=None,
                   attn_impl: str = "kernel", seed: int = 0,
-                  n_layers: int = 0) -> Trainer:
+                  n_layers: int = 0, dp_size: int = 1,
+                  backend: str = "posh", bucket_bytes: int = 0,
+                  overlap_grad_sync: bool = False,
+                  compress: str = "none") -> Trainer:
     """A trainer over ``arch`` (the published config, or ``smoke``; its
     first ``n_layers`` layers when that is not 0) with f32 parameters
     drawn on ``device`` (None: the GPU) from ``seed``, data from
-    ``SyntheticLM`` at ``cfg.max_seq`` tokens per row."""
+    ``SyntheticLM`` at ``cfg.max_seq`` tokens per row: ``dp_size``
+    replicas on the stacked team, each on its ``global_batch / dp_size``
+    rows in ``microbatches`` microbatches, their gradients reduced
+    through the ``backend``'s DP communicator by the schedule
+    ``bucket_bytes`` / ``overlap_grad_sync`` / ``compress`` choose."""
     dev = resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    ctx = ParallelCtx(remat=True, attn_impl=attn_impl,
-                      param_dtype=torch.float32, compute_dtype=torch.float32)
+    ctx = ParallelCtx(dp_size=dp_size, backend=backend, remat=True,
+                      attn_impl=attn_impl, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
     api = registry.build(cfg)
     opt = AdamWConfig(lr=lr, zero=zero)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = init_train_state(gen, cfg, ctx, api, opt, device=dev)
-    step_fn = make_train_step(cfg, ctx, api, opt, microbatches=microbatches)
+    step_fn = make_train_step(cfg, ctx, api, opt, microbatches=microbatches,
+                              bucket_bytes=bucket_bytes, compress=compress,
+                              overlap_grad_sync=overlap_grad_sync)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=cfg.max_seq,
                        global_batch=global_batch)
     return Trainer(cfg, ctx, state, step_fn, data, dev)
@@ -126,7 +140,14 @@ def main(argv=None) -> list:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--backend", default="posh", choices=["posh", "xla"])
     ap.add_argument("--zero", type=int, default=0, choices=[0, 1])
+    ap.add_argument("--bucket-bytes", type=int, default=0,
+                    help="DP grad bucketing (0 = per-leaf reductions)")
+    ap.add_argument("--overlap-grad-sync", action="store_true",
+                    help="issue DP reductions nonblocking and drain "
+                         "with one quiet() before the optimizer "
+                         "(paper §3.2 overlap; bit-identical losses)")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=20)
@@ -139,15 +160,17 @@ def main(argv=None) -> list:
     tr = build_trainer(args.arch, smoke=args.smoke,
                        global_batch=args.global_batch,
                        microbatches=args.microbatches, zero=args.zero,
-                       lr=args.lr, device=args.device, n_layers=args.layers)
+                       lr=args.lr, device=args.device, n_layers=args.layers,
+                       backend=args.backend, bucket_bytes=args.bucket_bytes,
+                       overlap_grad_sync=args.overlap_grad_sync)
     ck = Checkpointer(args.ckpt_dir, keep=3)
     start = 0
     if args.resume:
         start = tr.restore(ck)
         print(f"resumed at step {start}")
     straggler = StragglerPolicy(deadline_s=600.0)
-    print(f"device {tr.device} zero={args.zero} microbatches="
-          f"{args.microbatches} arch={tr.cfg.name}", flush=True)
+    print(f"device {tr.device} backend={args.backend} zero={args.zero} "
+          f"microbatches={args.microbatches} arch={tr.cfg.name}", flush=True)
     out = []
     for s in range(start, args.steps):
         m = tr.step(s)

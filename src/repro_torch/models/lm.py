@@ -163,10 +163,11 @@ def forward(params: dict, ids: torch.Tensor, ctx, cfg) -> torch.Tensor:
 def loss_fn(params: dict, batch: dict, ctx, cfg,
             for_grad: bool = False) -> torch.Tensor:
     """batch {'tokens': (b, t+1)} -> mean next-token CE.  The head is the
-    embedding table when ``cfg.tie_embeddings``.  At dp = tp = 1 the
-    reference's single-seed mask and DP mean are identities, so
-    ``for_grad`` changes nothing; it is kept for the reference's
-    signature."""
+    embedding table when ``cfg.tie_embeddings``.  The loss of one DP
+    replica's rows: the train step takes the reference's display value,
+    the DP mean, through ``dp_comm``; at tp = 1 the reference's
+    single-seed mask is the identity, so ``for_grad`` changes nothing;
+    it is kept for the reference's signature."""
     del for_grad
     tokens = batch["tokens"]
     ids, targets = tokens[:, :-1], tokens[:, 1:]

@@ -1,5 +1,5 @@
-"""How a step is distributed (``ParallelCtx``): data-parallel size 1,
-tensor parallelism on the stacked team."""
+"""How a step is distributed (``ParallelCtx``): data parallelism
+(training) and tensor parallelism (serving) on the stacked team."""
 from .ctx import ParallelCtx, tp_of
 
 __all__ = ["ParallelCtx", "tp_of"]

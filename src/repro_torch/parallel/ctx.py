@@ -1,8 +1,16 @@
 """ParallelCtx — the static description of how a step is distributed.
 
-The counterpart of ``repro.parallel.ctx.ParallelCtx``.  Data-parallel
-size 1 only: multi-PE data parallelism and its reductions arrive with
-ROADMAP A5/A6, and ``dp_size > 1`` raises ``NotImplementedError``.
+The counterpart of ``repro.parallel.ctx.ParallelCtx``.  Two
+communicators are built in ``__post_init__`` from the sizes, ``backend``
+and ``dispatch``, as the reference builds them: ``tp_comm`` over the
+``"model"`` axis and ``dp_comm`` over ``dp_axes`` (``("data",)``).
+
+Data parallelism trains on the stacked team (ROADMAP A6): the trainer
+(``train.step``) runs each of ``dp_size`` replicas on its block of the
+global batch, each replica's gradient in its own row of a stacked
+``(dp, *leaf)`` buffer, and reduces the rows through ``dp_comm``.
+Serving ignores ``dp_size``: its replicas are ``serve.StackedExec``'s
+``replicas``.
 
 Tensor parallelism serves on the stacked team (ROADMAP A7): every PE of
 the TP group lives on one tensor's leading axis, and ``tp_comm`` — built
@@ -45,11 +53,13 @@ def tp_of(ctx) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
+    dp_axes: tuple = ("data",)
     dp_size: int = 1
     tp_size: int = 1
     backend: str = "xla"                # "xla" | "posh" | "pallas"
     dispatch: DispatchTable = DispatchTable()
     tp_comm: Optional[Communicator] = None   # built from the fields above
+    dp_comm: Optional[Communicator] = None   # when not given explicitly
     remat: bool = True                  # per-layer activation checkpoint
     attn_impl: str = "kernel"           # | "ref" (counterpart of use_pallas)
     ce_mode: str = "vocab_parallel"     # | "gathered" (naive full logits)
@@ -61,12 +71,10 @@ class ParallelCtx:
     ce_chunk: int = 4096
 
     def __post_init__(self):
-        if self.dp_size != 1:
-            raise NotImplementedError(
-                f"repro_torch runs at dp = 1, got dp={self.dp_size}: data "
-                f"parallelism and its reductions arrive with ROADMAP A5/A6")
-        if self.tp_size < 1:
-            raise ValueError(f"tp_size must be >= 1, got {self.tp_size}")
+        for name in ("dp_size", "tp_size"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
         if self.attn_impl not in ("kernel", "ref"):
             raise ValueError(f"attn_impl must be 'kernel' or 'ref', got "
                              f"{self.attn_impl!r}")
@@ -83,7 +91,34 @@ class ParallelCtx:
         elif self.tp_comm.size != self.tp_size:
             raise ValueError(f"tp_comm spans {self.tp_comm.size} PEs, "
                              f"tp_size is {self.tp_size}")
+        if self.dp_comm is None:
+            object.__setattr__(self, "dp_comm", make_communicator(
+                tuple(self.dp_axes), size=self.dp_size, backend=self.backend,
+                dispatch=self.dispatch, name=f"dp:{self.backend}"))
+        elif self.dp_comm.size != self.dp_size:
+            raise ValueError(f"dp_comm spans {self.dp_comm.size} PEs, "
+                             f"dp_size is {self.dp_size}")
 
     def tp_rank(self, device=None) -> torch.Tensor:
         """Every TP PE's rank, along the stacked PE axis."""
         return self.tp_comm.rank(device)
+
+    def dp_rank(self, device=None) -> torch.Tensor:
+        """Every DP replica's rank, along the stacked PE axis."""
+        return self.dp_comm.rank(device)
+
+    # fields whose change invalidates each auto-built communicator, kept
+    # apart so that e.g. with_(dp_size=1) keeps the tp_comm object (and
+    # what its instrumentation recorded)
+    _TP_COMM_FIELDS = frozenset({"tp_size", "backend", "dispatch"})
+    _DP_COMM_FIELDS = frozenset({"dp_axes", "dp_size", "backend",
+                                 "dispatch"})
+
+    def with_(self, **kw) -> "ParallelCtx":
+        """``dataclasses.replace`` that rebuilds a communicator when a
+        field it derives from changes (unless the caller passes one)."""
+        if self._TP_COMM_FIELDS & kw.keys():
+            kw.setdefault("tp_comm", None)
+        if self._DP_COMM_FIELDS & kw.keys():
+            kw.setdefault("dp_comm", None)
+        return dataclasses.replace(self, **kw)

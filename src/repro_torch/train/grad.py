@@ -1,16 +1,29 @@
-"""Gradients at data- and tensor-parallel size 1.
+"""Gradients on the stacked data-parallel team, and the DP reductions.
 
-The counterpart of ``repro.train.grad``.  At dp = tp = 1 the
-reference's spec-driven combine is the identity (no parameter is
-sharded, no replica to average over), so ``combine_grads`` returns the
-gradients as they are.  The DP reduction schedules — bucketing,
-compression and the nonblocking ``overlapped_grad_sync`` — raise
-``NotImplementedError``: they arrive with multi-process data
-parallelism (ROADMAP A6).
+The counterpart of ``repro.train.grad``.  The reference runs one replica
+per device under ``shard_map``; here every replica runs on one card, in
+turn, on its contiguous block of the global batch's rows (the rows
+``P("data")`` gives it), and its gradient lands in its own row of a
+stacked ``(dp, *leaf)`` buffer (``replica_grads``): before replica ``r``
+runs, each parameter's ``.grad`` is row ``r``'s view, so ``backward``
+accumulates its microbatches there in place, in the order the
+reference's ``acc + g`` scan adds them.  The buffers have the
+reference's tree layout (``tree.ref_tree``: one leaf per stacked block
+weight, ``(dp, n_layers, *shape)``), so the bucket plans, and the
+chunks ZeRO-1 owns, are the reference's.
 
-Gradients land in the parameters' ``.grad`` (``loss.backward()``), so
-microbatches accumulate in place, in the order the reference's
-``acc + g`` scan adds them.
+``combine_grads`` then reduces the rows through ``ctx.dp_comm`` by one
+of the reference's four schedules (compressed, overlapped, bucketed,
+per-leaf mean); every reduced row equals row 0.  ``overlapped_grad_sync``
+is the paper's §3.2 nonblocking pattern: one ``allreduce_nbi`` per
+bucket (or leaf) on a ``CommQueue``, in backward-walk order, drained by
+one ``quiet()``, in place.  Under the reference's ``jax.grad`` every
+cotangent exists before the first issue, and here the backward has
+ended too: the overlap is a schedule freedom, bit-identical to the
+blocking path.  At
+dp = 1 nothing is reduced, as in the reference.  The trainer runs at
+tp = 1 (tensor-parallel training, and with it the spec-driven TP
+combine, is ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -18,10 +31,11 @@ from typing import Any
 
 import torch
 
-from .tree import leaves, tree_map
+from repro_torch.comm.bucketing import (leaf_metas, pack, plan_buckets,
+                                        unpack_bucket)
+from repro_torch.tree import leaves, ref_groups, ref_tree, tree_map
 
-_A6 = ("arrives with multi-process data parallelism and the comm "
-       "layer's bucketing/compression (ROADMAP A6)")
+_A10 = ("tensor-parallel training arrives with ROADMAP A10")
 
 
 def trainable(params: Any) -> Any:
@@ -38,30 +52,148 @@ def backward(loss_fn, params, batch, ctx, cfg) -> torch.Tensor:
     return loss.detach()
 
 
+def grad_rows(params: dict, dp: int) -> dict:
+    """Zeroed gradient rows in the reference's layout: each leaf
+    ``(dp, n_layers, *shape)`` for a block weight, ``(dp, *shape)`` for
+    any other, in f32 on the parameters' device."""
+    def zeros(g):
+        t = g[0] if isinstance(g, list) else g
+        lead = (dp, len(g)) if isinstance(g, list) else (dp,)
+        return torch.zeros(lead + tuple(t.shape), dtype=torch.float32,
+                           device=t.device)
+    return ref_tree(params, zeros)
+
+
+def _bind(params: dict, rows: dict, r: int) -> None:
+    """Point every parameter's ``.grad`` at row ``r`` of its buffer."""
+    for group, buf in zip(ref_groups(params), leaves(rows)):
+        if isinstance(group, list):
+            for li, p in enumerate(group):
+                p.grad = buf[r, li]
+        else:
+            group.grad = buf[r]
+
+
+def replica_grads(loss_fn, params, tokens, ctx, cfg, microbatches: int = 1):
+    """Every DP replica's loss and gradient on its block of ``tokens``
+    (the global batch), its microbatches accumulated: ``(lmask (dp,),
+    rows)`` with ``rows`` the stacked ``grad_rows``.  Each replica's
+    loss and gradient are its microbatches' mean, as the reference's
+    scan gives them.  The parameters' ``.grad`` is None after."""
+    dp = ctx.dp_size
+    if tokens.shape[0] % (dp * microbatches):
+        raise ValueError(f"batch of {tokens.shape[0]} does not split into "
+                         f"{dp} replicas x {microbatches} microbatches")
+    ps = leaves(params)
+    rows = grad_rows(params, dp)
+    lmask = []
+    try:
+        for r, block in enumerate(tokens.chunk(dp)):
+            _bind(params, rows, r)
+            lsum = None
+            for mb in block.chunk(microbatches):
+                lm = backward(loss_fn, params, {"tokens": mb}, ctx, cfg)
+                lsum = lm if lsum is None else lsum + lm
+            lmask.append(lsum / microbatches if microbatches > 1 else lsum)
+    finally:
+        for p in ps:
+            p.grad = None
+    if microbatches > 1:
+        with torch.no_grad():
+            for g in leaves(rows):
+                g.div_(microbatches)
+    return torch.stack(lmask), rows
+
+
 def overlapped_grad_sync(grads: Any, comm, *, bucket_bytes: int = 0,
                          mean: bool = True) -> Any:
-    raise NotImplementedError(f"overlapped_grad_sync {_A6}")
+    """DP gradient reduction through the paper's nonblocking pipeline.
+
+    The reductions are issued ``allreduce_nbi`` onto ``comm.queue()`` in
+    reverse leaf order, the order the backward walk produces gradients
+    (output layer first), and nothing completes until the single
+    ``quiet()``.  Bucketing follows the same plan as the blocking
+    ``bucketed_allreduce`` (``comm.bucketing.plan_buckets``) and the
+    reductions deliver in issue order at the drain, so the result is
+    bit-identical to the blocking path with equal ``bucket_bytes``.
+    Leaves are stacked ``(n_pe, *leaf)``.
+
+    The reduction is IN PLACE (unlike the reference's pure function):
+    each delivery writes its sum back into what was issued — a leaf, or
+    a bucket, which is the leaf itself when the leaf fills it alone
+    (``bucketing.pack``) — and a packed bucket's sums are copied back
+    into its leaves.  Every leaf of ``grads`` holds its reduced value
+    after the drain and ``grads`` is returned: at full width a second
+    copy of the stacked gradient rows would not fit beside them."""
+    gl = leaves(grads)
+    if not gl or comm.size == 1:
+        return grads
+
+    def reduce_into(x):
+        return x.copy_(comm.psum(x))
+
+    q = comm.queue()
+    if bucket_bytes:
+        metas = leaf_metas(gl)
+        pending = [(bucket, q.allreduce_nbi(pack(gl, bucket), reduce_into))
+                   for bucket in reversed(plan_buckets(metas, bucket_bytes))]
+        q.quiet()                                # the single drain point
+        reduced = [None] * len(gl)
+        for bucket, res in pending:
+            unpack_bucket(res.value(), bucket, metas, reduced)
+            for i in bucket:
+                if reduced[i].data_ptr() != gl[i].data_ptr():
+                    gl[i].copy_(reduced[i])      # out of a packed copy
+    else:
+        for g in reversed(gl):
+            q.allreduce_nbi(g, reduce_into)
+        q.quiet()                                # the single drain point
+    if mean:
+        for g in gl:
+            g.div_(comm.size)
+    return grads
 
 
 def combine_grads(grads: Any, specs: Any, ctx, *, bucket_bytes: int = 0,
                   compress: str = "none", comp_state=None,
                   overlap: bool = False):
-    """Complete replica-local grads: the identity at dp = tp = 1 (the
-    context admits no other sizes)."""
-    del specs, ctx
-    if bucket_bytes or compress != "none" or overlap:
-        raise NotImplementedError(f"bucketed, compressed and overlapped "
-                                  f"gradient reductions {_A6}")
+    """DP-mean the stacked replica grads (overlapped through the
+    nonblocking pipeline when ``overlap``): the reference's four
+    branches, taken at dp > 1 only.  ``specs`` are the reference's
+    PartitionSpecs, read only by its TP completion (tp > 1: A10)."""
+    del specs
+    if ctx.tp_size > 1:
+        raise NotImplementedError(f"combine_grads at tp={ctx.tp_size}: "
+                                  f"{_A10}")
+    if ctx.dp_size > 1:
+        comm = ctx.dp_comm
+        if compress != "none":
+            grads, comp_state = comm.compressed_psum(
+                grads, scheme=compress, state=comp_state, mean=True)
+        elif overlap:
+            grads = overlapped_grad_sync(grads, comm,
+                                         bucket_bytes=bucket_bytes, mean=True)
+        elif bucket_bytes:
+            grads = comm.bucketed_psum(grads, bucket_bytes=bucket_bytes)
+            grads = tree_map(lambda g: g / ctx.dp_size, grads)
+        else:
+            grads = comm.tree_pmean(grads)
     return grads, comp_state
 
 
 def loss_and_grad(loss_fn, params, batch, ctx, cfg, specs=None,
                   **combine_kw):
-    """value_and_grad: ``(display_loss, grads, comp_state)``.  The display
-    loss ``dp_comm.pmean(tp_comm.psum(loss))`` is the loss at size 1."""
-    for p in leaves(params):
-        p.grad = None
-    loss = backward(loss_fn, params, batch, ctx, cfg)
-    grads = tree_map(lambda p: p.grad, params)
-    grads, comp_state = combine_grads(grads, specs, ctx, **combine_kw)
+    """value_and_grad with the DP combine: ``(display_loss, grads,
+    comp_state)``, each stacked over the DP replicas as the reference's
+    PEs return them: the loss ``dp_comm.pmean(tp_comm.psum(loss))``
+    ``(dp,)`` (tp = 1), the grads in the reference's layout ``(dp, ...)``
+    (``grad_rows``; reduced at dp > 1).  ``batch`` is the global batch,
+    each replica taking its block of rows."""
+    if ctx.tp_size > 1:
+        raise NotImplementedError(f"loss_and_grad at tp={ctx.tp_size}: "
+                                  f"{_A10}")
+    lmask, grads = replica_grads(loss_fn, params, batch["tokens"], ctx, cfg)
+    loss = ctx.dp_comm.pmean(lmask)      # tp_comm.psum: the identity at 1
+    with torch.no_grad():
+        grads, comp_state = combine_grads(grads, specs, ctx, **combine_kw)
     return loss, grads, comp_state

@@ -1,19 +1,29 @@
-"""AdamW with the reference's two state layouts, at data-parallel size 1.
+"""AdamW with the reference's two state layouts, on the stacked DP team.
 
 The counterpart of ``repro.train.optimizer``:
 
   zero=0  m/v mirror each parameter (plus an f32 master copy when the
-          parameters are bf16);
-  zero=1  m/v/master as one flat f32 chunk per parameter — at dp = 1 the
-          chunk is the whole parameter, so the reduce-scatter and the
-          all-gather of the reference are identities.  Multi-process
-          ZeRO arrives with ROADMAP A5/A6.
+          parameters are bf16), held once: every DP replica of the
+          reference holds the same copy;
+  zero=1  ZeRO-1: per-leaf flat chunking over DP.  Each leaf of the
+          reference's tree (one per stacked block weight,
+          ``tree.ref_groups``) is padded and cut into ``dp`` chunks of
+          ``c``; ``m``, ``v`` and the f32 ``master`` hold every PE's own
+          chunk, stacked ``(dp, c)``.  The gradient rows' chunks are
+          reduce-scattered through ``ctx.dp_comm.psum_scatter`` (each PE
+          keeps its chunk's sum, divided by dp), Adam updates the owned
+          chunks, and the new masters are all-gathered back through
+          ``ctx.dp_comm.all_gather``: the communicator is the optimizer's
+          wire.  A padded chunk's tail stays 0 (its gradient is 0).
 
-Unlike the reference's pure function, ``adamw_update`` updates the
-parameters and the state IN PLACE (it returns the same objects): at
-full width a second copy of 2.5 B f32 parameters would not fit beside
-the optimizer state.  The bias corrections ``1 - b ** count`` are
-computed in f32, as the reference computes them.
+``adamw_update`` takes the gradients stacked over the replicas, in the
+reference's layout (``grad.grad_rows``): zero=0 reads row 0 (the rows
+are reduced and equal), zero=1 every row (each replica's own gradient).
+Unlike the reference's pure function, it updates the parameters and the
+state IN PLACE (it returns the same objects): at full width a second
+copy of 2.5 B f32 parameters would not fit beside the optimizer state.
+The bias corrections ``1 - b ** count`` are computed in f32, as the
+reference computes them.
 """
 from __future__ import annotations
 
@@ -21,8 +31,9 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
-from .tree import leaves, tree_map
+from repro_torch.tree import leaves, ref_groups, ref_tree, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +46,26 @@ class AdamWConfig:
     zero: int = 0               # 0 | 1
 
 
+def _parts(group) -> list:
+    return group if isinstance(group, list) else [group]
+
+
+def _chunk(flat: torch.Tensor, dp: int) -> torch.Tensor:
+    """Pad a stacked flat ``(n, numel)`` to ``(n, dp, c)``: each row's DP
+    chunks (``_chunk`` of the reference, one row per PE)."""
+    c = -(-flat.shape[1] // dp)
+    return F.pad(flat, (0, dp * c - flat.shape[1])).reshape(
+        flat.shape[0], dp, c)
+
+
+def _my_chunk(flat: torch.Tensor, dp: int) -> torch.Tensor:
+    """Every PE's own chunk of its row of a stacked flat ``(dp, numel)``:
+    ``(dp, c)``, row ``r`` chunk ``r`` of row ``r`` (``_my_chunk`` of the
+    reference, whose PE reads its chunk at its DP rank)."""
+    return _chunk(flat, dp).diagonal(dim1=0, dim2=1).T
+
+
 def adamw_init(params: Any, ctx, opt_cfg: AdamWConfig) -> dict:
-    del ctx                      # dp = 1: every chunk is the whole leaf
     f32 = torch.float32
     if opt_cfg.zero == 0:
         st = {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
@@ -50,10 +79,20 @@ def adamw_init(params: Any, ctx, opt_cfg: AdamWConfig) -> dict:
         return st
     if opt_cfg.zero != 1:
         raise ValueError(f"zero must be 0 or 1, got {opt_cfg.zero}")
-    flat = lambda p: torch.zeros(p.numel(), dtype=f32, device=p.device)
-    return {"m": tree_map(flat, params), "v": tree_map(flat, params),
-            "master": tree_map(lambda p: p.detach().float().reshape(-1)
-                               .clone(), params),
+    dp = ctx.dp_size
+
+    def flat(g):
+        return torch.cat([p.detach().float().reshape(-1) for p in _parts(g)])
+
+    def zeros(g):
+        t = _parts(g)[0]
+        c = -(-sum(p.numel() for p in _parts(g)) // dp)
+        return torch.zeros((dp, c), dtype=f32, device=t.device)
+
+    # every PE's own chunk of the (replicated) f32 params
+    return {"m": ref_tree(params, zeros), "v": ref_tree(params, zeros),
+            "master": ref_tree(params, lambda g: _my_chunk(
+                flat(g)[None].expand(dp, -1), dp).contiguous()),
             "count": 0}
 
 
@@ -63,33 +102,62 @@ def _bias_correction(b: float, count: int) -> float:
         float(count), dtype=f32))
 
 
+def _adam_(m, v, g, base, b1, b2, bc1, bc2, opt_cfg) -> torch.Tensor:
+    """m, v updated in place with ``g``; returns the step on ``base``."""
+    m.mul_(b1).add_(g, alpha=1 - b1)
+    v.mul_(b2).addcmul_(g, g, value=1 - b2)
+    denom = (v / bc2).sqrt_().add_(opt_cfg.eps)
+    step = (m / bc1).div_(denom).add_(base, alpha=opt_cfg.weight_decay)
+    return step.mul_(opt_cfg.lr)
+
+
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: dict, ctx,
                  opt_cfg: AdamWConfig):
-    """One AdamW step on ``params`` with ``grads`` (same tree), in place.
-    Returns ``(params, state)``."""
-    del ctx
+    """One AdamW step on ``params`` with the stacked ``grads`` (the
+    reference's layout, ``(dp, ...)``), in place.  Returns ``(params,
+    state)``."""
     cnt = state["count"] + 1
-    b1, b2, eps = opt_cfg.b1, opt_cfg.b2, opt_cfg.eps
+    b1, b2 = opt_cfg.b1, opt_cfg.b2
     bc1, bc2 = _bias_correction(b1, cnt), _bias_correction(b2, cnt)
-    masters = leaves(state["master"]) if "master" in state \
-        else [None] * len(leaves(params))
-    for p, g, m, v, master in zip(leaves(params), leaves(grads),
-                                  leaves(state["m"]), leaves(state["v"]),
-                                  masters):
-        gf = g.float()
-        if opt_cfg.zero == 1:
-            gf = gf.reshape(-1)
-        m.mul_(b1).add_(gf, alpha=1 - b1)
-        v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
-        base = master if master is not None else p
-        denom = (v / bc2).sqrt_().add_(eps)
-        step = (m / bc1).div_(denom).add_(base, alpha=opt_cfg.weight_decay)
-        step.mul_(opt_cfg.lr)
-        if master is None:
-            p.sub_(step)
+    groups, gl = ref_groups(params), leaves(grads)
+    if opt_cfg.zero == 0:
+        mg, vg = ref_groups(state["m"]), ref_groups(state["v"])
+        mag = ref_groups(state["master"]) if "master" in state \
+            else [None] * len(groups)
+        for group, g, ms, vs, mas in zip(groups, gl, mg, vg, mag):
+            g0 = g[0]
+            rows = list(g0) if isinstance(group, list) else [g0]
+            for li, (p, m, v) in enumerate(zip(_parts(group), _parts(ms),
+                                               _parts(vs))):
+                master = None if mas is None else _parts(mas)[li]
+                base = master if master is not None else p
+                step = _adam_(m, v, rows[li].float(), base, b1, b2, bc1,
+                              bc2, opt_cfg)
+                if master is None:
+                    p.sub_(step)
+                else:
+                    master.sub_(step)
+                    p.copy_(master.view(p.shape))
+        state["count"] = cnt
+        return params, state
+
+    # ---------------- zero-1 ----------------
+    dp, comm = ctx.dp_size, ctx.dp_comm
+    for group, g, m, v, master in zip(groups, gl, leaves(state["m"]),
+                                      leaves(state["v"]),
+                                      leaves(state["master"])):
+        gch = _chunk(g.float().reshape(g.shape[0], -1), dp)   # (dp, dp, c)
+        if dp > 1:
+            gmine = comm.psum_scatter(gch, axis=0).reshape(dp, -1) / dp
         else:
-            master.sub_(step)
-            p.copy_(master.view(p.shape))
+            gmine = gch[:, 0]
+        master.sub_(_adam_(m, v, gmine, master, b1, b2, bc1, bc2, opt_cfg))
+        full = comm.all_gather(master, axis=0, tiled=True)[0] if dp > 1 \
+            else master[0]
+        off = 0
+        for p in _parts(group):
+            p.copy_(full[off:off + p.numel()].view(p.shape))
+            off += p.numel()
     state["count"] = cnt
     return params, state

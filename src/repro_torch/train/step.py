@@ -1,14 +1,27 @@
-"""Train-step factory: loss -> grads (microbatches accumulated) -> global
-grad-norm clip -> AdamW, on one card.
+"""Train-step factory: each DP replica's loss and grads (microbatches
+accumulated) -> the DP reduction -> global grad-norm clip -> AdamW, on
+one card.
 
-The counterpart of ``repro.train.step`` at dp = tp = 1 (a ctx at tp > 1
-raises ``NotImplementedError``: TP training is ROADMAP A10).  The train state
-is ``{"params", "opt", "step"}``; ``params`` keeps the per-layer form of
-``repro_torch.models.lm.unstack`` (each layer's weights their own leaves
-requiring grad, views into the stacked tensors), so each layer's
-gradient is its own tensor.  ``step(state, batch)`` updates the state IN
-PLACE and returns it with the metrics ``loss``, ``grad_norm`` (0-dim
-tensors on the device) and ``step``.
+The counterpart of ``repro.train.step`` at tp = 1 (a ctx at tp > 1
+raises ``NotImplementedError``: TP training is ROADMAP A10).  At
+``ctx.dp_size`` > 1 the replicas run on the stacked team
+(``grad.replica_grads``): each takes its contiguous block of the global
+batch's rows and runs its own microbatch loop, its gradient in its own
+row of the stacked buffers.  Under ZeRO-0 the rows are reduced by the
+reference's schedules (compressed without error feedback, overlapped,
+bucketed, or the per-leaf mean; ``grad.combine_grads``) and row 0 feeds
+the update, as the reference's ``out_specs=P()`` returns replica 0;
+under ZeRO-1 the flags are ignored, as there: each replica's gradient is
+clipped by its own norm and reduce-scattered inside ``adamw_update``,
+and the ``grad_norm`` shown is replica 0's.  The displayed loss is
+``dp_comm.pmean`` of the replicas' losses (row 0).
+
+The train state is ``{"params", "opt", "step"}``; ``params`` keeps the
+per-layer form of ``repro_torch.models.lm.unstack`` (each layer's
+weights their own leaves requiring grad, views into the stacked
+tensors).  ``step(state, batch)`` takes the global batch, updates the
+state IN PLACE and returns it with the metrics ``loss``, ``grad_norm``
+(0-dim tensors on the device) and ``step``.
 
 ``state_to_tree`` gives the state in the reference's layout, the tree a
 checkpoint holds, and ``state_from_tree`` loads such a tree (the port's
@@ -23,9 +36,9 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.models import lm
 
-from .grad import _A6, backward, trainable
+from .grad import _A10, combine_grads, replica_grads, trainable
 from .optimizer import AdamWConfig, adamw_init, adamw_update
-from .tree import leaves, tree_map
+from .tree import leaves, ref_tree, tree_map
 
 
 def init_train_state(gen: torch.Generator, cfg, ctx, model_api,
@@ -40,8 +53,7 @@ def init_train_state(gen: torch.Generator, cfg, ctx, model_api,
 def _check_tp(ctx) -> None:
     if ctx.tp_size != 1:
         raise NotImplementedError(
-            f"repro_torch trains at tp = 1, got tp={ctx.tp_size}: "
-            f"tensor-parallel training arrives with ROADMAP A10")
+            f"repro_torch trains at tp = 1, got tp={ctx.tp_size}: {_A10}")
 
 
 def train_state_from(params: dict, ctx, opt_cfg: AdamWConfig) -> dict:
@@ -57,49 +69,40 @@ def make_train_step(cfg, ctx, model_api, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1, bucket_bytes: int = 0,
                     compress: str = "none", overlap_grad_sync: bool = False,
                     clip_norm: Optional[float] = 1.0):
-    """Returns ``step(state, batch) -> (state, metrics)``.  The batch's
-    leading dim must divide by ``microbatches``."""
+    """Returns ``step(state, batch) -> (state, metrics)``.  The global
+    batch's leading dim must divide by dp x ``microbatches``."""
     _check_tp(ctx)
-    if bucket_bytes or compress != "none" or overlap_grad_sync:
-        raise NotImplementedError(f"DP gradient bucketing, compression and "
-                                  f"overlap {_A6}")
+    dp = ctx.dp_size
+    # zero-1 at dp > 1: the clip is replica-local, before the scatter
+    local = opt_cfg.zero == 1 and dp > 1
 
     def step(state, batch):
         params = state["params"]
-        ps = leaves(params)
-        for p in ps:
-            p.grad = None
-        tokens = batch["tokens"]
-        if tokens.shape[0] % microbatches:
-            raise ValueError(f"batch of {tokens.shape[0]} does not split "
-                             f"into {microbatches} microbatches")
-        lsum = None
-        for mb in tokens.chunk(microbatches):
-            lmask = backward(model_api.loss_fn, params, {"tokens": mb}, ctx,
-                             cfg)
-            lsum = lmask if lsum is None else lsum + lmask
+        lmask, grads = replica_grads(model_api.loss_fn, params,
+                                     batch["tokens"], ctx, cfg, microbatches)
         with torch.no_grad():
-            grads = [p.grad for p in ps]
-            if microbatches > 1:
-                lsum = lsum / microbatches
-                for g in grads:
-                    g.div_(microbatches)
+            if opt_cfg.zero == 0:
+                grads, _ = combine_grads(grads, None, ctx,
+                                         bucket_bytes=bucket_bytes,
+                                         compress=compress,
+                                         overlap=overlap_grad_sync)
+            gl = leaves(grads)
+            rows = dp if local else 1       # the rows the update reads
             gnorm = None
-            for g in grads:
-                sq = torch.sum(torch.square(g.float()))
+            for g in gl:
+                sq = torch.sum(torch.square(g[:rows].float()).reshape(
+                    rows, -1), dim=1)
                 gnorm = sq if gnorm is None else gnorm + sq
             gnorm = torch.sqrt(gnorm)
             if clip_norm is not None:
                 scale = torch.clamp(
                     clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-                for g in grads:
-                    g.mul_(scale)
-            adamw_update(params, tree_map(lambda p: p.grad, params),
-                         state["opt"], ctx, opt_cfg)
-        for p in ps:
-            p.grad = None
+                for g in gl:
+                    g[:rows].mul_(scale.view((rows,) + (1,) * (g.dim() - 1)))
+            adamw_update(params, grads, state["opt"], ctx, opt_cfg)
+            loss = ctx.dp_comm.pmean(lmask)[0]
         state["step"] += 1
-        return state, {"loss": lsum, "grad_norm": gnorm,
+        return state, {"loss": loss, "grad_norm": gnorm[0],
                        "step": state["step"]}
 
     return step
@@ -108,37 +111,33 @@ def make_train_step(cfg, ctx, model_api, opt_cfg: AdamWConfig, *,
 def state_to_tree(state: dict, device=None) -> dict:
     """The train state in the reference's layout: ``{"params", "opt":
     {"m", "v", "count"[, "master"]}, "step"}`` with each per-layer block
-    list restacked on a leading layer axis (under ZeRO-1 the stacked m /
-    v / master chunks flattened, as the reference's whole-leaf chunks),
-    ``count`` and ``step`` int32 0-d tensors — leaf for leaf the
-    reference's train state, in its leaf order.  The tensors are new,
-    on ``device`` (None: each leaf's own; "meta" for a template that
-    holds the structure alone)."""
+    list restacked on a leading layer axis (under ZeRO-1 each leaf's
+    ``(dp, c)`` chunks concatenated into the reference's ``(dp * c,)``
+    global view, the layout ``adamw_state_specs`` declares), ``count``
+    and ``step`` int32 0-d tensors — leaf for leaf the reference's train
+    state, in its leaf order.  The tensors are new, on ``device`` (None:
+    each leaf's own; "meta" for a template that holds the structure
+    alone)."""
     opt = state["opt"]
-    zero1 = opt["m"]["embed"]["table"].dim() == 1
 
-    def stack(layers, flat):
-        if isinstance(layers[0], dict):
-            return {k: stack([lyr[k] for lyr in layers], flat)
-                    for k in layers[0]}
-        t0 = layers[0]
-        out = torch.empty((len(layers),) + tuple(t0.shape), dtype=t0.dtype,
-                          device=device or t0.device)
-        for li, t in enumerate(layers):
+    def stack(g):
+        if not isinstance(g, list):
+            return g.detach().to(device or g.device, copy=True)
+        out = torch.empty((len(g),) + tuple(g[0].shape), dtype=g[0].dtype,
+                          device=device or g[0].device)
+        for li, t in enumerate(g):
             out[li].copy_(t.detach())
-        return out.reshape(-1) if flat else out
-
-    def restack(tree, flat=False):
-        out = {k: tree_map(lambda t: t.detach().to(device or t.device,
-                                                   copy=True), v)
-               for k, v in tree.items() if k != "blocks"}
-        out["blocks"] = stack(tree["blocks"], flat)
         return out
 
+    def ref(tree):
+        if isinstance(tree["blocks"], list):
+            return ref_tree(tree, stack)
+        return tree_map(lambda t: stack(t).reshape(-1), tree)     # ZeRO-1
+
     dev = device or opt["m"]["embed"]["table"].device
-    o = {k: restack(opt[k], zero1) for k in ("m", "v", "master") if k in opt}
+    o = {k: ref(opt[k]) for k in ("m", "v", "master") if k in opt}
     o["count"] = torch.tensor(opt["count"], dtype=torch.int32, device=dev)
-    return {"params": restack(state["params"]), "opt": o,
+    return {"params": ref(state["params"]), "opt": o,
             "step": torch.tensor(state["step"], dtype=torch.int32,
                                  device=dev)}
 
@@ -162,7 +161,7 @@ def state_from_tree(state: dict, tree: dict) -> dict:
             raise ValueError(f"checkpoint keys {sorted(src)} differ from "
                              f"the state's {sorted(dst)}")
         for k, d in dst.items():
-            if k != "blocks":
+            if not isinstance(d, list):
                 tree_map(put, d, src[k])
                 continue
             n = len(d)

@@ -1,55 +1,7 @@
-"""Nested dict/list parameter trees: leaves in the reference's order
-(dict keys sorted, as ``jax.tree.leaves``; lists in order), a map, and
-the flatten/unflatten pair the checkpoint and the weight stream use."""
-from __future__ import annotations
+"""The parameter-tree helpers under the training package's name (they
+live in ``repro_torch.tree``, which the comm layer imports too)."""
+from repro_torch.tree import (describe, leaves, ref_groups, ref_tree,
+                              tree_map, unflatten)
 
-
-def leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in leaves(t)]
-    return [tree]
-
-
-def tree_map(fn, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, t, *(r[i] for r in rest))
-                for i, t in enumerate(tree)]
-    return fn(tree, *rest)
-
-
-def unflatten(like, flat) -> object:
-    """The tree of ``like``'s structure whose leaves, in ``leaves`` order,
-    are ``flat``: the inverse of ``leaves``."""
-    it = iter(flat)
-    end = object()
-
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return [build(x) for x in t]
-        leaf = next(it, end)
-        if leaf is end:
-            raise ValueError("fewer leaves than the structure holds")
-        return leaf
-
-    out = build(like)
-    if next(it, end) is not end:
-        raise ValueError("more leaves than the structure holds")
-    return out
-
-
-def describe(tree) -> str:
-    """The structure as text, leaves as ``*`` and dict keys sorted:
-    ``{'opt': {'count': *, 'm': [*, *]}, 'step': *}``."""
-    if isinstance(tree, dict):
-        return "{" + ", ".join(f"{k!r}: {describe(tree[k])}"
-                               for k in sorted(tree)) + "}"
-    if isinstance(tree, (list, tuple)):
-        return "[" + ", ".join(describe(t) for t in tree) + "]"
-    return "*"
+__all__ = ["describe", "leaves", "ref_groups", "ref_tree", "tree_map",
+           "unflatten"]

@@ -465,7 +465,8 @@ def test_communicator_surface():
     """What the parity cases do not reach: pytrees (each leaf dispatched
     and recorded by its own size), the 1-PE identity short-circuit,
     rank/axis_name, the queue bound to the team, the stacked-shape
-    check, and the training-slice methods raising."""
+    check, and the tree-level reductions (``tree_psum``, ``tree_pmean``,
+    ``bucketed_psum``, ``compressed_psum``) of the DP gradients."""
     from repro_torch import comm as C
     from repro_torch import core
     c = C.make_communicator("pe", size=N, backend="pallas")
@@ -488,10 +489,14 @@ def test_communicator_surface():
     q = c.queue(heap.zeros_state(N, device="cpu"))
     q.put_nbi(h, torch.ones(N, 2), [(0, 3)], offset=1)
     assert q.quiet()["w"][3].tolist() == [0.0, 1.0, 1.0, 0.0]
-    for name in ("tree_psum", "tree_pmean", "bucketed_psum",
-                 "compressed_psum"):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            getattr(c, name)({"a": x})
+    # the tree-level reductions: the DP gradients' delegates
+    tree = {"a": x, "b": [y]}
+    assert torch.equal(c.tree_psum(tree)["b"][0], out["b"][0])
+    torch.testing.assert_close(c.tree_pmean(tree)["a"], out["a"] / N)
+    assert torch.equal(c.bucketed_psum(tree, bucket_bytes=64)["b"][0],
+                       out["b"][0])
+    red, st = c.compressed_psum(tree, scheme="none", mean=False)
+    assert st is None and torch.equal(red["a"], out["a"])
     with pytest.raises(ValueError, match="multi-axis team"):
         core.allreduce(x, "sum", ("dp", "tp"))
     t = core.Team(("dp", "tp"), (2, 4))

@@ -1155,3 +1155,64 @@ def test_cuda_moe_tp_engine_kernel_streams_equal_plain(cuda_device, arch, tp,
         assert st.get("all_to_all", {}).get("calls", 0) == \
             (2 * cfg.n_layers * steps if dispatch == "alltoall" else 0)
     assert streams["kernel"] == streams["ref"]
+
+
+# ======================================================================
+# data-parallel training on the stacked team
+# ======================================================================
+def _dp_run(arch, device, backend, impl="kernel", steps=3, **kw):
+    """Smoke ``arch`` in f32 at dp 2 (2 microbatches a replica) for
+    ``steps`` steps: losses and grad norms, the final parameters, and
+    the DP communicator."""
+    from repro_torch.launch.train import build_trainer
+    tr = build_trainer(arch, smoke=True, device=device, attn_impl=impl,
+                       microbatches=2, dp_size=2, backend=backend, **kw)
+    tr.ctx.dp_comm.reset_stats()
+    out = [tr.step(s) for s in range(steps)]
+    torch.cuda.synchronize()
+    return ([(m["loss"], m["grad_norm"]) for m in out],
+            [p.detach().clone() for p in tree.leaves(tr.state["params"])],
+            tr.ctx.dp_comm)
+
+
+def _staged_rounds(comm) -> int:
+    total = 0
+    for (op, nbytes, dtype, algo), calls in comm.payload_stats().items():
+        dt = getattr(torch, dtype)
+        total += calls * cb.expected_copy_launches(
+            op, algo, comm.size, nbytes // dt.itemsize, dt)
+    return total
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b"])
+@pytest.mark.parametrize("how", [{}, {"bucket_bytes": 1 << 20,
+                                      "overlap_grad_sync": True}])
+def test_cuda_dp_training_kernel_equals_plain(cuda_device, arch, how,
+                                              monkeypatch):
+    """DP 2 on the card: the kernel forward's losses equal the plain
+    forward's (rtol 1e-5, as at dp = 1); the flash kernel launches twice
+    per layer per microbatch per replica per step (the recompute under
+    remat), and the plain forward never runs on the kernel path; pallas
+    equals posh bit for bit, its copy launches exactly the staged rounds
+    of the DP communicator's calls (posh launches none)."""
+    plain = _dp_run(arch, cuda_device, "posh", impl="ref", **how)[0]
+
+    def trap(*a, **k):
+        raise AssertionError("the plain flash forward ran on the CUDA path")
+
+    monkeypatch.setattr(fa, "flash_attention_ref", trap)
+    monkeypatch.setattr(mflash, "_chunk_fwd", trap)
+    runs = {}
+    for backend in ("posh", "pallas"):
+        fa.reset_launches()
+        sc.reset_launches()
+        runs[backend] = _dp_run(arch, cuda_device, backend, **how)
+        cfg = tconfigs.get_smoke(arch)
+        assert fa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers * 2 * 2 * 3
+        want = _staged_rounds(runs[backend][2]) if backend == "pallas" else 0
+        assert sc.LAUNCHES["copy_blocked"] == want
+        assert (want > 0) == (backend == "pallas")
+    np.testing.assert_allclose(runs["posh"][0], plain, rtol=1e-5)
+    assert runs["pallas"][0] == runs["posh"][0]
+    for a, b in zip(runs["pallas"][1], runs["posh"][1]):
+        assert torch.equal(a, b)

@@ -3,8 +3,9 @@
 page pool, the AMO router — the communication library: core, comm, the copy
 and combine kernels, comm_bench, and the training slice: the flash
 kernel, flash/lm/registry, parallel, data, train, the train launcher,
-the MoE slice: the MoE configs and the MoE layer in models/mlp, and the
-checkpoint slice: ckpt and ft),
+the MoE slice: the MoE configs and the MoE layer in models/mlp, the
+checkpoint slice: ckpt and ft, and data parallelism: comm.bucketing and
+comm.compress),
 and ``chip_smoke.py``, pulls in no
 JAX and nothing of the JAX package ``repro`` — checked by a clean
 subprocess's ``sys.modules`` and by an AST scan of every import
@@ -74,7 +75,9 @@ def test_the_comm_slice_is_covered():
 
 
 def test_the_training_slice_is_covered():
-    want = {"repro_torch.kernels.flash_attention", "repro_torch.models.flash",
+    want = {"repro_torch.comm.bucketing", "repro_torch.comm.compress",
+            "repro_torch.tree",
+            "repro_torch.kernels.flash_attention", "repro_torch.models.flash",
             "repro_torch.models.registry", "repro_torch.parallel",
             "repro_torch.parallel.ctx", "repro_torch.data",
             "repro_torch.data.pipeline", "repro_torch.train",

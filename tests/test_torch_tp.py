@@ -590,15 +590,18 @@ def test_shard_for_tp_layout_and_refusals(port):
 
 
 def test_tp_ctx_and_engine_refusals(port):
-    """dp > 1 still cites A5/A6; the ctx layout (heads not dividing tp)
-    is refused by the engine, as the reference's ``_check_supported``
-    does; ``my_pe`` must name a replica."""
+    """A DP x TP ctx builds both communicators (serving ignores
+    ``dp_size``: its replicas are ``StackedExec``'s); the ctx layout
+    (heads not dividing tp) is refused by the engine, as the reference's
+    ``_check_supported`` does; ``my_pe`` must name a replica."""
     import dataclasses
 
     serve, cfg, params = port
     from repro_torch.parallel import ParallelCtx
-    with pytest.raises(NotImplementedError, match="A5"):
-        ParallelCtx(dp_size=2, tp_size=4)
+    both = ParallelCtx(dp_size=2, tp_size=4, backend="posh")
+    assert (both.dp_comm.size, both.tp_comm.size) == (2, 4)
+    assert both.dp_comm.backend_name == both.tp_comm.backend_name == "posh"
+    assert both.dp_rank("cpu").tolist() == [0, 1]
     ctx = ParallelCtx(tp_size=4)
     assert ctx.tp_comm.size == 4 and ctx.tp_rank("cpu").tolist() == [0, 1, 2, 3]
     with pytest.raises(NotImplementedError, match="head-parallel"):

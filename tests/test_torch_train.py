@@ -228,7 +228,8 @@ def test_zero1_matches_zero0_single_device():
         s1, m1 = f1(s1, b)
         np.testing.assert_allclose(float(m0["loss"]), float(m1["loss"]),
                                    rtol=1e-5)
-    assert s1["opt"]["m"]["embed"]["table"].dim() == 1     # flat chunks
+    table = s1["params"]["embed"]["table"]                 # one flat chunk
+    assert s1["opt"]["m"]["embed"]["table"].shape == (1, table.numel())
     for a, c in zip(tree.leaves(s0["params"]), tree.leaves(s1["params"])):
         np.testing.assert_allclose(a.detach().numpy(), c.detach().numpy(),
                                    rtol=2e-5, atol=2e-6)
@@ -314,21 +315,36 @@ def test_ce_chunks_and_gathered_mode_agree():
 
 
 def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="A5"):
-        ParallelCtx(dp_size=2)
+    """Data parallelism trains (A6): ``dp_size`` builds the DP
+    communicator and its ranks, and at dp = 1 the DP flags give the
+    trajectory without them (the reference reduces only at dp > 1).
+    Tensor-parallel training is still A10; MoE training is not ported."""
+    ctx = ParallelCtx(dp_size=2)
+    assert ctx.dp_comm.size == 2 and ctx.dp_rank("cpu").tolist() == [0, 1]
+    one = ctx.with_(dp_size=1)
+    assert one.dp_comm.size == 1 and one.tp_comm is ctx.tp_comm
     cfg = configs.get_smoke("qwen3-8b")
     api = registry.build(cfg)
     with pytest.raises(NotImplementedError, match="A10"):
         # the trainer at tp = 2 (TP serving is A7; TP training is A10)
         make_train_step(cfg, ParallelCtx(tp_size=2), api, AdamWConfig())
+    with pytest.raises(NotImplementedError, match="A10"):
+        tgrad.combine_grads({}, None, ParallelCtx(tp_size=2), bucket_bytes=1)
+
+    def losses(**kw):
+        state, _, data = _fresh()
+        step = make_train_step(cfg, CTX, api, AdamWConfig(lr=LR), **kw)
+        return [float(step(state, data.batch(s, device="cpu"))[1]["loss"])
+                for s in range(2)]
+
+    base = losses()
     for kw in (dict(bucket_bytes=4096), dict(compress="bf16"),
-               dict(overlap_grad_sync=True)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            make_train_step(cfg, CTX, api, AdamWConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgrad.combine_grads({}, None, CTX, bucket_bytes=1)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgrad.overlapped_grad_sync({}, None)
+               dict(overlap_grad_sync=True, bucket_bytes=4096)):
+        assert losses(**kw) == base, kw
+    g = {"w": torch.ones(1, 3)}
+    assert tgrad.combine_grads(g, None, CTX, bucket_bytes=1, compress="bf16",
+                               overlap=True) == (g, None)
+    assert tgrad.overlapped_grad_sync(g, CTX.dp_comm) is g
     with pytest.raises(NotImplementedError, match="MoE"):
         registry.build(jconfigs.get_smoke("qwen3-moe-30b-a3b"))
     with pytest.raises(ValueError, match="attn_impl"):
@@ -343,9 +359,10 @@ def test_loss_and_grad_returns_the_grads(jax_runs):
                         global_batch=8).batch(0, device="cpu")
     loss, grads, comp = tgrad.loss_and_grad(lm.loss_fn, params, batch, CTX,
                                             cfg)
-    assert comp is None
+    assert comp is None and loss.shape == (1,)     # stacked over dp = 1
     np.testing.assert_allclose(float(loss), ref["loss0"], rtol=1e-5)
-    _assert_tree_close(_stack(grads), ref["grads0"], rtol=1e-4, atol=1e-6)
+    _assert_tree_close(tree.tree_map(lambda g: g[0], grads), ref["grads0"],
+                       rtol=1e-4, atol=1e-6)
 
 
 def test_train_cli_runs_on_cpu_only_when_asked(capsys, tmp_path):
@@ -357,8 +374,18 @@ def test_train_cli_runs_on_cpu_only_when_asked(capsys, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             launch.main(["--smoke", "--steps", "1"])
-    with pytest.raises(SystemExit):        # dp > 1 flags: later
-        launch.main(["--smoke", "--device", "cpu", "--bucket-bytes", "4096"])
+    # the DP flags: accepted, and at one device (dp = 1) they change
+    # nothing, as the reference's CLI on one device
+    base = launch.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+                        "--steps", "2", "--ckpt-dir", str(tmp_path / "a")])
+    flags = launch.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+                         "--steps", "2", "--ckpt-dir", str(tmp_path / "b"),
+                         "--backend", "xla", "--bucket-bytes", "4096",
+                         "--overlap-grad-sync"])
+    assert [m["loss"] for m in flags] == [m["loss"] for m in base]
+    assert "backend=xla" in capsys.readouterr().out
+    with pytest.raises(SystemExit):        # the reference's two backends
+        launch.main(["--smoke", "--device", "cpu", "--backend", "pallas"])
     with pytest.raises(FileNotFoundError):  # nothing to resume from
         launch.main(["--smoke", "--device", "cpu", "--resume",
                      "--ckpt-dir", str(tmp_path / "ck")])
