@@ -178,7 +178,7 @@ caught):
                one and at the flip, and peak are printed;
   9. ckpt    — checkpoint/restart of the trainer (``ckpt``, ``ft``):
                gemma-2b at its published width cut to 2 of 18 layers,
-               f32, 3 steps uninterrupted; then 2 steps through
+               f32, 4 rows of 4096 tokens a step, 3 steps uninterrupted; then 2 steps through
                ``ft.run_with_restarts`` with a checkpoint every step
                and a failure injected at step 1, restored from disk;
                then ``launch.train --resume`` to step 3.  The resumed
@@ -264,7 +264,38 @@ caught):
                posh and bf16 compression within 1e-3 of f32 on the
                loss, ZeRO-1's chunks ``(2, c)`` and ``state_to_tree``'s
                ``(2 c,)`` leaves and its repeat's losses the same, each
-               run's launches counted.
+               run's launches counted;
+ 13. a10     — A10's first part: the RWKV and Mamba-hybrid families,
+               minitron-4b, h2o-danube-3-4b and the contiguous-cache
+               decode.  (d) the flash kernel against its plain version
+               at the new paths' shapes, T = S = 4608 (past the 4096
+               window): H 32 / H_kv 8 at D 120 windowed (danube), 32 /
+               32 at D 112 windowed (zamba2's shared block), 24 / 8 at
+               D 128 causal (minitron, group 3), in f32 and bf16 on the
+               output and lse (phase 3's tolerances), the autograd path
+               at D 120 with a window, and each shape timed in its
+               path's dtype beside SDPA with a boolean window mask and
+               the bound by operations over the pairs the window leaves;
+               (a) rwkv6-3b's published config in f32, all 32 layers,
+               one ``build_trainer`` step of 2 x 512 tokens (loss within
+               1.0 of ln(65536)), then on the same weights in bf16 64
+               prompt tokens and 32 greedy ones through ``decode_step``,
+               and at 2 layers in f32 ``decode_step``'s tokens along the
+               prompt == the forward's argmax (a difference only at a
+               top-2 margin below 1e-5 x |top|); (b) zamba2-7b's
+               published config in bf16, all 81 layers: ``lm.prefill``
+               of 4160 tokens (13 flash launches, the bf16 body), then
+               32 ``decode_step`` tokens from the prefill's pick,
+               position 0 held to the forward's argmax by the near-tie
+               rule, the later positions' agreement printed (the
+               reference threads one shared cache through the 13
+               applications), then one f32 step at 12 layers (2 whole
+               groups); (c) danube (t = 4608) and minitron one f32 step
+               at 4 layers each, danube's published config in bf16
+               decoding 64 + 32 tokens; the flash launches of (a)-(c)
+               equal to the count the layers, microbatches and remat
+               predict; every peak printed, each model freed before the
+               next.
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -287,7 +318,9 @@ for ``combine_blocked``, which is reached only through ``ops.combine``;
 ``launches_tp`` from phase 10's runs: the paged kernels', by dtype in
 ``launches_tp_by_dtype``, and the copy kernel's; ``launches_moe_tp``
 likewise from phase 11's; ``launches_dp`` on the flash and copy
-kernels from phase 12's runs).  ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
+kernels from phase 12's runs; ``launches_a10`` on the flash kernel from
+phase 13's runs, with ``max_abs_err_a10`` its errors at the new shapes
+and ``a10_shapes`` their timing).  ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
 on the paged kernels is their largest |kernel - plain| on phase 10's /
 11's captured TP inputs, and ``moe_tp_layouts`` their timing at phase
 11's per-PE layouts.
@@ -459,11 +492,13 @@ SWAP_TRACE_POST = {**SERVE_TRACE_F32, "seed": 1}
 SWAP_PEAK_GB = {(0, 0): 55.0, (1, 1): 74.0, (2, 2): 25.0}
 SWAP_2P2_LAYERS = 2
 # the checkpoint stage: gemma-2b at its published width cut to 2 of its
-# 18 layers (the full f32 state is ~30 GB on disk a checkpoint), the
-# training shape of phase 6; 3 steps uninterrupted, then 2 steps through
-# run_with_restarts with a checkpoint every step and a failure injected
-# at step 1, then launch.train --resume to step 3 on that directory
-CKPT = dict(arch="gemma-2b", layers=2, global_batch=8, microbatches=8,
+# 18 layers (the full f32 state is ~30 GB on disk a checkpoint; two
+# layers, so the restack of the per-layer lists is exercised), phase 6's
+# rows at half its batch (4 rows of 4096 tokens, a row a microbatch);
+# 3 steps uninterrupted, then 2 steps through run_with_restarts with a
+# checkpoint every step and a failure injected at step 1, then
+# launch.train --resume to step 3 on that directory
+CKPT = dict(arch="gemma-2b", layers=2, global_batch=4, microbatches=4,
             steps=3, restart_steps=2, every=1, fail_at=1)
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 # the data-parallel stage: gemma-2b at its published width, f32, DP 2 on
@@ -520,6 +555,33 @@ TP_GAP_J = 16
 # window of prefill step 0 of the pallas run, the verify window of
 # verify step 10 of the spec run
 TP_PICK_DECODE, TP_PICK_VERIFY = 20, 10
+
+# phase 13 (A10's first part): the flash kernel at the new paths' shapes,
+# T = S = 4608 (past the 4096-token window): h2o-danube-3-4b (H 32 / H_kv
+# 8, D 120, window), zamba2-7b's shared block (32 / 32, D 112, window),
+# minitron-4b (24 / 8, group 3, D 128, causal); timed in each path's
+# dtype (danube and zamba2 prefill run the bf16 body)
+A10_SEQ = 4608
+A10_FLASH = {"danube": dict(h=32, hkv=8, d=120, window=4096),
+             "zamba2": dict(h=32, hkv=32, d=112, window=4096),
+             "minitron": dict(h=24, hkv=8, d=128, window=None)}
+A10_TIMED = [("danube", torch.float32), ("zamba2", torch.float32),
+             ("danube", torch.bfloat16), ("zamba2", torch.bfloat16),
+             ("minitron", torch.float32)]
+# (a) rwkv6-3b: one f32 step of 2 x 512 tokens, all 32 layers (49 GB of
+# state at 16 B a parameter); bf16 decode of 64 + 32 tokens; at 2 layers
+# f32 decode == the forward's argmax along the prompt
+A10_RWKV = dict(arch="rwkv6-3b", rows=2, seq=512, prompt=64, new=32,
+                check_layers=2)
+# (b) zamba2-7b: bf16 prefill of 4160 tokens, 32 decoded tokens; one f32
+# step at 12 of 81 layers (2 whole groups; the whole model's state would
+# be 6.75 B x 16 B = 108 GB), 2 rows of 4096 tokens in 2 microbatches
+A10_ZAMBA = dict(arch="zamba2-7b", prompt=4160, new=32, train_layers=12,
+                 rows=2, mb=2, seq=4096)
+# (c) one f32 step each at 4 layers, a row a microbatch
+A10_DENSE = [("h2o-danube-3-4b", 4, A10_SEQ), ("minitron-4b", 4, 4096)]
+A10_DENSE_ROWS = 2
+
 
 def fail(msg: str) -> None:
     print(f"CHIP_SMOKE_FAIL: {msg}", file=sys.stderr, flush=True)
@@ -4330,6 +4392,443 @@ def dp_stage(fa, sc, dev, base: dict) -> tuple:
 
 
 # ----------------------------------------------------------------------
+# phase 13: the RWKV and Mamba-hybrid families, minitron-4b and
+# h2o-danube-3-4b, the contiguous-cache decode (ROADMAP A10, first part)
+# ----------------------------------------------------------------------
+def _peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _free(dev) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def a10_flash_inputs(shape, dtype, dev, seed=13):
+    """q, k, v as ``models.attention`` hands them to the kernel: (B, H, T,
+    D) / (B, H_kv, S, D) views of (B, T, H, D) / (B, S, H_kv, D)
+    tensors (row strides H * D and H_kv * D elements)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t, h, hkv, d = A10_SEQ, shape["h"], shape["hkv"], shape["d"]
+    q = torch.randn((1, t, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, t, hkv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, t, hkv, d), generator=g, device=dev).to(dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def a10_visible_pairs(t: int, window) -> int:
+    """(row, column) pairs a causal (windowed) attention over t tokens
+    computes: what this run's masks need."""
+    return sum(min(r + 1, window or t) for r in range(t))
+
+
+def a10_flash_parity(fa, dev) -> dict:
+    """(d) The flash kernel against its plain version at the new paths'
+    shapes (t = 4608, the window 4096 where the config has one), f32 and
+    bf16, output and lse, phase 3's tolerances; then the autograd path
+    at danube's windowed D = 120 shape."""
+    errs = {}
+    for tag, shape in A10_FLASH.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = a10_flash_inputs(shape, dtype, dev)
+            opts = dict(causal=True, window=shape["window"])
+            n = fa.LAUNCHES["flash_attention"]
+            out, lse = fa.flash_attention(q, k, v, **opts)
+            ref, ref_lse = fa.flash_attention_ref(q, k, v, **opts)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES["flash_attention"] != n + 1:
+                fail(f"a10 flash {tag}: the kernel did not launch")
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            name = f"{tag} {'f32' if dtype == torch.float32 else 'bf16'}"
+            print(f"a10 parity flash {name} (H {shape['h']} / H_kv "
+                  f"{shape['hkv']}, D {shape['d']}, T=S={A10_SEQ}, window "
+                  f"{shape['window']}): max |kernel - plain| {err:.3e} "
+                  f"(tol {TOL[dtype]})", flush=True)
+            if not err <= TOL[dtype]:
+                fail(f"a10 flash {name}: {err} > {TOL[dtype]}")
+            errs[name] = err
+            del q, k, v, out, lse, ref, ref_lse
+            torch.cuda.empty_cache()
+    errs["autograd danube"] = a10_flash_autograd(dev)
+    return errs
+
+
+def a10_flash_autograd(dev) -> float:
+    """``blocked_attention`` with the kernel forward and the plain
+    backward against the all-plain path (output, dq, dk, dv) at danube's
+    layout, D = 120, a window of 96 over a ragged T = 700, f32."""
+    from repro_torch.models.flash import blocked_attention
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    sh = A10_FLASH["danube"]
+    shapes = ((1, 700, sh["h"], sh["d"]), (1, 700, sh["hkv"], sh["d"]),
+              (1, 700, sh["hkv"], sh["d"]))
+    base = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    dout = torch.randn(shapes[0], generator=g, device=dev)
+    res = {}
+    for impl in ("kernel", "ref"):
+        q, k, v = (x.clone().requires_grad_(True) for x in base)
+        out = blocked_attention(q, k, v, window=96, block_q=128, block_kv=64,
+                                impl=impl)
+        out.backward(dout)
+        res[impl] = [out.detach(), q.grad, k.grad, v.grad]
+    err = max((a - b).abs().max().item()
+              for a, b in zip(res["kernel"], res["ref"]))
+    print(f"a10 parity flash autograd (D 120, window 96, f32): max err over "
+          f"out/dq/dk/dv {err:.3e} (tol {TOL[torch.float32]})", flush=True)
+    if not err <= TOL[torch.float32]:
+        fail(f"a10 autograd: kernel path vs plain path max err {err}")
+    return err
+
+
+def a10_flash_timing(fa, dev) -> dict:
+    """The kernel, its plain version and SDPA (a boolean window mask, GQA)
+    at the new shapes in each path's dtype, with the bound by operations
+    over the pairs the window leaves."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for tag, dtype in A10_TIMED:
+        shape = A10_FLASH[tag]
+        q, k, v = a10_flash_inputs(shape, dtype, dev)
+        h, hkv, d, w = shape["h"], shape["hkv"], shape["d"], shape["window"]
+        pairs = a10_visible_pairs(A10_SEQ, w)
+        flops = 4 * h * d * pairs
+        isz = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz \
+            + h * A10_SEQ * 4
+        opts = dict(causal=True, window=w)
+        idx = torch.arange(A10_SEQ, device=dev)
+        mask = idx[None] <= idx[:, None]
+        if w:
+            mask &= idx[None] > idx[:, None] - w
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **opts), dev)
+        plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v, **opts),
+                           dev, iters=5)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=mask, enable_gqa=True), dev, iters=5)
+        bound_ms, by = bound_of(nbytes, flops, dtype)
+        name = f"{tag}_{'f32' if dtype == torch.float32 else 'bf16'}"
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": by,
+                      "shape": {"h": h, "hkv": hkv, "d": d, "t": A10_SEQ,
+                                "window": w}, "pairs": pairs,
+                      **rates(ms, nbytes, flops, bound_ms)}
+        print(f"timing flash_attention a10 {name} (H {h} / H_kv {hkv}, D {d}, "
+              f"T=S={A10_SEQ}, window {w}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}; {pairs} pairs); "
+              f"{rate_text(rows[name])}", flush=True)
+        del q, k, v, qc, kc, vc, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def a10_stream_check(tokens, dec_logits, fwd_logits, tag, rule) -> int:
+    """Decode's greedy tokens (feeding the same inputs as the forward)
+    against the forward's argmax at each position.  ``rule`` "f32": a
+    difference passes at a top-2 margin of the forward's logits below
+    F32_NEAR_TIE x |top|; "bf16": at one bf16 ulp of the top, or where
+    the token lies within DELTA of the top and DELTA, the largest gap
+    between the two computations' logits there, is at most
+    NEAR_TIE_DELTA x |top| (``near_tie_gate``'s rule).  Returns the
+    positions that differ."""
+    want = fwd_logits.float().argmax(-1)
+    bad, n_diff = [], 0
+    for j in range(tokens.shape[0]):
+        if int(tokens[j]) == int(want[j]):
+            continue
+        n_diff += 1
+        lw = fwd_logits[j].float()
+        vals, _ = lw.topk(2)
+        top, mg = vals[0].item(), (vals[0] - vals[1]).item()
+        gap = top - lw[int(tokens[j])].item()
+        delta = (lw - dec_logits[j].float()).abs().max().item()
+        ok = mg < F32_NEAR_TIE * abs(top) if rule == "f32" else (
+            mg <= bf16_ulp(top)
+            or gap <= delta <= NEAR_TIE_DELTA * abs(top))
+        print(f"a10 {tag}: position {j}: decode {int(tokens[j])} vs forward "
+              f"{int(want[j])}, top-2 margin {mg:.6g} at top {top:.6g}, the "
+              f"token {gap:.6g} below it, logits {delta:.6g} apart "
+              f"({'near-tie' if ok else 'NOT a near-tie'})", flush=True)
+        if not ok:
+            bad.append(j)
+    if bad:
+        fail(f"a10 {tag}: decode leaves the forward beyond a near-tie at "
+             f"positions {bad}")
+    return n_diff
+
+
+def a10_decode(params, cfg, ctx, inputs, dev, max_len, greedy=0):
+    """Feed ``inputs`` (b, n) through ``decode_logits``, then ``greedy``
+    more tokens; returns (tokens (b, n + greedy), logits of the fed
+    positions (b, n, V), seconds)."""
+    from repro_torch.models import lm
+    b, n = inputs.shape
+    state = lm.init_decode_state(cfg, ctx, b, max_len, device=dev)
+    toks, logits = [], []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        tok = inputs[:, 0]
+        for i in range(n + greedy):
+            if i < n:
+                tok = inputs[:, i]
+            lg, state = lm.decode_logits(params, tok, state, ctx, cfg)
+            tok = lg.float().argmax(-1)
+            toks.append(tok)
+            if i < n:
+                logits.append(lg)
+    torch.cuda.synchronize()
+    return torch.stack(toks, 1), torch.stack(logits, 1), \
+        time.monotonic() - t0
+
+
+def a10_train(fa, arch, layers, rows, mb, seq, dev, predict) -> dict:
+    """One ``build_trainer`` step at published width (``layers`` kept, 0:
+    all), f32: loss within 1.0 of ln(vocab), finite grad norm, flash
+    launches == ``predict``, the peak printed."""
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.tree import leaves
+
+    _free(dev)
+    t0 = time.monotonic()
+    tr = build_trainer(arch, global_batch=rows, microbatches=mb, device=dev,
+                       seed=0, n_layers=layers, seq_len=seq)
+    n_params = sum(p.numel() for p in leaves(tr.state["params"]))
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9
+    fa.reset_launches()
+    m = tr.step(0)
+    launches = fa.LAUNCHES["flash_attention"]
+    peak = _peak_gb(dev)
+    cfg = tr.cfg
+    print(f"a10 train {cfg.name}: {cfg.n_layers} layers at published width, "
+          f"{n_params / 1e9:.3f} B params f32 ({state_gb:.2f} GB of "
+          f"parameters and Adam moments, {n_params * 16 / 1e9:.2f} GB at 16 B "
+          f"a parameter with the gradients), "
+          f"{rows} x {seq} tokens in {mb} microbatches: loss {m['loss']:.4f} "
+          f"(ln vocab {math.log(cfg.vocab):.3f}), grad_norm "
+          f"{m['grad_norm']:.4f}, {m['seconds']:.2f} s, "
+          f"{rows * seq / m['seconds']:.0f} tok/s, peak {peak:.2f} GB, init "
+          f"{time.monotonic() - t0 - m['seconds']:.1f} s, flash launches "
+          f"{launches} (predicted {predict})", flush=True)
+    if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+        fail(f"a10 train {arch}: loss {m['loss']} grad_norm {m['grad_norm']}")
+    if not abs(m["loss"] - math.log(cfg.vocab)) < 1.0:
+        fail(f"a10 train {arch}: loss {m['loss']} not within 1.0 of "
+             f"ln(vocab)")
+    if launches != predict:
+        fail(f"a10 train {arch}: flash launches {launches} != {predict}")
+    if peak >= 80.0:
+        fail(f"a10 train {arch}: peak {peak:.2f} GB")
+    return {"tr": tr, "launches": launches, "loss": m["loss"],
+            "seconds": m["seconds"], "peak_gb": peak}
+
+
+def a10_rwkv(fa, dev) -> int:
+    """(a) rwkv6-3b: the published config, f32, all 32 layers, one step;
+    then decode in bf16 on the trained weights; then at 2 layers in f32
+    decode == the forward's argmax along a prompt."""
+    import dataclasses as dc
+
+    from repro_torch.models import lm
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.tree import tree_map
+
+    r = A10_RWKV
+    run = a10_train(fa, r["arch"], 0, r["rows"], 1, r["seq"], dev, 0)
+    tr = run.pop("tr")
+    cfg = tr.cfg
+    params = tr.state["params"]
+    tr.state.pop("opt")
+    del tr
+    gen = torch.Generator(device=dev).manual_seed(21)
+    prompt = torch.randint(0, cfg.vocab, (r["rows"], r["prompt"]),
+                           generator=gen, device=dev)
+    bf = torch.bfloat16
+    pbf = tree_map(lambda t: t.detach().to(bf), params)
+    ctx = ParallelCtx(remat=False, param_dtype=bf, compute_dtype=bf)
+    toks, _, sec = a10_decode(pbf, cfg, ctx, prompt, dev,
+                              r["prompt"] + r["new"], greedy=r["new"])
+    print(f"a10 decode {cfg.name} bf16: {r['rows']} rows, {r['prompt']} "
+          f"prompt tokens then {r['new']} greedy through decode_step, "
+          f"{sec:.2f} s ({r['rows'] * (r['prompt'] + r['new']) / sec:.1f} "
+          f"tok/s), peak {_peak_gb(dev):.2f} GB; row 0's new tokens "
+          f"{toks[0, r['prompt']:].tolist()}", flush=True)
+    if not bool(((toks >= 0) & (toks < cfg.padded_vocab(1))).all()):
+        fail("a10 rwkv decode: a token outside the vocab")
+    del pbf
+    # 2 layers, f32: the recurrence against the chunked forward
+    cut = dc.replace(cfg, n_layers=r["check_layers"])
+    p2 = {**params, "blocks": params["blocks"][:r["check_layers"]]}
+    f32 = ParallelCtx(remat=False, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+    toks, dlog, _ = a10_decode(p2, cut, f32, prompt, dev, r["prompt"])
+    with torch.no_grad():
+        flog = lm.lm_head_logits(p2["head"], lm.forward(p2, prompt, f32, cut))
+    n = sum(a10_stream_check(toks[i], dlog[i], flog[i],
+                             f"rwkv {r['check_layers']} layers f32 row {i}",
+                             "f32") for i in range(r["rows"]))
+    err = (dlog.float() - flog.float()).abs().max().item()
+    print(f"a10 rwkv {r['check_layers']} layers f32: decode == forward argmax "
+          f"at {r['rows'] * r['prompt'] - n} of {r['rows'] * r['prompt']} "
+          f"positions; max |decode - forward| logit {err:.3e} (largest "
+          f"{flog.float().abs().max().item():.3f})", flush=True)
+    del params, p2
+    _free(dev)
+    return 0
+
+
+def a10_zamba2(fa, dev) -> int:
+    """(b) zamba2-7b: the published config in bf16, all 81 layers:
+    ``prefill`` of a 4160-token prompt (past the window; 13 launches of
+    the bf16 flash body), then 32 tokens through ``decode_step`` from the
+    prefill's pick, position 0 held to the forward's argmax by the
+    near-tie rule, the later ones printed (the reference's one shared
+    cache); then one f32 training step at 12 layers (2 whole groups).
+    Returns the flash launches."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.tree import leaves
+
+    z = A10_ZAMBA
+    _free(dev)
+    cfg = configs.get(z["arch"])
+    bf = torch.bfloat16
+    ctx = ParallelCtx(remat=False, param_dtype=bf, compute_dtype=bf)
+    t0 = time.monotonic()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     dtype=bf, device=dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    torch.cuda.synchronize()
+    ng, rem = divmod(cfg.n_layers, cfg.shared_attn_every)
+    print(f"a10 {cfg.name}: {cfg.n_layers} Mamba2 layers ({ng} groups of "
+          f"{cfg.shared_attn_every} + {rem}), the shared block "
+          f"{cfg.n_heads} heads x {cfg.head_dim}, window {cfg.swa_window}; "
+          f"{n_params / 1e9:.3f} B params bf16, init "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    apps = cfg.n_layers // cfg.shared_attn_every
+    gen = torch.Generator(device=dev).manual_seed(22)
+    prompt = torch.randint(0, cfg.vocab, (1, z["prompt"]), generator=gen,
+                           device=dev)
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        h = lm.prefill(params, prompt, ctx, cfg)
+        first = lm.lm_head_logits(params["head"], h).float().argmax(-1)
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    pre = fa.LAUNCHES["flash_attention"]
+    print(f"a10 prefill {cfg.name} bf16: {z['prompt']} tokens in {sec:.2f} s "
+          f"({z['prompt'] / sec:.0f} tok/s), flash launches {pre} "
+          f"(predicted {apps}), peak {_peak_gb(dev):.2f} GB, next token "
+          f"{int(first[0])}", flush=True)
+    if pre != apps:
+        fail(f"a10 prefill: flash launches {pre} != {apps}")
+    if not bool(torch.isfinite(h.float()).all()):
+        fail("a10 prefill: non-finite hidden state")
+    toks, dlog, sec = a10_decode(params, cfg, ctx, first[:, None], dev,
+                                 z["new"] + 1, greedy=z["new"] - 1)
+    fed = torch.cat([first[:, None], toks[:, :-1]], 1)   # the decode inputs
+    fa.reset_launches()
+    with torch.no_grad():
+        flog = lm.lm_head_logits(params["head"],
+                                 lm.forward(params, fed, ctx, cfg))
+    fwd = fa.LAUNCHES["flash_attention"]
+    if fwd != apps:
+        fail(f"a10 zamba2 forward: flash launches {fwd} != {apps}")
+    a10_stream_check(toks[0, :1], dlog[0, :1], flog[0, :1],
+                     "zamba2 bf16 position 0", "bf16")
+    want = flog[0].float().argmax(-1)
+    agree = [int(a) == int(b) for a, b in zip(toks[0], want)]
+    print(f"a10 decode {cfg.name} bf16: {z['new']} tokens in {sec:.2f} s "
+          f"({z['new'] / sec:.1f} tok/s), peak {_peak_gb(dev):.2f} GB; "
+          f"decode == the forward's argmax at {sum(agree)} of {z['new']} "
+          f"positions (printed, not gated past position 0: the reference "
+          f"threads one shared cache through the {apps} applications); "
+          f"first difference at "
+          f"{agree.index(False) if False in agree else None}", flush=True)
+    del params, h, dlog, flog
+    _free(dev)
+    run = a10_train(fa, z["arch"], z["train_layers"], z["rows"], z["mb"],
+                    z["seq"], dev,
+                    z["train_layers"] // cfg.shared_attn_every * z["mb"])
+    train = run["launches"]
+    del run
+    _free(dev)
+    return pre + fwd + train
+
+
+def a10_dense(fa, dev) -> int:
+    """(c) h2o-danube-3-4b (window 4096 at t = 4608) and minitron-4b
+    (GQA group 3, relu2) at published width cut to 4 layers, f32, one
+    step each; then danube's published config in bf16: 64 prompt tokens
+    and 32 more through ``decode_step`` (its ring cache, S = 4096).
+    Returns the flash launches."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.parallel import ParallelCtx
+
+    total = 0
+    for arch, layers, seq in A10_DENSE:
+        run = a10_train(fa, arch, layers, A10_DENSE_ROWS, A10_DENSE_ROWS,
+                        seq, dev, layers * A10_DENSE_ROWS * 2)
+        total += run["launches"]
+        del run
+        _free(dev)
+    cfg = configs.get("h2o-danube-3-4b")
+    bf = torch.bfloat16
+    ctx = ParallelCtx(remat=False, param_dtype=bf, compute_dtype=bf)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     dtype=bf, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    prompt = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=dev)
+    toks, _, sec = a10_decode(params, cfg, ctx, prompt, dev, 96, greedy=32)
+    print(f"a10 decode {cfg.name} bf16: 2 rows, 64 prompt tokens then 32 "
+          f"greedy, {sec:.2f} s ({2 * 96 / sec:.1f} tok/s), peak "
+          f"{_peak_gb(dev):.2f} GB; row 0's new tokens "
+          f"{toks[0, 64:].tolist()}", flush=True)
+    if not bool(((toks >= 0) & (toks < cfg.padded_vocab(1))).all()):
+        fail("a10 danube decode: a token outside the vocab")
+    del params
+    _free(dev)
+    return total
+
+
+def a10_stage(fa, dev) -> tuple:
+    """Phase 13: (d) the flash kernel at the new shapes, then (a), (b),
+    (c) on the card; returns (flash launches on the new paths, the
+    parity errors, the timing rows)."""
+    from repro_torch import configs
+
+    errs = a10_flash_parity(fa, dev)
+    rows = a10_flash_timing(fa, dev)
+    launches = a10_rwkv(fa, dev) + a10_zamba2(fa, dev) + a10_dense(fa, dev)
+    zamba = configs.get("zamba2-7b")
+    apps = zamba.n_layers // zamba.shared_attn_every
+    predict = 2 * apps + A10_ZAMBA["train_layers"] // \
+        zamba.shared_attn_every * A10_ZAMBA["mb"] + sum(
+            layers * A10_DENSE_ROWS * 2 for _, layers, _ in A10_DENSE)
+    print(f"a10: flash launches on the new paths {launches} (predicted "
+          f"{predict}: prefill and the forward {apps} each, zamba2 training "
+          f"{A10_ZAMBA['train_layers'] // zamba.shared_attn_every} "
+          f"applications x {A10_ZAMBA['mb']} microbatches, no remat of the "
+          f"shared block; danube and minitron "
+          f"{' and '.join(str(n) for _, n, _ in A10_DENSE)} layers x "
+          f"{A10_DENSE_ROWS} microbatches x 2 under remat)", flush=True)
+    if launches != predict:
+        fail(f"a10: flash launches {launches} != predicted {predict}")
+    return launches, errs, rows
+
+
+
+
+# ----------------------------------------------------------------------
 # phase 7: timing
 # ----------------------------------------------------------------------
 def time_ms(fn, dev, iters=20) -> float:
@@ -4840,6 +5339,8 @@ def main(argv=None) -> int:
     phase_done("11 moe tp")
     flash_dp, copies_dp = dp_stage(fa, sc, dev, train_base)
     phase_done("12 dp")
+    launches_a10, errs_a10, rows_a10 = a10_stage(fa, dev)
+    phase_done("13 a10")
     for row in kernels:
         if row["name"].startswith("paged_"):
             row["launches_swap"] = launches_swap[(row["name"], "bf16")]
@@ -4855,6 +5356,9 @@ def main(argv=None) -> int:
         elif row["name"] == "flash_attention":
             row["launches_ckpt"] = launches_ckpt
             row["launches_dp"] = flash_dp
+            row["launches_a10"] = launches_a10
+            row["max_abs_err_a10"] = errs_a10
+            row["a10_shapes"] = rows_a10
         elif row["name"] == "copy_blocked":
             row["launches_tp"] = copies_tp
             row["launches_moe_tp"] = copies_mtp

@@ -3,26 +3,44 @@
 ``get(name)`` returns the exact published config; ``get_smoke(name)``
 returns a reduced same-family config for CPU tests.  Only the archs
 whose family the port serves or trains are here (dense: gemma-2b,
-qwen3-8b; moe: qwen3-moe-30b-a3b, qwen2-moe-a2.7b); the others arrive
-with their family.
+qwen3-8b, minitron-4b, h2o-danube-3-4b; moe: qwen3-moe-30b-a3b,
+qwen2-moe-a2.7b; ssm: rwkv6-3b; hybrid: zamba2-7b); whisper-base,
+llama-3.2-vision-90b and posh-micro raise, naming the slice they
+arrive with.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("gemma_2b", "qwen3_8b", "qwen3_moe_30b_a3b", "qwen2_moe_a2_7b")
+ARCHS = ("minitron_4b", "gemma_2b", "qwen3_8b", "h2o_danube3_4b",
+         "rwkv6_3b", "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "zamba2_7b")
 
-_ALIASES = {"gemma-2b": "gemma_2b", "qwen3-8b": "qwen3_8b",
+_ALIASES = {"minitron-4b": "minitron_4b", "gemma-2b": "gemma_2b",
+            "qwen3-8b": "qwen3_8b", "h2o-danube-3-4b": "h2o_danube3_4b",
+            "rwkv6-3b": "rwkv6_3b",
             "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b"}
+            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b", "zamba2-7b": "zamba2_7b"}
+
+# the reference's other configs, and the slice that brings each
+_LATER = {"whisper_base": "the encoder-decoder slice (ROADMAP A10)",
+          "llama32_vision_90b": "the vision-language slice (ROADMAP A10)",
+          "posh_micro": "the analysis and tooling slice (ROADMAP A12)"}
+_LATER_ALIASES = {"whisper-base": "whisper_base",
+                  "llama-3.2-vision-90b": "llama32_vision_90b",
+                  "posh-micro": "posh_micro"}
 
 
 def canon(name: str) -> str:
     key = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    key = _LATER_ALIASES.get(name, key)
+    if key in _LATER:
+        raise NotImplementedError(
+            f"repro_torch has no config for {name!r} yet: it arrives with "
+            f"{_LATER[key]}")
     if key not in ARCHS:
         raise NotImplementedError(
-            f"repro_torch has no config for {name!r} yet (ported: "
-            f"{', '.join(ARCHS)}); other archs arrive with their family")
+            f"repro_torch has no config for {name!r} (ported: "
+            f"{', '.join(ARCHS)})")
     return key
 
 

@@ -1,5 +1,8 @@
-"""Training CLI on one card: gemma-2b / qwen3-8b (dense family) with
-AdamW, f32 parameters and f32 compute, as the reference's launcher.
+"""Training CLI on one card with AdamW, f32 parameters and f32 compute,
+as the reference's launcher.  ``--arch`` takes the dense configs
+(gemma-2b, qwen3-8b, minitron-4b, h2o-danube-3-4b), rwkv6-3b (RWKV) and
+zamba2-7b (Mamba2 groups with a shared attention block); the MoE configs
+raise (MoE training is ROADMAP A10).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
         --steps 3 --global-batch 8 --microbatches 8
@@ -7,9 +10,11 @@ AdamW, f32 parameters and f32 compute, as the reference's launcher.
 Runs on the GPU; ``--device cpu`` runs the plain CPU versions (with
 ``--smoke``, the reduced config).  ``--layers N`` keeps the first N
 layers of the published width, a depth cut the reference's CLI does
-not have: it exists for ``chip_smoke.py``'s checkpoint stage, which
-resumes a published-width gemma-2b through this CLI at 2 of 18 layers
-(a full f32 checkpoint is 30 GB).  On the card the attention forward
+not have: it exists for ``chip_smoke.py``'s stages (a full f32
+checkpoint of gemma-2b is 30 GB; zamba2-7b's state, 108 GB, does not fit
+the card).  For zamba2-7b N must be a multiple of the group size
+(``shared_attn_every``, 6): the cut keeps N / 6 whole groups, each
+followed by the shared block, and no tail.  On the card the attention forward
 runs the flash kernel (``build_trainer(attn_impl="ref")`` takes its
 plain version).  f32 matrix products are kept in full f32: TF32 is switched
 off for matmuls and cuDNN (``torch.backends.*.allow_tf32 = False``),
@@ -91,18 +96,31 @@ class Trainer:
         return step
 
 
+def cut_layers(cfg, n_layers: int):
+    """``cfg`` with its first ``n_layers`` layers (0: all).  A hybrid
+    keeps whole groups: ``n_layers`` must divide by its group size."""
+    if not n_layers:
+        return cfg
+    k = cfg.shared_attn_every
+    if k and n_layers % k:
+        raise ValueError(f"{cfg.name}: --layers {n_layers} must keep whole "
+                         f"groups of {k} Mamba layers (a multiple of {k})")
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
 def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
                   global_batch: int = 8, microbatches: int = 1,
                   zero: int = 0, lr: float = 3e-4, device=None,
                   attn_impl: str = "kernel", seed: int = 0,
-                  n_layers: int = 0, dp_size: int = 1,
+                  n_layers: int = 0, seq_len: int = 0, dp_size: int = 1,
                   backend: str = "posh", bucket_bytes: int = 0,
                   overlap_grad_sync: bool = False,
                   compress: str = "none") -> Trainer:
     """A trainer over ``arch`` (the published config, or ``smoke``; its
-    first ``n_layers`` layers when that is not 0) with f32 parameters
-    drawn on ``device`` (None: the GPU) from ``seed``, data from
-    ``SyntheticLM`` at ``cfg.max_seq`` tokens per row: ``dp_size``
+    first ``n_layers`` layers when that is not 0, ``cut_layers``) with
+    f32 parameters drawn on ``device`` (None: the GPU) from ``seed``,
+    data from ``SyntheticLM`` at ``seq_len`` tokens per row (0:
+    ``cfg.max_seq``): ``dp_size``
     replicas on the stacked team, each on its ``global_batch / dp_size``
     rows in ``microbatches`` microbatches, their gradients reduced
     through the ``backend``'s DP communicator by the schedule
@@ -110,9 +128,8 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
     dev = resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = cut_layers(configs.get_smoke(arch) if smoke else configs.get(arch),
+                     n_layers)
     ctx = ParallelCtx(dp_size=dp_size, backend=backend, remat=True,
                       attn_impl=attn_impl, param_dtype=torch.float32,
                       compute_dtype=torch.float32)
@@ -123,20 +140,25 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
     step_fn = make_train_step(cfg, ctx, api, opt, microbatches=microbatches,
                               bucket_bytes=bucket_bytes, compress=compress,
                               overlap_grad_sync=overlap_grad_sync)
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=cfg.max_seq,
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq_len or cfg.max_seq,
                        global_batch=global_batch)
     return Trainer(cfg, ctx, state, step_fn, data, dev)
 
 
 def main(argv=None) -> list:
     """The CLI; returns the per-step metrics of the steps it ran."""
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma-2b")
+    ap = argparse.ArgumentParser(description=" ".join(
+        __doc__.split("\n\n")[0].split()))
+    ap.add_argument("--arch", default="gemma-2b",
+                    help="gemma-2b, qwen3-8b, minitron-4b, h2o-danube-3-4b "
+                         "(dense), rwkv6-3b (RWKV), zamba2-7b (Mamba2 + "
+                         "shared attention)")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced-config variant")
     ap.add_argument("--layers", type=int, default=0,
                     help="keep the config's first N layers (0: all; a "
-                         "depth cut for chip_smoke.py's checkpoint stage)")
+                         "depth cut for chip_smoke.py's stages); zamba2-7b "
+                         "keeps whole groups: N a multiple of 6")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=1)

@@ -15,6 +15,15 @@ group`` — ``shard_for_tp`` pre-slices that head per rank, the same
 numbers.  ``tp_mm`` is the per-rank product, one batched matmul over
 the PE axis, and ``out_proj`` the row-parallel output projection,
 partial sums the caller reduces with ``ctx.tp_comm.psum``.
+
+The contiguous-cache decode path (``init_cache``,
+``decode_self_attention``) runs at tp = 1, the reference's head
+layout: a bf16 cache ``(b, S, H_kv, dh)`` whatever the compute dtype,
+``S = min(max_len, swa_window)``, a ring under the sliding window.  The
+reference's ctx layout (heads not dividing tp, the cache sequence-
+sharded over the ranks and merged by ``flash_combine``) exists only at
+tp > 1, which ``models.lm``'s decode entry points refuse: it comes with
+TP training (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import torch
 from repro_torch.parallel.ctx import tp_of
 
 from .common import apply_rope, rmsnorm
-from .flash import blocked_attention
+from .flash import blocked_attention, decode_attention
 
 
 def tp_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -86,3 +95,37 @@ def self_attention(p: dict, x: torch.Tensor, ctx, cfg, *, causal=True,
                           block_q=ctx.attn_block_q,
                           block_kv=ctx.attn_block_kv, impl=ctx.attn_impl)
     return o.reshape(b, t, -1) @ p["wo"].to(cd)
+
+
+# ======================================================================
+# decode against a contiguous cache (tp = 1)
+# ======================================================================
+def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    """The KV cache of one attention layer at tp = 1: ``{"k", "v"}`` zeros
+    of (b, S, H_kv, dh) in bf16 (the reference's default, whatever the
+    compute dtype), ``S = max_len``, or ``min(max_len, swa_window)`` (a
+    ring) under the sliding window."""
+    s = max_len if cfg.swa_window is None else min(max_len, cfg.swa_window)
+    shape = (batch, s, cfg.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def decode_self_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
+                          ctx, cfg):
+    """One token at tp = 1: x (b, d) at position ``pos`` (an int) -> ((b,
+    d), cache).  The token's K/V go to slot ``pos`` (``pos % S`` under the
+    sliding window), written IN PLACE into the cache, which is returned;
+    the query reads slots ``< min(pos + 1, S)``."""
+    cd = ctx.compute_dtype
+    xf = x.to(cd)
+    b = xf.shape[0]
+    s_cache = cache["k"].shape[1]
+    slot = pos % s_cache if cfg.swa_window is not None else pos
+    posv = torch.full((b, 1), pos, dtype=torch.long, device=xf.device)
+    q, k, v = project_qkv(p, xf[:, None], posv, cfg)
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    o = decode_attention(q[:, 0], cache["k"], cache["v"],
+                         min(pos + 1, s_cache))
+    return o.reshape(b, -1) @ p["wo"].to(cd), cache

@@ -1,8 +1,9 @@
-"""Shared building blocks: initializer, RMS norm, RoPE, activations.
+"""Shared building blocks: initializer, RMS and layer norms, RoPE,
+activations.
 
-The counterparts of ``repro.models.common`` that the dense serving and
-training paths use.  Norms and rotations compute in f32 and cast back to
-the input dtype, as the JAX functions do.
+The counterparts of ``repro.models.common``.  Norms and rotations
+compute in f32 and cast back to the input dtype, as the JAX functions
+do.
 """
 from __future__ import annotations
 
@@ -31,13 +32,32 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     return out.to(x.dtype)
 
 
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last dim with ``scale`` and ``bias``; the
+    variance is the biased one, as ``jnp.var``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
+
+
+def norm_init(kind: str, d: int, dtype=torch.float32, device=None) -> dict:
+    """``{"scale": ones}``, and for a layer norm ``"bias": zeros``."""
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layer":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
 def norm_apply(kind: str, params: dict, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """The reference's ``norm_apply``: the dense family's norm is RMS;
-    layer norm belongs to the encoder-decoder family, not ported yet."""
-    if kind != "rms":
-        raise NotImplementedError(
-            f"norm {kind!r} arrives with the encoder-decoder slice")
+    """The reference's ``norm_apply``: ``eps`` reaches only the RMS norm;
+    a layer norm always takes its own 1e-5, as there."""
+    if kind == "layer":
+        return layernorm(params, x)
     return rmsnorm(params["scale"], x, eps)
 
 

@@ -21,6 +21,11 @@ Layout as in the reference: q (b, t, h, dh), k/v (b, s, h_kv, dh), GQA
 groups explicit inside (b, t, h_kv, g, dh), no K/V repetition.
 ``q_offset`` (a Python int here) is the position of query row 0 and
 ``kv_len`` masks the KV columns at and past it.
+
+The contiguous-cache decode path's attention is here too, as plain f32
+PyTorch, as the reference's is jnp: ``decode_attention`` (one token
+against a cache, with the ``window``/``pos`` mask), and for a cache
+split over ranks ``decode_attention_partial`` and ``flash_combine``.
 """
 from __future__ import annotations
 
@@ -171,3 +176,62 @@ def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     opts = (scale, causal, window, kv_len, min(block_q, tq), block_kv,
             int(q_offset), impl)
     return _FlashAttention.apply(qg, k, v, opts).reshape(b, tq, h, dh)
+
+
+# ======================================================================
+# decode against a contiguous cache
+# ======================================================================
+def decode_attention(q, kcache, vcache, cur_len: int, *,
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None, pos: Optional[int] = None):
+    """One step against a cache: q (b, h, dh); kcache/vcache (b, S, hkv,
+    dh); slots ``< cur_len`` valid, and with ``window`` and ``pos`` only
+    those ``> pos - window`` too.  Returns (b, h, dh) in q's dtype; the
+    scores, softmax and sums in f32, as the reference's
+    ``decode_attention``."""
+    b, h, dh = q.shape
+    s, hkv = kcache.shape[1], kcache.shape[2]
+    g = h // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(b, hkv, g, dh).float()
+    sc = torch.einsum("bhgd,bshd->bhgs", qg, kcache.float()) * scale
+    idx = torch.arange(s, device=q.device)
+    msk = idx < cur_len
+    if window is not None and pos is not None:
+        msk = msk & (idx > pos - window)
+    sc = torch.where(msk, sc, torch.full_like(sc, NEG))
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, vcache.float())
+    return o.reshape(b, h, dh).to(q.dtype)
+
+
+def decode_attention_partial(q, kcache, vcache, valid_mask, *,
+                             scale: Optional[float] = None):
+    """A rank's slice of the KV sequence: unnormalised ``(acc (b, hkv, g,
+    dh), m (b, hkv, g), l (b, hkv, g))`` for ``flash_combine``.  q (b, h,
+    dh); caches (b, s_loc, hkv, dh); valid_mask (b, s_loc) bool."""
+    b, h, dh = q.shape
+    hkv = kcache.shape[2]
+    g = h // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(b, hkv, g, dh).float()
+    sc = torch.einsum("bhgd,bshd->bhgs", qg, kcache.float()) * scale
+    valid = valid_mask[:, None, None, :]
+    sc = torch.where(valid, sc, torch.full_like(sc, NEG))
+    m = sc.amax(-1)
+    p = torch.exp(sc - m[..., None])
+    p = torch.where(valid, p, torch.zeros_like(p))
+    l = p.sum(-1)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, vcache.float())
+    return acc, m, l
+
+
+def flash_combine(acc, m, l, axis_combine):
+    """Combine partial ``(acc, m, l)`` across ranks; ``axis_combine`` is
+    ``{"pmax": f, "psum": f}`` from the comm layer (a stacked team's
+    reductions over the leading PE axis, or the identity at one rank)."""
+    m_glob = axis_combine["pmax"](m)
+    corr = torch.exp(m - m_glob)
+    l_glob = axis_combine["psum"](l * corr)
+    acc_glob = axis_combine["psum"](acc * corr[..., None])
+    return acc_glob / l_glob.clamp_min(1e-30)[..., None]

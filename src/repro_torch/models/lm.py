@@ -1,41 +1,88 @@
-"""Decoder-only LM for the dense and MoE families: parameters, forward,
-loss, and the decode MLP.
+"""Decoder-only LM for the dense, MoE, RWKV (ssm) and Mamba-hybrid
+families: parameters, forward, loss, and the contiguous-cache decode.
 
-The counterpart of ``repro.models.lm`` (dense and MoE blocks): ``init``,
-``_dense_block_apply``, ``forward``, ``loss_fn`` and ``_decode_mlp``.
-Parameters are a plain nested dict with the JAX pytree's keys; per-layer
-weights are stacked on a leading layer axis as in the JAX pytree, and
-``layer(blocks, li)`` takes one layer's views (the Python loop over
-layers replaces ``jax.lax.scan``).  ``unstack`` turns the stacked blocks
-into a list of per-layer dicts of views — the form the trainer
-differentiates, so each layer's gradient is its own tensor; every
-function here takes either form.
+The counterpart of ``repro.models.lm``: ``init``, the blocks
+(``_dense_block_apply``, ``_rwkv_block_apply``, ``_mamba_block_apply``),
+``forward``, ``loss_fn``, ``_decode_mlp``, and the serving API
+``init_decode_state``, ``decode_step`` and ``prefill``.  Parameters are a
+plain nested dict with the JAX pytree's keys; per-layer weights are
+stacked on a leading layer axis as in the JAX pytree, and ``layer(blocks,
+li)`` takes one layer's views (the Python loop over layers replaces
+``jax.lax.scan``).  ``unstack`` turns every stacked group (``blocks``,
+and the hybrid's ``tail``) into a list of per-layer dicts of views — the
+form the trainer differentiates, so each layer's gradient is its own
+tensor; every function here takes either form.
 
-``init`` builds both families; a MoE block's ``mlp`` holds the router,
-the stacked experts and the optional shared expert (``mlp.moe_shapes``),
-and ``_decode_mlp`` routes one token per slot through ``moe_apply``, so
-the serving engine runs both.  ``forward`` and ``loss_fn`` train the
-dense family only: MoE training is ROADMAP A10.
+Families and their trees:
+  dense / moe  ``blocks`` of attention + MLP (or MoE) layers;
+  ssm          rwkv6-3b: ``blocks`` of time-mix + channel-mix layers
+               (``ln1``/``ln2`` layer norms with bias; ``ln_f`` RMS);
+  hybrid       zamba2-7b: ``blocks`` of ``ng * k`` Mamba2 layers (k =
+               ``shared_attn_every``), ``tail`` of the ``n_layers % k``
+               left, and ``shared``, ONE dense block (unstacked) applied
+               after every group of k — its gradient accumulates over its
+               applications.
+A MoE block's ``mlp`` holds the router, the stacked experts and the
+optional shared expert (``mlp.moe_shapes``); MoE is served (decode) but
+not trained: its ``forward`` raises (ROADMAP A10), and so does every
+family the port has not ported (encdec, vlm).
+
+Decode keeps the reference's state layout, each per-layer leaf stacked
+on a leading layer axis: a dense layer's bf16 KV cache (``attention.
+init_cache``), an RWKV layer's ``S``/``x_prev_tm``/``x_prev_cm``, a
+Mamba layer's SSM state and bf16 conv buffers; ``pos`` is a Python int.
+``decode_step`` updates the state IN PLACE and returns it.  The hybrid
+threads ONE ``shared_cache`` through all its applications of the shared
+block, as the reference does: each application writes slot ``pos`` with
+its own K/V, so at a later step every application reads the K/V the
+last one wrote (training gives each application its own; ROADMAP §C).
 
 Init draws from an explicit ``torch.Generator`` with the reference's
 distributions: matrices normal with scale ``1/sqrt(fan_in)`` (fan_in is
 ``shape[0]``, which for an expert tensor is the expert count, as in the
 reference), the router with scale 0.02, the embedding and head tables
-normal with scale 0.02, every norm scale one.
-The numbers differ from ``jax.random``'s; tests that compare the two
-packages hand the JAX weights over through ``repro_torch.weights``.
+normal with scale 0.02, every norm scale one (a layer norm's bias zero),
+the RWKV and Mamba constants as ``models.rwkv`` / ``models.ssm`` set
+them.  The numbers differ from ``jax.random``'s; tests that compare the
+two packages hand the JAX weights over through ``repro_torch.weights``.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import self_attention
-from .common import ninit, norm_apply
-from .embed import embed_lookup, lm_head_loss
+from repro_torch.device import resolve
+from repro_torch.tree import STACKED
+
+from . import rwkv as rk
+from . import ssm as sm
+from .attention import decode_self_attention, init_cache, self_attention
+from .common import ninit, norm_apply, norm_init
+from .embed import embed_lookup, lm_head_logits, lm_head_loss, tp_argmax
 from .mlp import is_glu, mlp_apply, moe_apply, moe_shapes
 
 ACTS = ("swiglu", "geglu", "relu2", "gelu")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_A10 = {"moe": "MoE training arrives with ROADMAP A10",
+        "encdec": "the encoder-decoder family (whisper) arrives with "
+                  "ROADMAP A10",
+        "vlm": "the vision-language family (llama-3.2-vision) arrives "
+               "with ROADMAP A10"}
+
+
+def _check_decode_tp(ctx) -> None:
+    """The contiguous-cache decode runs at tp = 1; raise otherwise."""
+    if ctx is not None and ctx.tp_size > 1:
+        raise NotImplementedError(
+            f"the contiguous-cache decode at tp={ctx.tp_size} (the "
+            f"reference's sequence-sharded ctx layout) arrives with TP "
+            f"training, ROADMAP A10")
+
+
+def _refuse(cfg, what: str):
+    raise NotImplementedError(
+        f"repro_torch {what} no {cfg.family!r} model: "
+        f"{_A10.get(cfg.family, 'not in the reference either')}")
 
 
 def _block_shapes(cfg) -> dict:
@@ -77,22 +124,74 @@ def _fill(shapes, n_layers, gen, dtype, device):
     return out
 
 
+def _stack(n: int, one, dtype, device):
+    """Stack ``n`` draws of ``one()`` (a nested dict of tensors) on a new
+    leading axis, allocated from the first draw and filled layer by
+    layer (bounded scratch at full width)."""
+    out = None
+    for li in range(n):
+        draw = one()
+        if out is None:
+            out = _alloc(draw, n, dtype, device)
+        _put(out, draw, li)
+    return out
+
+
+def _alloc(tree, n, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _alloc(v, n, dtype, device) for k, v in tree.items()}
+    return torch.empty((n,) + tuple(tree.shape), dtype=dtype, device=device)
+
+
+def _put(out, tree, li):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(out[k], v, li)
+    else:
+        out[li] = tree
+
+
+def _rwkv_block_init(gen, cfg, dtype, device) -> dict:
+    d = cfg.d_model
+    return {"ln1": norm_init("layer", d, dtype, device),
+            "tm": rk.timemix_init(gen, cfg, dtype, device),
+            "ln2": norm_init("layer", d, dtype, device),
+            "cm": rk.chanmix_init(gen, cfg, dtype, device)}
+
+
+def _mamba_block_init(gen, cfg, dtype, device) -> dict:
+    return {"ln": norm_init("rms", cfg.d_model, dtype, device),
+            "mamba": sm.mamba_init(gen, cfg, dtype, device)}
+
+
 def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
          device=None) -> dict:
-    """Dense- or MoE-family parameters: ``embed``, ``blocks`` (stacked),
-    ``ln_f`` and, unless tied, ``head``."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"repro_torch lm.init builds the dense and MoE families; "
-            f"{cfg.family!r} arrives in a later slice")
-    if cfg.act not in ACTS:
+    """Parameters of any ported family: ``embed``, ``ln_f``, the family's
+    blocks (module docstring) and, unless tied, ``head``."""
+    if cfg.family not in FAMILIES:
+        _refuse(cfg, "builds")
+    if cfg.family != "ssm" and cfg.act not in ACTS:
         raise NotImplementedError(f"act {cfg.act!r} not ported")
     v, d = cfg.padded_vocab(1), cfg.d_model
     params = {"embed": {"table": ninit(gen, (v, d), scale=0.02, dtype=dtype,
                                        device=device)},
-              "blocks": _fill(_block_shapes(cfg), cfg.n_layers, gen, dtype,
-                              device),
-              "ln_f": {"scale": torch.ones((d,), dtype=dtype, device=device)}}
+              "ln_f": norm_init("rms", d, dtype, device)}
+    if cfg.family in ("dense", "moe"):
+        params["blocks"] = _fill(_block_shapes(cfg), cfg.n_layers, gen,
+                                 dtype, device)
+    elif cfg.family == "ssm":
+        params["blocks"] = _stack(
+            cfg.n_layers, lambda: _rwkv_block_init(gen, cfg, dtype, device),
+            dtype, device)
+    else:
+        k = cfg.shared_attn_every
+        ng, rem = divmod(cfg.n_layers, k)
+        one = lambda: _mamba_block_init(gen, cfg, dtype, device)  # noqa: E731
+        params["blocks"] = _stack(ng * k, one, dtype, device)
+        if rem:
+            params["tail"] = _stack(rem, one, dtype, device)
+        params["shared"] = layer(_fill(_block_shapes(cfg), 1, gen, dtype,
+                                       device), 0)
     if not cfg.tie_embeddings:
         params["head"] = {"table": ninit(gen, (v, d), scale=0.02,
                                          dtype=dtype, device=device)}
@@ -118,11 +217,14 @@ def n_blocks(blocks) -> int:
 
 
 def unstack(params: dict) -> dict:
-    """The same parameters with ``blocks`` as a list of per-layer dicts of
-    views into the stacked tensors (no copy)."""
+    """The same parameters with every stacked group (``blocks``, ``tail``)
+    as a list of per-layer dicts of views into the stacked tensors (no
+    copy); the hybrid's ``shared`` block stays one dict."""
     out = dict(params)
-    out["blocks"] = [layer(params["blocks"], li)
-                     for li in range(n_blocks(params["blocks"]))]
+    for key in STACKED:
+        if key in params:
+            out[key] = [layer(params[key], li)
+                        for li in range(n_blocks(params[key]))]
     return out
 
 
@@ -139,24 +241,55 @@ def _dense_block_apply(p: dict, x: torch.Tensor, ctx, cfg,
     return x + m
 
 
+def _rwkv_block_apply(p: dict, x: torch.Tensor, ctx, cfg) -> torch.Tensor:
+    x = x + rk.timemix_apply(p["tm"], norm_apply("layer", p["ln1"], x), ctx,
+                             cfg)
+    return x + rk.chanmix_apply(p["cm"], norm_apply("layer", p["ln2"], x),
+                                ctx, cfg)
+
+
+def _mamba_block_apply(p: dict, x: torch.Tensor, ctx, cfg) -> torch.Tensor:
+    return x + sm.mamba_apply(p["mamba"], norm_apply("rms", p["ln"], x), ctx,
+                              cfg)
+
+
+def _run(blocks, lo: int, hi: int, x, fn, ctx, cfg):
+    """Layers ``lo .. hi-1`` of a group, each under
+    ``torch.utils.checkpoint`` when ``ctx.remat`` (the reference's
+    checkpointed ``_scan`` body)."""
+    for li in range(lo, hi):
+        p = layer(blocks, li)
+        x = (checkpoint(fn, p, x, ctx, cfg, use_reentrant=False)
+             if ctx.remat else fn(p, x, ctx, cfg))
+    return x
+
+
 def forward(params: dict, ids: torch.Tensor, ctx, cfg) -> torch.Tensor:
     """ids (b, t) -> final hidden states (b, t, d).  With ``ctx.remat``
-    each layer runs under ``torch.utils.checkpoint`` — its activations
-    are recomputed in the backward, as the reference's checkpointed
-    ``_scan`` body — so a layer's forward runs twice per step."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"repro_torch trains the dense family; {cfg.family!r} arrives in "
-            f"a later slice (MoE training: ROADMAP A10)")
+    each stacked layer runs under ``torch.utils.checkpoint`` — its
+    activations are recomputed in the backward, as the reference's
+    checkpointed ``_scan`` body — so its forward runs twice per step.
+    The hybrid's shared block runs outside the scans in the reference,
+    unchecked, and so here: once a group."""
+    fam = cfg.family
+    if fam not in ("dense", "ssm", "hybrid"):
+        _refuse(cfg, "runs the forward of")
     x = embed_lookup(params["embed"], ids, ctx.compute_dtype)
     blocks = params["blocks"]
-    for li in range(n_blocks(blocks)):
-        p = layer(blocks, li)
-        if ctx.remat:
-            x = checkpoint(_dense_block_apply, p, x, ctx, cfg,
-                           use_reentrant=False)
-        else:
-            x = _dense_block_apply(p, x, ctx, cfg)
+    if fam == "dense":
+        x = _run(blocks, 0, n_blocks(blocks), x, _dense_block_apply, ctx,
+                 cfg)
+    elif fam == "ssm":
+        x = _run(blocks, 0, n_blocks(blocks), x, _rwkv_block_apply, ctx, cfg)
+    else:
+        k = cfg.shared_attn_every
+        for g in range(n_blocks(blocks) // k):
+            x = _run(blocks, g * k, (g + 1) * k, x, _mamba_block_apply, ctx,
+                     cfg)
+            x = _dense_block_apply(params["shared"], x, ctx, cfg)
+        if "tail" in params:
+            x = _run(params["tail"], 0, n_blocks(params["tail"]), x,
+                     _mamba_block_apply, ctx, cfg)
     return norm_apply("rms", params["ln_f"], x)
 
 
@@ -185,3 +318,146 @@ def _decode_mlp(p: dict, x: torch.Tensor, cfg, ctx=None,
     if cfg.moe:
         return moe_apply(p, x[..., None, :], cfg, ctx, replicas)[..., 0, :]
     return mlp_apply(p, x, cfg, ctx)
+
+
+# ======================================================================
+# serving: the contiguous-cache decode and prefill
+# ======================================================================
+def _zeros_stack(one: dict, n: int) -> dict:
+    """``n`` zero copies of a state dict, stacked on a leading axis."""
+    return {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype,
+                           device=v.device) for k, v in one.items()}
+
+
+def init_decode_state(cfg, ctx, batch: int, max_len: int,
+                      device=None) -> dict:
+    """The reference's decode state for ``batch`` rows: ``{"cache": each
+    layer's state stacked, "pos": 0}``, and for the hybrid
+    ``"shared_cache"`` (one cache for every application of the shared
+    block) and, with a tail, ``"tail_cache"``; on ``device`` (None: the
+    GPU)."""
+    fam = cfg.family
+    _check_decode_tp(ctx)
+    device = resolve(device)
+    if fam in ("dense", "moe"):
+        one = init_cache(cfg, batch, max_len, device=device)
+        return {"cache": _zeros_stack(one, cfg.n_layers), "pos": 0}
+    if fam == "ssm":
+        d, dh = cfg.d_model, cfg.rwkv_head_dim
+        f32 = torch.float32
+        one = {"S": torch.zeros((batch, rk._hp(cfg), dh, dh), dtype=f32,
+                                device=device),
+               "x_prev_tm": torch.zeros((batch, d), dtype=f32,
+                                        device=device),
+               "x_prev_cm": torch.zeros((batch, d), dtype=f32,
+                                        device=device)}
+        return {"cache": _zeros_stack(one, cfg.n_layers), "pos": 0}
+    if fam == "hybrid":
+        k = cfg.shared_attn_every
+        ng, rem = divmod(cfg.n_layers, k)
+        one = sm.mamba_init_state(cfg, batch, device=device)
+        st = {"cache": _zeros_stack(one, ng * k),
+              "shared_cache": init_cache(cfg, batch, max_len, device=device),
+              "pos": 0}
+        if rem:
+            st["tail_cache"] = _zeros_stack(one, rem)
+        return st
+    _refuse(cfg, "decodes")
+
+
+def _set(dst: dict, src: dict) -> None:
+    """Copy a layer's new state into its views of the stacked state."""
+    for k, v in src.items():
+        if v is not dst[k]:
+            dst[k].copy_(v)
+
+
+def _decode_dense_block(p: dict, x: torch.Tensor, cache: dict, pos: int,
+                        ctx, cfg):
+    h, cache = decode_self_attention(p["attn"], norm_apply("rms", p["ln1"], x),
+                                     cache, pos, ctx, cfg)
+    x = x + h
+    return x + _decode_mlp(p["mlp"], norm_apply("rms", p["ln2"], x), cfg,
+                           ctx), cache
+
+
+def _decode_rwkv_block(p: dict, h: torch.Tensor, cache: dict, ctx, cfg):
+    hin = norm_apply("layer", p["ln1"], h)
+    o, tm = rk.timemix_decode(p["tm"], hin, {"S": cache["S"],
+                                             "x_prev": cache["x_prev_tm"]},
+                              ctx, cfg)
+    h = h + o
+    hin2 = norm_apply("layer", p["ln2"], h)
+    o2, cm = rk.chanmix_decode(p["cm"], hin2, {"x_prev": cache["x_prev_cm"]},
+                               ctx, cfg)
+    _set(cache, {"S": tm["S"], "x_prev_tm": tm["x_prev"],
+                 "x_prev_cm": cm["x_prev"]})
+    return h + o2
+
+
+def _decode_mamba_group(blocks, cache: dict, lo: int, hi: int, x, ctx, cfg):
+    for li in range(lo, hi):
+        p = layer(blocks, li)
+        c = {k: v[li] for k, v in cache.items()}
+        o, nc = sm.mamba_decode(p["mamba"], norm_apply("rms", p["ln"], x), c,
+                                ctx, cfg)
+        _set(c, nc)
+        x = x + o
+    return x
+
+
+def decode_logits(params: dict, token: torch.Tensor, state: dict, ctx,
+                  cfg):
+    """One serve step: token (b,) -> (logits (b, V) in the compute dtype,
+    state), the state updated in place (``pos`` advanced).  The step of
+    ``decode_step`` before its greedy pick."""
+    fam = cfg.family
+    if fam not in FAMILIES:
+        _refuse(cfg, "decodes")
+    _check_decode_tp(ctx)
+    x = embed_lookup(params["embed"], token[:, None], ctx.compute_dtype)[:, 0]
+    pos = state["pos"]
+    cache = state["cache"]
+    if fam in ("dense", "moe"):
+        blocks = params["blocks"]
+        for li in range(n_blocks(blocks)):
+            x, _ = _decode_dense_block(layer(blocks, li), x,
+                                       {k: v[li] for k, v in cache.items()},
+                                       pos, ctx, cfg)
+    elif fam == "ssm":
+        blocks = params["blocks"]
+        for li in range(n_blocks(blocks)):
+            x = _decode_rwkv_block(layer(blocks, li), x,
+                                   {k: v[li] for k, v in cache.items()},
+                                   ctx, cfg)
+    else:
+        k = cfg.shared_attn_every
+        blocks = params["blocks"]
+        for g in range(n_blocks(blocks) // k):
+            x = _decode_mamba_group(blocks, cache, g * k, (g + 1) * k, x,
+                                    ctx, cfg)
+            # one cache for every application, as the reference threads it
+            x, _ = _decode_dense_block(params["shared"], x,
+                                       state["shared_cache"], pos, ctx, cfg)
+        if "tail" in params:
+            x = _decode_mamba_group(params["tail"], state["tail_cache"], 0,
+                                    n_blocks(params["tail"]), x, ctx, cfg)
+    x = norm_apply("rms", params["ln_f"], x)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    logits = lm_head_logits(head, x.to(ctx.compute_dtype))
+    state["pos"] = pos + 1
+    return logits, state
+
+
+def decode_step(params: dict, token: torch.Tensor, state: dict, ctx, cfg):
+    """token (b,) -> (next token (b,) int32, greedy, ties to the lowest
+    index; the state, updated in place)."""
+    logits, state = decode_logits(params, token, state, ctx, cfg)
+    return tp_argmax(logits), state
+
+
+def prefill(params: dict, ids: torch.Tensor, ctx, cfg) -> torch.Tensor:
+    """The full-sequence forward for serving: the last position's hidden
+    state (b, d), as the reference's ``prefill`` (the decode cache is not
+    built from it there either)."""
+    return forward(params, ids, ctx, cfg)[:, -1]

@@ -110,9 +110,10 @@ def make_train_step(cfg, ctx, model_api, opt_cfg: AdamWConfig, *,
 
 def state_to_tree(state: dict, device=None) -> dict:
     """The train state in the reference's layout: ``{"params", "opt":
-    {"m", "v", "count"[, "master"]}, "step"}`` with each per-layer block
-    list restacked on a leading layer axis (under ZeRO-1 each leaf's
-    ``(dp, c)`` chunks concatenated into the reference's ``(dp * c,)``
+    {"m", "v", "count"[, "master"]}, "step"}`` with each per-layer group
+    (``blocks``, and a hybrid's ``tail``; its ``shared`` block is one
+    dict in both) restacked on a leading layer axis (under ZeRO-1 each
+    leaf's ``(dp, c)`` chunks concatenated into the reference's ``(dp * c,)``
     global view, the layout ``adamw_state_specs`` declares), ``count``
     and ``step`` int32 0-d tensors — leaf for leaf the reference's train
     state, in its leaf order.  The tensors are new, on ``device`` (None:

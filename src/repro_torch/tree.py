@@ -58,15 +58,21 @@ def describe(tree) -> str:
 # ----------------------------------------------------------------------
 # the reference's stacked layout of a per-layer parameter tree
 # ----------------------------------------------------------------------
+# the groups the reference stacks on a layer axis: every family's
+# ``blocks``, and the hybrid's ``tail`` (its ``shared`` block is one
+# unstacked dict there and here)
+STACKED = ("blocks", "tail")
+
+
 def ref_groups(params: dict) -> list:
-    """Each leaf of the reference's tree (``blocks`` one dict of stacked
-    leaves), in its ``leaves`` order, as the port's tensors that make it
-    up: the list of per-layer tensors of a block leaf (``blocks`` a
-    per-layer list), or the one tensor of any other leaf."""
+    """Each leaf of the reference's tree (``blocks``/``tail`` each one dict
+    of stacked leaves), in its ``leaves`` order, as the port's tensors
+    that make it up: the list of per-layer tensors of a stacked leaf (the
+    group a per-layer list), or the one tensor of any other leaf."""
     out = []
     for k in sorted(params):
         v = params[k]
-        if k == "blocks" and isinstance(v, list):
+        if k in STACKED and isinstance(v, list):
             out += [list(g) for g in zip(*(leaves(layer) for layer in v))]
         else:
             out += leaves(v)
@@ -76,11 +82,10 @@ def ref_groups(params: dict) -> list:
 def ref_tree(params: dict, fn) -> dict:
     """The reference's tree structure over a per-layer ``params``: every
     leaf ``fn(group)`` of its ``ref_groups`` entry (a list of per-layer
-    tensors for a block leaf, else the tensor)."""
-    out = {k: tree_map(fn, v) for k, v in params.items() if k != "blocks"}
-    if "blocks" in params:
-        blocks = params["blocks"]
-        out["blocks"] = (tree_map(lambda *ts: fn(list(ts)), *blocks)
-                         if isinstance(blocks, list)
-                         else tree_map(fn, blocks))
+    tensors for a stacked leaf, else the tensor)."""
+    out = {}
+    for k, v in params.items():
+        out[k] = (tree_map(lambda *ts: fn(list(ts)), *v)
+                  if k in STACKED and isinstance(v, list)
+                  else tree_map(fn, v))
     return out

@@ -6,7 +6,10 @@ port's nested parameter dict with the same keys (``embed.table``,
 ``head.table``, ``ln_f.scale``, ``blocks.{ln1,ln2}.scale``,
 ``blocks.attn.{wq,wk,wv,wo,q_norm,k_norm}``, ``blocks.mlp.{wu,wg,wd}``
 for a dense block or ``blocks.mlp.{router,wu,wg,wd,shared.{wu,wg,wd}}``
-for a MoE block, per-layer leaves stacked on a leading layer axis).
+for a MoE block, per-layer leaves stacked on a leading layer axis; an
+RWKV block ``blocks.{ln1,ln2}.{scale,bias}``, ``blocks.tm.*`` and
+``blocks.cm.*``; a hybrid's Mamba blocks ``blocks.{ln,mamba}`` and
+``tail.{ln,mamba}``, stacked, and its ``shared`` dense block, not).
 Whatever the JAX tree holds is converted: tied embeddings (gemma) come
 without ``head``, a plain-activation MLP (relu2, gelu) without ``wg``,
 a MoE block without a shared expert without ``shared``.  Both packages then
@@ -20,7 +23,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_TOP_KEYS = {"embed", "head", "ln_f", "blocks"}
+_TOP_KEYS = {"embed", "head", "ln_f", "blocks", "tail", "shared"}
 _MLP_KEYS = {"wu", "wg", "wd", "router", "shared"}
 
 
@@ -31,20 +34,21 @@ def _convert(tree):
 
 
 def from_jax(params_np: Mapping) -> dict:
-    """JAX dense- or MoE-LM params (a nested dict of numpy arrays) -> the
-    port's parameter dict of f32 CPU tensors (``.to()`` them for a
-    device)."""
+    """JAX LM params of the dense, MoE, RWKV or hybrid family (a nested
+    dict of numpy arrays) -> the port's parameter dict of f32 CPU tensors
+    (``.to()`` them for a device)."""
     unknown = set(params_np) - _TOP_KEYS
     if unknown:
         raise NotImplementedError(
-            f"from_jax converts the dense and MoE families; unexpected "
-            f"top-level keys {sorted(unknown)}")
-    mlp = params_np.get("blocks", {}).get("mlp", {})
-    unknown = set(mlp) - _MLP_KEYS
-    if unknown:
-        raise NotImplementedError(
-            f"from_jax converts dense and MoE blocks; unexpected "
-            f"blocks.mlp keys {sorted(unknown)}")
+            f"from_jax converts the dense, MoE, RWKV and hybrid families; "
+            f"unexpected top-level keys {sorted(unknown)}")
+    for name in ("blocks", "shared"):
+        mlp = params_np.get(name, {}).get("mlp", {})
+        unknown = set(mlp) - _MLP_KEYS
+        if unknown:
+            raise NotImplementedError(
+                f"from_jax converts dense and MoE blocks; unexpected "
+                f"{name}.mlp keys {sorted(unknown)}")
     return _convert(params_np)
 
 

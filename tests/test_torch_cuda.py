@@ -7,10 +7,12 @@ kernel path, speculative decoding and disaggregated cells included;
 the copy and combine kernels and the pallas backend; the
 flash-attention kernel against its plain version (its tile edges, the
 models' layouts, the 16-byte row check), the autograd path through it,
-and smoke-config training with it; and the checkpoint slice on the
-card: the weight stream's pinned rows and per-PE stages, a hot swap
-through the paged kernels equal to a cold start, a train state's
-checkpoint restored onto the card.
+and smoke-config training with it (the RWKV and Mamba-hybrid families
+and minitron / danube too, and prefill past the sliding window then
+decode); and the checkpoint slice on the card: the weight stream's
+pinned rows and per-PE stages, a hot swap through the paged kernels
+equal to a cold start, a train state's checkpoint restored onto the
+card.
 
 Every test here needs a CUDA GPU and skips without one (the kernels are
 CUDA C++ with no CPU mode); on the H100 host:
@@ -345,7 +347,9 @@ FLASH_GPU_CASES = {**FLASH_CASES, **FLASH_EDGE_CASES}
 
 # (H, H_kv, D) of each model whose attention reaches the flash kernel
 MODEL_HEADS = {"gemma-2b": (8, 1, 256), "qwen3-8b": (32, 8, 128),
-               "gemma-2b-smoke": (4, 1, 32), "qwen3-8b-smoke": (4, 2, 16)}
+               "gemma-2b-smoke": (4, 1, 32), "qwen3-8b-smoke": (4, 2, 16),
+               "h2o-danube-3-4b": (32, 8, 120), "zamba2-7b": (32, 32, 112),
+               "minitron-4b": (24, 8, 128)}
 
 
 def model_layout(heads, dt, device="cpu", t=130, seed=30):
@@ -958,6 +962,70 @@ def test_cuda_smoke_training_kernel_equals_plain(cuda_device, arch,
     kernel = _smoke_losses(arch, "kernel", cuda_device)
     assert fa.LAUNCHES["flash_attention"] == 2 * 2 * 3 * 2  # L x mb x steps x 2
     np.testing.assert_allclose(kernel, plain, rtol=1e-5)
+
+
+# flash launches of 3 smoke steps in 2 microbatches: 2 attention layers x
+# 2 under remat (dense), the hybrid's shared block twice a microbatch
+# (not under remat, as the reference's), none in RWKV
+A10_LAUNCHES = {"minitron-4b": 2 * 2 * 3 * 2, "h2o-danube-3-4b": 2 * 2 * 3 * 2,
+                "zamba2-7b": 2 * 2 * 3, "rwkv6-3b": 0}
+
+
+@pytest.mark.parametrize("arch", sorted(A10_LAUNCHES))
+def test_cuda_a10_smoke_training_kernel_equals_plain(cuda_device, arch,
+                                                     monkeypatch):
+    """The RWKV and hybrid families and the new dense configs train on
+    the card: three smoke steps with the kernel forward equal the plain
+    forward's (rtol 1e-5), the kernel launched as many times as the
+    layers, microbatches and remat say, the plain forward never."""
+    plain = _smoke_losses(arch, "ref", cuda_device)
+
+    def trap(*a, **k):
+        raise AssertionError("the plain flash forward ran on the CUDA path")
+
+    monkeypatch.setattr(fa, "flash_attention_ref", trap)
+    monkeypatch.setattr(mflash, "_chunk_fwd", trap)
+    fa.reset_launches()
+    kernel = _smoke_losses(arch, "kernel", cuda_device)
+    assert fa.LAUNCHES["flash_attention"] == A10_LAUNCHES[arch]
+    np.testing.assert_allclose(kernel, plain, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "zamba2-7b"])
+def test_cuda_a10_prefill_kernel_equals_plain(cuda_device, arch, dt):
+    """``lm.prefill`` past the smoke window (48 tokens, window 16) through
+    the flash kernel equals the plain forward's within the dtype's
+    tolerance; then ``decode_step`` runs on the card, the bf16 cache
+    and all, its tokens inside the vocab."""
+    from repro_torch.parallel import ParallelCtx
+    cfg = tconfigs.get_smoke(arch)
+    dtype = TDT[dt]
+    params = lm.init(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                     dtype=dtype, device=cuda_device)
+    ids = torch.arange(48, device=cuda_device)[None].repeat(2, 1) % cfg.vocab
+    apps = (cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every
+            else cfg.n_layers)
+    out = {}
+    for impl in ("kernel", "ref"):
+        ctx = ParallelCtx(remat=False, attn_impl=impl, param_dtype=dtype,
+                          compute_dtype=dtype)
+        n = fa.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            out[impl] = lm.prefill(params, ids, ctx, cfg).float().cpu()
+        launched = fa.LAUNCHES["flash_attention"] - n
+        assert launched == (apps if impl == "kernel" else 0)
+    scale = float(out["ref"].abs().max())
+    np.testing.assert_allclose(out["kernel"].numpy(), out["ref"].numpy(),
+                               rtol=TOL[dt], atol=TOL[dt] * scale)
+    state = lm.init_decode_state(cfg, ctx, 2, 24, device=cuda_device)
+    tok = ids[:, 0]
+    with torch.no_grad():
+        for _ in range(20):
+            tok, state = lm.decode_step(params, tok, state, ctx, cfg)
+    assert state["cache" if arch != "zamba2-7b" else "shared_cache"][
+        "k"].dtype == torch.bfloat16
+    assert bool(((tok >= 0) & (tok < cfg.padded_vocab(1))).all())
 
 
 # ======================================================================

@@ -4,8 +4,9 @@ page pool, the AMO router — the communication library: core, comm, the copy
 and combine kernels, comm_bench, and the training slice: the flash
 kernel, flash/lm/registry, parallel, data, train, the train launcher,
 the MoE slice: the MoE configs and the MoE layer in models/mlp, the
-checkpoint slice: ckpt and ft, and data parallelism: comm.bucketing and
-comm.compress),
+checkpoint slice: ckpt and ft, data parallelism: comm.bucketing and
+comm.compress, and the RWKV / Mamba-hybrid slice: models.rwkv,
+models.ssm and the four new configs),
 and ``chip_smoke.py``, pulls in no
 JAX and nothing of the JAX package ``repro`` — checked by a clean
 subprocess's ``sys.modules`` and by an AST scan of every import
@@ -106,6 +107,14 @@ def test_the_ckpt_slice_is_covered():
     want = {"repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
             "repro_torch.ckpt.hotswap", "repro_torch.ft",
             "repro_torch.ft.runtime"}
+    assert want <= set(_modules())
+
+
+def test_the_families_slice_is_covered():
+    want = {"repro_torch.models.rwkv", "repro_torch.models.ssm",
+            "repro_torch.configs.minitron_4b",
+            "repro_torch.configs.h2o_danube3_4b",
+            "repro_torch.configs.rwkv6_3b", "repro_torch.configs.zamba2_7b"}
     assert want <= set(_modules())
 
 

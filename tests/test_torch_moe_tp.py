@@ -26,7 +26,9 @@ as ``test_torch_tp.py`` does.  The worker runs:
     drops included).
 
 Every reference case is its own jit, compiled on a thread pool; the
-worker's wall time is asserted under 60 s.
+worker's CPU seconds (every thread's, compiles included) are bounded
+and its wall time reported: inside a parallel test run the wall clock
+measures the neighbours' load, not this worker's cost.
 
 The port serves the same ``from_jax`` weights through ``shard_for_tp`` and
 is held backend for backend: port xla to reference xla, port posh AND
@@ -40,6 +42,7 @@ non-spec (n-gram, replay, fixed), 2+2 TP 2 cells == colocated TP 2.
 """
 import dataclasses
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -247,6 +250,8 @@ def _jax_worker(out_path: str) -> None:
         for fut in futures:
             out.update(fut.result())
     out["seconds"] = np.array(time.monotonic() - t_start)
+    use = resource.getrusage(resource.RUSAGE_SELF)   # every thread's
+    out["cpu_seconds"] = np.array(use.ru_utime + use.ru_stime)
     np.savez(out_path, **out)
 
 
@@ -351,11 +356,16 @@ TAGS = (("greedy", None), ("sampled", SAMPLED))
 
 
 def test_reference_worker_within_budget(ref):
-    """The JAX worker's own seconds (compiles included) stay well inside
-    the tier-1 budget; the reference agrees with itself: its xla and
-    posh meshes give the same streams, and its TP MoE engine gives its
-    own tp = 1 engine's streams (each replica routes the tp = 1 rows)."""
-    assert float(ref["seconds"]) < 60, float(ref["seconds"])
+    """The JAX worker's cost stays well inside the tier-1 budget: its CPU
+    seconds, every thread's, compiles included (~160 alone), bounded at
+    about twice that; its wall time (~46 s alone) is reported, not
+    bounded — inside the driver's parallel run it measures the other
+    workers' load.  The reference agrees with itself: its xla and posh
+    meshes give the same streams, and its TP MoE engine gives its own
+    tp = 1 engine's streams (each replica routes the tp = 1 rows)."""
+    cpu, wall = float(ref["cpu_seconds"]), float(ref["seconds"])
+    print(f"JAX worker: {cpu:.1f} CPU s, {wall:.1f} s of wall")
+    assert cpu < 320, cpu
     for arch in ARCHS:
         for tag, _ in TAGS:
             np.testing.assert_array_equal(ref[f"streams:{arch}:xla:{tag}"],

@@ -318,7 +318,8 @@ def test_later_slices_raise_not_implemented():
     """Data parallelism trains (A6): ``dp_size`` builds the DP
     communicator and its ranks, and at dp = 1 the DP flags give the
     trajectory without them (the reference reduces only at dp > 1).
-    Tensor-parallel training is still A10; MoE training is not ported."""
+    Tensor-parallel training is still A10; MoE training is not ported:
+    a MoE config builds (it decodes) and its loss raises, citing A10."""
     ctx = ParallelCtx(dp_size=2)
     assert ctx.dp_comm.size == 2 and ctx.dp_rank("cpu").tolist() == [0, 1]
     one = ctx.with_(dp_size=1)
@@ -345,8 +346,12 @@ def test_later_slices_raise_not_implemented():
     assert tgrad.combine_grads(g, None, CTX, bucket_bytes=1, compress="bf16",
                                overlap=True) == (g, None)
     assert tgrad.overlapped_grad_sync(g, CTX.dp_comm) is g
-    with pytest.raises(NotImplementedError, match="MoE"):
-        registry.build(jconfigs.get_smoke("qwen3-moe-30b-a3b"))
+    moe = configs.get_smoke("qwen3-moe-30b-a3b")
+    api = registry.build(moe)          # MoE builds and decodes (A10 slice 1)
+    with pytest.raises(NotImplementedError, match="MoE training.*A10"):
+        api.loss_fn(lm.init(torch.Generator().manual_seed(0), moe),
+                    SyntheticLM(vocab=moe.vocab, seq_len=8, global_batch=2)
+                    .batch(0, device="cpu"), CTX, moe)
     with pytest.raises(ValueError, match="attn_impl"):
         ParallelCtx(attn_impl="pallas")
 
