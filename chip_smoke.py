@@ -278,24 +278,49 @@ caught):
                the bound by operations over the pairs the window leaves;
                (a) rwkv6-3b's published config in f32, all 32 layers,
                one ``build_trainer`` step of 2 x 512 tokens (loss within
-               1.0 of ln(65536)), then on the same weights in bf16 64
-               prompt tokens and 32 greedy ones through ``decode_step``,
-               and at 2 layers in f32 ``decode_step``'s tokens along the
-               prompt == the forward's argmax (a difference only at a
+               1.0 of ln(65536)), then on the same weights in bf16 16
+               prompt tokens and 16 greedy ones through ``decode_step``,
+               and at 2 layers in f32 ``decode_step``'s tokens along a
+               64-token prompt == the forward's argmax (a difference only at a
                top-2 margin below 1e-5 x |top|); (b) zamba2-7b's
                published config in bf16, all 81 layers: ``lm.prefill``
                of 4160 tokens (13 flash launches, the bf16 body), then
-               32 ``decode_step`` tokens from the prefill's pick,
+               8 ``decode_step`` tokens from the prefill's pick,
                position 0 held to the forward's argmax by the near-tie
                rule, the later positions' agreement printed (the
                reference threads one shared cache through the 13
                applications), then one f32 step at 12 layers (2 whole
                groups); (c) danube (t = 4608) and minitron one f32 step
                at 4 layers each, danube's published config in bf16
-               decoding 64 + 32 tokens; the flash launches of (a)-(c)
+               decoding 16 + 16 tokens; the flash launches of (a)-(c)
                equal to the count the layers, microbatches and remat
                predict; every peak printed, each model freed before the
-               next.
+               next;
+ 14. xattn   — A10 items 1-2: the cross-attention families.  (d) the
+               flash kernel against its plain version, non-causal, at
+               whisper's encoder (B 4, H 8 / 8, T = S = 1500, D 64),
+               whisper's cross attention (T 448 over S 1500) and the
+               vlm's (B 2, H 64 / 8, T 1024 over S 1601, D 128), f32 and
+               bf16, output and lse (phase 3's tolerances), the autograd
+               path at whisper's cross shape, each shape timed in its
+               path's dtype beside SDPA (non-causal, GQA) and the bound
+               by operations (4 T S D a head); (a) whisper-base's
+               published config in f32, 6 + 6 layers, one
+               ``make_train_step`` step of 8 rows (1500 seeded frames,
+               448 + 1 tokens) in 2 microbatches (loss within 1.0 of
+               ln(51865), flash launches == 18 x 2 x 2); (b) on those
+               weights, f32 and bf16: ``encode`` of 4 rows,
+               ``encoder_cross_kv``, 64 greedy ``decode_step`` tokens,
+               each position held to the teacher-forced
+               ``decode_train``'s argmax by the bf16 near-tie rule (the
+               caches are bf16 in both dtypes); (c) llama-3.2-vision-90b
+               at published width in bf16, 2 of its 20 groups (10.7 B
+               parameters), both gates of each group non-zero:
+               ``prefill`` of 2 x 1024 tokens against 1601 seeded image
+               rows, 32 ``decode_step`` tokens with ``img_kv``, held to
+               ``forward``'s argmax by the same rule; the smoke vlm's
+               loss and gradients with the kernel == the plain forward's;
+               every path's flash launches == the predicted count.
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -320,7 +345,8 @@ for ``combine_blocked``, which is reached only through ``ops.combine``;
 likewise from phase 11's; ``launches_dp`` on the flash and copy
 kernels from phase 12's runs; ``launches_a10`` on the flash kernel from
 phase 13's runs, with ``max_abs_err_a10`` its errors at the new shapes
-and ``a10_shapes`` their timing).  ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
+and ``a10_shapes`` their timing; ``launches_xattn``, ``max_abs_err_xattn``
+and ``xattn_shapes`` likewise from phase 14's).  ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
 on the paged kernels is their largest |kernel - plain| on phase 10's /
 11's captured TP inputs, and ``moe_tp_layouts`` their timing at phase
 11's per-PE layouts.
@@ -569,18 +595,48 @@ A10_TIMED = [("danube", torch.float32), ("zamba2", torch.float32),
              ("danube", torch.bfloat16), ("zamba2", torch.bfloat16),
              ("minitron", torch.float32)]
 # (a) rwkv6-3b: one f32 step of 2 x 512 tokens, all 32 layers (49 GB of
-# state at 16 B a parameter); bf16 decode of 64 + 32 tokens; at 2 layers
-# f32 decode == the forward's argmax along the prompt
-A10_RWKV = dict(arch="rwkv6-3b", rows=2, seq=512, prompt=64, new=32,
-                check_layers=2)
-# (b) zamba2-7b: bf16 prefill of 4160 tokens, 32 decoded tokens; one f32
-# step at 12 of 81 layers (2 whole groups; the whole model's state would
-# be 6.75 B x 16 B = 108 GB), 2 rows of 4096 tokens in 2 microbatches
-A10_ZAMBA = dict(arch="zamba2-7b", prompt=4160, new=32, train_layers=12,
+# state at 16 B a parameter); bf16 decode of 16 + 16 tokens (64 + 32
+# before phase 14 was added); at 2 layers f32 decode == the forward's
+# argmax along a 64-token prompt
+A10_RWKV = dict(arch="rwkv6-3b", rows=2, seq=512, prompt=64, dec_prompt=16,
+                new=16, check_layers=2)
+# (b) zamba2-7b: bf16 prefill of 4160 tokens, 8 decoded tokens (32 before
+# phase 14; position 0 is the gate); one f32 step at 12 of 81 layers (2
+# whole groups; the whole model's state would be 6.75 B x 16 B = 108 GB),
+# 2 rows of 4096 tokens in 2 microbatches
+A10_ZAMBA = dict(arch="zamba2-7b", prompt=4160, new=8, train_layers=12,
                  rows=2, mb=2, seq=4096)
+# (c) danube's bf16 decode: 16 prompt tokens, 16 greedy (64 + 32 before
+# phase 14)
+A10_DANUBE_DECODE = dict(prompt=16, new=16)
 # (c) one f32 step each at 4 layers, a row a microbatch
 A10_DENSE = [("h2o-danube-3-4b", 4, A10_SEQ), ("minitron-4b", 4, 4096)]
 A10_DENSE_ROWS = 2
+
+# phase 14 (A10, items 1-2): the flash kernel at cross attention's shapes
+# (non-causal, T != S: whisper's 448 decoder rows over its 1500 encoder
+# rows, the vlm's 1024 text rows over 1601 image rows with GQA 8) and at
+# whisper's encoder (T = S = 1500), B as the paths run them (a whisper
+# microbatch of 4 rows, the vlm's 2-row prefill)
+XATTN_FLASH = {
+    "whisper_enc": dict(b=4, h=8, hkv=8, t=1500, s=1500, d=64),
+    "whisper_cross": dict(b=4, h=8, hkv=8, t=448, s=1500, d=64),
+    "vlm_cross": dict(b=2, h=64, hkv=8, t=1024, s=1601, d=128)}
+# timed in each path's dtype: whisper trains in f32 and decodes in both
+# (its encoder through the kernel), the vlm prefills in bf16
+XATTN_TIMED = [("whisper_enc", torch.float32),
+               ("whisper_cross", torch.float32),
+               ("whisper_enc", torch.bfloat16),
+               ("whisper_cross", torch.bfloat16),
+               ("vlm_cross", torch.bfloat16)]
+# (a) whisper-base f32, 6 + 6 layers: one step of 8 rows (1500 frames,
+# 448 + 1 tokens) in 2 microbatches; (b) 4 rows decode 64 tokens
+XATTN_WHISPER = dict(rows=8, seq=448, mb=2, dec_rows=4, new=64)
+# (c) llama-3.2-vision-90b bf16 at 2 of 20 groups (10.7 B parameters,
+# 21.4 GB): prefill 2 x 1024 tokens, 32 decoded; the gates of groups 0
+# and 1, which start at zero, set non-zero so the cross layers count
+XATTN_VLM = dict(groups=2, rows=2, prompt=1024, new=32)
+XATTN_GATES = {"xgate": (0.5, -0.3), "mgate": (-0.7, 0.4)}
 
 
 def fail(msg: str) -> None:
@@ -4527,7 +4583,8 @@ def a10_flash_timing(fa, dev) -> dict:
     return rows
 
 
-def a10_stream_check(tokens, dec_logits, fwd_logits, tag, rule) -> int:
+def a10_stream_check(tokens, dec_logits, fwd_logits, tag, rule,
+                     phase="a10") -> int:
     """Decode's greedy tokens (feeding the same inputs as the forward)
     against the forward's argmax at each position.  ``rule`` "f32": a
     difference passes at a top-2 margin of the forward's logits below
@@ -4550,14 +4607,15 @@ def a10_stream_check(tokens, dec_logits, fwd_logits, tag, rule) -> int:
         ok = mg < F32_NEAR_TIE * abs(top) if rule == "f32" else (
             mg <= bf16_ulp(top)
             or gap <= delta <= NEAR_TIE_DELTA * abs(top))
-        print(f"a10 {tag}: position {j}: decode {int(tokens[j])} vs forward "
+        print(f"{phase} {tag}: position {j}: decode {int(tokens[j])} vs "
+              f"forward "
               f"{int(want[j])}, top-2 margin {mg:.6g} at top {top:.6g}, the "
               f"token {gap:.6g} below it, logits {delta:.6g} apart "
               f"({'near-tie' if ok else 'NOT a near-tie'})", flush=True)
         if not ok:
             bad.append(j)
     if bad:
-        fail(f"a10 {tag}: decode leaves the forward beyond a near-tie at "
+        fail(f"{phase} {tag}: decode leaves the forward beyond a near-tie at "
              f"positions {bad}")
     return n_diff
 
@@ -4651,13 +4709,14 @@ def a10_rwkv(fa, dev) -> int:
     bf = torch.bfloat16
     pbf = tree_map(lambda t: t.detach().to(bf), params)
     ctx = ParallelCtx(remat=False, param_dtype=bf, compute_dtype=bf)
-    toks, _, sec = a10_decode(pbf, cfg, ctx, prompt, dev,
-                              r["prompt"] + r["new"], greedy=r["new"])
-    print(f"a10 decode {cfg.name} bf16: {r['rows']} rows, {r['prompt']} "
+    n = r["dec_prompt"]
+    toks, _, sec = a10_decode(pbf, cfg, ctx, prompt[:, :n], dev,
+                              n + r["new"], greedy=r["new"])
+    print(f"a10 decode {cfg.name} bf16: {r['rows']} rows, {n} "
           f"prompt tokens then {r['new']} greedy through decode_step, "
-          f"{sec:.2f} s ({r['rows'] * (r['prompt'] + r['new']) / sec:.1f} "
+          f"{sec:.2f} s ({r['rows'] * (n + r['new']) / sec:.1f} "
           f"tok/s), peak {_peak_gb(dev):.2f} GB; row 0's new tokens "
-          f"{toks[0, r['prompt']:].tolist()}", flush=True)
+          f"{toks[0, n:].tolist()}", flush=True)
     if not bool(((toks >= 0) & (toks < cfg.padded_vocab(1))).all()):
         fail("a10 rwkv decode: a token outside the vocab")
     del pbf
@@ -4685,7 +4744,7 @@ def a10_rwkv(fa, dev) -> int:
 def a10_zamba2(fa, dev) -> int:
     """(b) zamba2-7b: the published config in bf16, all 81 layers:
     ``prefill`` of a 4160-token prompt (past the window; 13 launches of
-    the bf16 flash body), then 32 tokens through ``decode_step`` from the
+    the bf16 flash body), then 8 tokens through ``decode_step`` from the
     prefill's pick, position 0 held to the forward's argmax by the
     near-tie rule, the later ones printed (the reference's one shared
     cache); then one f32 training step at 12 layers (2 whole groups).
@@ -4767,8 +4826,8 @@ def a10_zamba2(fa, dev) -> int:
 def a10_dense(fa, dev) -> int:
     """(c) h2o-danube-3-4b (window 4096 at t = 4608) and minitron-4b
     (GQA group 3, relu2) at published width cut to 4 layers, f32, one
-    step each; then danube's published config in bf16: 64 prompt tokens
-    and 32 more through ``decode_step`` (its ring cache, S = 4096).
+    step each; then danube's published config in bf16: 16 prompt tokens
+    and 16 more through ``decode_step`` (its ring cache, S = 4096).
     Returns the flash launches."""
     from repro_torch import configs
     from repro_torch.models import lm
@@ -4787,12 +4846,14 @@ def a10_dense(fa, dev) -> int:
     params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
                      dtype=bf, device=dev)
     gen = torch.Generator(device=dev).manual_seed(23)
-    prompt = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=dev)
-    toks, _, sec = a10_decode(params, cfg, ctx, prompt, dev, 96, greedy=32)
-    print(f"a10 decode {cfg.name} bf16: 2 rows, 64 prompt tokens then 32 "
-          f"greedy, {sec:.2f} s ({2 * 96 / sec:.1f} tok/s), peak "
+    n, new = A10_DANUBE_DECODE["prompt"], A10_DANUBE_DECODE["new"]
+    prompt = torch.randint(0, cfg.vocab, (2, n), generator=gen, device=dev)
+    toks, _, sec = a10_decode(params, cfg, ctx, prompt, dev, n + new,
+                              greedy=new)
+    print(f"a10 decode {cfg.name} bf16: 2 rows, {n} prompt tokens then {new} "
+          f"greedy, {sec:.2f} s ({2 * (n + new) / sec:.1f} tok/s), peak "
           f"{_peak_gb(dev):.2f} GB; row 0's new tokens "
-          f"{toks[0, 64:].tolist()}", flush=True)
+          f"{toks[0, n:].tolist()}", flush=True)
     if not bool(((toks >= 0) & (toks < cfg.padded_vocab(1))).all()):
         fail("a10 danube decode: a token outside the vocab")
     del params
@@ -4823,6 +4884,435 @@ def a10_stage(fa, dev) -> tuple:
           f"{A10_DENSE_ROWS} microbatches x 2 under remat)", flush=True)
     if launches != predict:
         fail(f"a10: flash launches {launches} != predicted {predict}")
+    return launches, errs, rows
+
+
+# ----------------------------------------------------------------------
+# phase 14: the cross-attention families, whisper-base (encoder-decoder)
+# and llama-3.2-vision-90b (ROADMAP A10, items 1-2)
+# ----------------------------------------------------------------------
+def xattn_flash_inputs(shape, dtype, dev, seed=31):
+    """q (B, H, T, D) and k, v (B, H_kv, S, D) as ``models.attention``
+    hands them to the kernel: views of (B, T, H, D) / (B, S, H_kv, D)
+    tensors (cross attention's K/V are ``cross_kv``'s projection at the
+    encoder's / image's length S)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, hkv, t, s, d = (shape[k] for k in ("b", "h", "hkv", "t", "s", "d"))
+    q = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, d), generator=g, device=dev).to(dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def xattn_flash_parity(fa, dev) -> dict:
+    """(d) The flash kernel against its plain version at the new shapes,
+    non-causal, f32 and bf16, output and lse (phase 3's tolerances);
+    then the autograd path at whisper's cross shape."""
+    from repro_torch.models.flash import blocked_attention
+
+    errs = {}
+    for tag, shape in XATTN_FLASH.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = xattn_flash_inputs(shape, dtype, dev)
+            n = fa.LAUNCHES["flash_attention"]
+            out, lse = fa.flash_attention(q, k, v, causal=False)
+            ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES["flash_attention"] != n + 1:
+                fail(f"xattn flash {tag}: the kernel did not launch")
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            name = f"{tag} {'f32' if dtype == torch.float32 else 'bf16'}"
+            print(f"xattn parity flash {name} ({xattn_shape_text(shape)}): "
+                  f"max |kernel - plain| {err:.3e} (tol {TOL[dtype]})",
+                  flush=True)
+            if not err <= TOL[dtype]:
+                fail(f"xattn flash {name}: {err} > {TOL[dtype]}")
+            errs[name] = err
+            del q, k, v, out, lse, ref, ref_lse
+    # the autograd path: kernel forward + plain backward vs all plain
+    sh = XATTN_FLASH["whisper_cross"]
+    g = torch.Generator(device=dev).manual_seed(32)
+    base = [torch.randn((sh["b"], n, hh, sh["d"]), generator=g, device=dev)
+            for n, hh in ((sh["t"], sh["h"]), (sh["s"], sh["hkv"]),
+                          (sh["s"], sh["hkv"]))]
+    dout = torch.randn(base[0].shape, generator=g, device=dev)
+    res = {}
+    for impl in ("kernel", "ref"):
+        q, k, v = (x.clone().requires_grad_(True) for x in base)
+        out = blocked_attention(q, k, v, causal=False, impl=impl)
+        out.backward(dout)
+        res[impl] = [out.detach(), q.grad, k.grad, v.grad]
+    err = max((a - b).abs().max().item()
+              for a, b in zip(res["kernel"], res["ref"]))
+    print(f"xattn parity flash autograd (whisper cross, f32): max err over "
+          f"out/dq/dk/dv {err:.3e} (tol {TOL[torch.float32]})", flush=True)
+    if not err <= TOL[torch.float32]:
+        fail(f"xattn autograd: kernel path vs plain path max err {err}")
+    errs["autograd whisper_cross"] = err
+    _free(dev)
+    return errs
+
+
+def xattn_shape_text(sh) -> str:
+    return (f"B {sh['b']}, H {sh['h']} / H_kv {sh['hkv']}, T {sh['t']}, S "
+            f"{sh['s']}, D {sh['d']}, non-causal")
+
+
+def xattn_flash_timing(fa, dev) -> dict:
+    """The kernel, its plain version and SDPA (non-causal, GQA) at the new
+    shapes in each path's dtype, with the bound: every (row, column) pair
+    computed, 4 T S D operations a head."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for tag, dtype in XATTN_TIMED:
+        sh = XATTN_FLASH[tag]
+        q, k, v = xattn_flash_inputs(sh, dtype, dev)
+        b, h, t, s, d = sh["b"], sh["h"], sh["t"], sh["s"], sh["d"]
+        flops = 4 * b * h * t * s * d
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+            + b * h * t * 4
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=False), dev)
+        plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                          causal=False),
+                           dev, iters=5)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, enable_gqa=True), dev, iters=5)
+        bound_ms, by = bound_of(nbytes, flops, dtype)
+        name = f"{tag}_{'f32' if dtype == torch.float32 else 'bf16'}"
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": by, "shape": sh,
+                      **rates(ms, nbytes, flops, bound_ms)}
+        print(f"timing flash_attention xattn {name} ({xattn_shape_text(sh)})"
+              f": kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); "
+              f"{rate_text(rows[name])}", flush=True)
+        del q, k, v, qc, kc, vc
+    _free(dev)
+    return rows
+
+
+def xattn_greedy(step, start, n) -> tuple:
+    """``n`` greedy steps of ``step(token (b,)) -> logits (b, V)`` from
+    ``start``: (tokens (b, n), logits (b, n, V), seconds)."""
+    tok, toks, logits = start, [], []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        for _ in range(n):
+            lg = step(tok)
+            tok = lg.float().argmax(-1)
+            toks.append(tok)
+            logits.append(lg)
+    torch.cuda.synchronize()
+    return torch.stack(toks, 1), torch.stack(logits, 1), \
+        time.monotonic() - t0
+
+
+def xattn_whisper_batch(cfg, dev, rows, seq, seed):
+    """Seeded tokens (rows, seq + 1) and unit-normal frames (rows,
+    enc_frames, d_model) on the card (the conv frontend is a stub there
+    and here)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab, (rows, seq + 1),
+                                    generator=g, device=dev),
+            "frames": torch.randn((rows, cfg.enc_frames, cfg.d_model),
+                                  generator=g, device=dev)}
+
+
+def xattn_whisper_train(fa, dev) -> tuple:
+    """(a) whisper-base's published config, f32, all 6 + 6 layers: one
+    ``make_train_step`` step of 8 rows (1500 frames, 448 + 1 tokens) in
+    2 microbatches.  Gates: loss within 1.0 of ln(vocab), a finite grad
+    norm, flash launches == (enc + 2 dec) layers x microbatches x 2
+    (remat).  Returns (the trained parameters, the batch, launches)."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    from repro_torch.tree import leaves
+
+    w = XATTN_WHISPER
+    _free(dev)
+    cfg = configs.get("whisper-base")
+    ctx = ParallelCtx(remat=True, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+    api = registry.build(cfg)
+    opt = AdamWConfig()
+    t0 = time.monotonic()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                             ctx, api, opt, device=dev)
+    step = make_train_step(cfg, ctx, api, opt, microbatches=w["mb"])
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    batch = xattn_whisper_batch(cfg, dev, w["rows"], w["seq"], 0)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    fa.reset_launches()
+    t0 = time.monotonic()
+    state, m = step(state, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    predict = (cfg.enc_layers + 2 * cfg.n_layers) * w["mb"] * 2
+    peak = _peak_gb(dev)
+    print(f"xattn train {cfg.name}: {cfg.enc_layers} + {cfg.n_layers} "
+          f"layers at published width, {n_params / 1e6:.2f} M params f32 "
+          f"(pos_dec {cfg.max_seq * 16 * cfg.d_model / 1e6:.2f} M), "
+          f"{n_params * 16 / 1e9:.2f} GB at 16 B a parameter; {w['rows']} "
+          f"rows x ({cfg.enc_frames} frames, {w['seq']} + 1 tokens) in "
+          f"{w['mb']} microbatches: loss {loss:.4f} (ln vocab "
+          f"{math.log(cfg.vocab):.3f}), grad_norm {gnorm:.4f}, {sec:.2f} s "
+          f"({w['rows'] * w['seq'] / sec:.0f} decoder tok/s), peak "
+          f"{peak:.2f} GB, init {init_s:.1f} s, flash launches {launches} "
+          f"(predicted {predict})", flush=True)
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        fail(f"xattn whisper train: loss {loss} grad_norm {gnorm}")
+    if not abs(loss - math.log(cfg.vocab)) < 1.0:
+        fail(f"xattn whisper train: loss {loss} not within 1.0 of ln(vocab)")
+    if launches != predict:
+        fail(f"xattn whisper train: flash launches {launches} != {predict}")
+    params = state["params"]
+    state.pop("opt")
+    return params, batch, launches, {"loss": loss, "grad_norm": gnorm,
+                                     "step_s": sec, "peak_gb": peak}
+
+
+def xattn_whisper_decode(fa, params, batch, dev) -> int:
+    """(b) whisper decode on the trained weights, in f32 and in bf16
+    compute: ``encode`` over 1500 frames of 4 rows, ``encoder_cross_kv``,
+    then 64 greedy tokens through ``decode_step`` from a seeded start
+    token; the teacher-forced ``decode_train`` over the same inputs must
+    give the same argmax at every position, a difference allowed only as
+    a near-tie by phase 13's bf16 rule (the self-attention caches are
+    bf16 in both dtypes, as the reference's).  Returns the flash
+    launches (encode and decode_train of each run)."""
+    from repro_torch import configs
+    from repro_torch.models import encdec
+    from repro_torch.models.embed import lm_head_logits
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.tree import tree_map
+
+    w = XATTN_WHISPER
+    cfg = configs.get("whisper-base")
+    rows, n = w["dec_rows"], w["new"]
+    frames = batch["frames"][:rows]
+    start = batch["tokens"][:rows, 0]
+    total = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        p = params if dtype == torch.float32 else tree_map(
+            lambda t: t.detach().to(dtype), params)
+        ctx = ParallelCtx(remat=False, param_dtype=dtype, compute_dtype=dtype)
+        fa.reset_launches()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            enc = encdec.encode(p, frames, ctx, cfg)
+            torch.cuda.synchronize()
+            enc_ms = (time.monotonic() - t0) * 1e3
+            ekv = encdec.encoder_cross_kv(p, enc, ctx, cfg)
+            state = encdec.init_decode_state(cfg, ctx, rows, n, device=dev)
+            toks, dlog, sec = xattn_greedy(
+                lambda t: encdec.decode_logits(p, t, state, ekv, ctx,
+                                               cfg)[0], start, n)
+            fed = torch.cat([start[:, None], toks[:, :-1]], 1)
+            x = encdec.decode_train(p, fed, enc, ctx, cfg)
+            flog = lm_head_logits(p["embed"], x)
+        launches = fa.LAUNCHES["flash_attention"]
+        predict = cfg.enc_layers + 2 * cfg.n_layers
+        diff = sum(a10_stream_check(toks[i], dlog[i], flog[i],
+                                    f"whisper {tag} row {i}", "bf16",
+                                    phase="xattn") for i in range(rows))
+        err = (dlog.float() - flog.float()).abs().max().item()
+        print(f"xattn decode {cfg.name} {tag}: {rows} rows, encoder over "
+              f"{cfg.enc_frames} frames {enc_ms:.1f} ms, {n} greedy tokens "
+              f"through decode_step {sec:.2f} s ({rows * n / sec:.1f} tok/s), "
+              f"decode == decode_train's argmax at {rows * n - diff} of "
+              f"{rows * n} positions, max |decode - forward| logit "
+              f"{err:.3e} (largest {flog.float().abs().max().item():.3f}); "
+              f"flash launches {launches} (predicted {predict}: the encoder "
+              f"and decode_train's self and cross layers), peak "
+              f"{_peak_gb(dev):.2f} GB; row 0's tokens "
+              f"{toks[0, :16].tolist()}...", flush=True)
+        if launches != predict:
+            fail(f"xattn whisper decode {tag}: flash launches {launches} != "
+                 f"{predict}")
+        total += launches
+        del p, enc, ekv, state, dlog, flog, x
+    _free(dev)
+    return total
+
+
+def xattn_vlm(fa, dev) -> tuple:
+    """(c) llama-3.2-vision-90b's published width in bf16 at 2 of its 20
+    groups (``cut_layers``: 8 dense + 2 cross layers), both gates of each
+    group set non-zero: ``prefill`` of 2 x 1024 tokens against 1601
+    seeded image embeddings, then 32 tokens through ``decode_step`` from
+    the prefill's pick with ``img_kv`` (each group's ``cross_kv``,
+    stacked), held to ``forward``'s argmax over the same inputs by the
+    bf16 near-tie rule.  Returns (flash launches, figures)."""
+    from repro_torch import configs
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.models import lm
+    from repro_torch.models.attention import cross_kv
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.tree import leaves
+
+    vv = XATTN_VLM
+    _free(dev)
+    full = configs.get("llama-3.2-vision-90b")
+    cfg = cut_layers(full, vv["groups"] * full.cross_attn_every)
+    ng = cfg.n_layers // cfg.cross_attn_every
+    bf = torch.bfloat16
+    ctx = ParallelCtx(remat=False, param_dtype=bf, compute_dtype=bf)
+    t0 = time.monotonic()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     dtype=bf, device=dev)
+    for name, vals in XATTN_GATES.items():
+        params["cross"][name].copy_(torch.tensor(vals, dtype=bf)[:, None])
+    n_params = sum(p.numel() for p in leaves(params))
+    g = torch.Generator(device=dev).manual_seed(41)
+    img = torch.randn((vv["rows"], cfg.img_tokens, cfg.d_model), generator=g,
+                      device=dev).to(bf)
+    prompt = torch.randint(0, cfg.vocab, (vv["rows"], vv["prompt"]),
+                           generator=g, device=dev)
+    torch.cuda.synchronize()
+    print(f"xattn {cfg.name}: {ng} of {full.n_layers // full.cross_attn_every}"
+          f" groups ({ng * (cfg.cross_attn_every - 1)} dense + {ng} cross "
+          f"layers) at published width, {cfg.n_heads} / {cfg.n_kv} heads x "
+          f"{cfg.head_dim}; {n_params / 1e9:.3f} B params bf16 "
+          f"({n_params * 2 / 1e9:.2f} GB), gates {XATTN_GATES}, init "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        h = lm.prefill(params, prompt, ctx, cfg, img_embeds=img)
+        first = lm.lm_head_logits(params["head"], h).float().argmax(-1)
+    torch.cuda.synchronize()
+    pre_s = time.monotonic() - t0
+    pre = fa.LAUNCHES["flash_attention"]
+    print(f"xattn prefill {cfg.name} bf16: {vv['rows']} x {vv['prompt']} "
+          f"tokens against {cfg.img_tokens} image rows in {pre_s:.2f} s "
+          f"({vv['rows'] * vv['prompt'] / pre_s:.0f} tok/s), flash launches "
+          f"{pre} (predicted {cfg.n_layers}), peak {_peak_gb(dev):.2f} GB",
+          flush=True)
+    if pre != cfg.n_layers:
+        fail(f"xattn vlm prefill: flash launches {pre} != {cfg.n_layers}")
+    if not bool(torch.isfinite(h.float()).all()):
+        fail("xattn vlm prefill: non-finite hidden state")
+    with torch.no_grad():
+        kvs = [cross_kv(lm.layer(params["cross"], gi)["xattn"], img, ctx,
+                        cfg) for gi in range(ng)]
+        img_kv = (torch.stack([k for k, _ in kvs]),
+                  torch.stack([v for _, v in kvs]))
+        del kvs
+        state = lm.init_decode_state(cfg, ctx, vv["rows"], vv["new"],
+                                     device=dev)
+        toks, dlog, dec_s = xattn_greedy(
+            lambda t: lm.decode_logits(params, t, state, ctx, cfg,
+                                       img_kv=img_kv)[0], first, vv["new"])
+        fed = torch.cat([first[:, None], toks[:, :-1]], 1)
+        fa.reset_launches()
+        flog = lm.lm_head_logits(params["head"],
+                                 lm.forward(params, fed, ctx, cfg,
+                                            img_embeds=img))
+    fwd = fa.LAUNCHES["flash_attention"]
+    if fwd != cfg.n_layers:
+        fail(f"xattn vlm forward: flash launches {fwd} != {cfg.n_layers}")
+    diff = sum(a10_stream_check(toks[i], dlog[i], flog[i],
+                                f"vlm bf16 row {i}", "bf16", phase="xattn")
+               for i in range(vv["rows"]))
+    peak = _peak_gb(dev)
+    n = vv["rows"] * vv["new"]
+    print(f"xattn decode {cfg.name} bf16: {vv['new']} tokens a row through "
+          f"decode_step in {dec_s:.2f} s ({n / dec_s:.1f} tok/s), decode == "
+          f"forward's argmax at {n - diff} of {n} positions, max |decode - "
+          f"forward| logit {(dlog.float() - flog.float()).abs().max().item():.3e}"
+          f"; peak {peak:.2f} GB; row 0's tokens {toks[0].tolist()}",
+          flush=True)
+    if peak >= 80.0:
+        fail(f"xattn vlm: peak {peak:.2f} GB")
+    del params, img, img_kv, state, h, dlog, flog
+    _free(dev)
+    return pre + fwd, {"prefill_s": pre_s, "decode_tok_s": n / dec_s,
+                       "peak_gb": peak, "params_b": n_params / 1e9}
+
+
+def xattn_vlm_smoke_grads(fa, dev) -> int:
+    """The vlm trains only at the smoke config on the card (full width's
+    AdamW state would not fit): loss and every gradient with the flash
+    kernel against the plain forward, both gates non-zero.  Gates: loss
+    within 1e-5 relative, each leaf's gradient within TOL[f32] of the
+    plain path's (plus TOL[f32] of its largest), kernel launches ==
+    groups x (dense layers x 2 under remat + 1 cross).  Returns the
+    kernel path's launches."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.train.grad import trainable
+    from repro_torch.tree import leaves
+
+    cfg = configs.get_smoke("llama-3.2-vision-90b")
+    params = lm.init(torch.Generator(device=dev).manual_seed(5), cfg,
+                     device=dev)
+    for name, vals in XATTN_GATES.items():
+        params["cross"][name].copy_(torch.tensor(vals)[:, None])
+    g = torch.Generator(device=dev).manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, cfg.max_seq + 1),
+                                     generator=g, device=dev),
+             "img_embeds": torch.randn((4, cfg.img_tokens, cfg.d_model),
+                                       generator=g, device=dev)}
+    out = {}
+    for impl in ("ref", "kernel"):
+        ctx = ParallelCtx(remat=True, attn_impl=impl,
+                          param_dtype=torch.float32,
+                          compute_dtype=torch.float32)
+        p = trainable(lm.unstack(params))
+        fa.reset_launches()
+        loss = lm.loss_fn(p, batch, ctx, cfg)
+        loss.backward()
+        out[impl] = (float(loss.detach()), [t.grad for t in leaves(p)],
+                     fa.LAUNCHES["flash_attention"])
+    ng = cfg.n_layers // cfg.cross_attn_every
+    predict = ng * ((cfg.cross_attn_every - 1) * 2 + 1)
+    worst = max(((a - b).abs().max() / (1 + b.abs().max())).item()
+                for a, b in zip(out["kernel"][1], out["ref"][1]))
+    print(f"xattn vlm smoke f32 grads: loss kernel {out['kernel'][0]:.6f} vs "
+          f"plain {out['ref'][0]:.6f}, worst leaf |kernel - plain| / (1 + "
+          f"max |plain|) {worst:.3e} (tol {TOL[torch.float32]}), launches "
+          f"{out['kernel'][2]} (predicted {predict})", flush=True)
+    if abs(out["kernel"][0] - out["ref"][0]) > 1e-5 * abs(out["ref"][0]):
+        fail("xattn vlm smoke: kernel loss leaves the plain loss")
+    if not worst <= TOL[torch.float32]:
+        fail(f"xattn vlm smoke: gradient error {worst}")
+    if out["kernel"][2] != predict or out["ref"][2] != 0:
+        fail(f"xattn vlm smoke: launches {out['kernel'][2]} / "
+             f"{out['ref'][2]}, predicted {predict} / 0")
+    return out["kernel"][2]
+
+
+def xattn_stage(fa, dev) -> tuple:
+    """Phase 14: (d) the flash kernel at the new shapes, then (a)-(c) on
+    the card; returns (flash launches on the new paths, the parity
+    errors, the timing rows)."""
+    errs = xattn_flash_parity(fa, dev)
+    rows = xattn_flash_timing(fa, dev)
+    params, batch, train, figs = xattn_whisper_train(fa, dev)
+    decode = xattn_whisper_decode(fa, params, batch, dev)
+    del params, batch
+    _free(dev)
+    vlm, vfigs = xattn_vlm(fa, dev)
+    smoke = xattn_vlm_smoke_grads(fa, dev)
+    launches = train + decode + vlm + smoke
+    print(f"xattn: flash launches on the new paths {launches} (whisper step "
+          f"{train}, whisper decode runs {decode}, vlm prefill + forward "
+          f"{vlm}, vlm smoke grads {smoke}); whisper {figs}, vlm {vfigs}",
+          flush=True)
     return launches, errs, rows
 
 
@@ -5341,6 +5831,8 @@ def main(argv=None) -> int:
     phase_done("12 dp")
     launches_a10, errs_a10, rows_a10 = a10_stage(fa, dev)
     phase_done("13 a10")
+    launches_xattn, errs_xattn, rows_xattn = xattn_stage(fa, dev)
+    phase_done("14 xattn")
     for row in kernels:
         if row["name"].startswith("paged_"):
             row["launches_swap"] = launches_swap[(row["name"], "bf16")]
@@ -5359,6 +5851,9 @@ def main(argv=None) -> int:
             row["launches_a10"] = launches_a10
             row["max_abs_err_a10"] = errs_a10
             row["a10_shapes"] = rows_a10
+            row["launches_xattn"] = launches_xattn
+            row["max_abs_err_xattn"] = errs_xattn
+            row["xattn_shapes"] = rows_xattn
         elif row["name"] == "copy_blocked":
             row["launches_tp"] = copies_tp
             row["launches_moe_tp"] = copies_mtp

@@ -1,33 +1,32 @@
 """Architecture configs the port serves — one module per architecture.
 
 ``get(name)`` returns the exact published config; ``get_smoke(name)``
-returns a reduced same-family config for CPU tests.  Only the archs
-whose family the port serves or trains are here (dense: gemma-2b,
-qwen3-8b, minitron-4b, h2o-danube-3-4b; moe: qwen3-moe-30b-a3b,
-qwen2-moe-a2.7b; ssm: rwkv6-3b; hybrid: zamba2-7b); whisper-base,
-llama-3.2-vision-90b and posh-micro raise, naming the slice they
-arrive with.
+returns a reduced same-family config for CPU tests.  Every arch of the
+reference is here (dense: gemma-2b, qwen3-8b, minitron-4b,
+h2o-danube-3-4b; moe: qwen3-moe-30b-a3b, qwen2-moe-a2.7b; ssm:
+rwkv6-3b; hybrid: zamba2-7b; encdec: whisper-base; vlm:
+llama-3.2-vision-90b) but posh-micro, which raises, naming the slice it
+arrives with.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCHS = ("minitron_4b", "gemma_2b", "qwen3_8b", "h2o_danube3_4b",
-         "rwkv6_3b", "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b", "zamba2_7b")
+         "whisper_base", "rwkv6_3b", "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b",
+         "llama32_vision_90b", "zamba2_7b")
 
 _ALIASES = {"minitron-4b": "minitron_4b", "gemma-2b": "gemma_2b",
             "qwen3-8b": "qwen3_8b", "h2o-danube-3-4b": "h2o_danube3_4b",
-            "rwkv6-3b": "rwkv6_3b",
+            "whisper-base": "whisper_base", "rwkv6-3b": "rwkv6_3b",
             "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b", "zamba2-7b": "zamba2_7b"}
+            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+            "llama-3.2-vision-90b": "llama32_vision_90b",
+            "zamba2-7b": "zamba2_7b"}
 
-# the reference's other configs, and the slice that brings each
-_LATER = {"whisper_base": "the encoder-decoder slice (ROADMAP A10)",
-          "llama32_vision_90b": "the vision-language slice (ROADMAP A10)",
-          "posh_micro": "the analysis and tooling slice (ROADMAP A12)"}
-_LATER_ALIASES = {"whisper-base": "whisper_base",
-                  "llama-3.2-vision-90b": "llama32_vision_90b",
-                  "posh-micro": "posh_micro"}
+# the reference's other config, and the slice that brings it
+_LATER = {"posh_micro": "the analysis and tooling slice (ROADMAP A12)"}
+_LATER_ALIASES = {"posh-micro": "posh_micro"}
 
 
 def canon(name: str) -> str:

@@ -2,7 +2,12 @@
 as the reference's launcher.  ``--arch`` takes the dense configs
 (gemma-2b, qwen3-8b, minitron-4b, h2o-danube-3-4b), rwkv6-3b (RWKV) and
 zamba2-7b (Mamba2 groups with a shared attention block); the MoE configs
-raise (MoE training is ROADMAP A10).
+raise (MoE training is ROADMAP A10).  whisper-base and
+llama-3.2-vision-90b train on batches that carry ``frames`` /
+``img_embeds`` beside the tokens, which the synthetic data (token-only,
+as the reference's ``SyntheticLM``) does not make: the CLI raises for
+them, naming the key; drive ``train.make_train_step`` with such a batch
+(README).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
         --steps 3 --global-batch 8 --microbatches 8
@@ -96,15 +101,28 @@ class Trainer:
         return step
 
 
+# the batch key each family trains on beside the tokens
+_INPUTS = {"encdec": "frames", "vlm": "img_embeds"}
+
+
 def cut_layers(cfg, n_layers: int):
     """``cfg`` with its first ``n_layers`` layers (0: all).  A hybrid
-    keeps whole groups: ``n_layers`` must divide by its group size."""
+    keeps whole groups (``n_layers`` must divide by its group size), as
+    does the vlm (a multiple of ``cross_attn_every``: each group's dense
+    layers and its cross layer); an encoder-decoder keeps ``n_layers``
+    encoder and decoder layers each, as the reference's dry run cuts
+    it."""
     if not n_layers:
         return cfg
-    k = cfg.shared_attn_every
-    if k and n_layers % k:
-        raise ValueError(f"{cfg.name}: --layers {n_layers} must keep whole "
-                         f"groups of {k} Mamba layers (a multiple of {k})")
+    for k, what in ((cfg.shared_attn_every, "Mamba layers"),
+                    (cfg.cross_attn_every, "layers (dense + cross)")):
+        if k and n_layers % k:
+            raise ValueError(f"{cfg.name}: --layers {n_layers} must keep "
+                             f"whole groups of {k} {what} (a multiple of "
+                             f"{k})")
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=n_layers,
+                                   enc_layers=n_layers)
     return dataclasses.replace(cfg, n_layers=n_layers)
 
 
@@ -125,11 +143,17 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
     rows in ``microbatches`` microbatches, their gradients reduced
     through the ``backend``'s DP communicator by the schedule
     ``bucket_bytes`` / ``overlap_grad_sync`` / ``compress`` choose."""
+    cfg = cut_layers(configs.get_smoke(arch) if smoke else configs.get(arch),
+                     n_layers)
+    if cfg.family in _INPUTS:
+        raise ValueError(
+            f"{cfg.name} trains on batches with {_INPUTS[cfg.family]!r} "
+            f"beside 'tokens', and the synthetic data is token-only (as the "
+            f"reference's SyntheticLM): build the batch and call "
+            f"train.make_train_step")
     dev = resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cut_layers(configs.get_smoke(arch) if smoke else configs.get(arch),
-                     n_layers)
     ctx = ParallelCtx(dp_size=dp_size, backend=backend, remat=True,
                       attn_impl=attn_impl, param_dtype=torch.float32,
                       compute_dtype=torch.float32)

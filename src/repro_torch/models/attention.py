@@ -24,6 +24,14 @@ reference's ctx layout (heads not dividing tp, the cache sequence-
 sharded over the ranks and merged by ``flash_combine``) exists only at
 tp > 1, which ``models.lm``'s decode entry points refuse: it comes with
 TP training (ROADMAP A10).
+
+Cross attention (whisper's decoder, the vlm's image layers) at tp = 1,
+the reference's head layout: ``cross_kv`` projects the encoder output
+or the image embeddings to K/V ``(b, S, H_kv, dh)``, ``cross_attention``
+attends a query sequence to them, non-causal (one flash launch with T
+!= S on the card), and ``decode_cross_attention`` one token to all S
+rows, plain f32 as the reference's ``decode_attention``.  No qk-norm and
+no rope, as there.  At tp > 1 they raise (TP training, ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -129,3 +137,52 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
     o = decode_attention(q[:, 0], cache["k"], cache["v"],
                          min(pos + 1, s_cache))
     return o.reshape(b, -1) @ p["wo"].to(cd), cache
+
+
+# ======================================================================
+# cross attention (tp = 1)
+# ======================================================================
+def _check_cross_tp(ctx) -> None:
+    if tp_of(ctx) > 1:
+        raise NotImplementedError(
+            f"cross attention at tp={ctx.tp_size} arrives with TP training, "
+            f"ROADMAP A10")
+
+
+def cross_kv(p: dict, enc: torch.Tensor, ctx, cfg):
+    """Encoder output or image embeddings enc (b, S, d) -> (k, v), each
+    (b, S, H_kv, dh) in the compute dtype."""
+    _check_cross_tp(ctx)
+    cd = ctx.compute_dtype
+    ef = enc.to(cd)
+    b, s, _ = ef.shape
+    k = (ef @ p["wk"].to(cd)).reshape(b, s, cfg.n_kv, cfg.head_dim)
+    v = (ef @ p["wv"].to(cd)).reshape(b, s, cfg.n_kv, cfg.head_dim)
+    return k, v
+
+
+def cross_attention(p: dict, x: torch.Tensor, enc_kv, ctx, cfg):
+    """x (b, t, d) attends to ``enc_kv`` = (k, v) from ``cross_kv``, every
+    row to all S of them (``blocked_attention(causal=False)``) -> (b, t,
+    d)."""
+    _check_cross_tp(ctx)
+    cd = ctx.compute_dtype
+    xf = x.to(cd)
+    b, t, _ = xf.shape
+    k, v = enc_kv
+    q = (xf @ p["wq"].to(cd)).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    o = blocked_attention(q, k, v, causal=False, block_q=ctx.attn_block_q,
+                          block_kv=ctx.attn_block_kv, impl=ctx.attn_impl)
+    return o.reshape(b, t, -1) @ p["wo"].to(cd)
+
+
+def decode_cross_attention(p: dict, x: torch.Tensor, enc_kv, ctx, cfg):
+    """One token x (b, d) against all S rows of ``enc_kv`` -> (b, d)."""
+    _check_cross_tp(ctx)
+    cd = ctx.compute_dtype
+    xf = x.to(cd)
+    b = xf.shape[0]
+    k, v = enc_kv
+    q = (xf @ p["wq"].to(cd)).reshape(b, cfg.n_heads, cfg.head_dim)
+    o = decode_attention(q, k, v, k.shape[1])
+    return o.reshape(b, -1) @ p["wo"].to(cd)

@@ -1,17 +1,20 @@
-"""Decoder-only LM for the dense, MoE, RWKV (ssm) and Mamba-hybrid
-families: parameters, forward, loss, and the contiguous-cache decode.
+"""Decoder-only LM for the dense, MoE, RWKV (ssm), Mamba-hybrid and
+vision-language (vlm) families: parameters, forward, loss, and the
+contiguous-cache decode.
 
 The counterpart of ``repro.models.lm``: ``init``, the blocks
 (``_dense_block_apply``, ``_rwkv_block_apply``, ``_mamba_block_apply``),
-``forward``, ``loss_fn``, ``_decode_mlp``, and the serving API
-``init_decode_state``, ``decode_step`` and ``prefill``.  Parameters are a
-plain nested dict with the JAX pytree's keys; per-layer weights are
-stacked on a leading layer axis as in the JAX pytree, and ``layer(blocks,
-li)`` takes one layer's views (the Python loop over layers replaces
-``jax.lax.scan``).  ``unstack`` turns every stacked group (``blocks``,
-and the hybrid's ``tail``) into a list of per-layer dicts of views — the
-form the trainer differentiates, so each layer's gradient is its own
-tensor; every function here takes either form.
+``_cross_block_apply``), ``forward``, ``loss_fn``, ``_decode_mlp``, and
+the serving API ``init_decode_state``, ``decode_step`` and ``prefill``.
+Parameters are a plain nested dict with the JAX pytree's keys;
+per-layer weights are stacked on a leading layer axis as in the JAX
+pytree, and ``layer(blocks, li)`` takes one layer's views (the Python
+loop over layers replaces ``jax.lax.scan``).  ``unstack`` turns every
+stacked group (``tree.STACKED``: ``blocks``, the hybrid's ``tail``, the
+vlm's ``cross``, the encoder-decoder's ``enc_blocks``/``dec_blocks``)
+into a list of per-layer dicts of views — the form the trainer
+differentiates, so each layer's gradient is its own tensor; every
+function here takes either form.
 
 Families and their trees:
   dense / moe  ``blocks`` of attention + MLP (or MoE) layers;
@@ -21,16 +24,28 @@ Families and their trees:
                ``shared_attn_every``), ``tail`` of the ``n_layers % k``
                left, and ``shared``, ONE dense block (unstacked) applied
                after every group of k — its gradient accumulates over its
-               applications.
+               applications;
+  vlm          llama-3.2-vision-90b: ``blocks`` of ``ng * (k - 1)`` dense
+               layers (k = ``cross_attn_every``, ng = ``n_layers / k``)
+               and ``cross`` of ng gated cross-attention layers
+               (``xln``, ``xattn``, ``xgate``, ``ln2``, ``mlp``,
+               ``mgate``; both gates zero at init, as the reference's):
+               group g runs its k - 1 dense layers, then its cross layer
+               attends to the image embeddings (``img_embeds``, (b,
+               img_tokens, d)) through ``attention.cross_kv``.
 A MoE block's ``mlp`` holds the router, the stacked experts and the
 optional shared expert (``mlp.moe_shapes``); MoE is served (decode) but
-not trained: its ``forward`` raises (ROADMAP A10), and so does every
-family the port has not ported (encdec, vlm).
+not trained: its ``forward`` raises (ROADMAP A10).  The
+encoder-decoder family is ``models.encdec``.
 
 Decode keeps the reference's state layout, each per-layer leaf stacked
 on a leading layer axis: a dense layer's bf16 KV cache (``attention.
 init_cache``), an RWKV layer's ``S``/``x_prev_tm``/``x_prev_cm``, a
-Mamba layer's SSM state and bf16 conv buffers; ``pos`` is a Python int.
+Mamba layer's SSM state and bf16 conv buffers, and the vlm's
+``cross_cache`` (ng zero caches, which the reference allocates and its
+decode never reads: the cross layers read ``img_kv``, each group's
+``cross_kv`` of the image embeddings, stacked ``(ng, b, S, H_kv,
+dh)``); ``pos`` is a Python int.
 ``decode_step`` updates the state IN PLACE and returns it.  The hybrid
 threads ONE ``shared_cache`` through all its applications of the shared
 block, as the reference does: each application writes slot ``pos`` with
@@ -52,22 +67,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
-from repro_torch.tree import STACKED
+from repro_torch.tree import STACKED, tree_map
 
 from . import rwkv as rk
 from . import ssm as sm
-from .attention import decode_self_attention, init_cache, self_attention
+from .attention import (cross_attention, cross_kv, decode_cross_attention,
+                        decode_self_attention, init_cache, self_attention)
 from .common import ninit, norm_apply, norm_init
 from .embed import embed_lookup, lm_head_logits, lm_head_loss, tp_argmax
 from .mlp import is_glu, mlp_apply, moe_apply, moe_shapes
 
 ACTS = ("swiglu", "geglu", "relu2", "gelu")
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_A10 = {"moe": "MoE training arrives with ROADMAP A10",
-        "encdec": "the encoder-decoder family (whisper) arrives with "
-                  "ROADMAP A10",
-        "vlm": "the vision-language family (llama-3.2-vision) arrives "
-               "with ROADMAP A10"}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+_REFUSALS = {"moe": "MoE training arrives with ROADMAP A10",
+             "encdec": "the encoder-decoder family is models.encdec's"}
 
 
 def _check_decode_tp(ctx) -> None:
@@ -82,25 +95,43 @@ def _check_decode_tp(ctx) -> None:
 def _refuse(cfg, what: str):
     raise NotImplementedError(
         f"repro_torch {what} no {cfg.family!r} model: "
-        f"{_A10.get(cfg.family, 'not in the reference either')}")
+        f"{_REFUSALS.get(cfg.family, 'not in the reference either')}")
 
 
-def _block_shapes(cfg) -> dict:
-    d, dh, h, hkv, ff = (cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv,
-                         cfg.d_ff)
+def attn_shapes(cfg) -> dict:
+    """An attention layer's weights (self or cross: the reference's
+    ``attn_init`` draws the same tree for both)."""
+    d, dh, h, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
     attn = {"wq": (d, h * dh), "wk": (d, hkv * dh), "wv": (d, hkv * dh),
             "wo": (h * dh, d)}
     if cfg.qk_norm:
         attn["q_norm"] = {"scale": (dh,)}
         attn["k_norm"] = {"scale": (dh,)}
-    if cfg.moe:
-        mlp = moe_shapes(cfg)
-    else:
-        mlp = {"wu": (d, ff), "wd": (ff, d)}
-        if is_glu(cfg.act):
-            mlp["wg"] = (d, ff)
-    return {"ln1": {"scale": (d,)}, "attn": attn, "ln2": {"scale": (d,)},
-            "mlp": mlp}
+    return attn
+
+
+def mlp_shapes(cfg) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    mlp = {"wu": (d, ff), "wd": (ff, d)}
+    if is_glu(cfg.act):
+        mlp["wg"] = (d, ff)
+    return mlp
+
+
+def _block_shapes(cfg) -> dict:
+    d = cfg.d_model
+    return {"ln1": {"scale": (d,)}, "attn": attn_shapes(cfg),
+            "ln2": {"scale": (d,)},
+            "mlp": moe_shapes(cfg) if cfg.moe else mlp_shapes(cfg)}
+
+
+def draw(shapes: dict, gen, dtype, device) -> dict:
+    """One layer's tensors of ``shapes`` (``_fill``'s rule): norm scales
+    ones, matrices normal at ``1/sqrt(fan_in)``."""
+    return {k: draw(s, gen, dtype, device) if isinstance(s, dict)
+            else (torch.ones(s, dtype=dtype, device=device) if len(s) == 1
+                  else ninit(gen, s, dtype=dtype, device=device))
+            for k, s in shapes.items()}
 
 
 def _fill(shapes, n_layers, gen, dtype, device):
@@ -164,6 +195,18 @@ def _mamba_block_init(gen, cfg, dtype, device) -> dict:
             "mamba": sm.mamba_init(gen, cfg, dtype, device)}
 
 
+def _cross_block_init(gen, cfg, dtype, device) -> dict:
+    """The vlm's gated cross-attention layer; both gates start at zero,
+    so at init the layer passes its input through."""
+    d = cfg.d_model
+    return {"xln": norm_init("rms", d, dtype, device),
+            "xattn": draw(attn_shapes(cfg), gen, dtype, device),
+            "xgate": torch.zeros((1,), dtype=dtype, device=device),
+            "ln2": norm_init("rms", d, dtype, device),
+            "mlp": draw(mlp_shapes(cfg), gen, dtype, device),
+            "mgate": torch.zeros((1,), dtype=dtype, device=device)}
+
+
 def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
          device=None) -> dict:
     """Parameters of any ported family: ``embed``, ``ln_f``, the family's
@@ -183,6 +226,14 @@ def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
         params["blocks"] = _stack(
             cfg.n_layers, lambda: _rwkv_block_init(gen, cfg, dtype, device),
             dtype, device)
+    elif cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        ng = cfg.n_layers // k
+        params["blocks"] = _fill(_block_shapes(cfg), ng * (k - 1), gen,
+                                 dtype, device)
+        params["cross"] = _stack(
+            ng, lambda: _cross_block_init(gen, cfg, dtype, device), dtype,
+            device)
     else:
         k = cfg.shared_attn_every
         ng, rem = divmod(cfg.n_layers, k)
@@ -217,8 +268,8 @@ def n_blocks(blocks) -> int:
 
 
 def unstack(params: dict) -> dict:
-    """The same parameters with every stacked group (``blocks``, ``tail``)
-    as a list of per-layer dicts of views into the stacked tensors (no
+    """The same parameters with every stacked group (``tree.STACKED``) as
+    a list of per-layer dicts of views into the stacked tensors (no
     copy); the hybrid's ``shared`` block stays one dict."""
     out = dict(params)
     for key in STACKED:
@@ -253,32 +304,63 @@ def _mamba_block_apply(p: dict, x: torch.Tensor, ctx, cfg) -> torch.Tensor:
                               cfg)
 
 
-def _run(blocks, lo: int, hi: int, x, fn, ctx, cfg):
-    """Layers ``lo .. hi-1`` of a group, each under
-    ``torch.utils.checkpoint`` when ``ctx.remat`` (the reference's
-    checkpointed ``_scan`` body)."""
+def _cross_block_apply(p: dict, x: torch.Tensor, img_kv, ctx,
+                       cfg) -> torch.Tensor:
+    """The llama-3.2-style gated cross-attention layer: ``x + tanh(xgate)
+    * xattn(x)``, then ``+ tanh(mgate) * mlp``."""
+    h = cross_attention(p["xattn"], norm_apply("rms", p["xln"], x), img_kv,
+                        ctx, cfg)
+    x = x + torch.tanh(p["xgate"].to(h.dtype)) * h
+    m = mlp_apply(p["mlp"], norm_apply("rms", p["ln2"], x).to(
+        ctx.compute_dtype), cfg)
+    return x + torch.tanh(p["mgate"].to(m.dtype)) * m
+
+
+def _run(blocks, lo: int, hi: int, x, fn, ctx, cfg, *extra):
+    """Layers ``lo .. hi-1`` of a group, ``fn(p, x, ctx, cfg, *extra)``
+    each, under ``torch.utils.checkpoint`` when ``ctx.remat`` (the
+    reference's checkpointed ``_scan`` body)."""
     for li in range(lo, hi):
         p = layer(blocks, li)
-        x = (checkpoint(fn, p, x, ctx, cfg, use_reentrant=False)
-             if ctx.remat else fn(p, x, ctx, cfg))
+        x = (checkpoint(fn, p, x, ctx, cfg, *extra, use_reentrant=False)
+             if ctx.remat else fn(p, x, ctx, cfg, *extra))
     return x
 
 
-def forward(params: dict, ids: torch.Tensor, ctx, cfg) -> torch.Tensor:
+def _need_img(cfg, img_embeds) -> None:
+    if cfg.family == "vlm" and img_embeds is None:
+        raise ValueError(f"{cfg.name}: the vlm's forward needs img_embeds "
+                         f"(b, img_tokens={cfg.img_tokens}, "
+                         f"d_model={cfg.d_model}), batch['img_embeds'] in "
+                         f"training")
+
+
+def forward(params: dict, ids: torch.Tensor, ctx, cfg,
+            img_embeds=None) -> torch.Tensor:
     """ids (b, t) -> final hidden states (b, t, d).  With ``ctx.remat``
     each stacked layer runs under ``torch.utils.checkpoint`` — its
     activations are recomputed in the backward, as the reference's
     checkpointed ``_scan`` body — so its forward runs twice per step.
-    The hybrid's shared block runs outside the scans in the reference,
-    unchecked, and so here: once a group."""
+    The hybrid's shared block and the vlm's cross layers (with their
+    ``cross_kv``) run outside the scans in the reference, unchecked, and
+    so here: once a group."""
     fam = cfg.family
-    if fam not in ("dense", "ssm", "hybrid"):
+    if fam not in ("dense", "ssm", "hybrid", "vlm"):
         _refuse(cfg, "runs the forward of")
+    _need_img(cfg, img_embeds)
     x = embed_lookup(params["embed"], ids, ctx.compute_dtype)
     blocks = params["blocks"]
     if fam == "dense":
         x = _run(blocks, 0, n_blocks(blocks), x, _dense_block_apply, ctx,
                  cfg)
+    elif fam == "vlm":
+        k = cfg.cross_attn_every
+        for g in range(cfg.n_layers // k):
+            x = _run(blocks, g * (k - 1), (g + 1) * (k - 1), x,
+                     _dense_block_apply, ctx, cfg)
+            cg = layer(params["cross"], g)
+            kv = cross_kv(cg["xattn"], img_embeds, ctx, cfg)
+            x = _cross_block_apply(cg, x, kv, ctx, cfg)
     elif fam == "ssm":
         x = _run(blocks, 0, n_blocks(blocks), x, _rwkv_block_apply, ctx, cfg)
     else:
@@ -295,8 +377,9 @@ def forward(params: dict, ids: torch.Tensor, ctx, cfg) -> torch.Tensor:
 
 def loss_fn(params: dict, batch: dict, ctx, cfg,
             for_grad: bool = False) -> torch.Tensor:
-    """batch {'tokens': (b, t+1)} -> mean next-token CE.  The head is the
-    embedding table when ``cfg.tie_embeddings``.  The loss of one DP
+    """batch {'tokens': (b, t+1)} (and for the vlm 'img_embeds' (b,
+    img_tokens, d)) -> mean next-token CE.  The head is the embedding
+    table when ``cfg.tie_embeddings``.  The loss of one DP
     replica's rows: the train step takes the reference's display value,
     the DP mean, through ``dp_comm``; at tp = 1 the reference's
     single-seed mask is the identity, so ``for_grad`` changes nothing;
@@ -304,7 +387,7 @@ def loss_fn(params: dict, batch: dict, ctx, cfg,
     del for_grad
     tokens = batch["tokens"]
     ids, targets = tokens[:, :-1], tokens[:, 1:]
-    x = forward(params, ids, ctx, cfg)
+    x = forward(params, ids, ctx, cfg, img_embeds=batch.get("img_embeds"))
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     return lm_head_loss(head, x, targets, ctx)
 
@@ -334,14 +417,21 @@ def init_decode_state(cfg, ctx, batch: int, max_len: int,
     """The reference's decode state for ``batch`` rows: ``{"cache": each
     layer's state stacked, "pos": 0}``, and for the hybrid
     ``"shared_cache"`` (one cache for every application of the shared
-    block) and, with a tail, ``"tail_cache"``; on ``device`` (None: the
-    GPU)."""
+    block) and, with a tail, ``"tail_cache"``, for the vlm
+    ``"cross_cache"`` (the reference's ng caches, never read); on
+    ``device`` (None: the GPU)."""
     fam = cfg.family
     _check_decode_tp(ctx)
     device = resolve(device)
     if fam in ("dense", "moe"):
         one = init_cache(cfg, batch, max_len, device=device)
         return {"cache": _zeros_stack(one, cfg.n_layers), "pos": 0}
+    if fam == "vlm":
+        k = cfg.cross_attn_every
+        ng = cfg.n_layers // k
+        one = init_cache(cfg, batch, max_len, device=device)
+        return {"cache": _zeros_stack(one, ng * (k - 1)),
+                "cross_cache": _zeros_stack(one, ng), "pos": 0}
     if fam == "ssm":
         d, dh = cfg.d_model, cfg.rwkv_head_dim
         f32 = torch.float32
@@ -406,15 +496,28 @@ def _decode_mamba_group(blocks, cache: dict, lo: int, hi: int, x, ctx, cfg):
     return x
 
 
+def _decode_cross_block(p: dict, x: torch.Tensor, kv, ctx, cfg):
+    h = decode_cross_attention(p["xattn"], norm_apply("rms", p["xln"], x),
+                               kv, ctx, cfg)
+    x = x + torch.tanh(p["xgate"].to(h.dtype)) * h
+    m = _decode_mlp(p["mlp"], norm_apply("rms", p["ln2"], x), cfg, ctx)
+    return x + torch.tanh(p["mgate"].to(m.dtype)) * m
+
+
 def decode_logits(params: dict, token: torch.Tensor, state: dict, ctx,
-                  cfg):
+                  cfg, img_kv=None):
     """One serve step: token (b,) -> (logits (b, V) in the compute dtype,
     state), the state updated in place (``pos`` advanced).  The step of
-    ``decode_step`` before its greedy pick."""
+    ``decode_step`` before its greedy pick.  The vlm takes ``img_kv``:
+    (k, v), each (ng, b, S, H_kv, dh), group g's ``cross_kv`` of the
+    image embeddings."""
     fam = cfg.family
     if fam not in FAMILIES:
         _refuse(cfg, "decodes")
     _check_decode_tp(ctx)
+    if fam == "vlm" and img_kv is None:
+        raise ValueError("vlm decode_step requires img_kv (precomputed "
+                         "per-cross-layer image KV)")
     x = embed_lookup(params["embed"], token[:, None], ctx.compute_dtype)[:, 0]
     pos = state["pos"]
     cache = state["cache"]
@@ -424,6 +527,17 @@ def decode_logits(params: dict, token: torch.Tensor, state: dict, ctx,
             x, _ = _decode_dense_block(layer(blocks, li), x,
                                        {k: v[li] for k, v in cache.items()},
                                        pos, ctx, cfg)
+    elif fam == "vlm":
+        k = cfg.cross_attn_every
+        blocks = params["blocks"]
+        for g in range(cfg.n_layers // k):
+            for li in range(g * (k - 1), (g + 1) * (k - 1)):
+                x, _ = _decode_dense_block(
+                    layer(blocks, li), x,
+                    {kk: v[li] for kk, v in cache.items()}, pos, ctx, cfg)
+            x = _decode_cross_block(layer(params["cross"], g), x,
+                                    tree_map(lambda a: a[g], img_kv), ctx,
+                                    cfg)
     elif fam == "ssm":
         blocks = params["blocks"]
         for li in range(n_blocks(blocks)):
@@ -449,15 +563,17 @@ def decode_logits(params: dict, token: torch.Tensor, state: dict, ctx,
     return logits, state
 
 
-def decode_step(params: dict, token: torch.Tensor, state: dict, ctx, cfg):
+def decode_step(params: dict, token: torch.Tensor, state: dict, ctx, cfg,
+                img_kv=None):
     """token (b,) -> (next token (b,) int32, greedy, ties to the lowest
     index; the state, updated in place)."""
-    logits, state = decode_logits(params, token, state, ctx, cfg)
+    logits, state = decode_logits(params, token, state, ctx, cfg, img_kv)
     return tp_argmax(logits), state
 
 
-def prefill(params: dict, ids: torch.Tensor, ctx, cfg) -> torch.Tensor:
+def prefill(params: dict, ids: torch.Tensor, ctx, cfg,
+            img_embeds=None) -> torch.Tensor:
     """The full-sequence forward for serving: the last position's hidden
     state (b, d), as the reference's ``prefill`` (the decode cache is not
     built from it there either)."""
-    return forward(params, ids, ctx, cfg)[:, -1]
+    return forward(params, ids, ctx, cfg, img_embeds=img_embeds)[:, -1]

@@ -74,25 +74,39 @@ def _bind(params: dict, rows: dict, r: int) -> None:
             group.grad = buf[r]
 
 
-def replica_grads(loss_fn, params, tokens, ctx, cfg, microbatches: int = 1):
-    """Every DP replica's loss and gradient on its block of ``tokens``
-    (the global batch), its microbatches accumulated: ``(lmask (dp,),
-    rows)`` with ``rows`` the stacked ``grad_rows``.  Each replica's
-    loss and gradient are its microbatches' mean, as the reference's
-    scan gives them.  The parameters' ``.grad`` is None after."""
+def _split(batch: dict, n: int) -> list:
+    """``n`` batches of consecutive rows, every key split alike (the
+    reference's ``jax.tree.map(split, batch)``)."""
+    parts = {k: v.chunk(n) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def replica_grads(loss_fn, params, batch, ctx, cfg, microbatches: int = 1):
+    """Every DP replica's loss and gradient on its block of ``batch``
+    (the global batch: a dict whose every value — ``tokens``, and
+    ``frames`` or ``img_embeds`` — is split by rows alike), its
+    microbatches accumulated: ``(lmask (dp,), rows)`` with ``rows`` the
+    stacked ``grad_rows``.  Each replica's loss and gradient are its
+    microbatches' mean, as the reference's scan gives them.  The
+    parameters' ``.grad`` is None after."""
     dp = ctx.dp_size
-    if tokens.shape[0] % (dp * microbatches):
-        raise ValueError(f"batch of {tokens.shape[0]} does not split into "
+    n = batch["tokens"].shape[0]
+    if n % (dp * microbatches):
+        raise ValueError(f"batch of {n} does not split into "
                          f"{dp} replicas x {microbatches} microbatches")
+    for k, v in batch.items():
+        if v.shape[0] != n:
+            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, the "
+                             f"tokens {n}")
     ps = leaves(params)
     rows = grad_rows(params, dp)
     lmask = []
     try:
-        for r, block in enumerate(tokens.chunk(dp)):
+        for r, block in enumerate(_split(batch, dp)):
             _bind(params, rows, r)
             lsum = None
-            for mb in block.chunk(microbatches):
-                lm = backward(loss_fn, params, {"tokens": mb}, ctx, cfg)
+            for mb in _split(block, microbatches):
+                lm = backward(loss_fn, params, mb, ctx, cfg)
                 lsum = lm if lsum is None else lsum + lm
             lmask.append(lsum / microbatches if microbatches > 1 else lsum)
     finally:
@@ -192,7 +206,7 @@ def loss_and_grad(loss_fn, params, batch, ctx, cfg, specs=None,
     if ctx.tp_size > 1:
         raise NotImplementedError(f"loss_and_grad at tp={ctx.tp_size}: "
                                   f"{_A10}")
-    lmask, grads = replica_grads(loss_fn, params, batch["tokens"], ctx, cfg)
+    lmask, grads = replica_grads(loss_fn, params, batch, ctx, cfg)
     loss = ctx.dp_comm.pmean(lmask)      # tp_comm.psum: the identity at 1
     with torch.no_grad():
         grads, comp_state = combine_grads(grads, specs, ctx, **combine_kw)

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.models import lm
+from repro_torch.tree import STACKED
 
 from .grad import _A10, combine_grads, replica_grads, trainable
 from .optimizer import AdamWConfig, adamw_init, adamw_update
@@ -70,7 +71,9 @@ def make_train_step(cfg, ctx, model_api, opt_cfg: AdamWConfig, *,
                     compress: str = "none", overlap_grad_sync: bool = False,
                     clip_norm: Optional[float] = 1.0):
     """Returns ``step(state, batch) -> (state, metrics)``.  The global
-    batch's leading dim must divide by dp x ``microbatches``."""
+    batch (``tokens``, and whisper's ``frames`` or the vlm's
+    ``img_embeds``, each split by rows with the tokens) must have a
+    leading dim that divides by dp x ``microbatches``."""
     _check_tp(ctx)
     dp = ctx.dp_size
     # zero-1 at dp > 1: the clip is replica-local, before the scatter
@@ -78,8 +81,8 @@ def make_train_step(cfg, ctx, model_api, opt_cfg: AdamWConfig, *,
 
     def step(state, batch):
         params = state["params"]
-        lmask, grads = replica_grads(model_api.loss_fn, params,
-                                     batch["tokens"], ctx, cfg, microbatches)
+        lmask, grads = replica_grads(model_api.loss_fn, params, batch, ctx,
+                                     cfg, microbatches)
         with torch.no_grad():
             if opt_cfg.zero == 0:
                 grads, _ = combine_grads(grads, None, ctx,
@@ -111,8 +114,8 @@ def make_train_step(cfg, ctx, model_api, opt_cfg: AdamWConfig, *,
 def state_to_tree(state: dict, device=None) -> dict:
     """The train state in the reference's layout: ``{"params", "opt":
     {"m", "v", "count"[, "master"]}, "step"}`` with each per-layer group
-    (``blocks``, and a hybrid's ``tail``; its ``shared`` block is one
-    dict in both) restacked on a leading layer axis (under ZeRO-1 each
+    (``tree.STACKED``; a hybrid's ``shared`` block is one dict in both)
+    restacked on a leading layer axis (under ZeRO-1 each
     leaf's ``(dp, c)`` chunks concatenated into the reference's ``(dp * c,)``
     global view, the layout ``adamw_state_specs`` declares), ``count``
     and ``step`` int32 0-d tensors — leaf for leaf the reference's train
@@ -131,7 +134,7 @@ def state_to_tree(state: dict, device=None) -> dict:
         return out
 
     def ref(tree):
-        if isinstance(tree["blocks"], list):
+        if any(isinstance(tree.get(k), list) for k in STACKED):
             return ref_tree(tree, stack)
         return tree_map(lambda t: stack(t).reshape(-1), tree)     # ZeRO-1
 

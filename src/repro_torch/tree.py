@@ -58,14 +58,15 @@ def describe(tree) -> str:
 # ----------------------------------------------------------------------
 # the reference's stacked layout of a per-layer parameter tree
 # ----------------------------------------------------------------------
-# the groups the reference stacks on a layer axis: every family's
-# ``blocks``, and the hybrid's ``tail`` (its ``shared`` block is one
-# unstacked dict there and here)
-STACKED = ("blocks", "tail")
+# the groups the reference stacks on a layer axis: every decoder-only
+# family's ``blocks``, the hybrid's ``tail`` (its ``shared`` block is one
+# unstacked dict there and here), the vlm's ``cross`` and the
+# encoder-decoder's ``enc_blocks`` / ``dec_blocks``
+STACKED = ("blocks", "tail", "cross", "enc_blocks", "dec_blocks")
 
 
 def ref_groups(params: dict) -> list:
-    """Each leaf of the reference's tree (``blocks``/``tail`` each one dict
+    """Each leaf of the reference's tree (each ``STACKED`` group one dict
     of stacked leaves), in its ``leaves`` order, as the port's tensors
     that make it up: the list of per-layer tensors of a stacked leaf (the
     group a per-layer list), or the one tensor of any other leaf."""

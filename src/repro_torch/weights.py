@@ -9,7 +9,10 @@ for a dense block or ``blocks.mlp.{router,wu,wg,wd,shared.{wu,wg,wd}}``
 for a MoE block, per-layer leaves stacked on a leading layer axis; an
 RWKV block ``blocks.{ln1,ln2}.{scale,bias}``, ``blocks.tm.*`` and
 ``blocks.cm.*``; a hybrid's Mamba blocks ``blocks.{ln,mamba}`` and
-``tail.{ln,mamba}``, stacked, and its ``shared`` dense block, not).
+``tail.{ln,mamba}``, stacked, and its ``shared`` dense block, not; the
+vlm's ``cross.{xln,xattn,xgate,ln2,mlp,mgate}``, stacked; the
+encoder-decoder's ``pos_dec``, ``enc_blocks``, ``dec_blocks`` (with
+``lnx``/``xattn``), stacked, and ``ln_enc``).
 Whatever the JAX tree holds is converted: tied embeddings (gemma) come
 without ``head``, a plain-activation MLP (relu2, gelu) without ``wg``,
 a MoE block without a shared expert without ``shared``.  Both packages then
@@ -23,7 +26,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_TOP_KEYS = {"embed", "head", "ln_f", "blocks", "tail", "shared"}
+_TOP_KEYS = {"embed", "head", "ln_f", "blocks", "tail", "shared", "cross",
+             "pos_dec", "enc_blocks", "ln_enc", "dec_blocks"}
 _MLP_KEYS = {"wu", "wg", "wd", "router", "shared"}
 
 
@@ -34,21 +38,22 @@ def _convert(tree):
 
 
 def from_jax(params_np: Mapping) -> dict:
-    """JAX LM params of the dense, MoE, RWKV or hybrid family (a nested
-    dict of numpy arrays) -> the port's parameter dict of f32 CPU tensors
-    (``.to()`` them for a device)."""
+    """JAX params of any family but posh-micro's (a nested dict of numpy
+    arrays) -> the port's parameter dict of f32 CPU tensors (``.to()``
+    them for a device)."""
     unknown = set(params_np) - _TOP_KEYS
     if unknown:
         raise NotImplementedError(
-            f"from_jax converts the dense, MoE, RWKV and hybrid families; "
-            f"unexpected top-level keys {sorted(unknown)}")
-    for name in ("blocks", "shared"):
+            f"from_jax converts the dense, MoE, RWKV, hybrid, vlm and "
+            f"encoder-decoder families; unexpected top-level keys "
+            f"{sorted(unknown)}")
+    for name in ("blocks", "shared", "cross", "enc_blocks", "dec_blocks"):
         mlp = params_np.get(name, {}).get("mlp", {})
         unknown = set(mlp) - _MLP_KEYS
         if unknown:
             raise NotImplementedError(
-                f"from_jax converts dense and MoE blocks; unexpected "
-                f"{name}.mlp keys {sorted(unknown)}")
+                f"from_jax converts dense, MoE and cross blocks' MLPs; "
+                f"unexpected {name}.mlp keys {sorted(unknown)}")
     return _convert(params_np)
 
 

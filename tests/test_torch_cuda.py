@@ -310,8 +310,10 @@ def _flash_case(seed, b, h, hkv, t, s, d):
 # reference's own cases (``tests/test_kernels.py``); the rest reach what
 # the training path adds: gemma-2b's head dim 256 with a GQA group of 8,
 # windowed rows whose first KV tiles are all masked, a ragged T that is
-# no multiple of any tile, and a query range placed by q_offset with the
-# columns cut at kv_len.
+# no multiple of any tile, a query range placed by q_offset with the
+# columns cut at kv_len, and cross attention's shape: non-causal, fewer
+# query rows than a ragged KV length, at whisper's D 64 (group 1) and the
+# vlm's D 128 (group 8).
 FLASH_CASES = {
     "causal_gqa": ((0, 2, 4, 2, 128, 128, 64), dict(causal=True)),
     "mqa_ragged_100": ((1, 1, 8, 1, 100, 100, 32), dict(causal=True)),
@@ -323,9 +325,13 @@ FLASH_CASES = {
                                      dict(causal=True, window=40)),
     "q_offset_kv_len": ((7, 2, 4, 2, 48, 160, 64),
                         dict(causal=True, q_offset=100, kv_len=140)),
+    "cross_d64_t100_s150": ((8, 1, 4, 4, 100, 150, 64), dict(causal=False)),
+    "cross_d128_g8_t72_s130": ((9, 1, 8, 1, 72, 130, 128),
+                               dict(causal=False)),
 }
 REF_FLASH_CASES = ("causal_gqa", "mqa_ragged_100", "noncausal_mha",
-                   "window_96", "d128")
+                   "window_96", "d128", "cross_d64_t100_s150",
+                   "cross_d128_g8_t72_s130")
 
 # the edges of the flash kernels' tiles (f32 64 x 64, bf16 128 x 64): T
 # and S no multiple of either, D = 64 / 128 / 256, GQA groups 1 / 4 / 8,
@@ -342,6 +348,13 @@ FLASH_EDGE_CASES = {
                                 dict(causal=True, q_offset=223, kv_len=950)),
     "t_below_one_tile_d64_g8": ((25, 2, 8, 1, 37, 50, 64),
                                 dict(causal=False, kv_len=45)),
+    # cross attention at the paths' lengths: whisper's decoder (T 448 =
+    # 3.5 bf16 q tiles) over 1500 encoder rows (23 x 64 + 28), the vlm's
+    # 1024 text rows over 1601 image rows
+    "xattn_448_1500_d64_g1": ((26, 1, 8, 8, 448, 1500, 64),
+                              dict(causal=False)),
+    "xattn_1024_1601_d128_g8": ((27, 1, 16, 2, 1024, 1601, 128),
+                                dict(causal=False)),
 }
 FLASH_GPU_CASES = {**FLASH_CASES, **FLASH_EDGE_CASES}
 
@@ -349,17 +362,21 @@ FLASH_GPU_CASES = {**FLASH_CASES, **FLASH_EDGE_CASES}
 MODEL_HEADS = {"gemma-2b": (8, 1, 256), "qwen3-8b": (32, 8, 128),
                "gemma-2b-smoke": (4, 1, 32), "qwen3-8b-smoke": (4, 2, 16),
                "h2o-danube-3-4b": (32, 8, 120), "zamba2-7b": (32, 32, 112),
-               "minitron-4b": (24, 8, 128)}
+               "minitron-4b": (24, 8, 128), "whisper-base": (8, 8, 64),
+               "llama-3.2-vision-90b": (64, 8, 128)}
+# the models whose cross attention reaches the kernel with T != S
+CROSS_MODELS = ("whisper-base", "llama-3.2-vision-90b")
 
 
-def model_layout(heads, dt, device="cpu", t=130, seed=30):
+def model_layout(heads, dt, device="cpu", t=130, seed=30, s=None):
     """q, k, v as ``models/flash.py`` hands them to the kernel: (B, H, T,
-    D) / (B, H_kv, S, D) views of the projections' (b, t, h, d) tensors,
-    q through its (b, t, h_kv, g, d) grouping."""
+    D) / (B, H_kv, S, D) views of the projections' (b, t, h, d) tensors
+    (K/V of ``s`` rows, default ``t``: cross attention's are the encoder
+    or image rows), q through its (b, t, h_kv, g, d) grouping."""
     h, hkv, d = heads
     rng = np.random.RandomState(seed)
-    q, k, v = (_to_torch(rng.randn(1, t, n, d), dt).to(device)
-               for n in (h, hkv, hkv))
+    q, k, v = (_to_torch(rng.randn(1, n_rows, n, d), dt).to(device)
+               for n, n_rows in ((h, t), (hkv, s or t), (hkv, s or t)))
     qg = q.reshape(1, t, hkv, h // hkv, d)
     return (qg.reshape(1, t, h, d).transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2))
@@ -871,6 +888,20 @@ def test_cuda_flash_kernel_takes_the_models_layouts(cuda_device, model, dt):
                                atol=TOL[dt], rtol=TOL[dt], err_msg=model)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("model", CROSS_MODELS)
+def test_cuda_flash_kernel_takes_the_cross_layouts(cuda_device, model, dt):
+    """Cross attention's views (K/V of 77 encoder / image rows, 130
+    query rows), non-causal, in place."""
+    q, k, v = model_layout(MODEL_HEADS[model], dt, cuda_device, s=77)
+    out, lse = fa.flash_attention(q, k, v, causal=False)
+    want, want_lse = fa.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _close(out.cpu(), want.cpu().float().numpy(), dt, model)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=TOL[dt], rtol=TOL[dt], err_msg=model)
+
+
 def test_cuda_kernels_raise_on_misaligned_rows(cuda_device):
     """A start or a row stride the 16-byte copies cannot take raises
     before any launch: flash in both dtypes, bf16 prefill."""
@@ -1026,6 +1057,67 @@ def test_cuda_a10_prefill_kernel_equals_plain(cuda_device, arch, dt):
     assert state["cache" if arch != "zamba2-7b" else "shared_cache"][
         "k"].dtype == torch.bfloat16
     assert bool(((tok >= 0) & (tok < cfg.padded_vocab(1))).all())
+
+
+# flash launches of 3 smoke steps in 2 microbatches: whisper's 2 encoder
+# layers (one self attention each) and 2 decoder layers (self and cross)
+# all under remat, x 2; the vlm's 2 groups of a dense layer under remat
+# (x 2) and a cross layer outside it (x 1), as the reference's scans
+XATTN_LAUNCHES = {"whisper-base": (2 + 2 * 2) * 2 * 2 * 3,
+                  "llama-3.2-vision-90b": (2 * 2 + 2) * 2 * 3}
+
+
+def _xattn_losses(arch, impl, device, steps=3):
+    """Three smoke steps through ``make_train_step`` on a batch with the
+    family's ``frames`` / ``img_embeds`` (seeded), the vlm's gates set
+    non-zero (0.5 / -0.7) so the cross layers count."""
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.models import registry
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.step import train_state_from
+    cfg = tconfigs.get_smoke(arch)
+    api = registry.build(cfg)
+    ctx = ParallelCtx(remat=True, attn_impl=impl, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+    params = api.init(torch.Generator(device=device).manual_seed(0), cfg,
+                      device=device)
+    if cfg.family == "vlm":
+        params["cross"]["xgate"].fill_(0.5)
+        params["cross"]["mgate"].fill_(-0.7)
+    opt = AdamWConfig(lr=5e-3)
+    state = train_state_from(params, ctx, opt)
+    step = make_train_step(cfg, ctx, api, opt, microbatches=2)
+    key, rows = (("frames", cfg.enc_frames) if cfg.family == "encdec"
+                 else ("img_embeds", cfg.img_tokens))
+    g = torch.Generator(device=device).manual_seed(1)
+    out = []
+    for _ in range(steps):
+        batch = {"tokens": torch.randint(0, cfg.vocab, (4, cfg.max_seq + 1),
+                                         generator=g, device=device),
+                 key: torch.randn((4, rows, cfg.d_model), generator=g,
+                                  device=device)}
+        out.append(float(step(state, batch)[1]["loss"]))
+    return out
+
+
+@pytest.mark.parametrize("arch", sorted(XATTN_LAUNCHES))
+def test_cuda_xattn_smoke_training_kernel_equals_plain(cuda_device, arch,
+                                                       monkeypatch):
+    """whisper and the vlm train on the card: three smoke steps with the
+    kernel forward (cross attention's T != S, non-causal) equal the plain
+    forward's (rtol 1e-5), the kernel launched as the layers,
+    microbatches and remat say, the plain forward never."""
+    plain = _xattn_losses(arch, "ref", cuda_device)
+
+    def trap(*a, **k):
+        raise AssertionError("the plain flash forward ran on the CUDA path")
+
+    monkeypatch.setattr(fa, "flash_attention_ref", trap)
+    monkeypatch.setattr(mflash, "_chunk_fwd", trap)
+    fa.reset_launches()
+    kernel = _xattn_losses(arch, "kernel", cuda_device)
+    assert fa.LAUNCHES["flash_attention"] == XATTN_LAUNCHES[arch]
+    np.testing.assert_allclose(kernel, plain, rtol=1e-5)
 
 
 # ======================================================================

@@ -23,11 +23,11 @@ on the CPU, in f32 (the caches bf16, as the reference keeps them).
   * the port's ``ServeEngine`` streams equal the port's ``decode_step``
     streams (``tests/test_serve.py::test_engine_streams_match_contiguous
     _decode``'s contract), no tolerance;
-  * tp > 1 decode raises, citing A10.
+  * tp > 1 decode raises, citing A10 (the vlm decodes at tp = 1 since
+    the cross-attention slice; ``test_torch_vlm.py``).
 
 The reference's decode step is jitted once per arch (module fixture).
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -296,9 +296,11 @@ def test_tp_decode_and_later_families_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         lm.decode_step(params, torch.zeros(1, dtype=torch.long), state, tp2,
                        cfg)
-    vlm = dataclasses.replace(cfg, family="vlm")
+    vlm = configs.get_smoke("llama-3.2-vision-90b")    # decodes since
+    st = lm.init_decode_state(vlm, CTX, 1, 8, device="cpu")  # the vlm slice
+    assert set(st) == {"cache", "cross_cache", "pos"}
     with pytest.raises(NotImplementedError, match="A10"):
-        lm.init_decode_state(vlm, CTX, 1, 8, device="cpu")
+        lm.init_decode_state(vlm, tp2, 1, 8, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             lm.init_decode_state(cfg, CTX, 1, 8)

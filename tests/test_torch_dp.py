@@ -736,8 +736,7 @@ def test_every_reduced_row_equals_row_0(ref, backend, how):
                         global_batch=8).batch(0, device="cpu")
     loss, rows, _ = tgrad.loss_and_grad(lm.loss_fn, params, batch, ctx, cfg)
     assert loss.shape == (8,) and torch.equal(loss, loss[:1].expand(8))
-    _, raw = tgrad.replica_grads(lm.loss_fn, params, batch["tokens"], ctx,
-                                 cfg)
+    _, raw = tgrad.replica_grads(lm.loss_fn, params, batch, ctx, cfg)
     kw = {"leaf": {}, "bucket": {"bucket_bytes": BUCKET},
           "overlap_leaf": {"overlap": True},
           "overlap_bucket": {"overlap": True, "bucket_bytes": BUCKET},

@@ -5,8 +5,9 @@ and combine kernels, comm_bench, and the training slice: the flash
 kernel, flash/lm/registry, parallel, data, train, the train launcher,
 the MoE slice: the MoE configs and the MoE layer in models/mlp, the
 checkpoint slice: ckpt and ft, data parallelism: comm.bucketing and
-comm.compress, and the RWKV / Mamba-hybrid slice: models.rwkv,
-models.ssm and the four new configs),
+comm.compress, the RWKV / Mamba-hybrid slice: models.rwkv,
+models.ssm and the four new configs, and the cross-attention slice:
+models.encdec and the whisper-base and llama-3.2-vision-90b configs),
 and ``chip_smoke.py``, pulls in no
 JAX and nothing of the JAX package ``repro`` — checked by a clean
 subprocess's ``sys.modules`` and by an AST scan of every import
@@ -115,6 +116,12 @@ def test_the_families_slice_is_covered():
             "repro_torch.configs.minitron_4b",
             "repro_torch.configs.h2o_danube3_4b",
             "repro_torch.configs.rwkv6_3b", "repro_torch.configs.zamba2_7b"}
+    assert want <= set(_modules())
+
+
+def test_the_cross_attention_slice_is_covered():
+    want = {"repro_torch.models.encdec", "repro_torch.configs.whisper_base",
+            "repro_torch.configs.llama32_vision_90b"}
     assert want <= set(_modules())
 
 

@@ -20,7 +20,8 @@ import torch
 from repro.kernels import paged_attention as jpa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
-from test_torch_cuda import (DECODE_CASES, FLASH_CASES, MODEL_HEADS,
+from test_torch_cuda import (CROSS_MODELS, DECODE_CASES, FLASH_CASES,
+                             MODEL_HEADS,
                              REF_FLASH_CASES, TDT, WINDOW_CASES, _close,
                              _flash_case, _i32, _paged_case, _to_torch,
                              model_layout)
@@ -842,6 +843,35 @@ def test_models_layouts_fit_the_16_byte_copies(model, dt):
     q, k, v = model_layout(MODEL_HEADS[model], dt)
     assert not q.is_contiguous()
     assert [fa.misalignment(x) for x in (q, k, v)] == [None, None, None]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("model", CROSS_MODELS)
+def test_cross_layouts_fit_the_16_byte_copies(model, dt):
+    """Cross attention hands the kernel K/V as views of ``cross_kv``'s
+    projection at the encoder's / image's length (77 rows here) and q at
+    the text's: the views ``models/flash.py`` passes fit the 16-byte
+    copies in place, with the model's heads and head dim."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import attention
+    from repro_torch.parallel import ParallelCtx
+
+    cfg = dataclasses.replace(configs.get(model), d_model=32)
+    h, hkv, d = MODEL_HEADS[model]
+    assert (cfg.n_heads, cfg.n_kv, cfg.head_dim) == (h, hkv, d)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    ctx = ParallelCtx(param_dtype=dtype, compute_dtype=dtype)
+    g = torch.Generator().manual_seed(0)
+    p = {"wk": torch.randn(32, hkv * d, generator=g),
+         "wv": torch.randn(32, hkv * d, generator=g)}
+    k, v = attention.cross_kv(p, torch.randn(2, 77, 32, generator=g), ctx,
+                              cfg)
+    q, _, _ = model_layout(MODEL_HEADS[model], dt, t=130, s=77)
+    views = (q, k.transpose(1, 2), v.transpose(1, 2))
+    assert views[1].shape == (2, hkv, 77, d) and views[1].dtype == dtype
+    assert [fa.misalignment(x) for x in views] == [None, None, None]
 
 
 def _misaligned(case, dtype):
