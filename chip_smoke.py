@@ -93,8 +93,8 @@ caught):
                then, that engine freed, the MoE stage: qwen3-moe-30b-a3b
                at full width in bf16 (48 layers, 128 experts top-8,
                30.5 B parameters drawn on the card from seed 0) serves
-               the f32 runs' trace (the 8 requests, outputs cut to
-               16-32: ``MOE_TRACE``) twice (clock "tick", the same
+               the serve trace's 8 requests, outputs cut to 8-16
+               (``MOE_TRACE``), twice (clock "tick", the same
                streams both times), launches n_layers x steps, ten
                profiled decode-only ticks beside the decode step's
                weight-read bound, and the routing-aware first-step
@@ -321,6 +321,35 @@ caught):
                ``forward``'s argmax by the same rule; the smoke vlm's
                loss and gradients with the kernel == the plain forward's;
                every path's flash launches == the predicted count.
+ 15. tp train — A10 item 3 and item 4's head layout: MoE training and
+               TP training.  (d) the flash kernel against its plain
+               version in f32 at the layouts these paths launch it
+               with (qwen3-moe H 32 / 4, qwen2-moe 16 / 16, D 128, T =
+               S = 2048; qwen3-8b at TP 4, every PE's 8 / 2 heads in one
+               launch, B = 4 PEs x 2 rows); (a) qwen3-moe-30b-a3b and
+               qwen2-moe-a2.7b at published width, 2 layers, f32 +
+               AdamW (``build_trainer``): ``loss_and_grad`` of 4 x 2048
+               tokens with the kernel forward against the plain forward
+               (loss 1e-5, every leaf's gradient 1e-4 of its largest
+               where no routing decision differs: the routing of both
+               runs recorded and compared row by row, the first
+               difference a top-k flip at a near-tie; the padded
+               experts' gradients exactly 0), then one step in 2
+               microbatches at the published capacity factor 1.25: the
+               pairs dropped a layer (> 0), every routing call's kept
+               pairs == a host recount in token-major order, flash
+               launches == 2 x 2 + 2 x 2 x 2; (b) qwen3-8b and
+               qwen3-moe-30b-a3b (einsum) at 2 layers, f32: 2 x 2048
+               tokens through ``loss_and_grad`` at TP 4 (posh, the
+               stacked team, sequence parallelism, the TP layout)
+               against tp = 1 on the same weights (loss rtol 2e-5,
+               gradients 5e-4 of each leaf's largest, the MoE's
+               routing rule of (a)); qwen2-moe-a2.7b (alltoall, each
+               PE routing its own sequence shard) at TP 4 with the
+               kernel forward against the plain forward (the gate and
+               routing rule of (a), every PE's routing recorded);
+               seconds, peaks, collectives a step by kind, 4 flash
+               launches a kernel run, none a plain one.
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -346,7 +375,10 @@ likewise from phase 11's; ``launches_dp`` on the flash and copy
 kernels from phase 12's runs; ``launches_a10`` on the flash kernel from
 phase 13's runs, with ``max_abs_err_a10`` its errors at the new shapes
 and ``a10_shapes`` their timing; ``launches_xattn``, ``max_abs_err_xattn``
-and ``xattn_shapes`` likewise from phase 14's).  ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
+and ``xattn_shapes`` likewise from phase 14's; ``launches_train_moe`` /
+``launches_train_tp`` from phase 15's MoE and TP training runs, with
+``max_abs_err_train`` the kernel's errors at their layouts).
+``max_abs_err_tp`` / ``max_abs_err_moe_tp``
 on the paged kernels is their largest |kernel - plain| on phase 10's /
 11's captured TP inputs, and ``moe_tp_layouts`` their timing at phase
 11's per-PE layouts.
@@ -489,9 +521,13 @@ DISAGG_PROFILE_TICKS = 10
 # of the 80 for the plain path's comparison and the step's activations)
 MOE_BF16, MOE_F32 = "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"
 MOE_F32_PAGES = 256
-# both MoE runs serve the f32 runs' trace (the serve trace's 8 requests,
-# outputs cut to 16-32): phase 11 serves it again at TP 4, three times
-MOE_TRACE = SERVE_TRACE_F32
+# both MoE runs serve the serve trace's 8 requests with their outputs
+# cut to 12-24 (16-32, the f32 runs' trace, before phase 15 was added):
+# phase 11 serves it again at TP 4, three times, and captures its
+# decode inputs at step MOE_PICK_DECODE (TP_PICK_DECODE, 20, before the
+# cut); the cut pays for phase 15 with a margin for the host's spread
+MOE_TRACE = {**SERVE_TRACE, "out_short": (12, 25), "out_long": (12, 25)}
+MOE_PICK_DECODE = 15
 # The routing comparison calls a row's routing a near-tie when the gap
 # between its k-th and (k+1)-th gate, as a share of the k-th, is below
 # this.  f32: the kernels differ from the plain versions by summation
@@ -637,6 +673,33 @@ XATTN_WHISPER = dict(rows=8, seq=448, mb=2, dec_rows=4, new=64)
 # and 1, which start at zero, set non-zero so the cross layers count
 XATTN_VLM = dict(groups=2, rows=2, prompt=1024, new=32)
 XATTN_GATES = {"xgate": (0.5, -0.3), "mgate": (-0.7, 0.4)}
+
+# phase 15 (A10 item 3, and item 4's head layout): MoE training and TP
+# training.  (d) the flash kernel at the layouts these paths launch it
+# with, f32 (training), T = 2048: qwen3-moe (H 32 / 4), qwen2-moe (16 /
+# 16) and qwen3-8b at TP 4 (every PE's 8 query / 2 KV heads in one
+# launch, the PE axis folded into the batch: B = TP x 2 rows)
+T15_SEQ = 2048
+T15_FLASH = {"qwen3_moe": dict(b=1, h=32, hkv=4, d=128),
+             "qwen2_moe": dict(b=1, h=16, hkv=16, d=128),
+             "qwen3_8b_tp4": dict(b=8, h=8, hkv=2, d=128)}
+# (a) both MoE configs at published width, 2 layers, f32 + AdamW: one
+# step of 4 x 2048 tokens in 2 microbatches at the published capacity
+# factor 1.25, where pairs drop (layer 0 routes neighbouring tokens
+# alike at init: its attention output, a running mean over the prefix,
+# outweighs the embedding); the kernel-vs-plain comparison on the whole
+# batch, at the same factor.  Every routing call's kept pairs are
+# recounted on the host, token-major, and must equal the card's
+T15_MOE = dict(layers=2, rows=4, mb=2)
+# (b) TP 4 posh on the stacked team, 2 layers, f32, 2 x 2048 tokens:
+# qwen3-8b and qwen3-moe (einsum) held to tp = 1 on the same weights and
+# batch: loss rtol 2e-5, each leaf's gradient within 5e-4 of its
+# largest (the reference's TP equivalence tolerances); qwen2-moe under
+# alltoall, whose routing of each PE's own sequence shard differs from
+# tp = 1 under drops by design, held to its own plain run at TP 4 by the
+# kernel-vs-plain gate of (a), 1e-5 / 1e-4
+T15_TP = dict(tp=4, layers=2, rows=2, backend="posh")
+T15_TOL = {"plain": (1e-5, 1e-4), "tp": (2e-5, 5e-4)}
 
 
 def fail(msg: str) -> None:
@@ -2289,16 +2352,21 @@ class MoeRecorder:
     capacity slots ``positions_in_expert``) and every token draw of
     ``serve.sampling.sample_tokens`` is recorded in call
     order, as ``events``: a route event holds the top-k experts of each
-    row (n, k), which of them kept a slot and the gap between the k-th
-    and (k+1)-th gate as a share of the k-th; a sample event the slots'
+    row (n, k), which of them kept a slot, the gap between the k-th
+    and (k+1)-th gate as a share of the k-th and the router's address
+    (which layer routed); a sample event the slots'
     request ids, generated positions, top-2 logits and argmax.  At
     tp > 1 PE 0's view is kept and every PE's experts are checked equal
-    to it (the router is replicated: routing is the same on every PE).
-    Nothing syncs while open; ``done()`` moves the events to the host
-    and fails if any PE routed otherwise."""
+    to it (the router is replicated: routing is the same on every PE);
+    with ``per_pe`` (the alltoall route in training, where each PE
+    routes its own sequence shard) every PE's rows are kept instead,
+    PE-major, each gap from its PE's router, and nothing is checked
+    across PEs.  Nothing syncs while open; ``done()`` moves the events
+    to the host and fails if any PE routed otherwise."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, per_pe: bool = False):
         self.cfg = cfg
+        self.per_pe = per_pe
         self.events: list = []
         self._alike: list = []
 
@@ -2317,22 +2385,31 @@ class MoeRecorder:
         def route(router_w, xt, cfg_):
             gate_k, idx_k = route0(router_w, xt, cfg_)
             idx = idx_k.reshape((-1,) + idx_k.shape[-2:])
-            self._alike.append((idx == idx[:1]).all())
-            x0 = xt.reshape((-1,) + xt.shape[-2:])[0]
-            logits = (x0 @ router_w.to(x0.dtype)).float()
+            # the router, or each PE's copy (tp, d, E)
+            w = router_w.reshape((-1,) + router_w.shape[-2:])
+            if self.per_pe:
+                xs = xt.reshape(w.shape[0], -1, xt.shape[-1])
+                logits = torch.bmm(xs, w.to(xs.dtype)).flatten(0, 1).float()
+                idx = idx.reshape(1, -1, k)
+            else:
+                self._alike.append((idx == idx[:1]).all())
+                x0 = xt.reshape((-1,) + xt.shape[-2:])[0]
+                logits = (x0 @ w[0].to(x0.dtype)).float()
             logits[:, m.num_experts:] = -1e30
             top = torch.softmax(logits, -1).topk(k + 1, dim=-1).values
             self.events.append({                  # a copy, not a view
                 "kind": "route", "idx": idx[0].clone(),
-                "gap": (top[:, k - 1] - top[:, k]) / top[:, k - 1]})
+                "gap": (top[:, k - 1] - top[:, k]) / top[:, k - 1],
+                "router": router_w.data_ptr()})
             return gate_k, idx_k
 
         def slots(idx_k, n_experts):
             pos = slots0(idx_k, n_experts)
             n = idx_k.shape[-2]
             cap = int(n * k * m.capacity_factor / n_experts) + 1
-            self.events[-1]["kept"] = (
-                pos.reshape(-1, pos.shape[-1])[0] < cap).view(n, k)
+            kept = pos.reshape(-1, pos.shape[-1]) < cap
+            self.events[-1]["kept"] = (kept.reshape(-1, k) if self.per_pe
+                                       else kept[0].view(n, k))
             return pos
 
         def sample(logits, state, pos, n_candidates=8, ctx=None):
@@ -3183,35 +3260,6 @@ def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 7)
 
 
-def full_from_tp(params: dict, cfg) -> dict:
-    """The full (tp = 1) parameters of a ``weights.shard_for_tp`` stack:
-    row splits viewed back, column splits copied back, a replicated KV
-    head taken from the first rank that holds it (the phase's tp = 1
-    yardstick engine)."""
-    tp = params["embed"]["table"].shape[0]
-    out = {k: v for k, v in params.items() if k != "blocks"}
-    for name in ("embed", "head"):
-        if name in params:
-            t = params[name]["table"]
-            out[name] = {"table": t.reshape(-1, t.shape[-1])}
-    cols = lambda w: w.movedim(-3, -2).flatten(-2)        # noqa: E731
-    rows = lambda w: w.flatten(-3, -2)                    # noqa: E731
-    kv = cols
-    if cfg.n_kv % tp:
-        hpr, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv
-        first = [next(t for t in range(tp) if (t * hpr) // group == h)
-                 for h in range(cfg.n_kv)]
-        kv = lambda w: cols(w[:, first])                  # noqa: E731
-    b = params["blocks"]
-    out["blocks"] = {
-        **b, "attn": {**b["attn"], "wq": cols(b["attn"]["wq"]),
-                      "wk": kv(b["attn"]["wk"]), "wv": kv(b["attn"]["wv"]),
-                      "wo": rows(b["attn"]["wo"])},
-        "mlp": {**b["mlp"], **{k: cols(b["mlp"][k]) for k in ("wu", "wg")},
-                "wd": rows(b["mlp"]["wd"])}}
-    return out
-
-
 def near_tie_gate(eng, cfg, reqs, got: dict, want: dict, labels, tag,
                   got_logits=None) -> int:
     """Every stream of ``got`` that leaves ``want``'s is printed at its
@@ -3666,7 +3714,7 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
     against their plain versions on the pallas run's own decode and
     64-row prefill inputs (``tp_paged_parity``); xla vs posh and TP 4
     (posh) vs phase 4's tp = 1 streams (``colo``; the tp = 1 side
-    recomputed on the weights unstacked, ``full_from_tp``) held by the
+    recomputed on the weights unstacked, ``weights.unshard``) held by the
     near-tie rule; the gap between those computations' logits on fixed
     cases below NEAR_TIE_DELTA and the gap of each planted fault
     (``tp_faults``) above it; every peak under TP_PEAK x ``colo_peak``;
@@ -3685,6 +3733,7 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
     from repro_torch.launch.serve import build_engine
     from repro_torch.parallel import ParallelCtx
     from repro_torch.serve import ServeEngine, TrafficConfig, make_requests
+    from repro_torch.weights import unshard
 
     t0 = time.monotonic()
     total: dict = {}
@@ -3751,7 +3800,7 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
         eng, cfg, reqs, streams["xla"], streams["posh"], ("xla", "posh"),
         f"tp{TP_FULL}", got_logits=lambda c: decode_logits(xla, cfg, c))
     del xla
-    tp1 = ServeEngine(full_from_tp(params, cfg), cfg, scfg, device=dev)
+    tp1 = ServeEngine(unshard(params, cfg, TP_FULL), cfg, scfg, device=dev)
     tp1_logits = decode_logits(tp1, cfg, cases)
     gaps[f"tp{TP_FULL} vs tp1"] = gap_share(mine, tp1_logits)
     n_tp1 = near_tie_gate(
@@ -3818,7 +3867,7 @@ def tp_stage(pa, sc, dev, colo: dict, colo_peak: float) -> tuple:
     print(f"tp{TP_CELLS} posh (colocated): " + json.dumps(out), flush=True)
     gaps[f"tp{TP_CELLS} vs tp1"] = gap_share(decode_logits(eng, cfg, cases),
                                              tp1_logits)
-    tp1 = ServeEngine(full_from_tp(eng.exec.params, cfg), cfg, scfg,
+    tp1 = ServeEngine(unshard(eng.exec.params, cfg, TP_CELLS), cfg, scfg,
                       device=dev)
     n_tp2 = near_tie_gate(
         tp1, cfg, reqs, colo2, colo, (f"tp{TP_CELLS}", "tp1"),
@@ -4034,7 +4083,7 @@ def moe_tp_stage(pa, sc, dev, moe1: dict, moe1_f32: dict) -> tuple:
     reqs = make_requests(TrafficConfig(vocab=cfg.vocab, **MOE_TRACE))
     eng.run(make_requests(TrafficConfig(vocab=cfg.vocab, **WARMUP_TRACE)),
             clock="tick")
-    picks = {"decode": ("paged_attention", None, TP_PICK_DECODE),
+    picks = {"decode": ("paged_attention", None, MOE_PICK_DECODE),
              "prefill": ("paged_prefill_attention", scfg.prefill_chunk, 0)}
     out, first, launches, _, got, _ = tp_serve_run(
         pa, sc, eng, cfg, f"{cfg.name} bf16 posh", picks, MOE_TRACE)
@@ -5317,6 +5366,378 @@ def xattn_stage(fa, dev) -> tuple:
 
 
 
+# ----------------------------------------------------------------------
+# phase 15: MoE training and tensor-parallel training (ROADMAP A10 item
+# 3, and item 4 in the head layout)
+# ----------------------------------------------------------------------
+def t15_flash_parity(fa, dev) -> dict:
+    """(d) The flash kernel against its plain version at the layouts the
+    new paths launch it with (``T15_FLASH``), f32, causal, T = S = 2048,
+    output and lse within phase 3's f32 tolerance."""
+    errs = {}
+    for tag, sh in T15_FLASH.items():
+        g = torch.Generator(device=dev).manual_seed(17)
+        q, k, v = (torch.randn((sh["b"], T15_SEQ, h, sh["d"]), generator=g,
+                               device=dev).transpose(1, 2)
+                   for h in (sh["h"], sh["hkv"], sh["hkv"]))
+        n = fa.LAUNCHES["flash_attention"]
+        out, lse = fa.flash_attention(q, k, v, causal=True)
+        ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_attention"] != n + 1:
+            fail(f"t15 flash {tag}: the kernel did not launch")
+        err = max((out - ref).abs().max().item(),
+                  (lse - ref_lse).abs().max().item())
+        print(f"t15 parity flash {tag} (B {sh['b']}, H {sh['h']} / H_kv "
+              f"{sh['hkv']}, D {sh['d']}, T=S={T15_SEQ}, f32): max |kernel "
+              f"- plain| {err:.3e} (tol {TOL[torch.float32]})", flush=True)
+        if not err <= TOL[torch.float32]:
+            fail(f"t15 flash {tag}: {err} > {TOL[torch.float32]}")
+        errs[tag] = err
+        del q, k, v, out, lse, ref, ref_lse
+    torch.cuda.empty_cache()
+    return errs
+
+
+def t15_flat(tree, pre="") -> dict:
+    """A nested dict's leaves by path (``a/b/c``)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(t15_flat(v, pre + k + "/"))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def t15_layers(params) -> dict:
+    """Each MoE layer's router address -> its layer index (route events
+    carry the address)."""
+    return {layer["mlp"]["router"].data_ptr(): li
+            for li, layer in enumerate(params["blocks"])}
+
+
+def t15_flips(cfg, ev_a, ev_b, layers_a, layers_b, tag, labels) -> dict:
+    """Two recorded runs of one batch (``MoeRecorder``), route event by
+    route event: the rows whose top-k set or kept set differ.  The first
+    such row (in event, row order) must be a top-k set flip at a near-tie
+    (``b``'s relative gate gap below MOE_TIE f32): a keep-only difference
+    with no set flip before it would be a capacity count that differs.
+    Every flip is printed with its gap.  Returns {layer: experts whose
+    membership or slot differs in some row}: the slices the gradient
+    gate leaves out (the rule of phase 11: where no routing decision
+    differs, the two runs compute one function)."""
+    n_exp = cfg.moe.experts_padded(1)
+    ra = [e for e in ev_a if e["kind"] == "route"]
+    rb = [e for e in ev_b if e["kind"] == "route"]
+    if len(ra) != len(rb):
+        fail(f"t15 {tag}: {len(ra)} vs {len(rb)} routing calls")
+    affected, shown, first, n_rows = {}, [], None, 0
+    for i, (x, y) in enumerate(zip(ra, rb)):
+        li = layers_a[x["router"]]
+        if layers_b[y["router"]] != li:
+            fail(f"t15 {tag}: routing call {i} is layer {li} in one run and "
+                 f"{layers_b[y['router']]} in the other")
+        (mx, kx), (my, ky) = route_sets(x, n_exp), route_sets(y, n_exp)
+        dset, diff = mx != my, (mx != my) | (kx != ky)
+        rows = torch.nonzero(diff.any(1)).flatten()
+        if not len(rows):
+            continue
+        n_rows += len(rows)
+        affected.setdefault(li, set()).update(
+            torch.nonzero(diff.any(0)).flatten().tolist())
+        if first is None:
+            r = int(rows[0])
+            first = {"call": i, "layer": li, "row": r,
+                     "set": bool(dset[r].any()), "gap": float(y["gap"][r]),
+                     f"gap_{labels[0]}": float(x["gap"][r])}
+        shown += [f"{li}:{int(r)}:{'set' if dset[r].any() else 'keep'}:"
+                  f"{float(y['gap'][r]):.2e}" for r in rows[:4]]
+    print(f"t15 {tag} routing ({labels[0]} vs {labels[1]}): {n_rows} rows "
+          f"differ over {len(ra)} routing calls; first "
+          + (json.dumps(first) if first else "none")
+          + f"; (layer:row:kind:gap) {' '.join(shown[:24])}; experts left "
+          f"out of the gradient gate {({k: sorted(v) for k, v in affected.items()})}",
+          flush=True)
+    if first is not None and not (first["set"]
+                                  and first["gap"] < MOE_TIE[torch.float32]):
+        fail(f"t15 {tag}: the first routing difference is not a top-k flip "
+             f"at a near-tie: {first}")
+    return affected
+
+
+def t15_grad_gate(tag, got: dict, want: dict, affected: dict, tol: float,
+                  n_experts: int = 0) -> dict:
+    """Each leaf's max |got - want| over its largest |want| within ``tol``,
+    the routers of layers with a routing difference and the experts it
+    touched (``t15_flips``) left out and printed; with ``n_experts``
+    (padded experts past it) their router columns and expert tensors
+    must be exactly zero in both.  Returns {leaf: error}."""
+    errs, left = {}, {}
+    for key, w in want.items():
+        a = got[key]
+        if a.shape != w.shape:
+            fail(f"t15 {tag}: {key} {tuple(a.shape)} vs {tuple(w.shape)}")
+        diff = (a - w).abs()
+        name = key.rsplit("/", 1)[-1]
+        if key.startswith("blocks/mlp/") and "shared" not in key and affected:
+            mask = torch.zeros_like(diff, dtype=torch.bool)
+            for li, experts in affected.items():
+                if name == "router":
+                    mask[li] = True
+                else:
+                    mask[li, sorted(experts)] = True
+            if mask.any():
+                left[key] = diff[mask].max().item() / max(
+                    w.abs().max().item(), 1e-30)
+                diff = diff.masked_fill(mask, 0)
+        errs[key] = diff.max().item() / max(w.abs().max().item(), 1e-30)
+        if n_experts and key.startswith("blocks/mlp/") and name in (
+                "router", "wu", "wg", "wd") and "shared" not in key:
+            pad = a[..., n_experts:] if name == "router" else a[:, n_experts:]
+            padw = w[..., n_experts:] if name == "router" else w[:, n_experts:]
+            if pad.abs().max().item() != 0 or padw.abs().max().item() != 0:
+                fail(f"t15 {tag}: padded experts' {key} gradient is not 0")
+    worst = max(errs, key=errs.get)
+    print(f"t15 {tag} gradients: worst leaf {worst} {errs[worst]:.3e} (tol "
+          f"{tol}); left out for routing differences "
+          f"{({k: f'{v:.3e}' for k, v in left.items()})}", flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        fail(f"t15 {tag}: gradients beyond {tol}: {bad}")
+    return errs
+
+
+def t15_recount(cfg, events, tag) -> int:
+    """Every route event's kept pairs recounted on the host: slots in
+    token-major order (token, then choice) per expert, kept below the
+    capacity ``int(n k cf / E) + 1``; must equal what the card kept.
+    Returns the pairs dropped."""
+    m = cfg.moe
+    e_pad, dropped = m.experts_padded(1), 0
+    for e in events:
+        if e["kind"] != "route":
+            continue
+        idx = e["idx"].long()
+        n, k = idx.shape
+        flat = idx.reshape(-1)
+        pos = torch.nn.functional.one_hot(flat, e_pad).cumsum(0)[
+            torch.arange(n * k), flat] - 1
+        kept = (pos < int(n * k * m.capacity_factor / e_pad) + 1).view(n, k)
+        if not torch.equal(kept, e["kept"]):
+            fail(f"t15 {tag}: the card kept other pairs than the token-major "
+                 f"count ({int((kept != e['kept']).sum())} of {n * k})")
+        dropped += int((~kept).sum())
+    return dropped
+
+
+def t15_grads(grads, cfg=None, tp: int = 1) -> dict:
+    """Row 0 of ``loss_and_grad``'s stacked gradients, as the global
+    tree's leaves by path (``weights.unshard`` at tp > 1)."""
+    from repro_torch.tree import tree_map
+    from repro_torch.weights import unshard
+
+    g0 = tree_map(lambda g: g[0], grads)
+    return t15_flat(unshard(g0, cfg, tp) if tp > 1 else g0)
+
+
+def t15_moe_train(fa, arch, dev) -> tuple:
+    """(a) One MoE config at published width, ``T15_MOE``: the kernel
+    forward's loss and gradients against the plain forward's
+    (``attn_impl="ref"``) on the same weights and batch, routing
+    recorded in both (``t15_flips``; loss rtol 1e-5, gradients 1e-4 of
+    each leaf's largest where no routing decision differs; the padded
+    experts' gradients exactly 0), then one AdamW step through
+    ``build_trainer``'s ``Trainer``, recorded: pairs must drop; every
+    routing call's kept pairs recounted (``t15_recount``).  Returns
+    (flash launches, figures)."""
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import lm
+    from repro_torch.train import grad as tgrad
+    from repro_torch.tree import leaves
+
+    _free(dev)
+    t0 = time.monotonic()
+    tr = build_trainer(arch, global_batch=T15_MOE["rows"],
+                       microbatches=T15_MOE["mb"], device=dev, seed=0,
+                       n_layers=T15_MOE["layers"], seq_len=T15_SEQ)
+    cfg, params = tr.cfg, tr.state["params"]
+    n_params = sum(p.numel() for p in leaves(params))
+    init_s = time.monotonic() - t0
+    batch = tr.data.batch(0, device=dev)
+    layers = t15_layers(params)
+    runs, n0 = {}, fa.LAUNCHES["flash_attention"]
+    for impl in ("kernel", "ref"):
+        with MoeRecorder(cfg) as rec:
+            loss, grads, _ = tgrad.loss_and_grad(
+                lm.loss_fn, params, batch, tr.ctx.with_(attn_impl=impl), cfg)
+        runs[impl] = (float(loss[0]), t15_grads(grads), rec.done())
+        del grads
+    cmp_launches = fa.LAUNCHES["flash_attention"] - n0
+    tag = f"moe train {cfg.name}"
+    cmp_drops = t15_recount(cfg, runs["kernel"][2], tag) // 2     # remat
+    affected = t15_flips(cfg, runs["kernel"][2], runs["ref"][2], layers,
+                         layers, tag, ("kernel", "plain"))
+    lk, lr_ = runs["kernel"][0], runs["ref"][0]
+    ltol, gtol = T15_TOL["plain"]
+    if not abs(lk - lr_) <= ltol * abs(lr_):
+        fail(f"t15 {tag}: loss kernel {lk} vs plain {lr_}")
+    m = cfg.moe
+    errs = t15_grad_gate(tag, runs["kernel"][1], runs["ref"][1], affected,
+                         gtol, m.num_experts if m.padded_experts else 0)
+    del runs
+    _free(dev)
+    n1 = fa.LAUNCHES["flash_attention"]
+    with MoeRecorder(cfg) as rec:
+        st = tr.step(0)
+    step_launches = fa.LAUNCHES["flash_attention"] - n1
+    peak = _peak_gb(dev)
+    events = rec.done()
+    t15_recount(cfg, events, tag)
+    drops = [0] * cfg.n_layers
+    for e in events:
+        if e["kind"] == "route":
+            drops[layers[e["router"]]] += int((~e["kept"]).sum())
+    drops = [d // 2 for d in drops]           # each layer runs twice (remat)
+    predict = cfg.n_layers * 2 + cfg.n_layers * T15_MOE["mb"] * 2
+    launches = cmp_launches + step_launches
+    tokens = T15_MOE["rows"] * T15_SEQ
+    cap = int(tokens // T15_MOE["mb"] * m.top_k * m.capacity_factor
+              / m.experts_padded(1)) + 1
+    figs = {"loss": st["loss"], "grad_norm": st["grad_norm"],
+            "step_s": st["seconds"], "tok_s": tokens / st["seconds"],
+            "peak_gb": peak, "params_b": n_params / 1e9,
+            "drops_per_layer": drops, "capacity": cap,
+            "pairs_per_layer": tokens * m.top_k,
+            "drops_in_the_comparison": cmp_drops, "flash_launches": launches,
+            "predicted": predict, "loss_kernel_vs_plain": abs(lk - lr_),
+            "init_s": init_s}
+    print(f"t15 {tag}: {cfg.n_layers} layers at published width (d_model "
+          f"{cfg.d_model}, {m.num_experts} experts (padded "
+          f"{m.experts_padded(1)}) top-{m.top_k} of ff {m.expert_ff}, shared "
+          f"ff {m.shared_ff}, capacity factor {m.capacity_factor}), "
+          f"{n_params / 1e9:.3f} B params f32 + AdamW; {json.dumps(figs)}; "
+          f"ln vocab {math.log(cfg.vocab):.3f}", flush=True)
+    if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])):
+        fail(f"t15 {tag}: loss {st['loss']} grad_norm {st['grad_norm']}")
+    if not sum(drops) > 0:
+        fail(f"t15 {tag}: no pair dropped at capacity factor "
+             f"{m.capacity_factor}")
+    if launches != predict:
+        fail(f"t15 {tag}: flash launches {launches} != predicted {predict}")
+    del tr, params
+    _free(dev)
+    return launches, {"errs": max(errs.values()), **figs}
+
+
+def t15_tp(fa, arch, disp, dev) -> tuple:
+    """(b) One config at published width, ``T15_TP``: ``loss_and_grad`` at
+    TP 4 (posh, the stacked team, sequence parallelism, the TP layout of
+    ``weights.shard_for_tp``) against tp = 1 on the same weights and
+    batch (``T15_TOL["tp"]``); under ``alltoall``, whose routing of each
+    PE's own sequence shard differs from tp = 1 under drops by design,
+    against its own plain forward at TP 4 (``attn_impl="ref"``,
+    ``T15_TOL["plain"]``).  For a MoE config the routing rule of (a),
+    PE 0's rows recorded (every PE's under alltoall).  Returns (the TP
+    kernel run's flash launches, figures)."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.models import lm
+    from repro_torch.parallel import ParallelCtx
+    from repro_torch.train import grad as tgrad
+    from repro_torch.tree import leaves
+    from repro_torch.weights import shard_for_tp
+
+    _free(dev)
+    tp = T15_TP["tp"]
+    cfg = cut_layers(configs.get(arch), T15_TP["layers"])
+    f32 = dict(remat=True, param_dtype=torch.float32,
+               compute_dtype=torch.float32)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=T15_SEQ,
+                        global_batch=T15_TP["rows"]).batch(0, device=dev)
+    ctx4 = ParallelCtx(tp_size=tp, backend=T15_TP["backend"],
+                       moe_dispatch=disp, **f32)
+    a2a = disp == "alltoall"
+    want, ctxw = (f"tp{tp} plain", ctx4.with_(attn_impl="ref")) if a2a \
+        else ("tp1", ParallelCtx(**f32))
+    got = f"tp{tp}"
+    p4 = tgrad.trainable(lm.unstack(shard_for_tp(params, cfg, tp)))
+    out, recs, lays = {}, {}, {}
+    for tag, ctx in ((got, ctx4), (want, ctxw)):
+        p = p4 if ctx.tp_size > 1 else tgrad.trainable(lm.unstack(params))
+        lays[tag] = t15_layers(p) if cfg.moe else {}
+        ctx.tp_comm.reset_stats()
+        n = fa.LAUNCHES["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with (MoeRecorder(cfg, per_pe=a2a) if cfg.moe
+              else contextlib.nullcontext()) as rec:
+            loss, grads, _ = tgrad.loss_and_grad(lm.loss_fn, p, batch, ctx,
+                                                 cfg)
+            torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        out[tag] = {"loss": loss.reshape(-1), "seconds": secs,
+                    "launches": fa.LAUNCHES["flash_attention"] - n,
+                    "grads": t15_grads(grads, cfg, ctx.tp_size),
+                    "calls": {op: s["calls"] for op, s in
+                              ctx.tp_comm.stats().items()}}
+        recs[tag] = rec.done() if cfg.moe else []
+        del p, grads
+    del p4
+    peak = _peak_gb(dev)
+    a, b = out[got], out[want]
+    tag = f"tp train {cfg.name} ({T15_TP['backend']}, {disp})"
+    affected = t15_flips(cfg, recs[got], recs[want], lays[got], lays[want],
+                         tag, (got, want)) if cfg.moe else {}
+    ltol, gtol = T15_TOL["plain" if a2a else "tp"]
+    l4, l1 = a["loss"], float(b["loss"][0])
+    if not bool((l4 == l4[0]).all()) or not abs(float(l4[0]) - l1) <= \
+            ltol * abs(l1):
+        fail(f"t15 {tag}: loss {got} {l4.tolist()} vs {want} {l1}")
+    errs = t15_grad_gate(tag, a["grads"], b["grads"], affected, gtol)
+    predict = cfg.n_layers * 2
+    figs = {"loss_tp": float(l4[0]), f"loss_{want}": l1,
+            "seconds_tp": a["seconds"], f"seconds_{want}": b["seconds"],
+            "peak_gb": peak, "params_b": n_params / 1e9,
+            "collectives_tp": a["calls"], "flash_launches_tp": a["launches"],
+            f"flash_launches_{want}": b["launches"], "predicted": predict,
+            "worst_grad_err": max(errs.values())}
+    print(f"t15 {tag}: {cfg.n_layers} of {configs.get(arch).n_layers} layers "
+          f"at published width, {n_params / 1e9:.3f} B params f32, "
+          f"{T15_TP['rows']} x {T15_SEQ} tokens, loss_and_grad at TP {tp} "
+          f"on the stacked team vs {want}; {json.dumps(figs)}", flush=True)
+    if a["launches"] != predict or b["launches"] != (0 if a2a else predict):
+        fail(f"t15 {tag}: flash launches {a['launches']} / {b['launches']}, "
+             f"predicted {predict} a kernel run (one a layer for every PE, "
+             f"x 2 remat), 0 a plain one")
+    del out, params
+    _free(dev)
+    return a["launches"], figs
+
+
+def t15_stage(fa, dev) -> tuple:
+    """Phase 15: (d), (a) for both MoE configs, (b) for qwen3-8b and
+    qwen3-moe (einsum) against tp = 1 and qwen2-moe (alltoall) against
+    its plain run; returns (MoE training flash launches, TP training
+    flash launches, the flash parity errors at the new layouts)."""
+    errs = t15_flash_parity(fa, dev)
+    moe = sum(t15_moe_train(fa, arch, dev)[0]
+              for arch in ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"))
+    tp = sum(t15_tp(fa, arch, disp, dev)[0]
+             for arch, disp in (("qwen3-8b", "einsum"),
+                                ("qwen3-moe-30b-a3b", "einsum"),
+                                ("qwen2-moe-a2.7b", "alltoall")))
+    print(f"t15: flash launches MoE training {moe}, TP training {tp}",
+          flush=True)
+    return moe, tp, errs
+
+
+
 
 # ----------------------------------------------------------------------
 # phase 7: timing
@@ -5833,6 +6254,8 @@ def main(argv=None) -> int:
     phase_done("13 a10")
     launches_xattn, errs_xattn, rows_xattn = xattn_stage(fa, dev)
     phase_done("14 xattn")
+    launches_tmoe, launches_ttp, errs_t15 = t15_stage(fa, dev)
+    phase_done("15 tp train")
     for row in kernels:
         if row["name"].startswith("paged_"):
             row["launches_swap"] = launches_swap[(row["name"], "bf16")]
@@ -5854,6 +6277,9 @@ def main(argv=None) -> int:
             row["launches_xattn"] = launches_xattn
             row["max_abs_err_xattn"] = errs_xattn
             row["xattn_shapes"] = rows_xattn
+            row["launches_train_moe"] = launches_tmoe
+            row["launches_train_tp"] = launches_ttp
+            row["max_abs_err_train"] = errs_t15
         elif row["name"] == "copy_blocked":
             row["launches_tp"] = copies_tp
             row["launches_moe_tp"] = copies_mtp

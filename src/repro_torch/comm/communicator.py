@@ -26,7 +26,11 @@ Three ship with the port, under the reference's names:
 Arguments and results are stacked, ``(n_pe, *shard)`` with ``n_pe ==
 size``; axis arguments name the shard's axes, as in the reference.
 Instrumentation counts eager calls (the reference counts traced ones:
-one call here is one traced call there).
+one call here is one traced call there).  Under autograd (a training
+forward at tp > 1) ``psum``, tiled ``all_gather``, ``psum_scatter`` and
+``all_to_all`` differentiate by their transposed collective on the same
+communicator (``comm.autograd``), so the backward's calls are counted
+too.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from typing import Dict, Optional, Type
 import torch
 
 from ..core import collectives as posh
+from . import autograd as _ag
 from ..core.heap import SymmetricHeap
 from ..core.teams import Team, TeamAxes
 
@@ -431,6 +436,8 @@ class Communicator:
     def psum(self, x):
         if not _is_single(x):
             return _tree_map(self.psum, x)
+        if _ag.wants_grad(self, x):
+            return _ag.Psum.apply(self, x)
         algo = self._begin("psum", x)
         if algo is None:
             return x
@@ -453,6 +460,8 @@ class Communicator:
     def all_gather(self, x, axis: int = 0, *, tiled: bool = True):
         if not _is_single(x):
             return _tree_map(lambda t: self.all_gather(t, axis, tiled=tiled), x)
+        if tiled and _ag.wants_grad(self, x):
+            return _ag.AllGather.apply(self, x, axis)
         algo = self._begin("all_gather", x)
         if algo is None:
             return x if tiled else x.unsqueeze(_ax(axis, x.dim()))
@@ -467,6 +476,8 @@ class Communicator:
             raise ValueError(
                 f"psum_scatter axis {axis} (len {length}) not divisible by "
                 f"team size {self.size}")
+        if _ag.wants_grad(self, x):
+            return _ag.PsumScatter.apply(self, x, axis)
         algo = self._begin("psum_scatter", x)
         if algo is None:
             return x
@@ -483,6 +494,9 @@ class Communicator:
             raise ValueError(
                 f"all_to_all split axis {split_axis} (len {length}) not "
                 f"divisible by team size {self.size}")
+        if _ag.wants_grad(self, x):
+            return _ag.AllToAll.apply(self, x, split_axis,
+                                         concat_axis)
         algo = self._begin("all_to_all", x)
         if algo is None:
             return x

@@ -1,8 +1,9 @@
 """Training CLI on one card with AdamW, f32 parameters and f32 compute,
 as the reference's launcher.  ``--arch`` takes the dense configs
-(gemma-2b, qwen3-8b, minitron-4b, h2o-danube-3-4b), rwkv6-3b (RWKV) and
-zamba2-7b (Mamba2 groups with a shared attention block); the MoE configs
-raise (MoE training is ROADMAP A10).  whisper-base and
+(gemma-2b, qwen3-8b, minitron-4b, h2o-danube-3-4b), the MoE configs
+(qwen3-moe-30b-a3b, qwen2-moe-a2.7b; ``--layers N`` keeps the first N
+at published width), rwkv6-3b (RWKV) and zamba2-7b (Mamba2 groups with
+a shared attention block).  whisper-base and
 llama-3.2-vision-90b train on batches that carry ``frames`` /
 ``img_embeds`` beside the tokens, which the synthetic data (token-only,
 as the reference's ``SyntheticLM``) does not make: the CLI raises for
@@ -39,7 +40,11 @@ communicator's transport and the DP gradient reduction's schedule.  As
 in the reference, the CLI's DP size is the device count, one here, so at
 dp = 1 they change nothing.  ``build_trainer(dp_size=N, ...)`` trains N
 replicas on the stacked team of one card (ROADMAP A6), with the same
-options and ``compress`` (none | bf16 | int8) besides.
+options and ``compress`` (none | bf16 | int8) besides, and
+``build_trainer(tp_size=T, moe_dispatch=...)`` trains the dense and MoE
+families at TP T on the stacked team (every PE's shards on one card,
+sequence parallelism on, as the reference's launcher sets ``sp = tp >
+1``); the CLI, like the reference's on one device, runs at tp = 1.
 """
 from __future__ import annotations
 
@@ -89,15 +94,16 @@ class Trainer:
         reference's layout: restacked into new host tensors, which are
         the snapshot (handed over as numpy arrays, which ``save_async``
         takes as they are), then written on ``ck``'s worker thread."""
-        host = state_to_tree(self.state, device="cpu")
+        host = state_to_tree(self.state, device="cpu", cfg=self.cfg,
+                             ctx=self.ctx)
         ck.save_async(step, tree_map(lambda t: t.numpy(), host))
 
     def restore(self, ck: Checkpointer, step=None) -> int:
         """Load the newest (or the given) checkpoint of ``ck`` into the
         state in place; returns its step."""
-        tree, step = ck.restore(state_to_tree(self.state, device="meta"),
-                                step)
-        state_from_tree(self.state, tree)
+        tree, step = ck.restore(state_to_tree(
+            self.state, device="meta", cfg=self.cfg, ctx=self.ctx), step)
+        state_from_tree(self.state, tree, cfg=self.cfg, ctx=self.ctx)
         return step
 
 
@@ -131,6 +137,7 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
                   zero: int = 0, lr: float = 3e-4, device=None,
                   attn_impl: str = "kernel", seed: int = 0,
                   n_layers: int = 0, seq_len: int = 0, dp_size: int = 1,
+                  tp_size: int = 1, moe_dispatch: str = "einsum",
                   backend: str = "posh", bucket_bytes: int = 0,
                   overlap_grad_sync: bool = False,
                   compress: str = "none") -> Trainer:
@@ -142,7 +149,10 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
     replicas on the stacked team, each on its ``global_batch / dp_size``
     rows in ``microbatches`` microbatches, their gradients reduced
     through the ``backend``'s DP communicator by the schedule
-    ``bucket_bytes`` / ``overlap_grad_sync`` / ``compress`` choose."""
+    ``bucket_bytes`` / ``overlap_grad_sync`` / ``compress`` choose; each
+    replica a TP group of ``tp_size`` PEs (the dense and MoE families;
+    ``moe_dispatch`` einsum | alltoall), with sequence parallelism at
+    ``tp_size`` > 1."""
     cfg = cut_layers(configs.get_smoke(arch) if smoke else configs.get(arch),
                      n_layers)
     if cfg.family in _INPUTS:
@@ -154,8 +164,9 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
     dev = resolve(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ctx = ParallelCtx(dp_size=dp_size, backend=backend, remat=True,
-                      attn_impl=attn_impl, param_dtype=torch.float32,
+    ctx = ParallelCtx(dp_size=dp_size, tp_size=tp_size, backend=backend,
+                      remat=True, attn_impl=attn_impl,
+                      moe_dispatch=moe_dispatch, param_dtype=torch.float32,
                       compute_dtype=torch.float32)
     api = registry.build(cfg)
     opt = AdamWConfig(lr=lr, zero=zero)
@@ -175,8 +186,9 @@ def main(argv=None) -> list:
         __doc__.split("\n\n")[0].split()))
     ap.add_argument("--arch", default="gemma-2b",
                     help="gemma-2b, qwen3-8b, minitron-4b, h2o-danube-3-4b "
-                         "(dense), rwkv6-3b (RWKV), zamba2-7b (Mamba2 + "
-                         "shared attention)")
+                         "(dense), qwen3-moe-30b-a3b, qwen2-moe-a2.7b (MoE), "
+                         "rwkv6-3b (RWKV), zamba2-7b (Mamba2 + shared "
+                         "attention)")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced-config variant")
     ap.add_argument("--layers", type=int, default=0,

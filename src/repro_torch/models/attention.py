@@ -3,18 +3,29 @@
 The counterparts of ``repro.models.attention.project_qkv`` — q/k/v
 projection, then qk-norm, then rope: the single projection convention
 the serving engine uses for both its decode step and its prefill window
-— and of ``self_attention`` (head layout, tp = 1), which training runs
+— and of ``self_attention`` (head layout), which training runs
 through the blocked flash attention.
 
-At tp > 1 (serving) the projections are stacked on the PE axis
-(``weights.shard_for_tp``): rank ``t`` holds query heads ``t * hpr ..``
-(hpr = H / tp) and, when ``n_kv % tp == 0``, KV heads ``t * kvpr ..``;
-otherwise the reference keeps ``wk``/``wv`` replicated and each rank
-slices the one KV head its query group reads, ``my_kv = (t * hpr) //
-group`` — ``shard_for_tp`` pre-slices that head per rank, the same
-numbers.  ``tp_mm`` is the per-rank product, one batched matmul over
-the PE axis, and ``out_proj`` the row-parallel output projection,
-partial sums the caller reduces with ``ctx.tp_comm.psum``.
+At tp > 1 the projections are stacked on the PE axis
+(``weights.shard_for_tp``, serving's and training's one layout): rank
+``t`` holds query heads ``t * hpr ..`` (hpr = H / tp) and, when ``n_kv %
+tp == 0``, KV heads ``t * kvpr ..``; otherwise the reference keeps
+``wk``/``wv`` replicated, so every PE holds them whole and slices the
+one KV head its query group reads, ``my_kv = (t * hpr) // group``, in
+the forward (``_kv_weight``).  ``tp_mm`` is the per-rank product, one
+batched matmul over the PE axis, and ``out_proj`` the row-parallel
+output projection, partial sums the caller reduces.
+
+``self_attention`` at tp > 1 (training) is the reference's head layout
+under sequence parallelism: ``sp_gather`` of the (tp, b, t/tp, d)
+shards, each PE's projections, qk-norm and rope, ONE flash launch over
+every PE's heads (``(tp b, t, H/tp, dh)``: the PE axis folded into the
+batch), ``out_proj`` and ``sp_scatter`` of its partial sums.  A
+replicated ``wk``/``wv``'s gradient lands in the sliced head's columns
+of each PE's copy; the train step's TP completion sums the copies, as
+the reference's ``tp_fix`` does (its attention calls no
+``grad_sync``).  The ctx layout (heads not dividing tp) raises: ROADMAP
+A10.
 
 The contiguous-cache decode path (``init_cache``,
 ``decode_self_attention``) runs at tp = 1, the reference's head
@@ -23,7 +34,7 @@ layout: a bf16 cache ``(b, S, H_kv, dh)`` whatever the compute dtype,
 reference's ctx layout (heads not dividing tp, the cache sequence-
 sharded over the ranks and merged by ``flash_combine``) exists only at
 tp > 1, which ``models.lm``'s decode entry points refuse: it comes with
-TP training (ROADMAP A10).
+ROADMAP A10's next slice.
 
 Cross attention (whisper's decoder, the vlm's image layers) at tp = 1,
 the reference's head layout: ``cross_kv`` projects the encoder output
@@ -39,7 +50,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.parallel.ctx import tp_of
+from repro_torch.parallel.ctx import A10_TP, sp_gather, sp_scatter, tp_of
 
 from .common import apply_rope, rmsnorm
 from .flash import blocked_attention, decode_attention
@@ -53,6 +64,20 @@ def tp_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(x.shape[:-1] + (n,))
 
 
+def _kv_weight(w: torch.Tensor, cfg, ctx) -> torch.Tensor:
+    """Each PE's K or V projection (tp, d, kvpr dh): its column shard as
+    stacked when ``n_kv % tp == 0``; else, from its whole replicated
+    copy, the columns of the KV head its query group reads, ``my_kv =
+    (rank hpr) // group``, as the reference's ``dynamic_slice``."""
+    tp = ctx.tp_size
+    if cfg.n_kv % tp == 0:
+        return w
+    hpr, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv
+    my_kv = (ctx.tp_rank(w.device).long() * hpr) // group
+    return w.unflatten(-1, (cfg.n_kv, cfg.head_dim))[
+        torch.arange(tp, device=w.device), :, my_kv]
+
+
 def project_qkv(p: dict, xf: torch.Tensor, pos: torch.Tensor, cfg,
                 ctx=None):
     """xf (b, t, d) in the compute dtype; pos (b, t) or (t,) absolute
@@ -64,8 +89,8 @@ def project_qkv(p: dict, xf: torch.Tensor, pos: torch.Tensor, cfg,
     if tp_of(ctx) > 1:
         lead = xf.shape[:-1]
         q = tp_mm(xf, p["wq"]).reshape(lead + (-1, dh))
-        k = tp_mm(xf, p["wk"]).reshape(lead + (-1, dh))
-        v = tp_mm(xf, p["wv"]).reshape(lead + (-1, dh))
+        k = tp_mm(xf, _kv_weight(p["wk"], cfg, ctx)).reshape(lead + (-1, dh))
+        v = tp_mm(xf, _kv_weight(p["wv"], cfg, ctx)).reshape(lead + (-1, dh))
     else:
         b, t, _ = xf.shape
         q = (xf @ p["wq"].to(xf.dtype)).reshape(b, t, cfg.n_heads, dh)
@@ -93,8 +118,26 @@ def out_proj(o: torch.Tensor, wo: torch.Tensor, ctx=None) -> torch.Tensor:
 def self_attention(p: dict, x: torch.Tensor, ctx, cfg, *, causal=True,
                    window: Optional[int] = None, pos0: int = 0):
     """x (b, t, d) -> (b, t, d): projection at positions ``pos0 + i``,
-    blocked attention (``ctx.attn_impl``), output projection."""
+    blocked attention (``ctx.attn_impl``), output projection.  At tp >
+    1 (training), x (tp, b, t/tp, d) sequence shards -> the same layout
+    (module docstring)."""
     cd = ctx.compute_dtype
+    tp = tp_of(ctx)
+    if tp > 1:
+        if cfg.attn_layout(tp) != "head":
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.n_heads} heads at tp={tp} take the ctx "
+                f"attention layout: {A10_TP}")
+        xf = sp_gather(x, ctx).to(cd)                     # (tp, b, t, d)
+        _, b, t, _ = xf.shape
+        pos = pos0 + torch.arange(t, device=xf.device)
+        q, k, v = project_qkv(p, xf, pos, cfg, ctx)
+        o = blocked_attention(q.flatten(0, 1), k.flatten(0, 1),
+                              v.flatten(0, 1), causal=causal, window=window,
+                              block_q=ctx.attn_block_q,
+                              block_kv=ctx.attn_block_kv, impl=ctx.attn_impl)
+        return sp_scatter(out_proj(o.unflatten(0, (tp, b)), p["wo"], ctx),
+                          ctx)
     xf = x.to(cd)
     b, t, _ = xf.shape
     pos = pos0 + torch.arange(t, device=xf.device)

@@ -26,6 +26,10 @@ def ninit(gen: torch.Generator, shape, scale: Optional[float] = None,
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim; ``scale`` (d,), or (tp, d) in the TP
+    layout against x (tp, ..., d): its leading axes align with x's."""
+    scale = scale.reshape(scale.shape[:-1] + (1,) * (x.dim() - scale.dim())
+                          + scale.shape[-1:])
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * scale.float()

@@ -11,8 +11,16 @@ and activations carry that axis first: the lookup is each shard's
 masked gather, then ``ctx.tp_comm.psum``; the head gives each shard's
 logits ``(tp, ..., V/tp)``; the candidates are each shard's stable top
 ``k`` with global indices, merged by ``ctx.tp_comm.top_k_merge`` (ties
-to the lowest global index), so every PE holds the same list.  The
-cross-entropy trains at tp = 1 only (ROADMAP A10).
+to the lowest global index), so every PE holds the same list.
+
+In TP training the lookup's partial rows are not psummed
+(``reduce=False``): ``lm._embed_sp`` reduce-scatters them over the
+sequence.  The cross-entropy is the reference's chunked vocab-parallel
+one: ``sp_gather`` of the final hidden states, each chunk's logits on
+each PE's vocab shard, the row max through ``tp_comm.pmax`` (detached,
+as the reference stops its gradient), the exp-sums and the target
+logits through ``tp_comm.psum``, each chunk recomputed in the backward
+(``torch.utils.checkpoint``).  Every PE holds the same per-token losses.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.ctx import tp_of
+from repro_torch.parallel.ctx import sp_gather, tp_of
+
 
 def _ranks(ctx, like: torch.Tensor) -> torch.Tensor:
     """(tp, 1, ..., 1) ranks broadcasting against ``like`` (tp, ...)."""
@@ -30,12 +39,14 @@ def _ranks(ctx, like: torch.Tensor) -> torch.Tensor:
 
 
 def embed_lookup(params: dict, ids: torch.Tensor,
-                 dtype: torch.dtype, ctx=None) -> torch.Tensor:
+                 dtype: torch.dtype, ctx=None,
+                 reduce: bool = True) -> torch.Tensor:
     """ids (b, t) -> rows (b, t, d) in ``dtype``.  Ids outside the table
     give zero rows, as the reference's masked shard gather does.  At
     tp > 1 the table is ``(tp, V/tp, d)``: each shard gathers the ids in
     its range, and the psum over the PE axis gives every PE the rows,
-    ``(tp, b, t, d)``."""
+    ``(tp, b, t, d)``; ``reduce=False`` returns the shards' partial rows
+    unreduced."""
     table = params["table"]
     if tp_of(ctx) > 1:
         tp, vloc, d = table.shape
@@ -45,7 +56,7 @@ def embed_lookup(params: dict, ids: torch.Tensor,
         rows = table.reshape(tp * vloc, d)[flat]
         rows = torch.where(ok[..., None], rows,
                            torch.zeros_like(rows)).to(dtype)
-        return ctx.tp_comm.psum(rows)
+        return ctx.tp_comm.psum(rows) if reduce else rows
     vloc = table.shape[0]
     ids = ids.long()
     ok = (ids >= 0) & (ids < vloc)
@@ -79,6 +90,43 @@ def _chunk_ce(logits: torch.Tensor, targets: torch.Tensor,
     return -(tl - mx - torch.log(ssum.clamp_min(1e-30)))
 
 
+def _chunk_ce_tp(logits: torch.Tensor, targets: torch.Tensor, vloc: int,
+                 ctx) -> torch.Tensor:
+    """The reference's ``_chunk_ce`` on every PE's shard: logits (tp, n,
+    V/tp) f32, targets (n,) -> per-token CE (tp, n), the same on every
+    PE."""
+    mx = ctx.tp_comm.pmax(logits.detach().amax(-1))
+    ssum = ctx.tp_comm.psum(torch.exp(logits - mx[..., None]).sum(-1))
+    loc = targets[None] - _ranks(ctx, logits)[..., 0] * vloc
+    ok = (loc >= 0) & (loc < vloc)
+    tl = torch.take_along_dim(logits, loc.clamp(0, vloc - 1)[..., None],
+                              dim=-1)[..., 0]
+    tl = ctx.tp_comm.psum(torch.where(ok, tl, torch.zeros_like(tl)))
+    return -(tl - mx - torch.log(ssum.clamp_min(1e-30)))
+
+
+def _lm_head_loss_tp(table, x, targets, ctx, chunk) -> torch.Tensor:
+    """``lm_head_loss`` at tp > 1: table (tp, V/tp, d), x (tp, b, t/tp, d)
+    sequence shards -> (tp,) losses, the chunked vocab-parallel CE
+    (module docstring); the gathered mode is ported at tp = 1 only."""
+    if ctx.ce_mode == "gathered":
+        raise NotImplementedError("ce_mode='gathered' runs at tp = 1; at "
+                                  "tp > 1 the CE is vocab-parallel")
+    tp, vloc, d = table.shape
+    xf = sp_gather(x, ctx).reshape(tp, -1, d)            # (tp, b t, d)
+    tg = targets.reshape(-1).long()
+    wt = table.to(ctx.compute_dtype).transpose(1, 2)
+
+    def chunk_loss(xc, tc):
+        return _chunk_ce_tp(torch.bmm(xc, wt).float(), tc, vloc, ctx)
+
+    n = xf.shape[1]
+    chunk = min(chunk or ctx.ce_chunk, n)
+    losses = [checkpoint(chunk_loss, xf[:, s:s + chunk], tg[s:s + chunk],
+                         use_reentrant=False) for s in range(0, n, chunk)]
+    return torch.cat(losses, dim=1).mean(-1)
+
+
 def lm_head_loss(params: dict, x: torch.Tensor, targets: torch.Tensor, ctx,
                  chunk: Optional[int] = None) -> torch.Tensor:
     """x (b, t, d) final hidden states, targets (b, t) -> mean CE over the
@@ -86,8 +134,11 @@ def lm_head_loss(params: dict, x: torch.Tensor, targets: torch.Tensor, ctx,
     tokens, each chunk recomputed in the backward
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``),
     so at most one chunk's (tokens x vocab) logits live at a time.
-    ``gathered``: the naive full-logits path."""
+    ``gathered``: the naive full-logits path (tp = 1).  At tp > 1, x
+    (tp, b, t/tp, d) -> every PE's loss, (tp,) (module docstring)."""
     table = params["table"]
+    if tp_of(ctx) > 1:
+        return _lm_head_loss_tp(table, x, targets, ctx, chunk)
     vloc = table.shape[0]
     b, t, d = x.shape
     xf = x.reshape(b * t, d)

@@ -34,9 +34,21 @@ Families and their trees:
                attends to the image embeddings (``img_embeds``, (b,
                img_tokens, d)) through ``attention.cross_kv``.
 A MoE block's ``mlp`` holds the router, the stacked experts and the
-optional shared expert (``mlp.moe_shapes``); MoE is served (decode) but
-not trained: its ``forward`` raises (ROADMAP A10).  The
-encoder-decoder family is ``models.encdec``.
+optional shared expert (``mlp.moe_shapes``); it trains (``mlp.moe_apply``
+differentiates), prefills and decodes.  The encoder-decoder family is
+``models.encdec``.
+
+At tp > 1 the dense and MoE families train in the head attention layout
+(``weights.shard_for_tp``'s stacked parameters): the embedding's
+partial rows are reduce-scattered over the sequence (``_embed_sp``),
+every block runs under sequence parallelism and ``forward``
+returns each PE's sequence shard (tp, b, t/tp, d); ``loss_fn`` returns
+every PE's loss (tp,), and with ``for_grad`` the reference's
+single-seed mask: the loss on TP rank 0, zero elsewhere, so that the
+backward (seeded on every PE) computes each PE's replica-local partial
+gradient once, which the train step completes per spec.  The other
+families, the ctx layout and the contiguous-cache decode raise there
+(ROADMAP A10).
 
 Decode keeps the reference's state layout, each per-layer leaf stacked
 on a leading layer axis: a dense layer's bf16 KV cache (``attention.
@@ -67,6 +79,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.parallel.ctx import A10_TP, sp_gather, sp_scatter, tp_of
 from repro_torch.tree import STACKED, tree_map
 
 from . import rwkv as rk
@@ -79,17 +92,14 @@ from .mlp import is_glu, mlp_apply, moe_apply, moe_shapes
 
 ACTS = ("swiglu", "geglu", "relu2", "gelu")
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-_REFUSALS = {"moe": "MoE training arrives with ROADMAP A10",
-             "encdec": "the encoder-decoder family is models.encdec's"}
+_REFUSALS = {"encdec": "the encoder-decoder family is models.encdec's"}
 
 
 def _check_decode_tp(ctx) -> None:
     """The contiguous-cache decode runs at tp = 1; raise otherwise."""
     if ctx is not None and ctx.tp_size > 1:
         raise NotImplementedError(
-            f"the contiguous-cache decode at tp={ctx.tp_size} (the "
-            f"reference's sequence-sharded ctx layout) arrives with TP "
-            f"training, ROADMAP A10")
+            f"the contiguous-cache decode at tp={ctx.tp_size}: {A10_TP}")
 
 
 def _refuse(cfg, what: str):
@@ -287,8 +297,9 @@ def _dense_block_apply(p: dict, x: torch.Tensor, ctx, cfg,
     h = self_attention(p["attn"], norm_apply("rms", p["ln1"], x), ctx, cfg,
                        causal=causal, window=cfg.swa_window)
     x = x + h
-    m = mlp_apply(p["mlp"], norm_apply("rms", p["ln2"], x).to(
-        ctx.compute_dtype), cfg)
+    y = norm_apply("rms", p["ln2"], x).to(ctx.compute_dtype)
+    m = (moe_apply(p["mlp"], y, cfg, ctx, sp=True) if cfg.moe
+         else mlp_apply(p["mlp"], y, cfg, ctx, sp=True))
     return x + m
 
 
@@ -335,9 +346,22 @@ def _need_img(cfg, img_embeds) -> None:
                          f"training")
 
 
+def _embed_sp(params: dict, ids: torch.Tensor, ctx) -> torch.Tensor:
+    """ids (b, t), the same on every PE -> the embedding rows, at tp > 1
+    sequence-sharded (tp, b, t/tp, d): each vocab shard's partial rows
+    for every token, reduced and scattered over the sequence in one
+    ``sp_scatter``, the reference's ``_embed_sp``."""
+    if tp_of(ctx) == 1:
+        return embed_lookup(params["embed"], ids, ctx.compute_dtype)
+    return sp_scatter(embed_lookup(params["embed"], ids, ctx.compute_dtype,
+                                   ctx, reduce=False), ctx)
+
+
 def forward(params: dict, ids: torch.Tensor, ctx, cfg,
             img_embeds=None) -> torch.Tensor:
-    """ids (b, t) -> final hidden states (b, t, d).  With ``ctx.remat``
+    """ids (b, t) -> final hidden states (b, t, d); at tp > 1 (the dense
+    and MoE families) each PE's sequence shard (tp, b, t/tp, d) (module
+    docstring).  With ``ctx.remat``
     each stacked layer runs under ``torch.utils.checkpoint`` — its
     activations are recomputed in the backward, as the reference's
     checkpointed ``_scan`` body — so its forward runs twice per step.
@@ -345,12 +369,15 @@ def forward(params: dict, ids: torch.Tensor, ctx, cfg,
     ``cross_kv``) run outside the scans in the reference, unchecked, and
     so here: once a group."""
     fam = cfg.family
-    if fam not in ("dense", "ssm", "hybrid", "vlm"):
+    if fam not in FAMILIES:
         _refuse(cfg, "runs the forward of")
+    if tp_of(ctx) > 1 and fam not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: the {fam!r} family at "
+                                  f"tp={ctx.tp_size}: {A10_TP}")
     _need_img(cfg, img_embeds)
-    x = embed_lookup(params["embed"], ids, ctx.compute_dtype)
+    x = _embed_sp(params, ids, ctx)
     blocks = params["blocks"]
-    if fam == "dense":
+    if fam in ("dense", "moe"):
         x = _run(blocks, 0, n_blocks(blocks), x, _dense_block_apply, ctx,
                  cfg)
     elif fam == "vlm":
@@ -381,15 +408,19 @@ def loss_fn(params: dict, batch: dict, ctx, cfg,
     img_tokens, d)) -> mean next-token CE.  The head is the embedding
     table when ``cfg.tie_embeddings``.  The loss of one DP
     replica's rows: the train step takes the reference's display value,
-    the DP mean, through ``dp_comm``; at tp = 1 the reference's
-    single-seed mask is the identity, so ``for_grad`` changes nothing;
-    it is kept for the reference's signature."""
-    del for_grad
+    the DP mean, through ``dp_comm``.  At tp > 1 every PE's loss (tp,),
+    and with ``for_grad`` the single-seed loss, masked to TP rank 0, as
+    the reference's (its gradient is the sum's: ``train.grad.backward``
+    seeds every PE with one); at tp = 1 the mask is the identity."""
     tokens = batch["tokens"]
     ids, targets = tokens[:, :-1], tokens[:, 1:]
     x = forward(params, ids, ctx, cfg, img_embeds=batch.get("img_embeds"))
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    return lm_head_loss(head, x, targets, ctx)
+    loss = lm_head_loss(head, x, targets, ctx)
+    if for_grad and tp_of(ctx) > 1:
+        loss = torch.where(ctx.tp_rank(loss.device) == 0, loss,
+                           torch.zeros_like(loss))
+    return loss
 
 
 def _decode_mlp(p: dict, x: torch.Tensor, cfg, ctx=None,
@@ -575,5 +606,8 @@ def prefill(params: dict, ids: torch.Tensor, ctx, cfg,
             img_embeds=None) -> torch.Tensor:
     """The full-sequence forward for serving: the last position's hidden
     state (b, d), as the reference's ``prefill`` (the decode cache is not
-    built from it there either)."""
-    return forward(params, ids, ctx, cfg, img_embeds=img_embeds)[:, -1]
+    built from it there either); at tp > 1 every PE's copy, (tp, b, d),
+    after ``sp_gather``."""
+    x = sp_gather(forward(params, ids, ctx, cfg, img_embeds=img_embeds),
+                  ctx)
+    return x[..., -1, :]

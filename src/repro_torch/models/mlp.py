@@ -33,13 +33,25 @@ Capacity is counted per serving replica: ``StackedExec`` folds R
 replicas into the batch rows, but each of the reference's replicas (a
 data-parallel rank) routes only its own rows, so ``moe_apply`` takes
 ``replicas`` and routes each replica's ``B * t`` tokens on their own.
+
+Training differentiates the same code: the gradient flows back through
+the buffer scatter (``index_put_`` with accumulation), the gather of
+the experts' outputs, the gates and the router; a dropped pair
+contributes zeros, so its gradient is zero, and a padded expert (logit
+-1e30, never chosen) gets exactly zero gradient.  The reference's
+Switch auxiliary loss is never added to its loss, so none is computed.
+Capacity in training is counted over each microbatch of each DP replica
+(the rows one reference device routes in one scan step), token-major.
+At tp > 1 the router is stacked per PE like every leaf
+(``weights.shard_for_tp``), and in training ``moe_apply(..., sp=True)``
+takes the sequence-parallel routes of the reference (its docstring).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.ctx import tp_of
+from repro_torch.parallel.ctx import sp_gather, sp_scatter, tp_of
 
 from .attention import tp_mm
 from .common import act_fn
@@ -55,17 +67,23 @@ def _glu_act(act: str):
     return act_fn("silu" if act == "swiglu" else "gelu")
 
 
-def mlp_apply(p: dict, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, cfg, ctx=None,
+              sp: bool = False) -> torch.Tensor:
     """x (..., d) in the compute dtype -> (..., d): ``(act(x @ wg) *
     (x @ wu)) @ wd`` for a GLU, ``act(x @ wu) @ wd`` otherwise.  geglu's
     gelu is the tanh approximation, as ``jax.nn.gelu``'s default.  At
     tp > 1, x (tp, ..., d) -> the psum of the ranks' partial outputs,
-    (tp, ..., d)."""
+    (tp, ..., d); with ``sp`` (training) x is (tp, b, t/tp, d) sequence
+    shards, gathered in by ``sp_gather`` and the partials
+    reduce-scattered out by ``sp_scatter``, as the reference's."""
     if tp_of(ctx) > 1:
+        if sp:
+            x = sp_gather(x, ctx)
         u = tp_mm(x, p["wu"])
         h = (_glu_act(cfg.act)(tp_mm(x, p["wg"])) * u if is_glu(cfg.act)
              else act_fn(cfg.act)(u))
-        return ctx.tp_comm.psum(tp_mm(h, p["wd"]))
+        out = tp_mm(h, p["wd"])
+        return sp_scatter(out, ctx) if sp else ctx.tp_comm.psum(out)
     u = x @ p["wu"].to(x.dtype)
     if is_glu(cfg.act):
         h = _glu_act(cfg.act)(x @ p["wg"].to(x.dtype)) * u
@@ -133,7 +151,7 @@ def expert_ffn(wu, wg, wd, xb: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, ctx=None,
-              replicas: int = 1) -> torch.Tensor:
+              replicas: int = 1, sp: bool = False) -> torch.Tensor:
     """x (b, t, d) in the compute dtype -> (b, t, d): the reference's
     ``moe_apply`` with sequence parallelism off, as its serving engine
     calls it.  Capacity ``int(n k cf / E) + 1`` slots per expert for n =
@@ -143,13 +161,27 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ctx=None,
     expert, if any, is added last.  At tp > 1, x (tp, R b, t, d) with
     the rows of ``replicas`` R replicas replica-major -> (tp, R b, t,
     d), each replica routed alone (n = b t), through
-    ``ctx.moe_dispatch``."""
+    ``ctx.moe_dispatch``.  With ``sp`` (training, one replica) x is (tp,
+    b, t/tp, d) sequence shards: the einsum route gathers the sequence
+    (``sp_gather``), routes all b t tokens on every rank, runs the local
+    experts and reduce-scatters the partials (``sp_scatter``); the
+    alltoall route routes each rank's own shard (capacity from its n =
+    b t / tp tokens) and its output stays sharded, as the reference's
+    ``_moe_alltoall``; the shared expert is column -> row parallel
+    between ``sp_gather`` and ``sp_scatter``.  Every step is
+    differentiable: the scatter into the expert buffers, the gather
+    back, the gates and the router (a dropped pair's gradient is zero,
+    a padded expert's too)."""
     m = cfg.moe
     if m.shared_ff and not is_glu(cfg.act):
         raise ValueError(f"the shared expert is a GLU; act {cfg.act!r} is "
                          f"not one")
     tp = tp_of(ctx)
-    if tp > 1:
+    if tp > 1 and sp:
+        if replicas != 1:
+            raise ValueError("training routes one replica at a time")
+        out = _moe_train_tp(p, x, cfg, ctx)
+    elif tp > 1:
         out = _moe_tp(p, x, cfg, ctx, int(replicas))
     else:
         if replicas != 1:
@@ -158,8 +190,23 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ctx=None,
         out = _moe_routed(p, x.reshape(1, 1, b * t, d), cfg, 1, None)
         out = out.reshape(b, t, d)
     if m.shared_ff:
-        out = out + mlp_apply(p["shared"], x, cfg, ctx)
+        out = out + mlp_apply(p["shared"], x, cfg, ctx, sp=sp)
     return out
+
+
+def _moe_train_tp(p, x, cfg, ctx) -> torch.Tensor:
+    """The routed experts in TP training: x (tp, b, t_loc, d) -> the same
+    layout (``moe_apply``'s ``sp``)."""
+    tp = ctx.tp_size
+    if ctx.moe_dispatch == "alltoall":
+        _, b, tl, d = x.shape
+        out = _moe_routed(p, x.reshape(tp, 1, b * tl, d), cfg, tp, ctx,
+                          alltoall=True)
+        return out.reshape(x.shape)
+    xf = sp_gather(x, ctx)                                # (tp, b, t, d)
+    _, b, t, d = xf.shape
+    out = _moe_routed(p, xf.reshape(tp, 1, b * t, d), cfg, tp, ctx)
+    return sp_scatter(out.reshape(xf.shape), ctx)
 
 
 def _moe_tp(p, x, cfg, ctx, replicas: int) -> torch.Tensor:
@@ -191,7 +238,9 @@ def _moe_routed(p, x, cfg, tp: int, ctx, alltoall: bool = False):
     ep = m.experts_padded(1)
     e_loc, k = ep // tp, m.top_k
     _, reps, n, d = x.shape
-    gate_k, idx_k = route(p["router"], x, cfg)            # (tp, R, n, k)
+    # the router (d, E), or each PE's copy (tp, d, E) against x (tp, R, ..)
+    router = p["router"] if tp == 1 else p["router"].unsqueeze(1)
+    gate_k, idx_k = route(router, x, cfg)                 # (tp, R, n, k)
     cap = int(n * k * m.capacity_factor / ep) + 1
     flat_e = idx_k.reshape(tp, reps, n * k)
     pos = positions_in_expert(idx_k, ep)

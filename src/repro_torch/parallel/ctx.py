@@ -21,7 +21,18 @@ activations ``(tp, ...)`` and weights stacked once ``(tp, ...)``
 ``top_k_merge`` where the reference does.  At ``tp_size == 1`` the
 communicator is the identity and the layers take unstacked tensors,
 as before; ``tp_of`` is the one test of which layout a layer takes.
-The trainer runs at tp = 1 only (tp > 1: ROADMAP A10).
+
+The trainer runs at tp > 1 too, for the dense and MoE families in the
+head attention layout, on the same stacked parameters as serving
+(``weights.shard_for_tp``: every leaf stacked per PE, a replicated leaf
+one copy a PE, so that each PE's gradient is its own row), with the
+activations sequence-sharded between the layers, as the reference's
+launcher sets ``sp = tp > 1``.  ``sp_gather`` and ``sp_scatter`` are the
+reference's Megatron boundary operators; the layers call them only in
+training (``mlp_apply`` / ``moe_apply``'s ``sp``), and the collectives
+they call differentiate by their transposes (``comm.autograd``).
+Serving reduces with a psum, as the reference's serving step with SP
+off.
 
 ``moe_dispatch`` picks the MoE layer's route between the TP ranks, as
 the reference's field of the same name: ``"einsum"`` (every rank routes
@@ -43,6 +54,12 @@ from typing import Optional
 import torch
 
 from repro_torch.comm import Communicator, DispatchTable, make_communicator
+
+
+# what stays refused at tp > 1, and where it arrives
+A10_TP = ("the ctx attention layout, the rwkv6, zamba2, whisper and vlm "
+          "families and the contiguous-cache decode at tp > 1 arrive with "
+          "ROADMAP A10's next slice")
 
 
 def tp_of(ctx) -> int:
@@ -122,3 +139,22 @@ class ParallelCtx:
         if self._DP_COMM_FIELDS & kw.keys():
             kw.setdefault("dp_comm", None)
         return dataclasses.replace(self, **kw)
+
+
+def sp_gather(x: torch.Tensor, ctx, axis: int = 1) -> torch.Tensor:
+    """Sequence-parallel gather of stacked (tp, b, t/tp, d) shards ->
+    (tp, b, t, d) (``axis`` names the shard's sequence axis): the
+    Megatron 'g' operator, a tiled ``all_gather``; the identity at
+    tp == 1."""
+    if tp_of(ctx) == 1:
+        return x
+    return ctx.tp_comm.all_gather(x, axis=axis, tiled=True)
+
+
+def sp_scatter(x: torch.Tensor, ctx, axis: int = 1) -> torch.Tensor:
+    """Sequence-parallel reduce-scatter of stacked partial sums (tp, b, t,
+    d) -> reduced (tp, b, t/tp, d): the Megatron 'g-bar' operator, a
+    ``psum_scatter``; the identity at tp == 1."""
+    if tp_of(ctx) == 1:
+        return x
+    return ctx.tp_comm.psum_scatter(x, axis=axis)

@@ -35,8 +35,6 @@ from repro_torch.comm.bucketing import (leaf_metas, pack, plan_buckets,
                                         unpack_bucket)
 from repro_torch.tree import leaves, ref_groups, ref_tree, tree_map
 
-_A10 = ("tensor-parallel training arrives with ROADMAP A10")
-
 
 def trainable(params: Any) -> Any:
     """The same tree of aliases (shared storage, no copy) that are leaves
@@ -46,9 +44,11 @@ def trainable(params: Any) -> Any:
 
 def backward(loss_fn, params, batch, ctx, cfg) -> torch.Tensor:
     """Run ``loss_fn`` and its backward, adding the gradients into the
-    parameters' ``.grad``.  Returns the detached loss."""
+    parameters' ``.grad``.  Returns the detached loss (at tp > 1 every
+    PE's masked loss, (tp,), each PE seeded with one, as ``jax.grad``
+    seeds every device)."""
     loss = loss_fn(params, batch, ctx, cfg, for_grad=True)
-    loss.backward()
+    loss.sum().backward()
     return loss.detach()
 
 
@@ -86,9 +86,10 @@ def replica_grads(loss_fn, params, batch, ctx, cfg, microbatches: int = 1):
     (the global batch: a dict whose every value — ``tokens``, and
     ``frames`` or ``img_embeds`` — is split by rows alike), its
     microbatches accumulated: ``(lmask (dp,), rows)`` with ``rows`` the
-    stacked ``grad_rows``.  Each replica's loss and gradient are its
-    microbatches' mean, as the reference's scan gives them.  The
-    parameters' ``.grad`` is None after."""
+    stacked ``grad_rows`` (at tp > 1 ``lmask`` is (dp, tp)).  Each
+    replica's loss and gradient are its microbatches' mean, as the
+    reference's scan gives them.  The parameters' ``.grad`` is None
+    after."""
     dp = ctx.dp_size
     n = batch["tokens"].shape[0]
     if n % (dp * microbatches):
@@ -168,17 +169,43 @@ def overlapped_grad_sync(grads: Any, comm, *, bucket_bytes: int = 0,
     return grads
 
 
+def tp_axis(group) -> int:
+    """The PE axis of a gradient row's leaf in the TP training layout:
+    behind the DP and layer axes of a block leaf (a ``ref_groups`` list),
+    behind the DP axis of any other."""
+    return 2 if isinstance(group, list) else 1
+
+
+@torch.no_grad()
+def tp_complete(grads: Any, params: Any, specs: Any, ctx) -> Any:
+    """The reference's ``tp_fix``: each leaf ``specs`` (``registry.
+    tp_specs``, in the reference's stacked tree) marks replicated (None)
+    has its PE rows psummed through ``ctx.tp_comm``, IN PLACE; a
+    TP-sharded leaf is left as it is.  ``params`` gives each leaf's
+    layout (``ref_groups``).  The identity at tp = 1."""
+    if ctx.tp_size == 1:
+        return grads
+    for group, g, spec in zip(ref_groups(params), leaves(grads),
+                              leaves(specs)):
+        if spec is None:
+            ax = tp_axis(group)
+            g.copy_(ctx.tp_comm.psum(g.movedim(ax, 0)).movedim(0, ax))
+    return grads
+
+
 def combine_grads(grads: Any, specs: Any, ctx, *, bucket_bytes: int = 0,
                   compress: str = "none", comp_state=None,
-                  overlap: bool = False):
-    """DP-mean the stacked replica grads (overlapped through the
-    nonblocking pipeline when ``overlap``): the reference's four
-    branches, taken at dp > 1 only.  ``specs`` are the reference's
-    PartitionSpecs, read only by its TP completion (tp > 1: A10)."""
-    del specs
+                  overlap: bool = False, params: Any = None):
+    """Complete the stacked replica grads per spec at tp > 1
+    (``tp_complete``, which needs the ``params`` they belong to), then
+    DP-mean them (overlapped through the nonblocking pipeline when
+    ``overlap``): the reference's four branches, taken at dp > 1 only.
+    ``specs`` is ``registry.tp_specs``' tree, read at tp > 1 only."""
     if ctx.tp_size > 1:
-        raise NotImplementedError(f"combine_grads at tp={ctx.tp_size}: "
-                                  f"{_A10}")
+        if params is None or specs is None:
+            raise ValueError("combine_grads at tp > 1 completes the grads "
+                             "per spec: pass specs= and params=")
+        tp_complete(grads, params, specs, ctx)
     if ctx.dp_size > 1:
         comm = ctx.dp_comm
         if compress != "none":
@@ -195,19 +222,31 @@ def combine_grads(grads: Any, specs: Any, ctx, *, bucket_bytes: int = 0,
     return grads, comp_state
 
 
+def display_loss(lmask: torch.Tensor, ctx) -> torch.Tensor:
+    """The reference's display value ``dp_comm.pmean(tp_comm.psum(
+    lmask))`` of the stacked single-seed losses: (dp,) at tp = 1, (dp,
+    tp) at tp > 1 (the same on every PE)."""
+    if ctx.tp_size > 1:
+        lmask = ctx.tp_comm.psum(lmask.T).T
+    return ctx.dp_comm.pmean(lmask)
+
+
 def loss_and_grad(loss_fn, params, batch, ctx, cfg, specs=None,
                   **combine_kw):
-    """value_and_grad with the DP combine: ``(display_loss, grads,
-    comp_state)``, each stacked over the DP replicas as the reference's
-    PEs return them: the loss ``dp_comm.pmean(tp_comm.psum(loss))``
-    ``(dp,)`` (tp = 1), the grads in the reference's layout ``(dp, ...)``
-    (``grad_rows``; reduced at dp > 1).  ``batch`` is the global batch,
-    each replica taking its block of rows."""
-    if ctx.tp_size > 1:
-        raise NotImplementedError(f"loss_and_grad at tp={ctx.tp_size}: "
-                                  f"{_A10}")
+    """value_and_grad with the single-seed loss and the spec combine:
+    ``(display_loss, grads, comp_state)``, each stacked over the DP
+    replicas (and PEs) as the reference's devices return them: the loss
+    ``display_loss`` (dp,) or (dp, tp), the grads in the reference's
+    layout ``(dp, ...)`` (``grad_rows``; completed over TP per ``specs``
+    — ``registry.tp_specs(cfg, tp)`` when not given — and reduced at
+    dp > 1).  ``batch`` is the global batch, each replica taking its
+    block of rows."""
+    if ctx.tp_size > 1 and specs is None:
+        from repro_torch.models.registry import tp_specs
+        specs = tp_specs(cfg, ctx.tp_size)
     lmask, grads = replica_grads(loss_fn, params, batch, ctx, cfg)
-    loss = ctx.dp_comm.pmean(lmask)      # tp_comm.psum: the identity at 1
+    loss = display_loss(lmask, ctx)
     with torch.no_grad():
-        grads, comp_state = combine_grads(grads, specs, ctx, **combine_kw)
+        grads, comp_state = combine_grads(grads, specs, ctx, params=params,
+                                          **combine_kw)
     return loss, grads, comp_state

@@ -16,6 +16,13 @@ The counterpart of ``repro.train.optimizer``:
           ``ctx.dp_comm.all_gather``: the communicator is the optimizer's
           wire.  A padded chunk's tail stays 0 (its gradient is 0).
 
+At tp > 1 (the training layout, every leaf stacked per PE) zero=0 is
+elementwise on the PE-stacked tensors; zero=1 chunks each PE's LOCAL
+leaf over DP, as each reference device chunks its shard: ``m``, ``v``
+and ``master`` are ``(dp, tp, c)`` (``(dp, c)`` at tp = 1), the
+reduce-scatter and the all-gather run through ``dp_comm`` with the PE
+axis carried along.
+
 ``adamw_update`` takes the gradients stacked over the replicas, in the
 reference's layout (``grad.grad_rows``): zero=0 reads row 0 (the rows
 are reduced and equal), zero=1 every row (each replica's own gradient).
@@ -58,11 +65,20 @@ def _chunk(flat: torch.Tensor, dp: int) -> torch.Tensor:
         flat.shape[0], dp, c)
 
 
-def _my_chunk(flat: torch.Tensor, dp: int) -> torch.Tensor:
-    """Every PE's own chunk of its row of a stacked flat ``(dp, numel)``:
-    ``(dp, c)``, row ``r`` chunk ``r`` of row ``r`` (``_my_chunk`` of the
-    reference, whose PE reads its chunk at its DP rank)."""
-    return _chunk(flat, dp).diagonal(dim1=0, dim2=1).T
+def _flat(group, tp: int) -> torch.Tensor:
+    """A reference leaf's per-PE flat view ``(tp, numel)``: its per-layer
+    tensors' PE rows concatenated (layer-major, as the reference's
+    stacked local leaf)."""
+    return torch.cat([p.detach().float().reshape(tp, -1)
+                      for p in _parts(group)], dim=1)
+
+
+def _grad_flat(g: torch.Tensor, group, tp: int) -> torch.Tensor:
+    """The gradient rows of a reference leaf, ``(dp, [L,] [tp,] ...)``,
+    as ``(dp, tp, numel)`` per PE, in ``_flat``'s order."""
+    if tp > 1 and isinstance(group, list):
+        g = g.movedim(2, 1)
+    return g.float().reshape(g.shape[0], tp, -1)
 
 
 def adamw_init(params: Any, ctx, opt_cfg: AdamWConfig) -> dict:
@@ -79,21 +95,21 @@ def adamw_init(params: Any, ctx, opt_cfg: AdamWConfig) -> dict:
         return st
     if opt_cfg.zero != 1:
         raise ValueError(f"zero must be 0 or 1, got {opt_cfg.zero}")
-    dp = ctx.dp_size
-
-    def flat(g):
-        return torch.cat([p.detach().float().reshape(-1) for p in _parts(g)])
+    dp, tp = ctx.dp_size, ctx.tp_size
+    lead = (dp, tp) if tp > 1 else (dp,)
 
     def zeros(g):
         t = _parts(g)[0]
-        c = -(-sum(p.numel() for p in _parts(g)) // dp)
-        return torch.zeros((dp, c), dtype=f32, device=t.device)
+        c = -(-sum(p.numel() for p in _parts(g)) // (dp * tp))
+        return torch.zeros(lead + (c,), dtype=f32, device=t.device)
 
-    # every PE's own chunk of the (replicated) f32 params
+    def mine(g):
+        # (tp, dp, c): PE t's leaf in dp chunks; device (r, t) owns chunk r
+        ch = _chunk(_flat(g, tp), dp)
+        return ch.transpose(0, 1).reshape(lead + (-1,)).contiguous()
+
     return {"m": ref_tree(params, zeros), "v": ref_tree(params, zeros),
-            "master": ref_tree(params, lambda g: _my_chunk(
-                flat(g)[None].expand(dp, -1), dp).contiguous()),
-            "count": 0}
+            "master": ref_tree(params, mine), "count": 0}
 
 
 def _bias_correction(b: float, count: int) -> float:
@@ -143,21 +159,25 @@ def adamw_update(params: Any, grads: Any, state: dict, ctx,
         return params, state
 
     # ---------------- zero-1 ----------------
-    dp, comm = ctx.dp_size, ctx.dp_comm
+    dp, tp, comm = ctx.dp_size, ctx.tp_size, ctx.dp_comm
     for group, g, m, v, master in zip(groups, gl, leaves(state["m"]),
                                       leaves(state["v"]),
                                       leaves(state["master"])):
-        gch = _chunk(g.float().reshape(g.shape[0], -1), dp)   # (dp, dp, c)
+        gf = _grad_flat(g, group, tp)                          # (dp, tp, n)
+        gch = _chunk(gf.reshape(dp * tp, -1), dp).view(dp, tp, dp, -1)
         if dp > 1:
-            gmine = comm.psum_scatter(gch, axis=0).reshape(dp, -1) / dp
+            gmine = comm.psum_scatter(gch, axis=1).reshape(dp, tp, -1) / dp
         else:
-            gmine = gch[:, 0]
-        master.sub_(_adam_(m, v, gmine, master, b1, b2, bc1, bc2, opt_cfg))
-        full = comm.all_gather(master, axis=0, tiled=True)[0] if dp > 1 \
-            else master[0]
+            gmine = gch[:, :, 0]
+        mst = master.view(dp, tp, -1)
+        mst.sub_(_adam_(m.view(dp, tp, -1), v.view(dp, tp, -1), gmine, mst,
+                        b1, b2, bc1, bc2, opt_cfg))
+        full = comm.all_gather(mst, axis=1, tiled=True)[0] if dp > 1 \
+            else mst[0]                                        # (tp, dp c)
         off = 0
         for p in _parts(group):
-            p.copy_(full[off:off + p.numel()].view(p.shape))
-            off += p.numel()
+            n = p.numel() // tp
+            p.copy_(full[:, off:off + n].reshape(p.shape))
+            off += n
     state["count"] = cnt
     return params, state

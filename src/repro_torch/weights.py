@@ -57,29 +57,6 @@ def from_jax(params_np: Mapping) -> dict:
     return _convert(params_np)
 
 
-def _split_cols(w: torch.Tensor, tp: int) -> torch.Tensor:
-    """(..., d, n) -> (..., tp, d, n/tp): rank t's columns, contiguous."""
-    *lead, d, n = w.shape
-    return w.reshape(*lead, d, tp, n // tp).movedim(-2, -3).contiguous()
-
-
-def _split_rows(w: torch.Tensor, tp: int) -> torch.Tensor:
-    """(..., n, d) -> (..., tp, n/tp, d): rank t's rows (a view)."""
-    *lead, n, d = w.shape
-    return w.reshape(*lead, tp, n // tp, d)
-
-
-def _split_mlp(mlp: Mapping, tp: int) -> dict:
-    """A GLU or plain MLP, column -> row parallel: ``wu``/``wg`` by
-    columns, ``wd`` by rows."""
-    out = dict(mlp)
-    for name in ("wu", "wg"):
-        if name in out:
-            out[name] = _split_cols(out[name], tp)
-    out["wd"] = _split_rows(out["wd"], tp)
-    return out
-
-
 def _check_moe_split(cfg, tp: int) -> None:
     """The reference's MoE layout at ``tp``: ``experts_padded(tp)`` experts,
     ``E/tp`` a rank, the shared expert split by columns.  The port's
@@ -105,27 +82,72 @@ def is_tp_sharded(params: Mapping) -> bool:
     return params["embed"]["table"].dim() == 3
 
 
-def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
-    """Full dense- or MoE-LM parameters -> the stacked ``(tp, ...)`` layout.
+def map_tp(fn, params: Mapping, spec: Mapping, block: bool = False):
+    """``fn(leaf, axis, block)`` over a parameter tree in the reference's
+    stacked layout and its ``registry.tp_specs`` tree; ``block`` is True
+    under ``blocks`` (leaves with a leading layer axis)."""
+    if not isinstance(params, Mapping):
+        return fn(params, spec, block)
+    if set(params) != set(spec):
+        raise ValueError(f"parameter keys {sorted(params)} differ from the "
+                         f"TP spec's {sorted(spec)}")
+    return {k: map_tp(fn, v, spec[k], block or k == "blocks")
+            for k, v in params.items()}
 
-    The reference's specs: ``embed_specs`` (the vocab table split by
-    rows, ``(tp, V/tp, d)``, also the untied head); ``attn_specs`` (head
-    layout: ``wq`` by columns, ``(L, tp, d, hpr*dh)``; ``wk``/``wv`` by
-    columns when ``n_kv % tp == 0``, else replicated there — here each
-    rank gets the one KV head its query group reads, ``my_kv = (t*hpr)
-    // group``, as the reference slices it; ``wo`` by rows); ``mlp_specs``
-    (``wu``/``wg`` by columns, ``wd`` by rows); ``moe_specs`` for a MoE
-    block (the experts ``wu``/``wg``/``wd`` split on their own axis,
-    ``(L, E, ...)`` -> ``(L, tp, E/tp, ...)``, rank ``t`` owning experts
-    ``t*E/tp ..``; the router replicated; the shared expert as the dense
-    MLP).  Norm scales and the router stay replicated, one copy.  Row and
-    expert splits are views of the full tensors, column splits copies
-    (the caller drops the full dict, so a copy replaces its source).
-    Raises when the vocab, heads, d_ff, the padded experts or the shared
-    expert's width do not divide by ``tp``, when the padding the
-    reference draws at ``tp`` is not the tp = 1 tensors', or for the ctx
-    attention layout.  Parameters already stacked, or ``tp == 1``, come
-    back as given (so engines that share one dict keep sharing it)."""
+
+def shard_leaf(w: torch.Tensor, axis, block: bool, tp: int) -> torch.Tensor:
+    """One global leaf -> every PE's, stacked on a new PE axis (behind the
+    layer axis of a block leaf): the ``tp`` contiguous chunks of ``axis``
+    — a view when ``axis`` is the leaf's first (the PE axis then splits
+    it in place), else new storage — or, for a replicated leaf (``axis``
+    None), ``tp`` copies, each PE's own storage."""
+    lead = int(block)
+    if axis is None:
+        return w.unsqueeze(lead).expand(
+            w.shape[:lead] + (tp,) + w.shape[lead:]).contiguous()
+    a = axis + lead
+    if w.shape[a] % tp:
+        raise ValueError(f"axis {axis} of a {tuple(w.shape)} leaf does not "
+                         f"divide by tp={tp}")
+    if axis == 0:
+        return w.unflatten(a, (tp, -1))
+    return torch.stack(w.chunk(tp, dim=a), dim=lead)
+
+
+def unshard_leaf(w: torch.Tensor, axis, block: bool) -> torch.Tensor:
+    """The inverse of ``shard_leaf``: the PEs' chunks concatenated back on
+    ``axis``, or PE 0's copy of a replicated leaf (the reference's
+    ``out_specs=P()`` returns device 0's).  A new tensor."""
+    lead = int(block)
+    if axis is None:
+        return w.select(lead, 0).clone()
+    return torch.cat(w.unbind(lead), dim=axis + lead)
+
+
+def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
+    """Global dense- or MoE-LM parameters (the reference's stacked layout)
+    -> the TP layout, for serving and training alike: EVERY leaf stacked
+    per PE, ``(tp, ...)``, behind the layer axis of a block leaf, ``(L,
+    tp, ...)``.  A sharded leaf (``registry.tp_specs``: the vocab tables
+    and ``wo`` / ``wd`` by rows, ``wq``, ``wu`` / ``wg`` and ``wk`` /
+    ``wv`` when ``n_kv % tp == 0`` by columns, the experts on their own
+    axis, rank ``t`` owning experts ``t E/tp ..``) gives each PE its
+    chunk, as the reference's PartitionSpec does; a replicated one (the
+    norms, the router, ``wk`` / ``wv`` when ``n_kv % tp != 0``) gives
+    each PE its own copy, so that in training each PE's gradient lands
+    in its own row and the per-PE clip can part the copies, as the
+    reference's.  A replicated ``wk`` / ``wv`` stays whole: each PE
+    slices the KV head its query group reads in the forward
+    (``attention.project_qkv``).  Row and expert splits are views of the
+    global tensors, the rest new storage (the caller drops the global
+    dict, so a copy replaces its source).  Raises when the vocab, heads,
+    d_ff, the padded experts or the shared expert's width do not divide
+    by ``tp``, when the padding the reference draws at ``tp`` is not
+    the tp = 1 tensors', or for the ctx attention layout and the other
+    families (``tp_specs``).  Parameters already stacked, or ``tp ==
+    1``, come back as given (so engines that share one dict keep sharing
+    it)."""
+    from repro_torch.models.registry import tp_specs
     tp = int(tp)
     if tp == 1 or is_tp_sharded(params):
         return params
@@ -142,32 +164,14 @@ def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
     elif cfg.d_ff % tp:
         raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not divide by "
                          f"tp={tp}")
-    out = {k: v for k, v in params.items() if k != "blocks"}
-    for name in ("embed", "head"):
-        if name in params:
-            out[name] = {"table": _split_rows(params[name]["table"], tp)}
-    blocks = params["blocks"]
-    attn = dict(blocks["attn"])
-    dh, hkv = cfg.head_dim, cfg.n_kv
-    attn["wq"] = _split_cols(attn["wq"], tp)
-    attn["wo"] = _split_rows(attn["wo"], tp)
-    for name in ("wk", "wv"):
-        w = attn[name]
-        if hkv % tp == 0:
-            attn[name] = _split_cols(w, tp)
-        else:
-            hpr, group = cfg.n_heads // tp, cfg.n_heads // hkv
-            my_kv = [(t * hpr) // group for t in range(tp)]
-            heads = w.reshape(w.shape[:-1] + (hkv, dh))[..., my_kv, :]
-            attn[name] = heads.movedim(-2, -3).contiguous()
-    mlp = dict(blocks["mlp"])
-    if cfg.moe:
-        for name in ("wu", "wg", "wd"):
-            w = mlp[name]                           # (L, E, ...): a view
-            mlp[name] = w.reshape(w.shape[:1] + (tp, -1) + w.shape[2:])
-        if "shared" in mlp:
-            mlp["shared"] = _split_mlp(mlp["shared"], tp)
-    else:
-        mlp = _split_mlp(mlp, tp)
-    out["blocks"] = {**blocks, "attn": attn, "mlp": mlp}
-    return out
+    return map_tp(lambda w, a, blk: shard_leaf(w, a, blk, tp), params,
+                  tp_specs(cfg, tp))
+
+
+def unshard(params: Mapping, cfg, tp: int) -> dict:
+    """The inverse of ``shard_for_tp``: the global tree in the reference's
+    layout (each sharded leaf's chunks concatenated, PE 0's copy of a
+    replicated leaf), new tensors.  Tests and checkpoints read the
+    port's TP state through it."""
+    from repro_torch.models.registry import tp_specs
+    return map_tp(unshard_leaf, params, tp_specs(cfg, int(tp)))

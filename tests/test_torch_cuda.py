@@ -9,7 +9,8 @@ flash-attention kernel against its plain version (its tile edges, the
 models' layouts, the 16-byte row check), the autograd path through it,
 and smoke-config training with it (the RWKV and Mamba-hybrid families
 and minitron / danube too, and prefill past the sliding window then
-decode); and the checkpoint slice on the card: the weight stream's
+decode; MoE training and TP training on the stacked team); and the
+checkpoint slice on the card: the weight stream's
 pinned rows and per-PE stages, a hot swap through the paged kernels
 equal to a cold start, a train state's checkpoint restored onto the
 card.
@@ -1376,3 +1377,41 @@ def test_cuda_dp_training_kernel_equals_plain(cuda_device, arch, how,
     assert runs["pallas"][0] == runs["posh"][0]
     for a, b in zip(runs["pallas"][1], runs["posh"][1]):
         assert torch.equal(a, b)
+
+
+# MoE training (tp = 1) and TP training (the stacked team, TP 4, sequence
+# parallelism) at the smoke size: (arch, tp, moe_dispatch)
+TRAIN_TP_CASES = [("qwen3-moe-30b-a3b", 1, "einsum"),
+                  ("qwen2-moe-a2.7b", 1, "einsum"),
+                  ("qwen3-8b", 4, "einsum"),
+                  ("qwen3-moe-30b-a3b", 4, "einsum"),
+                  ("qwen2-moe-a2.7b", 4, "alltoall")]
+
+
+def _tp_losses(arch, tp, dispatch, impl, device):
+    from repro_torch.launch.train import build_trainer
+    tr = build_trainer(arch, smoke=True, device=device, tp_size=tp,
+                       moe_dispatch=dispatch, attn_impl=impl,
+                       global_batch=4, backend="posh")
+    return [tr.step(s)["loss"] for s in range(3)]
+
+
+@pytest.mark.parametrize("arch,tp,dispatch", TRAIN_TP_CASES)
+def test_cuda_moe_and_tp_training_kernel_equals_plain(cuda_device, arch, tp,
+                                                      dispatch, monkeypatch):
+    """MoE training and TP training on the card: three smoke steps with
+    the kernel forward equal the plain forward's (rtol 1e-5); the kernel
+    launches once a layer a step for every PE together (x 2 under
+    remat), the plain forward never on the kernel path."""
+    plain = _tp_losses(arch, tp, dispatch, "ref", cuda_device)
+
+    def trap(*a, **k):
+        raise AssertionError("the plain flash forward ran on the CUDA path")
+
+    monkeypatch.setattr(fa, "flash_attention_ref", trap)
+    monkeypatch.setattr(mflash, "_chunk_fwd", trap)
+    fa.reset_launches()
+    kernel = _tp_losses(arch, tp, dispatch, "kernel", cuda_device)
+    assert fa.LAUNCHES["flash_attention"] == \
+        tconfigs.get_smoke(arch).n_layers * 2 * 3
+    np.testing.assert_allclose(kernel, plain, rtol=1e-5)

@@ -592,8 +592,9 @@ def test_zamba2_zero1_over_the_hybrid_tree():
 # ======================================================================
 def test_remaining_refusals_cite_a10():
     """whisper-base and the vlm build now (their configs and registry
-    entries; posh-micro still raises, citing A12); the MoE training and
-    prefill refusals stay, citing A10."""
+    entries; posh-micro still raises, citing A12); MoE trains and
+    prefills since A10's MoE/TP slice (``test_torch_moe_train.py``),
+    while these families at tp > 1 still raise, citing A10."""
     for arch in ("whisper-base", "llama-3.2-vision-90b"):
         cfg = configs.get_smoke(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
@@ -603,12 +604,17 @@ def test_remaining_refusals_cite_a10():
     with pytest.raises(NotImplementedError, match="A12"):
         configs.get("posh-micro")
     moe = configs.get_smoke("qwen3-moe-30b-a3b")
-    api = registry.build(moe)              # builds, and decodes
+    api = registry.build(moe)              # builds, decodes, trains
     params = api.init(torch.Generator().manual_seed(0), moe)
-    with pytest.raises(NotImplementedError, match="MoE training.*A10"):
-        api.loss_fn(params, _batch(moe), CTX, moe)
-    with pytest.raises(NotImplementedError, match="A10"):
-        api.prefill(params, torch.zeros((1, 4), dtype=torch.long), CTX, moe)
+    assert torch.isfinite(api.loss_fn(params, _batch(moe), CTX, moe))
+    assert api.prefill(params, torch.zeros((1, 4), dtype=torch.long), CTX,
+                       moe).shape == (1, moe.d_model)
+    tp2 = CTX.with_(tp_size=2)
+    for arch in TRAINED:
+        cfg = configs.get_smoke(arch)
+        p = lm.init(torch.Generator().manual_seed(0), cfg)
+        with pytest.raises(NotImplementedError, match="A10"):
+            lm.loss_fn(p, _batch(cfg), tp2, cfg)
 
 
 def test_hybrid_depth_cut_keeps_whole_groups(tmp_path):

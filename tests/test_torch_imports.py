@@ -7,8 +7,10 @@ the MoE slice: the MoE configs and the MoE layer in models/mlp, the
 checkpoint slice: ckpt and ft, data parallelism: comm.bucketing and
 comm.compress, the RWKV / Mamba-hybrid slice: models.rwkv,
 models.ssm and the four new configs, and the cross-attention slice:
-models.encdec and the whisper-base and llama-3.2-vision-90b configs),
-and ``chip_smoke.py``, pulls in no
+models.encdec and the whisper-base and llama-3.2-vision-90b configs,
+and the MoE / tensor-parallel training slice: comm.autograd, the
+sequence-parallel operators in parallel.ctx, registry.tp_specs and the
+training layout in weights), and ``chip_smoke.py``, pulls in no
 JAX and nothing of the JAX package ``repro`` — checked by a clean
 subprocess's ``sys.modules`` and by an AST scan of every import
 statement."""
@@ -123,6 +125,23 @@ def test_the_cross_attention_slice_is_covered():
     want = {"repro_torch.models.encdec", "repro_torch.configs.whisper_base",
             "repro_torch.configs.llama32_vision_90b"}
     assert want <= set(_modules())
+
+
+def test_the_moe_and_tp_training_slice_is_covered():
+    """The differentiable collectives are a module of their own; the
+    sequence-parallel operators, the TP specs and the TP layout (with
+    its inverse) live in modules the walk covers, and import without
+    JAX."""
+    want = {"repro_torch.comm.autograd", "repro_torch.parallel.ctx",
+            "repro_torch.models.registry", "repro_torch.weights",
+            "repro_torch.train.grad", "repro_torch.train.step",
+            "repro_torch.train.optimizer", "repro_torch.launch.train"}
+    assert want <= set(_modules())
+    from repro_torch.models.registry import tp_specs
+    from repro_torch.parallel import sp_gather, sp_scatter
+    from repro_torch.weights import shard_for_tp, unshard
+    assert all(callable(f) for f in (tp_specs, sp_gather, sp_scatter,
+                                     shard_for_tp, unshard))
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -463,7 +463,7 @@ def test_moe_apply_backends_agree(weights, arch, tp, cf, dispatch):
 def test_shard_for_tp_moe_layout(weights, arch, tp):
     """``moe_specs``: the experts split on their own axis, rank t owning
     experts ``t E/tp ..``, as views sharing the full tensors' storage;
-    the router replicated (the same tensor); the shared expert split by
+    the router replicated (one copy a PE); the shared expert split by
     columns (``wu``/``wg``) and rows (``wd``)."""
     from repro_torch.weights import shard_for_tp
 
@@ -472,7 +472,10 @@ def test_shard_for_tp_moe_layout(weights, arch, tp):
     got = shard_for_tp(params, cfg, tp)["blocks"]["mlp"]
     ep = cfg.moe.experts_padded(tp)
     e_loc = ep // tp
-    assert got["router"] is full["router"]
+    assert got["router"].shape == (cfg.n_layers, tp) + \
+        full["router"].shape[1:]
+    for t in range(tp):
+        assert torch.equal(got["router"][:, t], full["router"])
     for name in ("wu", "wg", "wd"):
         w = got[name]
         assert w.shape == (cfg.n_layers, tp, e_loc) + full[name].shape[2:]

@@ -546,14 +546,16 @@ def test_shard_for_tp_first_step_logits(ref, port):
 
 
 def test_shard_for_tp_layout_and_refusals(port):
-    """The stacked layout: row splits are views of the full tensors; the
-    replicated KV heads (n_kv 2 < tp 4) are each rank's ``my_kv``;
-    stacked parameters come back as given; a MoE block's experts split
-    on their own axis; a vocab that does not divide and the ctx layout
-    raise."""
+    """The stacked layout: row splits are views of the full tensors;
+    replicated leaves one copy a PE; the replicated KV projections (n_kv
+    2 < tp 4) whole on every PE, each rank projecting with its ``my_kv``
+    head's columns; stacked parameters come back as given; a MoE block's
+    experts split on their own axis; a vocab that does not divide and
+    the ctx layout raise."""
     import dataclasses
 
     from repro_torch import configs
+    from repro_torch.models.attention import _kv_weight
     from repro_torch.weights import is_tp_sharded, shard_for_tp
 
     _, cfg, params = port
@@ -566,12 +568,15 @@ def test_shard_for_tp_layout_and_refusals(port):
     assert s["blocks"]["attn"]["wo"].data_ptr() == \
         params["blocks"]["attn"]["wo"].data_ptr()
     dh, group, hpr = cfg.head_dim, cfg.n_heads // cfg.n_kv, cfg.n_heads // TP
+    wk = params["blocks"]["attn"]["wk"]
+    for li in range(cfg.n_layers):
+        mine = _kv_weight(s["blocks"]["attn"]["wk"][li], cfg, _ctx("xla"))
+        for t in range(TP):
+            my_kv = (t * hpr) // group
+            assert torch.equal(s["blocks"]["attn"]["wk"][li, t], wk[li])
+            assert torch.equal(mine[t], wk[li, :, my_kv * dh:(my_kv + 1) * dh])
     for t in range(TP):
-        my_kv = (t * hpr) // group
-        torch.testing.assert_close(
-            s["blocks"]["attn"]["wk"][:, t],
-            params["blocks"]["attn"]["wk"][..., my_kv * dh:(my_kv + 1) * dh],
-            rtol=0, atol=0)
+        assert torch.equal(s["ln_f"]["scale"][t], params["ln_f"]["scale"])
         torch.testing.assert_close(
             s["blocks"]["mlp"]["wu"][:, t],
             params["blocks"]["mlp"]["wu"][..., t * cfg.d_ff // TP:

@@ -318,18 +318,21 @@ def test_later_slices_raise_not_implemented():
     """Data parallelism trains (A6): ``dp_size`` builds the DP
     communicator and its ranks, and at dp = 1 the DP flags give the
     trajectory without them (the reference reduces only at dp > 1).
-    Tensor-parallel training is still A10; MoE training is not ported:
-    a MoE config builds (it decodes) and its loss raises, citing A10."""
+    Tensor-parallel training of the dense and MoE families arrived with
+    A10's MoE/TP slice: a tp = 2 step builds and the TP completion needs
+    its specs; MoE trains (its loss runs and is finite).  What still
+    refuses at tp > 1 is ``test_torch_tp_train.py``'s (A10)."""
     ctx = ParallelCtx(dp_size=2)
     assert ctx.dp_comm.size == 2 and ctx.dp_rank("cpu").tolist() == [0, 1]
     one = ctx.with_(dp_size=1)
     assert one.dp_comm.size == 1 and one.tp_comm is ctx.tp_comm
     cfg = configs.get_smoke("qwen3-8b")
     api = registry.build(cfg)
-    with pytest.raises(NotImplementedError, match="A10"):
-        # the trainer at tp = 2 (TP serving is A7; TP training is A10)
-        make_train_step(cfg, ParallelCtx(tp_size=2), api, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the trainer at tp = 2 builds (dense; MoE in test_torch_tp_train.py)
+    make_train_step(cfg, ParallelCtx(tp_size=2), api, AdamWConfig())
+    with pytest.raises(ValueError, match="config"):
+        make_train_step(None, ParallelCtx(tp_size=2), api, AdamWConfig())
+    with pytest.raises(ValueError, match="specs"):
         tgrad.combine_grads({}, None, ParallelCtx(tp_size=2), bucket_bytes=1)
 
     def losses(**kw):
@@ -347,11 +350,11 @@ def test_later_slices_raise_not_implemented():
                                overlap=True) == (g, None)
     assert tgrad.overlapped_grad_sync(g, CTX.dp_comm) is g
     moe = configs.get_smoke("qwen3-moe-30b-a3b")
-    api = registry.build(moe)          # MoE builds and decodes (A10 slice 1)
-    with pytest.raises(NotImplementedError, match="MoE training.*A10"):
-        api.loss_fn(lm.init(torch.Generator().manual_seed(0), moe),
-                    SyntheticLM(vocab=moe.vocab, seq_len=8, global_batch=2)
-                    .batch(0, device="cpu"), CTX, moe)
+    api = registry.build(moe)          # MoE builds, decodes and trains
+    loss = api.loss_fn(lm.init(torch.Generator().manual_seed(0), moe),
+                       SyntheticLM(vocab=moe.vocab, seq_len=8, global_batch=2)
+                       .batch(0, device="cpu"), CTX, moe)
+    assert loss.shape == () and torch.isfinite(loss)
     with pytest.raises(ValueError, match="attn_impl"):
         ParallelCtx(attn_impl="pallas")
 
