@@ -350,6 +350,44 @@ caught):
                routing rule of (a), every PE's routing recorded);
                seconds, peaks, collectives a step by kind, 4 flash
                launches a kernel run, none a plain one.
+ 16. tp families — A10 item 4's remainder: TP training of every family
+               left and the contiguous-cache decode at tp > 1, each
+               model's weights drawn once for its tp = 1 and TP runs,
+               training held to tp = 1 by phase 15's (b) tolerances
+               (rwkv6's and zamba2's gradients, TP's and tp = 1's, to
+               an f64 run of the step within 5e-3 of a leaf's largest:
+               their f32 runs sit up to 2.5e-3 from exact) and each
+               decode stream by the near-tie rule (rwkv6's all-f32
+               state: the TP pick within the two computations' largest
+               logit gap of tp = 1's top and that gap within 1e-5 of
+               it; a decode reading bf16 caches back: phase 10's).  (a) minitron-4b, f32, 2 of 32 layers, TP
+               16 under posh (24 heads: the ctx attention layout): 2 x
+               2048 tokens through ``loss_and_grad``, one flash launch a
+               layer for all 16 PEs (B 32, T 128 a PE, S 2048, H 24 / 8,
+               D 128, each PE's rows at its own causal offset), the
+               kernel == plain on the step's own captured inputs; 64
+               prompt tokens then 32 greedy through the decode at TP 16
+               (the bf16 cache sequence-sharded, 6 rows a PE); (b)
+               rwkv6-3b, f32, 2 layers, TP 4 posh (12 of the 48 padded
+               heads a PE): a step, 8 + 16 decoded tokens; (c)
+               zamba2-7b, f32, 12 of 81 layers (2 applications of the
+               shared block, 8 heads of 112 a PE in one flash launch),
+               TP 4 xla: a step, 8 + 8 decoded tokens; (d) whisper-base,
+               f32, 6 + 6 layers, the vocab padded to 16: 2 x (1500
+               frames, 448 + 1 tokens) at TP 4 (head layout) and TP 16
+               (ctx layout, 28 rows a PE, the encoder whole on every
+               PE), 4 + 32 decoded tokens at TP 4; (e)
+               llama-3.2-vision-90b, bf16, 1 of 20 groups (4 dense + 1
+               cross layer), TP 4 posh, gates non-zero: prefill 1 x 1024
+               tokens against 1601 image rows, then 16 tokens through
+               the decode from its pick.  Then the flash kernel timed at
+               (a)'s captured call and at phase 15's layouts (qwen3-moe
+               H 32 / 4, qwen2-moe 16 / 16, qwen3-8b TP 4's stacked 8 /
+               2; T = S = 2048): kernel, plain, SDPA with the boolean
+               mask of every row's causal offset, and the bound
+               (operations over the visible pairs, f32).  The copy
+               kernel launches 0 times: posh and xla move the stacked
+               team's collectives with tensor operations.
 
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
@@ -377,7 +415,11 @@ phase 13's runs, with ``max_abs_err_a10`` its errors at the new shapes
 and ``a10_shapes`` their timing; ``launches_xattn``, ``max_abs_err_xattn``
 and ``xattn_shapes`` likewise from phase 14's; ``launches_train_moe`` /
 ``launches_train_tp`` from phase 15's MoE and TP training runs, with
-``max_abs_err_train`` the kernel's errors at their layouts).
+``max_abs_err_train`` the kernel's errors at their layouts;
+``launches_tp_families`` from phase 16's TP runs, with
+``tp_families_shapes`` the timing at its layouts and
+``max_abs_err_tp_families`` the kernel's errors there; on the copy
+kernel, phase 16's launches, 0).
 ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
 on the paged kernels is their largest |kernel - plain| on phase 10's /
 11's captured TP inputs, and ``moe_tp_layouts`` their timing at phase
@@ -700,6 +742,31 @@ T15_MOE = dict(layers=2, rows=4, mb=2)
 # kernel-vs-plain gate of (a), 1e-5 / 1e-4
 T15_TP = dict(tp=4, layers=2, rows=2, backend="posh")
 T15_TOL = {"plain": (1e-5, 1e-4), "tp": (2e-5, 5e-4)}
+# phase 16: TP training of the families A10 item 4 left, both attention
+# layouts, and the contiguous-cache decode at tp > 1, at published width
+# with the depth cut; each model's weights drawn once (the vocab padded
+# for its largest TP), shared by its tp = 1 and TP runs.  Training and
+# decode in f32 (the cache bf16), held to tp = 1 by T15_TOL["tp"] and
+# the f32 near-tie rule; the vlm in bf16 by the bf16 rule
+T16 = {"minitron": dict(arch="minitron-4b", layers=2, rows=2, seq=2048,
+                        tp=16, backend="posh", prompt=64, new=32),
+       "rwkv": dict(arch="rwkv6-3b", layers=2, rows=2, seq=512, tp=4,
+                    backend="posh", prompt=8, new=16),
+       "zamba": dict(arch="zamba2-7b", layers=12, rows=2, seq=1024, tp=4,
+                     backend="xla", prompt=8, new=8),
+       "whisper": dict(arch="whisper-base", layers=0, rows=2, seq=448,
+                       tp=4, tp_ctx=16, backend="xla", prompt=4, new=32),
+       "vlm": dict(arch="llama-3.2-vision-90b", layers=5, rows=1,
+                   prompt=1024, tp=4, backend="posh", new=16)}
+# the flash layouts phase 15 launches, timed here (not timed before)
+T16_TIMED = ("qwen3_moe", "qwen2_moe", "qwen3_8b_tp4")
+# the recurrent families' f32 gradients at published width sit up to
+# ~1e-3 (zamba2-7b, 12 layers) and 2.5e-3 (rwkv6-3b's TP products, bmm
+# per PE) of a leaf's largest from an f64 run of the same step, tp = 1's
+# f32 run as far in kind (call 4), so TP is held to that f64 run, not to
+# tp = 1's f32 run at 5e-4; a lost psum or a wrong shard moves a leaf by
+# 10-100% of its largest
+T16_F64_TOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -5740,6 +5807,556 @@ def t15_stage(fa, dev) -> tuple:
 
 
 # ----------------------------------------------------------------------
+# phase 16: TP training of the remaining families, the ctx attention
+# layout, and the contiguous-cache decode at tp > 1
+# ----------------------------------------------------------------------
+def t16_ctx(tp: int = 1, backend: str = "xla", dtype=torch.float32,
+            remat: bool = True):
+    from repro_torch.parallel import ParallelCtx
+    return ParallelCtx(tp_size=tp, backend=backend, remat=remat,
+                       param_dtype=dtype, compute_dtype=dtype)
+
+
+def t16_cfg(c: dict, smoke: bool):
+    from repro_torch import configs
+    from repro_torch.launch.train import cut_layers
+    return cut_layers(configs.get_smoke(c["arch"]) if smoke
+                      else configs.get(c["arch"]), 0 if smoke else c["layers"])
+
+
+def t16_batch(cfg, rows: int, seq: int, dev, seed: int = 7) -> dict:
+    """Seeded tokens (rows, seq + 1), and whisper's unit-normal frames /
+    the vlm's image embeddings (``img_tokens`` rows), on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (rows, seq + 1),
+                                     generator=g, device=dev)}
+    key = {"encdec": ("frames", cfg.enc_frames),
+           "vlm": ("img_embeds", cfg.img_tokens)}.get(cfg.family)
+    if key:
+        batch[key[0]] = torch.randn((rows, key[1], cfg.d_model), generator=g,
+                                    device=dev)
+    return batch
+
+
+def t16_lg(fa, params, cfg, ctx, batch) -> dict:
+    """``loss_and_grad`` of ``params`` (the global ones; at tp > 1 in
+    ``weights.shard_for_tp``'s layout, dropped after) at ``ctx``: the
+    loss shown, the global gradients by path (``t15_grads``), the flash
+    launches and the seconds."""
+    from repro_torch.models import lm, registry
+    from repro_torch.train import grad as tgrad
+    from repro_torch.weights import shard_for_tp
+
+    p = tgrad.trainable(lm.unstack(shard_for_tp(params, cfg, ctx.tp_size)))
+    n = fa.LAUNCHES["flash_attention"]
+    if batch["tokens"].device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    loss, grads, _ = tgrad.loss_and_grad(registry.build(cfg).loss_fn, p,
+                                         batch, ctx, cfg)
+    flat = t15_grads(grads, cfg, ctx.tp_size)
+    if batch["tokens"].device.type == "cuda":
+        torch.cuda.synchronize()
+    out = {"loss": loss.reshape(-1), "grads": flat,
+           "launches": fa.LAUNCHES["flash_attention"] - n,
+           "seconds": time.monotonic() - t0}
+    del p, grads
+    return out
+
+
+def t16_launches(tag, got: int, want: int, dev) -> None:
+    """Fail unless ``got`` flash launches are ``want`` (counted on the
+    card only: a CPU rehearsal runs the plain versions)."""
+    if torch.device(dev).type == "cuda" and got != want:
+        fail(f"t16 {tag}: flash launches {got} != {want}")
+
+
+def t16_exact(params, cfg, batch) -> dict:
+    """The step's loss and global gradients in f64 at tp = 1 (plain
+    attention, autograd alone): the yardstick the f32 runs of the
+    recurrent families are held to."""
+    from repro_torch.models import lm, registry
+    from repro_torch.train import grad as tgrad
+    from repro_torch.tree import ref_tree, tree_map
+
+    p = tgrad.trainable(lm.unstack(tree_map(lambda t: t.double(), params)))
+    ctx = t16_ctx(dtype=torch.float64).with_(attn_impl="ref")
+    loss = registry.build(cfg).loss_fn(p, batch, ctx, cfg)
+    loss.backward()
+    grads = ref_tree(p, lambda g: torch.stack([t.grad for t in g])
+                     if isinstance(g, list) else g.grad)
+    out = {"loss": loss.detach().reshape(-1), "grads": t15_flat(grads)}
+    del p, grads
+    return out
+
+
+def t16_train_gate(tag, got: dict, want: dict, exact=None) -> float:
+    """TP against tp = 1: every PE's loss equal, within rtol 2e-5 of tp =
+    1's; each leaf's gradient within 5e-4 of its largest
+    (``T15_TOL["tp"]``), or with ``exact`` (an f64 run of the step) TP's
+    and tp = 1's each within ``T16_F64_TOL`` of the f64 gradients'
+    largest.  Returns the worst leaf's error."""
+    ltol, gtol = T15_TOL["tp"]
+    lt, l1 = got["loss"], float(want["loss"][0])
+    if not bool((lt == lt[0]).all()) or not abs(float(lt[0]) - l1) <= \
+            ltol * abs(l1):
+        fail(f"t16 {tag}: loss {lt.tolist()} vs tp = 1 {l1}")
+    if exact is None:
+        errs = t15_grad_gate(f"16 {tag}", got["grads"], want["grads"], {},
+                             gtol)
+        return max(errs.values())
+    g64 = {k: v.float() for k, v in exact["grads"].items()}
+    one = t15_grad_gate(f"16 {tag} tp = 1 vs f64", want["grads"], g64, {},
+                        T16_F64_TOL)
+    errs = t15_grad_gate(f"16 {tag} vs f64", got["grads"], g64, {},
+                         T16_F64_TOL)
+    print(f"t16 {tag}: worst leaf against the f64 step: TP "
+          f"{max(errs.values()):.3e}, tp = 1 {max(one.values()):.3e}",
+          flush=True)
+    return max(errs.values())
+
+
+def t16_gather_logits(lg: torch.Tensor) -> torch.Tensor:
+    """A decode step's logits as (b, V): the vocab shards (tp, b, V/tp)
+    concatenated at tp > 1."""
+    return lg if lg.dim() == 2 else lg.permute(1, 0, 2).flatten(1)
+
+
+def t16_decode(params, cfg, ctx, prompt, new: int, dev, extra=None):
+    """``prompt`` (b, n) fed through the decode one token at a time, then
+    ``new`` greedy tokens: (picks (b, n + new), logits (b, n + new, V),
+    seconds).  ``extra``: whisper's encoder K/V or the vlm's image
+    K/V."""
+    from repro_torch.models import encdec, lm
+    b, n = prompt.shape
+    state = (encdec if cfg.family == "encdec" else lm).init_decode_state(
+        cfg, ctx, b, n + new, device=dev)
+    toks, logits = [], []
+    sync = torch.device(dev).type == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        tok = prompt[:, 0]
+        for i in range(n + new):
+            if i < n:
+                tok = prompt[:, i]
+            if cfg.family == "encdec":
+                lg, state = encdec.decode_logits(params, tok, state, extra,
+                                                 ctx, cfg)
+            else:
+                lg, state = lm.decode_logits(params, tok, state, ctx, cfg,
+                                             img_kv=extra)
+            lg = t16_gather_logits(lg).float()
+            tok = lg.argmax(-1)
+            toks.append(tok)
+            logits.append(lg)
+    if sync:
+        torch.cuda.synchronize()
+    return torch.stack(toks, 1), torch.stack(logits, 1), \
+        time.monotonic() - t0
+
+
+def t16_streams(tag, got, want, fed: int, rule: str) -> int:
+    """TP's picks against tp = 1's over the same inputs: at each fed
+    position, and in the greedy part up to the first difference (the
+    histories part there), a difference passes only at a near-tie of
+    the two computations' logits: the TP pick within DELTA, the largest
+    gap between them, of tp = 1's top and DELTA at most F32_NEAR_TIE
+    (``rule`` "f32": every state f32, rwkv6's) or NEAR_TIE_DELTA of
+    |top| (or a top-2 margin of one bf16 ulp: "bf16", a decode that
+    reads bf16 KV caches or Mamba conv buffers back, whatever its
+    compute dtype).  Returns the differences."""
+    (ta, la), (tb, lb) = got, want
+    bad, n = [], 0
+    for r in range(ta.shape[0]):
+        for j in range(ta.shape[1]):
+            if int(ta[r, j]) == int(tb[r, j]):
+                continue
+            n += 1
+            vals, _ = lb[r, j].topk(2)
+            top, mg = vals[0].item(), (vals[0] - vals[1]).item()
+            gap = top - lb[r, j, int(ta[r, j])].item()
+            delta = (la[r, j] - lb[r, j]).abs().max().item()
+            lim = F32_NEAR_TIE if rule == "f32" else NEAR_TIE_DELTA
+            ok = gap <= delta <= lim * abs(top) or (
+                rule == "bf16" and mg <= bf16_ulp(top))
+            verdict = "near-tie" if ok else "NOT a near-tie"
+            print(f"t16 {tag}: row {r} position {j}: TP {int(ta[r, j])} vs "
+                  f"tp = 1 {int(tb[r, j])}, top-2 margin {mg:.6g} at "
+                  f"{top:.6g}, the TP token {gap:.6g} below, logits "
+                  f"{delta:.6g} apart ({verdict})", flush=True)
+            if not ok:
+                bad.append((r, j))
+            if j >= fed - 1:
+                break               # the greedy histories part here
+    if bad:
+        fail(f"t16 {tag}: TP's stream leaves tp = 1's beyond a near-tie at "
+             f"{bad}")
+    return n
+
+
+@contextlib.contextmanager
+def t16_capture(fa, store: dict):
+    """Record (a copy of) the flash kernel's first call's arguments."""
+    real = fa.flash_attention
+
+    def spy(q, k, v, **kw):
+        if not store:
+            store.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=dict(kw))
+        return real(q, k, v, **kw)
+    fa.flash_attention = spy
+    try:
+        yield store
+    finally:
+        fa.flash_attention = real
+
+
+def t16_visible_pairs(t: int, s: int, offsets) -> int:
+    """(row, column) pairs a causal attention of ``t`` query rows at each
+    of ``offsets`` over ``s`` keys computes."""
+    return sum(min(o + i + 1, s) for o in offsets for i in range(t))
+
+
+def t16_flash_time(fa, tag, q, k, v, kw, dev) -> dict:
+    """Kernel, plain version, SDPA (an explicit boolean mask: every row's
+    own causal offset; GQA) and the bound (operations over the pairs the
+    mask leaves, f32) at one layout; the kernel == plain first."""
+    import torch.nn.functional as F
+
+    b, h, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    rows, stride = kw.get("pe_rows", 1), kw.get("pe_stride", 0)
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw)
+    err = max((out - ref).abs().max().item(),
+              (lse - ref_lse).abs().max().item())
+    if not err <= TOL[torch.float32]:
+        fail(f"t16 flash {tag}: |kernel - plain| {err} > {TOL[torch.float32]}")
+    pos = fa.query_positions(kw.get("q_offset", 0), t, dev, b, rows, stride)
+    mask = fa.attention_mask(pos, torch.arange(s, device=dev), True, None, s)
+    mask = mask.reshape((b if stride else 1, 1, t, s))
+    offs = [kw.get("q_offset", 0) + (i // rows) * stride for i in range(b)]
+    pairs = t16_visible_pairs(t, s, offs) * h
+    flops = 4 * d * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4 + b * h * t * 4
+    qc = q.contiguous()
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), dev)
+    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), dev)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qc, k, v, attn_mask=mask, enable_gqa=True), dev)
+    bound_ms, by = bound_of(nbytes, flops, torch.float32)
+    row = {"b": b, "h": h, "hkv": hkv, "t": t, "s": s, "d": d,
+           "pe_rows": rows, "pe_stride": stride, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": by, "flops": flops,
+           "bytes": nbytes, **rates(ms, nbytes, flops, bound_ms)}
+    print(f"t16 timing flash {tag} (f32, B {b}, H {h} / H_kv {hkv}, T {t}, "
+          f"S {s}, D {d}, causal, batch row i at {kw.get('q_offset', 0)} + "
+          f"(i // {rows}) * {stride}): |kernel - plain| {err:.3e}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (boolean mask) "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: {flops:.3e} "
+          f"flops over the {pairs} visible (row, column, head) triples, "
+          f"{nbytes} bytes); {rate_text(row)}", flush=True)
+    return row
+
+
+def t16_minitron(fa, dev, smoke: bool = False) -> tuple:
+    """(a) minitron-4b, f32, 2 of 32 layers, TP 16 under posh (24 heads:
+    the ctx layout): ``loss_and_grad`` of 2 x 2048 tokens at TP 16 == tp
+    = 1; one flash launch a layer for all 16 PEs (B 32, T 128 a PE, S
+    2048, H 24 / 8, D 128, per-PE offsets), the kernel == plain on the
+    step's own inputs; then a 64-token prompt through the decode and 32
+    greedy tokens at TP 16 (the cache sequence-sharded, bf16) == tp = 1.
+    Returns (flash launches, figures, the captured inputs)."""
+    from repro_torch.models import lm
+    from repro_torch.weights import shard_for_tp
+
+    c = T16["minitron"]
+    cfg = t16_cfg(c, smoke)
+    tp = 4 if smoke else c["tp"]
+    seq = 32 if smoke else c["seq"]
+    _free(dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev, tp=tp)
+    batch = t16_batch(cfg, c["rows"], seq, dev)
+    one = t16_lg(fa, params, cfg, t16_ctx(), batch)
+    cap = {}
+    with t16_capture(fa, cap):
+        run = t16_lg(fa, params, cfg, t16_ctx(tp, c["backend"]), batch)
+    peak = _peak_gb(dev)
+    tag = f"train {cfg.name} TP {tp} ({c['backend']}, ctx layout)"
+    assert cfg.attn_layout(tp) == "ctx"
+    err = t16_train_gate(tag, run, one)
+    del one
+    predict = 2 * cfg.n_layers                     # a layer, x 2 remat
+    t16_launches(tag, run["launches"], predict, dev)
+    want = (c["rows"] * tp, cfg.n_heads, seq // tp, cfg.head_dim)
+    if cap and (tuple(cap["q"].shape) != want
+                or cap["kw"].get("pe_stride") != seq // tp):
+        fail(f"t16 {tag}: the flash call took q {tuple(cap['q'].shape)}, "
+             f"{cap['kw']}, not {want} at per-PE offsets")
+    n, new = (8, 8) if smoke else (c["prompt"], c["new"])
+    prompt = batch["tokens"][:, :n]
+    ctx1, ctxt = t16_ctx(remat=False), t16_ctx(tp, c["backend"], remat=False)
+    del batch
+    a = t16_decode(shard_for_tp(params, cfg, tp), cfg, ctxt, prompt, new,
+                   dev)
+    b = t16_decode(params, cfg, ctx1, prompt, new, dev)
+    diff = t16_streams(f"decode {cfg.name} TP {tp}", a[:2], b[:2], n, "bf16")
+    figs = {"loss": float(run["loss"][0]), "seconds_tp": run["seconds"],
+            "worst_grad_err": err, "flash_launches": run["launches"],
+            "predicted": predict, "peak_gb": peak, "decode_s_tp": a[2],
+            "decode_s_tp1": b[2], "stream_diffs": diff,
+            "cache_rows_a_pe": -(-(n + new) // tp)}
+    print(f"t16 (a) {cfg.name}: {cfg.n_layers} layers at published width, "
+          f"f32, {c['rows']} x {seq} tokens at TP {tp} == tp = 1; decode "
+          f"{n} + {new} tokens a row at TP {tp} == tp = 1 ({diff} "
+          f"differences); row 0's new tokens {a[0][0, n:].tolist()}; "
+          f"{json.dumps(figs)}", flush=True)
+    del params, a, b
+    _free(dev)
+    return run["launches"], figs, cap
+
+
+def t16_rwkv(fa, dev, smoke: bool = False) -> dict:
+    """(b) rwkv6-3b, f32, 2 of 32 layers, TP 4 under posh (12 of the 48
+    padded heads a PE, the 8 ghost heads on PE 3): ``loss_and_grad`` ==
+    tp = 1 (the loss; the gradients, TP's and tp = 1's, each held to an
+    f64 run of the step: ``T16_F64_TOL``); 16 decoded tokens (after an
+    8-token prompt) == tp = 1's."""
+    from repro_torch.models import lm
+    from repro_torch.weights import shard_for_tp
+
+    c = T16["rwkv"]
+    cfg = t16_cfg(c, smoke)
+    tp, seq = c["tp"], 32 if smoke else c["seq"]
+    _free(dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev, tp=tp)
+    batch = t16_batch(cfg, c["rows"], seq, dev)
+    one = t16_lg(fa, params, cfg, t16_ctx(), batch)
+    run = t16_lg(fa, params, cfg, t16_ctx(tp, c["backend"]), batch)
+    tag = f"train {cfg.name} TP {tp} ({c['backend']})"
+    err = t16_train_gate(tag, run, one, t16_exact(params, cfg, batch))
+    peak = _peak_gb(dev)
+    del one
+    n, new = c["prompt"], c["new"]
+    prompt = batch["tokens"][:, :n]
+    a = t16_decode(shard_for_tp(params, cfg, tp), cfg,
+                   t16_ctx(tp, c["backend"], remat=False), prompt, new, dev)
+    b = t16_decode(params, cfg, t16_ctx(remat=False), prompt, new, dev)
+    diff = t16_streams(f"decode {cfg.name} TP {tp}", a[:2], b[:2], n, "f32")
+    figs = {"loss": float(run["loss"][0]), "seconds_tp": run["seconds"],
+            "worst_grad_err_vs_f64": err, "peak_gb": peak,
+            "decode_s_tp": a[2], "stream_diffs": diff,
+            "heads_a_pe": (cfg.rwkv_padded_heads or cfg.n_heads) // tp}
+    print(f"t16 (b) {cfg.name}: {json.dumps(figs)}; row 0's new tokens "
+          f"{a[0][0, n:].tolist()}", flush=True)
+    del params, a, b, batch
+    _free(dev)
+    return figs
+
+
+def t16_zamba(fa, dev, smoke: bool = False) -> tuple:
+    """(c) zamba2-7b, f32, 12 of 81 layers (2 applications of the shared
+    block), TP 4 under xla: ``loss_and_grad`` == tp = 1 (the loss; the
+    gradients held to an f64 run, as (b)'s; the flash kernel at the
+    stacked layout, 8 heads of 112 a PE, one launch an application); 8
+    decoded tokens (after 8 fed) == tp = 1's decode,
+    the reference's one shared cache at both.  Returns (flash launches
+    of the TP run, figures)."""
+    from repro_torch.models import lm
+    from repro_torch.weights import shard_for_tp
+
+    c = T16["zamba"]
+    cfg = t16_cfg(c, smoke)
+    tp, seq = c["tp"], 32 if smoke else c["seq"]
+    _free(dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev, tp=tp)
+    batch = t16_batch(cfg, c["rows"], seq, dev)
+    one = t16_lg(fa, params, cfg, t16_ctx(), batch)
+    run = t16_lg(fa, params, cfg, t16_ctx(tp, c["backend"]), batch)
+    tag = f"train {cfg.name} TP {tp} ({c['backend']})"
+    err = t16_train_gate(tag, run, one, t16_exact(params, cfg, batch))
+    peak = _peak_gb(dev)
+    predict = cfg.n_layers // cfg.shared_attn_every   # the shared block
+    t16_launches(tag, run["launches"], predict, dev)
+    t16_launches(tag + " tp = 1", one["launches"], predict, dev)
+    del one
+    n, new = c["prompt"], c["new"]
+    prompt = batch["tokens"][:, :n]
+    a = t16_decode(shard_for_tp(params, cfg, tp), cfg,
+                   t16_ctx(tp, c["backend"], remat=False), prompt, new, dev)
+    b = t16_decode(params, cfg, t16_ctx(remat=False), prompt, new, dev)
+    diff = t16_streams(f"decode {cfg.name} TP {tp}", a[:2], b[:2], n, "bf16")
+    figs = {"loss": float(run["loss"][0]), "seconds_tp": run["seconds"],
+            "worst_grad_err_vs_f64": err, "peak_gb": peak,
+            "flash_launches": run["launches"], "predicted": predict,
+            "decode_s_tp": a[2], "stream_diffs": diff}
+    print(f"t16 (c) {cfg.name}: {cfg.n_layers} layers, {json.dumps(figs)}; "
+          f"row 0's new tokens {a[0][0, n:].tolist()}", flush=True)
+    del params, a, b, batch
+    _free(dev)
+    return run["launches"], figs
+
+
+def t16_whisper(fa, dev, smoke: bool = False) -> tuple:
+    """(d) whisper-base, f32, all 6 + 6 layers, the vocab padded to 16:
+    ``loss_and_grad`` of 2 x (1500 frames, 448 + 1 tokens) at TP 4 (head
+    layout) and TP 16 (ctx layout, 28 rows a PE; the encoder whole on
+    every PE) == tp = 1; 32 decoded tokens at TP 4 (after 4 fed) == tp
+    = 1's.  Returns (flash launches of the TP runs, figures)."""
+    from repro_torch.models import encdec
+    from repro_torch.weights import shard_for_tp
+
+    c = T16["whisper"]
+    cfg = t16_cfg(c, smoke)
+    tps = (c["tp"], 8 if smoke else c["tp_ctx"])
+    seq = 32 if smoke else c["seq"]
+    _free(dev)
+    params = encdec.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev, tp=max(tps))
+    batch = t16_batch(cfg, c["rows"], seq, dev)
+    one = t16_lg(fa, params, cfg, t16_ctx(), batch)
+    predict = 3 * 2 * cfg.n_layers     # enc self, dec self, cross; remat
+    figs, launches = {}, 0
+    for tp in tps:
+        run = t16_lg(fa, params, cfg, t16_ctx(tp, c["backend"]), batch)
+        layout = cfg.attn_layout(tp)
+        tag = f"train {cfg.name} TP {tp} ({c['backend']}, {layout} layout)"
+        figs[f"tp{tp}"] = {"loss": float(run["loss"][0]),
+                           "seconds": run["seconds"],
+                           "worst_grad_err": t16_train_gate(tag, run, one),
+                           "flash_launches": run["launches"]}
+        t16_launches(tag, run["launches"], predict, dev)
+        launches += run["launches"]
+        del run
+    t16_launches("whisper tp = 1", one["launches"], predict, dev)
+    figs["peak_gb"] = _peak_gb(dev)
+    del one
+    n, new, tp = c["prompt"], c["new"], c["tp"]
+    prompt = batch["tokens"][:, :n]
+    ctx1, ctxt = t16_ctx(remat=False), t16_ctx(tp, c["backend"], remat=False)
+    pt = shard_for_tp(params, cfg, tp)
+    with torch.no_grad():
+        kv1 = encdec.encoder_cross_kv(params, encdec.encode(
+            params, batch["frames"], ctx1, cfg), ctx1, cfg)
+        kvt = encdec.encoder_cross_kv(pt, encdec.encode(
+            pt, batch["frames"], ctxt, cfg), ctxt, cfg)
+    a = t16_decode(pt, cfg, ctxt, prompt, new, dev, extra=kvt)
+    b = t16_decode(params, cfg, ctx1, prompt, new, dev, extra=kv1)
+    figs["stream_diffs"] = t16_streams(f"decode {cfg.name} TP {tp}", a[:2],
+                                       b[:2], n, "bf16")
+    figs["decode_s_tp"] = a[2]
+    print(f"t16 (d) {cfg.name}: {json.dumps(figs)}; row 0's new tokens "
+          f"{a[0][0, n:].tolist()}", flush=True)
+    del params, pt, kv1, kvt, a, b, batch
+    _free(dev)
+    return launches, figs
+
+
+def t16_vlm(fa, dev, smoke: bool = False) -> tuple:
+    """(e) llama-3.2-vision-90b, bf16, 1 of 20 groups (4 dense + 1 cross
+    layer), TP 4 under posh, both gates non-zero: ``prefill`` of 1 x
+    1024 tokens against 1601 image rows, then 16 tokens through
+    ``decode_logits`` from its pick, each PE with its KV heads of the
+    image K/V, held to tp = 1 by the bf16 near-tie rule.  Returns (flash
+    launches of the TP prefill, figures)."""
+    from repro_torch.models import lm
+    from repro_torch.models.attention import cross_kv
+    from repro_torch.weights import shard_for_tp
+
+    c = T16["vlm"]
+    cfg = t16_cfg(c, smoke)
+    tp, bf = c["tp"], torch.bfloat16
+    seq = 32 if smoke else c["prompt"]
+    ng = cfg.n_layers // cfg.cross_attn_every
+    _free(dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     dtype=bf, device=dev, tp=tp)
+    for name, vals in XATTN_GATES.items():
+        params["cross"][name].copy_(torch.tensor(vals[:ng], dtype=bf)[:, None])
+    pt = shard_for_tp(params, cfg, tp)
+    batch = t16_batch(cfg, c["rows"], seq - 1, dev)
+    img = batch["img_embeds"].to(bf)
+    prompt = batch["tokens"]
+    runs = {}
+    for key, p, ctx in (("tp", pt, t16_ctx(tp, c["backend"], bf, False)),
+                        ("tp1", params, t16_ctx(1, "xla", bf, False))):
+        n0 = fa.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            h = lm.prefill(p, prompt, ctx, cfg, img_embeds=img)
+            lg = t16_gather_logits(lm.lm_head_logits(p["head"], h, ctx))
+            pre = fa.LAUNCHES["flash_attention"] - n0
+            kvs = [cross_kv(lm.layer(p["cross"], g)["xattn"],
+                            lm.per_pe(img, ctx), ctx, cfg)
+                   for g in range(ng)]
+            img_kv = (torch.stack([k for k, _ in kvs]),
+                      torch.stack([v for _, v in kvs]))
+        first = lg.float().argmax(-1)
+        toks, logits, sec = t16_decode(p, cfg, ctx, first[:, None], c["new"],
+                                       dev, extra=img_kv)
+        runs[key] = (torch.cat([first[:, None], toks], 1),
+                     torch.cat([lg.float()[:, None], logits], 1), sec, pre)
+        del h, kvs, img_kv
+    peak = _peak_gb(dev)
+    diff = t16_streams(f"prefill + decode {cfg.name} TP {tp}",
+                       runs["tp"][:2], runs["tp1"][:2], 1, "bf16")
+    figs = {"prefill_launches": runs["tp"][3], "predicted": cfg.n_layers,
+            "decode_s_tp": runs["tp"][2], "stream_diffs": diff,
+            "peak_gb": peak}
+    for key in ("tp", "tp1"):
+        t16_launches(f"vlm prefill {key}", runs[key][3], cfg.n_layers, dev)
+    print(f"t16 (e) {cfg.name}: {ng} group(s) bf16, gates "
+          f"{ {k: v[:ng] for k, v in XATTN_GATES.items()} }, 1 x {seq} "
+          f"tokens against {cfg.img_tokens} image rows; {json.dumps(figs)}; "
+          f"TP's tokens {runs['tp'][0][0].tolist()}", flush=True)
+    launches = runs["tp"][3]
+    del params, pt, runs, img
+    _free(dev)
+    return launches, figs
+
+
+def t16_stage(fa, sc, dev) -> tuple:
+    """Phase 16: (a)-(e), then the flash kernel timed at (a)'s captured
+    ctx-layout call and at phase 15's layouts.  Returns (the TP runs'
+    flash launches, the copy kernel's launches over the phase, the
+    timing rows)."""
+    c0 = sc.LAUNCHES["copy_blocked"]
+    la, _, cap = t16_minitron(fa, dev)
+    t16_rwkv(fa, dev)
+    lc, _ = t16_zamba(fa, dev)
+    ld, _ = t16_whisper(fa, dev)
+    le, _ = t16_vlm(fa, dev)
+    copies = sc.LAUNCHES["copy_blocked"] - c0
+    print(f"t16: the copy kernel launched {copies} times over the phase: "
+          f"the posh and xla backends move the stacked team's collectives "
+          f"with tensor operations on the card (the pallas backend alone "
+          f"stages them through the copy kernel)", flush=True)
+    if copies:
+        fail(f"t16: {copies} copy-kernel launches without the pallas backend")
+    rows = {"minitron_tp16_ctx": t16_flash_time(fa, "minitron TP 16 ctx",
+                                                cap["q"], cap["k"], cap["v"],
+                                                cap["kw"], dev)}
+    del cap
+    for tag in T16_TIMED:
+        sh = T15_FLASH[tag]
+        g = torch.Generator(device=dev).manual_seed(17)
+        q, k, v = (torch.randn((sh["b"], T15_SEQ, h, sh["d"]), generator=g,
+                               device=dev).transpose(1, 2)
+                   for h in (sh["h"], sh["hkv"], sh["hkv"]))
+        rows[tag] = t16_flash_time(fa, tag, q, k, v, {"causal": True}, dev)
+        del q, k, v
+    torch.cuda.empty_cache()
+    launches = la + lc + ld + le
+    print(f"t16: flash launches over the TP runs {launches} (minitron {la}, "
+          f"zamba2 {lc}, whisper {ld}, vlm prefill {le})", flush=True)
+    return launches, copies, rows
+
+
+# ----------------------------------------------------------------------
 # phase 7: timing
 # ----------------------------------------------------------------------
 def time_ms(fn, dev, iters=20) -> float:
@@ -6256,6 +6873,8 @@ def main(argv=None) -> int:
     phase_done("14 xattn")
     launches_tmoe, launches_ttp, errs_t15 = t15_stage(fa, dev)
     phase_done("15 tp train")
+    launches_t16, copies_t16, rows_t16 = t16_stage(fa, sc, dev)
+    phase_done("16 tp families")
     for row in kernels:
         if row["name"].startswith("paged_"):
             row["launches_swap"] = launches_swap[(row["name"], "bf16")]
@@ -6280,10 +6899,15 @@ def main(argv=None) -> int:
             row["launches_train_moe"] = launches_tmoe
             row["launches_train_tp"] = launches_ttp
             row["max_abs_err_train"] = errs_t15
+            row["launches_tp_families"] = launches_t16
+            row["max_abs_err_tp_families"] = max(
+                r["max_abs_err"] for r in rows_t16.values())
+            row["tp_families_shapes"] = rows_t16
         elif row["name"] == "copy_blocked":
             row["launches_tp"] = copies_tp
             row["launches_moe_tp"] = copies_mtp
             row["launches_dp"] = copies_dp
+            row["launches_tp_families"] = copies_t16
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -62,7 +62,9 @@
 // Both: ragged T, S and D masked in the kernel; tensors come with their
 // strides (the model's (b, t, h, d) layout is read and written in place;
 // rows and heads must sit 16 bytes apart, which the wrapper checks);
-// whole tiles outside the causal or window range are skipped.  Before a
+// whole tiles outside the causal or window range are skipped, each block
+// by the offset of its own batch row (the stacked TP layout's per-PE query
+// offset, q_offset + (b / pe_rows) * pe_stride).  Before a
 // row's first valid column its running max is NEG_INF, masked scores
 // give p = exp(0) = 1, and the first valid column rescales that state by
 // alpha = exp(-1e30 - m) = 0 — the reference's arithmetic, so rows whose
@@ -154,7 +156,8 @@ __global__ void __launch_bounds__(F_THREADS, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int H, int Hkv, int T_, int S, int D, Strides st,
-                     float sm_scale, int causal, int window, int q_offset, int kv_len) {
+                     float sm_scale, int causal, int window, int q_offset, int pe_rows,
+                     int pe_stride, int kv_len) {
   constexpr int LD = DP + F_PAD;
   constexpr int NV = DP / 64;            // float4 output groups per thread
   extern __shared__ float4 smem4[];
@@ -166,6 +169,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / Hkv);
+  q_offset += (b / pe_rows) * pe_stride;   // this batch row's PE
   const int q0 = (gridDim.y - 1 - blockIdx.y) * F_BQ;   // heaviest tiles first
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
@@ -310,7 +314,8 @@ __global__ void __launch_bounds__(B_THREADS, 1)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                       float* __restrict__ lse, int H, int Hkv, int T_, int S, int D, Strides st,
-                      float sm_scale, int causal, int window, int q_offset, int kv_len) {
+                      float sm_scale, int causal, int window, int q_offset, int pe_rows,
+                      int pe_stride, int kv_len) {
   using bf16 = __nv_bfloat16;
   constexpr int KSTEPS = DP / 16;        // k-steps of S = Q K^T
   constexpr int NT = B_BKV / 8;          // score n-tiles of a warp
@@ -323,6 +328,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / Hkv);
+  q_offset += (b / pe_rows) * pe_stride;   // this batch row's PE
   const int q0 = (gridDim.y - 1 - blockIdx.y) * B_BQ;   // heaviest tiles first
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
@@ -473,7 +479,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 template <typename T, int DP>
 int launch_dp(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
               int Hkv, int T_, int S, int D, const Strides& st, float sm_scale, int causal,
-              int window, int q_offset, int kv_len, cudaStream_t stream) {
+              int window, int q_offset, int pe_rows,
+              int pe_stride, int kv_len, cudaStream_t stream) {
   constexpr bool F32 = sizeof(T) == 4;
   const size_t bytes = F32 ? f32_smem_bytes(DP) : bf16_smem_bytes(DP);
   const int bq = F32 ? F_BQ : B_BQ;
@@ -486,7 +493,7 @@ int launch_dp(const void* q, const void* k, const void* v, void* out, void* lse,
     kernel<<<grid, F_THREADS, bytes, stream>>>((const float*)q, (const float*)k,
                                                (const float*)v, (float*)out, (float*)lse, H,
                                                Hkv, T_, S, D, st, sm_scale, causal, window,
-                                               q_offset, kv_len);
+                                               q_offset, pe_rows, pe_stride, kv_len);
   } else {
     auto kernel = flash_fwd_bf16_kernel<DP>;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -494,7 +501,7 @@ int launch_dp(const void* q, const void* k, const void* v, void* out, void* lse,
     kernel<<<grid, B_THREADS, bytes, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
         (__nv_bfloat16*)out, (float*)lse, H, Hkv, T_, S, D, st, sm_scale, causal, window,
-        q_offset, kv_len);
+        q_offset, pe_rows, pe_stride, kv_len);
   }
   return (int)cudaGetLastError();
 }
@@ -502,20 +509,21 @@ int launch_dp(const void* q, const void* k, const void* v, void* out, void* lse,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
            int Hkv, int T_, int S, int D, const long long* strides, float sm_scale,
-           int causal, int window, int q_offset, int kv_len, void* stream) {
+           int causal, int window, int q_offset, int pe_rows,
+           int pe_stride, int kv_len, void* stream) {
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = (cudaStream_t)stream;
   if (D <= 64)
     return launch_dp<T, 64>(q, k, v, out, lse, B, H, Hkv, T_, S, D, st, sm_scale, causal,
-                            window, q_offset, kv_len, s);
+                            window, q_offset, pe_rows, pe_stride, kv_len, s);
   if (D <= 128)
     return launch_dp<T, 128>(q, k, v, out, lse, B, H, Hkv, T_, S, D, st, sm_scale, causal,
-                             window, q_offset, kv_len, s);
+                             window, q_offset, pe_rows, pe_stride, kv_len, s);
   if (D <= 256)
     return launch_dp<T, 256>(q, k, v, out, lse, B, H, Hkv, T_, S, D, st, sm_scale, causal,
-                             window, q_offset, kv_len, s);
+                             window, q_offset, pe_rows, pe_stride, kv_len, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -538,21 +546,26 @@ int flash_attention_smem_bytes_bf16(int D) { return (int)bf16_smem_bytes(padded_
 // strides (12 values: q, k, v, out, each as batch, head, row); the last
 // dim of each is contiguous, and q, k, v start and step 16-byte aligned.
 // lse: (B, H, T) f32, contiguous.  window <= 0 means none; kv_len masks
-// columns >= kv_len; row i sits at q_offset + i.
+// columns >= kv_len; row i of batch row b sits at q_offset + (b / pe_rows) *
+// pe_stride + i: the stacked TP layout folds every PE's pe_rows batch rows
+// into B, each PE's queries pe_stride positions past the previous PE's
+// (pe_rows 1 and pe_stride 0 put every row at q_offset + i).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out, void* lse,
                         int B, int H, int Hkv, int T, int S, int D, const long long* strides,
-                        float sm_scale, int causal, int window, int q_offset, int kv_len,
+                        float sm_scale, int causal, int window, int q_offset, int pe_rows,
+                        int pe_stride, int kv_len,
                         void* stream) {
   return launch<float>(q, k, v, out, lse, B, H, Hkv, T, S, D, strides, sm_scale, causal,
-                       window, q_offset, kv_len, stream);
+                       window, q_offset, pe_rows, pe_stride, kv_len, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
                          int B, int H, int Hkv, int T, int S, int D, const long long* strides,
-                         float sm_scale, int causal, int window, int q_offset, int kv_len,
+                         float sm_scale, int causal, int window, int q_offset, int pe_rows,
+                         int pe_stride, int kv_len,
                          void* stream) {
   return launch<__nv_bfloat16>(q, k, v, out, lse, B, H, Hkv, T, S, D, strides, sm_scale,
-                               causal, window, q_offset, kv_len, stream);
+                               causal, window, q_offset, pe_rows, pe_stride, kv_len, stream);
 }
 
 }  // extern "C"

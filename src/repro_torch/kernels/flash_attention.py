@@ -11,7 +11,12 @@ Besides the output it returns the rows' log-sum-exp, which the training
 backward (``repro_torch.models.flash``) reads: ``m + log(max(l,
 1e-30))``, or ``BIG = 3e37`` where ``l == 0``.  ``q_offset`` places query
 row ``i`` at position ``q_offset + i`` (0 is the Pallas kernel) and
-``kv_len`` masks the columns at and past it.
+``kv_len`` masks the columns at and past it.  ``pe_rows`` and
+``pe_stride`` give each batch row its own offset, ``q_offset + (b //
+pe_rows) * pe_stride``: the stacked TP layout's ctx attention folds
+every PE's ``pe_rows`` rows into the batch, PE ``r``'s queries sitting
+at ``r * pe_stride`` of the gathered sequence (``query_positions``).  At
+``pe_stride = 0`` every row takes ``q_offset``, as before.
 
 The kernel (``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``) is
 bound by operations: at the training shape (q (1, 8, 4096, 256), k/v
@@ -67,7 +72,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-             _I, _I, _I, _I, _P]
+             _I, _I, _I, _I, _I, _I, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -78,32 +83,57 @@ def reset_launches() -> None:
 
 def attention_mask(rows: torch.Tensor, cols: torch.Tensor, causal: bool,
                    window: Optional[int], kv_len: int) -> torch.Tensor:
-    """(rows, cols) bool: the column exists (``< kv_len``), and is not
-    after the row (causal) nor ``window`` or more before it."""
+    """(..., rows, cols) bool for row positions (..., rows): the column
+    exists (``< kv_len``), and is not after the row (causal) nor
+    ``window`` or more before it."""
     m = cols[None, :] < kv_len
     if causal:
-        m = m & (cols[None, :] <= rows[:, None])
+        m = m & (cols[None, :] <= rows[..., :, None])
     if window is not None:
-        m = m & (cols[None, :] > rows[:, None] - window)
+        m = m & (cols[None, :] > rows[..., :, None] - window)
     return m
+
+
+def query_positions(q_offset: int, t: int, device, b: int = 1,
+                    pe_rows: int = 1, pe_stride: int = 0) -> torch.Tensor:
+    """The positions of ``t`` query rows: (t,) ``q_offset + i`` at
+    ``pe_stride = 0``; else (b, t), batch row ``b`` at ``q_offset + (b //
+    pe_rows) * pe_stride + i``."""
+    rows = q_offset + torch.arange(t, device=device)
+    if not pe_stride:
+        return rows
+    pe = torch.arange(b, device=device) // pe_rows
+    return rows[None, :] + (pe * pe_stride)[:, None]
+
+
+def check_pe(b: int, pe_rows: int, pe_stride: int) -> None:
+    """Raise unless ``pe_rows`` PE rows tile the batch of ``b``."""
+    if pe_rows < 1 or b % pe_rows or pe_stride < 0:
+        raise ValueError(f"pe_rows {pe_rows} must be >= 1 and divide the "
+                         f"batch {b}, pe_stride {pe_stride} >= 0")
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         sm_scale: Optional[float] = None, q_offset: int = 0,
-                        kv_len: Optional[int] = None):
+                        kv_len: Optional[int] = None, pe_rows: int = 1,
+                        pe_stride: int = 0):
     """Dense masked softmax in f32: q (B, H, T, D), k/v (B, H_kv, S, D)
     -> (out (B, H, T, D) in q's dtype, lse (B, H, T) f32)."""
     b, h, t, d = q.shape
+    check_pe(b, pe_rows, pe_stride)
     hkv, s = k.shape[1], k.shape[2]
     group = h // hkv
     sm_scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     kv_len = s if kv_len is None else kv_len
     qg = q.float().reshape(b, hkv, group, t, d)
     sc = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * sm_scale
-    mask = attention_mask(q_offset + torch.arange(t, device=q.device),
+    mask = attention_mask(query_positions(q_offset, t, q.device, b, pe_rows,
+                                          pe_stride),
                           torch.arange(s, device=q.device), causal, window,
                           kv_len)
+    if pe_stride:
+        mask = mask[:, None, None]                 # (B, 1, 1, T, S)
     sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     m = sc.amax(-1)
     p = torch.exp(sc - m[..., None])
@@ -190,15 +220,20 @@ def _check(q, k, v):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None, q_offset: int = 0,
-                    kv_len: Optional[int] = None):
+                    kv_len: Optional[int] = None, pe_rows: int = 1,
+                    pe_stride: int = 0):
     """q (B, H, T, D); k, v (B, H_kv, S, D) with H % H_kv == 0, any
     strides with a contiguous last dim.  Returns ``(out, lse)``: out
-    (B, H, T, D) in q's dtype with q's strides, lse (B, H, T) f32."""
+    (B, H, T, D) in q's dtype with q's strides, lse (B, H, T) f32.
+    Batch row ``b``'s queries sit at ``q_offset + (b // pe_rows) *
+    pe_stride + i`` (module docstring)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    sm_scale=sm_scale, q_offset=q_offset,
-                                   kv_len=kv_len)
+                                   kv_len=kv_len, pe_rows=pe_rows,
+                                   pe_stride=pe_stride)
     _check(q, k, v)
+    check_pe(q.shape[0], pe_rows, pe_stride)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     b, h, t, d = q.shape
@@ -217,7 +252,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), b, h, hkv, t, s, d, strides, sm_scale,
                  int(causal), 0 if window is None else int(window),
-                 int(q_offset), int(kv_len), stream)
+                 int(q_offset), int(pe_rows), int(pe_stride), int(kv_len),
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -41,8 +41,8 @@ in the reference, the CLI's DP size is the device count, one here, so at
 dp = 1 they change nothing.  ``build_trainer(dp_size=N, ...)`` trains N
 replicas on the stacked team of one card (ROADMAP A6), with the same
 options and ``compress`` (none | bf16 | int8) besides, and
-``build_trainer(tp_size=T, moe_dispatch=...)`` trains the dense and MoE
-families at TP T on the stacked team (every PE's shards on one card,
+``build_trainer(tp_size=T, moe_dispatch=...)`` trains any family the
+synthetic data feeds at TP T on the stacked team (every PE's shards on one card,
 sequence parallelism on, as the reference's launcher sets ``sp = tp >
 1``); the CLI, like the reference's on one device, runs at tp = 1.
 """
@@ -150,8 +150,8 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
     rows in ``microbatches`` microbatches, their gradients reduced
     through the ``backend``'s DP communicator by the schedule
     ``bucket_bytes`` / ``overlap_grad_sync`` / ``compress`` choose; each
-    replica a TP group of ``tp_size`` PEs (the dense and MoE families;
-    ``moe_dispatch`` einsum | alltoall), with sequence parallelism at
+    replica a TP group of ``tp_size`` PEs (``moe_dispatch`` einsum |
+    alltoall for a MoE config), with sequence parallelism at
     ``tp_size`` > 1."""
     cfg = cut_layers(configs.get_smoke(arch) if smoke else configs.get(arch),
                      n_layers)

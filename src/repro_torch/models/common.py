@@ -4,6 +4,13 @@ activations.
 The counterparts of ``repro.models.common``.  Norms and rotations
 compute in f32 and cast back to the input dtype, as the JAX functions
 do.
+
+The stacked TP layout's per-PE arithmetic is here too: ``tp_mm``, each
+PE's product with its own weight (one batched matmul over the PE axis),
+``pe_mm``, that product at tp > 1 and the plain one at tp = 1, and
+``pe_vec``, a per-PE weight (tp, *s) shaped to broadcast against
+activations (tp, ..., *s).  The norms take a scale (and bias) of
+either form.
 """
 from __future__ import annotations
 
@@ -24,12 +31,38 @@ def ninit(gen: torch.Generator, shape, scale: Optional[float] = None,
     return (x * scale).to(dtype)
 
 
+def tp_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-rank product: x (tp, ..., d) @ w (tp, d, n) -> (tp, ..., n), one
+    batched matmul (the weights are never broadcast against ``x``)."""
+    tp, d, n = w.shape
+    out = torch.bmm(x.reshape(tp, -1, d), w.to(x.dtype))
+    return out.reshape(x.shape[:-1] + (n,))
+
+
+def pe_mm(x: torch.Tensor, w: torch.Tensor, tp: int) -> torch.Tensor:
+    """``x @ w`` in x's dtype; at tp > 1 each PE's own (``tp_mm``)."""
+    return tp_mm(x, w) if tp > 1 else x @ w.to(x.dtype)
+
+
+def _align(w: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
+    """``w`` whose last ``n`` dims match x's last ``n``, its leading dims
+    aligned with x's leading dims (ones between)."""
+    k = w.dim() - n
+    return w.reshape(w.shape[:k] + (1,) * (x.dim() - w.dim()) + w.shape[k:])
+
+
+def pe_vec(w: torch.Tensor, x: torch.Tensor, tp: int,
+           n: int = 1) -> torch.Tensor:
+    """A weight of ``n`` dims (at tp > 1 stacked per PE, (tp, *s)) shaped
+    to broadcast against x (..., *s) (at tp > 1 (tp, ..., *s))."""
+    return _align(w, x, n) if tp > 1 else w
+
+
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """RMS norm over the last dim; ``scale`` (d,), or (tp, d) in the TP
     layout against x (tp, ..., d): its leading axes align with x's."""
-    scale = scale.reshape(scale.shape[:-1] + (1,) * (x.dim() - scale.dim())
-                          + scale.shape[-1:])
+    scale = _align(scale, x, 1)
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * scale.float()
@@ -38,13 +71,15 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
 
 def layernorm(params: dict, x: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    """Layer norm over the last dim with ``scale`` and ``bias``; the
+    """Layer norm over the last dim with ``scale`` and ``bias`` (each (d,),
+    or (tp, d) against x (tp, ..., d), as ``rmsnorm``'s scale); the
     variance is the biased one, as ``jnp.var``."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
-    out = out * params["scale"].float() + params["bias"].float()
+    out = out * _align(params["scale"], x, 1).float() + \
+        _align(params["bias"], x, 1).float()
     return out.to(x.dtype)
 
 

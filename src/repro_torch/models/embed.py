@@ -21,6 +21,9 @@ each PE's vocab shard, the row max through ``tp_comm.pmax`` (detached,
 as the reference stops its gradient), the exp-sums and the target
 logits through ``tp_comm.psum``, each chunk recomputed in the backward
 (``torch.utils.checkpoint``).  Every PE holds the same per-token losses.
+``ce_mode="gathered"`` (the naive path) all-gathers the vocab table over
+TP (its transpose reduce-scatters the table's cotangent back to the
+shards) and takes the plain full-vocab CE on every PE.
 """
 from __future__ import annotations
 
@@ -105,16 +108,28 @@ def _chunk_ce_tp(logits: torch.Tensor, targets: torch.Tensor, vloc: int,
     return -(tl - mx - torch.log(ssum.clamp_min(1e-30)))
 
 
+def _gathered_ce(xf: torch.Tensor, wt: torch.Tensor,
+                 tg: torch.Tensor) -> torch.Tensor:
+    """The naive CE over the full vocab: xf (..., n, d), wt (..., V, d),
+    targets (n,) -> the mean over the n tokens (...)."""
+    logits = (xf @ wt.transpose(-1, -2)).float()
+    mx = logits.amax(-1)
+    lse = mx + torch.log(torch.exp(logits - mx[..., None]).sum(-1))
+    tl = torch.take_along_dim(logits, tg.expand(logits.shape[:-1])[..., None],
+                              dim=-1)[..., 0]
+    return (lse - tl).mean(-1)
+
+
 def _lm_head_loss_tp(table, x, targets, ctx, chunk) -> torch.Tensor:
     """``lm_head_loss`` at tp > 1: table (tp, V/tp, d), x (tp, b, t/tp, d)
-    sequence shards -> (tp,) losses, the chunked vocab-parallel CE
-    (module docstring); the gathered mode is ported at tp = 1 only."""
-    if ctx.ce_mode == "gathered":
-        raise NotImplementedError("ce_mode='gathered' runs at tp = 1; at "
-                                  "tp > 1 the CE is vocab-parallel")
+    sequence shards -> (tp,) losses, the chunked vocab-parallel CE or the
+    gathered one (module docstring)."""
     tp, vloc, d = table.shape
     xf = sp_gather(x, ctx).reshape(tp, -1, d)            # (tp, b t, d)
     tg = targets.reshape(-1).long()
+    if ctx.ce_mode == "gathered":
+        full = ctx.tp_comm.all_gather(table, axis=0, tiled=True)
+        return _gathered_ce(xf, full.to(ctx.compute_dtype), tg)
     wt = table.to(ctx.compute_dtype).transpose(1, 2)
 
     def chunk_loss(xc, tc):
@@ -134,7 +149,7 @@ def lm_head_loss(params: dict, x: torch.Tensor, targets: torch.Tensor, ctx,
     tokens, each chunk recomputed in the backward
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``),
     so at most one chunk's (tokens x vocab) logits live at a time.
-    ``gathered``: the naive full-logits path (tp = 1).  At tp > 1, x
+    ``gathered``: the naive full-logits path.  At tp > 1, x
     (tp, b, t/tp, d) -> every PE's loss, (tp,) (module docstring)."""
     table = params["table"]
     if tp_of(ctx) > 1:
@@ -145,11 +160,7 @@ def lm_head_loss(params: dict, x: torch.Tensor, targets: torch.Tensor, ctx,
     tg = targets.reshape(b * t).long()
     wt = table.to(ctx.compute_dtype)
     if ctx.ce_mode == "gathered":
-        logits = (xf @ wt.T).float()
-        mx = logits.amax(-1)
-        lse = mx + torch.log(torch.exp(logits - mx[:, None]).sum(-1))
-        tl = torch.take_along_dim(logits, tg[:, None], dim=1)[:, 0]
-        return (lse - tl).mean()
+        return _gathered_ce(xf, wt, tg)
 
     def chunk_loss(xc, tc):
         return _chunk_ce((xc @ wt.T).float(), tc, vloc)

@@ -1,7 +1,7 @@
 """Whisper-style encoder-decoder: parameters, the encoder, the
 teacher-forced decoder, the loss and the contiguous-cache decode.
 
-The counterpart of ``repro.models.encdec`` at tp = 1.  The conv frontend
+The counterpart of ``repro.models.encdec``.  The conv frontend
 is a stub there and here: the encoder takes precomputed frame embeddings
 ``frames`` (b, n_frames, d).  Sinusoidal positions on the encoder
 (``_sinusoid``, f32 as the reference computes it), a learned table
@@ -23,19 +23,31 @@ decoder layer's cross K/V stacked ``(L, b, S, H_kv, dh)``, then
 ``decode_step`` a token at a time against the bf16 self-attention caches
 of ``init_decode_state``; the position reads ``pos_dec[min(pos, rows -
 1)]``, the reference's clamp.
+
+At tp > 1 (``weights.shard_for_tp``'s stacked layout) the encoder runs
+with sequence parallelism off (``ctx.with_(sp=False)``): every PE holds
+all the frames, the head layout psums its partial sums and the ctx
+layout attends the whole sequence on every PE (1500 frames do not divide
+by 16).  The decoder runs sequence-parallel: the embedding's partial
+rows reduce-scattered over the sequence, each PE's positions
+``pos_dec[rank * t/tp ..]``, its cross attention reading every PE's copy
+of the encoder output.  The loss is masked to TP rank 0 for the
+gradient, as ``lm.loss_fn``'s; the decode psums, and picks the token
+over the vocab shards (``tp_argmax``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.parallel.ctx import sp_scatter, tp_of
 
 from .attention import (cross_attention, cross_kv, decode_cross_attention,
                         decode_self_attention, init_cache, self_attention)
 from .common import ninit, norm_apply, norm_init
 from .embed import embed_lookup, lm_head_logits, lm_head_loss, tp_argmax
-from .lm import (ACTS, _check_decode_tp, _run, _stack, _zeros_stack,
-                 attn_shapes, draw, layer, mlp_shapes, n_blocks)
+from .lm import (ACTS, _run, _stack, _zeros_stack, attn_shapes, draw,
+                 layer, mlp_shapes, n_blocks, per_pe)
 from .mlp import mlp_apply
 
 
@@ -66,12 +78,13 @@ def _dec_block_init(gen, cfg, dtype, device) -> dict:
 
 
 def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
-         device=None) -> dict:
+         device=None, tp: int = 1) -> dict:
     """Parameters drawn from ``gen`` with ``lm.init``'s distributions
-    (``pos_dec`` normal at scale 0.01, as the reference's)."""
+    (``pos_dec`` normal at scale 0.01, as the reference's), the vocab
+    table padded to a multiple of ``tp`` rows."""
     if cfg.act not in ACTS:
         raise NotImplementedError(f"act {cfg.act!r} not ported")
-    v, d = cfg.padded_vocab(1), cfg.d_model
+    v, d = cfg.padded_vocab(tp), cfg.d_model
     return {
         "embed": {"table": ninit(gen, (v, d), scale=0.02, dtype=dtype,
                                  device=device)},
@@ -91,8 +104,10 @@ def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
 # ======================================================================
 # encoder, teacher-forced decoder, loss
 # ======================================================================
-def _mlp(p: dict, x: torch.Tensor, ctx, cfg) -> torch.Tensor:
-    return mlp_apply(p, x.to(ctx.compute_dtype), cfg)
+def _mlp(p: dict, x: torch.Tensor, ctx, cfg, sp: bool = True) -> torch.Tensor:
+    """The MLP; at tp > 1 sequence-parallel in training (``sp``, which
+    ``ctx.sp`` off turns into a psum) and psummed in the decode."""
+    return mlp_apply(p, x.to(ctx.compute_dtype), cfg, ctx, sp=sp)
 
 
 def _enc_block_apply(p: dict, h: torch.Tensor, ctx, cfg) -> torch.Tensor:
@@ -114,12 +129,14 @@ def _dec_block_apply(p: dict, h: torch.Tensor, ctx, cfg,
 def encode(params: dict, frames: torch.Tensor, ctx, cfg) -> torch.Tensor:
     """frames (b, n_frames, d) stub embeddings -> (b, n_frames, d):
     sinusoid positions, non-causal self attention, the final layer
-    norm."""
+    norm.  At tp > 1 every PE's copy (tp, b, n_frames, d), sequence
+    parallelism off."""
     cd = ctx.compute_dtype
-    x = frames.to(cd) + _sinusoid(frames.shape[1], cfg.d_model,
-                                  frames.device).to(cd)
+    x = per_pe(frames, ctx).to(cd) + _sinusoid(
+        frames.shape[1], cfg.d_model, frames.device).to(cd)
     blocks = params["enc_blocks"]
-    x = _run(blocks, 0, n_blocks(blocks), x, _enc_block_apply, ctx, cfg)
+    x = _run(blocks, 0, n_blocks(blocks), x, _enc_block_apply,
+             ctx.with_(sp=False), cfg)
     return norm_apply("layer", params["ln_enc"], x)
 
 
@@ -127,9 +144,20 @@ def decode_train(params: dict, ids: torch.Tensor, enc_out: torch.Tensor,
                  ctx, cfg) -> torch.Tensor:
     """Teacher-forced decoder: ids (b, t) -> final hidden states (b, t,
     d); positions ``pos_dec[0 .. t-1]``, causal self attention, cross
-    attention to ``enc_out``."""
-    x = embed_lookup(params["embed"], ids, ctx.compute_dtype)
-    x = x + params["pos_dec"][:x.shape[1]].to(x.dtype)[None]
+    attention to ``enc_out``.  At tp > 1 each PE's sequence shard (tp, b,
+    t/tp, d) at positions ``rank * t/tp ..`` (module docstring)."""
+    cd, table = ctx.compute_dtype, params["pos_dec"]
+    if tp_of(ctx) > 1:
+        x = sp_scatter(embed_lookup(params["embed"], ids, cd, ctx,
+                                    reduce=False), ctx)
+        tp, tl = x.shape[0], x.shape[2]
+        pe = torch.arange(tp, device=x.device)
+        rows = (pe * tl if ctx.sp else 0 * pe)[:, None] + \
+            torch.arange(tl, device=x.device)
+        x = x + table[pe[:, None], rows].to(x.dtype)[:, None]
+    else:
+        x = embed_lookup(params["embed"], ids, cd)
+        x = x + table[:x.shape[1]].to(x.dtype)[None]
     blocks = params["dec_blocks"]
     x = _run(blocks, 0, n_blocks(blocks), x, _dec_block_apply, ctx, cfg,
              enc_out)
@@ -139,9 +167,8 @@ def decode_train(params: dict, ids: torch.Tensor, enc_out: torch.Tensor,
 def loss_fn(params: dict, batch: dict, ctx, cfg,
             for_grad: bool = False) -> torch.Tensor:
     """batch {'frames': (b, n_frames, d), 'tokens': (b, t+1)} -> mean
-    next-token CE over the embedding table (``for_grad`` as in
-    ``lm.loss_fn``: the identity at tp = 1)."""
-    del for_grad
+    next-token CE over the embedding table; at tp > 1 every PE's loss
+    (tp,), with ``for_grad`` masked to TP rank 0, as ``lm.loss_fn``'s."""
     if "frames" not in batch:
         raise ValueError(f"{cfg.name}: the encoder-decoder loss needs "
                          f"batch['frames'] (b, enc_frames={cfg.enc_frames}, "
@@ -150,7 +177,11 @@ def loss_fn(params: dict, batch: dict, ctx, cfg,
     ids, targets = tokens[:, :-1], tokens[:, 1:]
     enc_out = encode(params, batch["frames"], ctx, cfg)
     x = decode_train(params, ids, enc_out, ctx, cfg)
-    return lm_head_loss(params["embed"], x, targets, ctx)
+    loss = lm_head_loss(params["embed"], x, targets, ctx)
+    if for_grad and tp_of(ctx) > 1:
+        loss = torch.where(ctx.tp_rank(loss.device) == 0, loss,
+                           torch.zeros_like(loss))
+    return loss
 
 
 # ======================================================================
@@ -159,15 +190,16 @@ def loss_fn(params: dict, batch: dict, ctx, cfg,
 def init_decode_state(cfg, ctx, batch: int, max_len: int,
                       device=None) -> dict:
     """``{"cache": n_layers bf16 self-attention caches stacked, "pos":
-    0}`` on ``device`` (None: the GPU)."""
-    _check_decode_tp(ctx)
-    one = init_cache(cfg, batch, max_len, device=resolve(device))
+    0}`` on ``device`` (None: the GPU); at tp > 1 every PE's
+    (``attention.init_cache``)."""
+    one = init_cache(cfg, batch, max_len, device=resolve(device), ctx=ctx)
     return {"cache": _zeros_stack(one, cfg.n_layers), "pos": 0}
 
 
 def encoder_cross_kv(params: dict, enc_out: torch.Tensor, ctx, cfg):
     """Every decoder layer's cross K/V of ``enc_out``: (k, v), each (L,
-    b, S, H_kv, dh)."""
+    b, S, H_kv, dh); at tp > 1, of every PE's copy of it, (L, tp, b, S,
+    kvpr, dh) (all the KV heads in the ctx layout)."""
     blocks = params["dec_blocks"]
     kvs = [cross_kv(layer(blocks, li)["xattn"], enc_out, ctx, cfg)
            for li in range(n_blocks(blocks))]
@@ -177,14 +209,18 @@ def encoder_cross_kv(params: dict, enc_out: torch.Tensor, ctx, cfg):
 
 def decode_logits(params: dict, token: torch.Tensor, state: dict, enc_kv,
                   ctx, cfg):
-    """One step: token (b,) -> (logits (b, V) in the compute dtype,
-    state), the caches written in place and ``pos`` advanced.
-    ``enc_kv`` is ``encoder_cross_kv``'s."""
-    _check_decode_tp(ctx)
-    x = embed_lookup(params["embed"], token[:, None], ctx.compute_dtype)[:, 0]
+    """One step: token (b,) (or ``decode_step``'s (tp, b)) -> (logits (b,
+    V) in the compute dtype, state), the caches written in place and
+    ``pos`` advanced.  ``enc_kv`` is ``encoder_cross_kv``'s.  At tp > 1
+    the logits are each PE's vocab shard, (tp, b, V/tp)."""
+    if token.dim() == 2:              # every PE's pick: the same on each
+        token = token[0]
+    x = embed_lookup(params["embed"], token[:, None], ctx.compute_dtype,
+                     ctx)[..., 0, :]
     pos = state["pos"]
     table = params["pos_dec"]
-    x = x + table[min(pos, table.shape[0] - 1)].to(x.dtype)[None]
+    row = table[..., min(pos, table.shape[-2] - 1), :]
+    x = x + row.to(x.dtype)[..., None, :]
     blocks, cache = params["dec_blocks"], state["cache"]
     ek, ev = enc_kv
     for li in range(n_blocks(blocks)):
@@ -196,9 +232,10 @@ def decode_logits(params: dict, token: torch.Tensor, state: dict, enc_kv,
         x = x + decode_cross_attention(
             p["xattn"], norm_apply("layer", p["lnx"], x), (ek[li], ev[li]),
             ctx, cfg)
-        x = x + _mlp(p["mlp"], norm_apply("layer", p["ln2"], x), ctx, cfg)
+        x = x + _mlp(p["mlp"], norm_apply("layer", p["ln2"], x), ctx, cfg,
+                     sp=False)
     x = norm_apply("layer", params["ln_f"], x)
-    logits = lm_head_logits(params["embed"], x.to(ctx.compute_dtype))
+    logits = lm_head_logits(params["embed"], x.to(ctx.compute_dtype), ctx)
     state["pos"] = pos + 1
     return logits, state
 
@@ -206,6 +243,6 @@ def decode_logits(params: dict, token: torch.Tensor, state: dict, enc_kv,
 def decode_step(params: dict, token: torch.Tensor, state: dict, enc_kv,
                 ctx, cfg):
     """token (b,) -> (next token (b,) int32, greedy; the state, updated in
-    place)."""
+    place); at tp > 1 every PE's pick (tp, b)."""
     logits, state = decode_logits(params, token, state, enc_kv, ctx, cfg)
-    return tp_argmax(logits), state
+    return tp_argmax(logits, ctx), state

@@ -20,7 +20,13 @@ custom-VJP ``_flash_chunk``, here a ``torch.autograd.Function``:
 Layout as in the reference: q (b, t, h, dh), k/v (b, s, h_kv, dh), GQA
 groups explicit inside (b, t, h_kv, g, dh), no K/V repetition.
 ``q_offset`` (a Python int here) is the position of query row 0 and
-``kv_len`` masks the KV columns at and past it.
+``kv_len`` masks the KV columns at and past it.  ``pe_rows`` and
+``pe_stride`` give every batch row its own offset, ``q_offset + (b //
+pe_rows) * pe_stride`` (``kernels.flash_attention.query_positions``):
+the ctx attention layout folds every PE's rows into the batch, PE
+``r``'s queries at ``r * t/tp`` of the gathered K/V, in ONE launch; the
+plain forward and the backward mask each row by its own position and
+skip only the pairs no PE's rows can see.
 
 The contiguous-cache decode path's attention is here too, as plain f32
 PyTorch, as the reference's is jnp: ``decode_attention`` (one token
@@ -40,13 +46,25 @@ IMPLS = ("kernel", "ref")
 _mask = fa.attention_mask
 
 
-def _chunk_fwd(q, k, v, scale, causal, window, kv_len, block_kv, q_offset):
+def _rows(q_offset, tq, b, pe, device):
+    """The query positions of a chunk, (tq,) or per batch row (b, tq)."""
+    return fa.query_positions(q_offset, tq, device, b, *pe)
+
+
+def _pe_mask(msk, pe):
+    """A per-row mask (b, i, j) against scores (b, hkv, g, i, j)."""
+    return msk[:, None, None] if pe[1] else msk
+
+
+def _chunk_fwd(q, k, v, scale, causal, window, kv_len, block_kv, q_offset,
+               pe=(1, 0)):
     """Plain mirror of ``_flash_chunk_fwd_impl``.  q (b, tq, hkv, g, dh);
     k, v (b, s, hkv, dh) -> out like q, lse (b, hkv, g, tq) f32.  The last
-    KV block is ragged instead of padded: its padded columns were masked."""
+    KV block is ragged instead of padded: its padded columns were masked.
+    ``pe`` = (pe_rows, pe_stride), each batch row's offset."""
     b, tq, hkv, g, dh = q.shape
     s = k.shape[1]
-    rows = q_offset + torch.arange(tq, device=q.device)
+    rows = _rows(q_offset, tq, b, pe, q.device)
     qf = q.float()
     m = torch.full((b, hkv, g, tq), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hkv, g, tq), dtype=torch.float32, device=q.device)
@@ -56,7 +74,7 @@ def _chunk_fwd(q, k, v, scale, causal, window, kv_len, block_kv, q_offset):
         kj, vj = k[:, j:j + block_kv].float(), v[:, j:j + block_kv].float()
         cols = j + torch.arange(kj.shape[1], device=q.device)
         sc = torch.einsum("bihgd,bjhd->bhgij", qf, kj) * scale
-        msk = _mask(rows, cols, causal, window, kv_len)
+        msk = _pe_mask(_mask(rows, cols, causal, window, kv_len), pe)
         sc = torch.where(msk, sc, torch.full_like(sc, NEG))
         m_new = torch.maximum(m, sc.amax(-1))
         alpha = torch.exp(m - m_new)
@@ -71,41 +89,50 @@ def _chunk_fwd(q, k, v, scale, causal, window, kv_len, block_kv, q_offset):
     return out, lse
 
 
+def _pe_span(b, pe_rows, pe_stride) -> int:
+    """How far past PE 0's the last PE's queries sit."""
+    return (b // pe_rows - 1) * pe_stride
+
+
 def _forward(q, k, v, scale, causal, window, kv_len, block_q, block_kv,
-             q_offset, impl):
+             q_offset, pe_rows, pe_stride, impl):
     b, tq, hkv, g, dh = q.shape
     if impl == "kernel" and q.device.type == "cuda":
         out, lse = fa.flash_attention(
             q.reshape(b, tq, hkv * g, dh).transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), causal=causal, window=window, sm_scale=scale,
-            q_offset=q_offset, kv_len=kv_len)
+            q_offset=q_offset, kv_len=kv_len, pe_rows=pe_rows,
+            pe_stride=pe_stride)
         return (out.transpose(1, 2).reshape(b, tq, hkv, g, dh),
                 lse.reshape(b, hkv, g, tq))
     s = k.shape[1]
+    pe, span = (pe_rows, pe_stride), _pe_span(b, pe_rows, pe_stride)
     outs, lses = [], []
     for qs in range(0, tq, block_q):
         qc = q[:, qs:qs + block_q]
         off = q_offset + qs
-        if causal:                         # the KV prefix this chunk sees
-            hi = min(s, off + qc.shape[1])
+        if causal:              # the KV prefix this chunk's last PE sees
+            hi = min(s, off + span + qc.shape[1])
             nb = max(1, -(-hi // block_kv))
             k_use, v_use = k[:, :nb * block_kv], v[:, :nb * block_kv]
             kl = min(kv_len, k_use.shape[1])
         else:
             k_use, v_use, kl = k, v, kv_len
         o, lse = _chunk_fwd(qc, k_use, v_use, scale, causal, window, kl,
-                            block_kv, off)
+                            block_kv, off, pe)
         outs.append(o)
         lses.append(lse)
     return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
 
 
 def _backward(q, k, v, out, lse, dout, scale, causal, window, kv_len,
-              block_q, block_kv, q_offset):
+              block_q, block_kv, q_offset, pe_rows, pe_stride):
     """The blocked recompute of ``_flash_chunk_bwd`` over (query chunk x
-    KV block) pairs inside the causal / window / kv_len range."""
+    KV block) pairs inside the causal / window / kv_len range of any
+    PE's rows."""
     b, tq, hkv, g, dh = q.shape
     s = k.shape[1]
+    pe, span = (pe_rows, pe_stride), _pe_span(b, pe_rows, pe_stride)
     qf = q.float()
     dof = dout.float().movedim(1, -2)                # (b, hkv, g, tq, dh)
     D = (dof * out.float().movedim(1, -2)).sum(-1)   # (b, hkv, g, tq)
@@ -114,8 +141,8 @@ def _backward(q, k, v, out, lse, dout, scale, causal, window, kv_len,
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     for qs in range(0, tq, block_q):
         qe = min(qs + block_q, tq)
-        rows = q_offset + torch.arange(qs, qe, device=q.device)
-        r_lo, r_hi = q_offset + qs, q_offset + qe - 1
+        rows = _rows(q_offset + qs, qe - qs, b, pe, q.device)
+        r_lo, r_hi = q_offset + qs, q_offset + span + qe - 1
         qc, doc = qf[:, qs:qe], dof[..., qs:qe, :]
         lse_c, d_c = lse[..., qs:qe, None], D[..., qs:qe, None]
         for ks in range(0, min(s, kv_len), block_kv):
@@ -127,7 +154,7 @@ def _backward(q, k, v, out, lse, dout, scale, causal, window, kv_len,
             kj, vj = k[:, ks:ke].float(), v[:, ks:ke].float()
             cols = torch.arange(ks, ke, device=q.device)
             sc = torch.einsum("bihgd,bjhd->bhgij", qc, kj) * scale
-            msk = _mask(rows, cols, causal, window, kv_len)
+            msk = _pe_mask(_mask(rows, cols, causal, window, kv_len), pe)
             sc = torch.where(msk, sc, torch.full_like(sc, NEG))
             p = torch.exp(sc - lse_c)                # (b, hkv, g, i, j)
             dv[:, ks:ke] += torch.einsum("bhgij,bhgid->bjhd", p, doc)
@@ -140,7 +167,8 @@ def _backward(q, k, v, out, lse, dout, scale, causal, window, kv_len,
 
 class _FlashAttention(torch.autograd.Function):
     """out = attention(q, k, v); ``opts`` = (scale, causal, window,
-    kv_len, block_q, block_kv, q_offset, impl), all static."""
+    kv_len, block_q, block_kv, q_offset, pe_rows, pe_stride, impl), all
+    static."""
 
     @staticmethod
     def forward(ctx, q, k, v, opts):
@@ -159,8 +187,11 @@ class _FlashAttention(torch.autograd.Function):
 def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
                       scale: Optional[float] = None, q_offset: int = 0,
                       kv_len: Optional[int] = None, block_q: int = 1024,
-                      block_kv: int = 1024, impl: str = "kernel"):
+                      block_kv: int = 1024, impl: str = "kernel",
+                      pe_rows: int = 1, pe_stride: int = 0):
     """q: (b, tq, h, dh); k, v: (b, s, hkv, dh) -> (b, tq, h, dh).
+    Batch row ``b``'s queries sit at ``q_offset + (b // pe_rows) *
+    pe_stride + i`` (module docstring).
 
     ``block_q`` / ``block_kv`` are the chunks of the plain forward and of
     the backward (the kernel has its own tiles); ``impl`` is the
@@ -173,8 +204,9 @@ def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     kv_len = s if kv_len is None else kv_len
     scale = dh ** -0.5 if scale is None else scale
     qg = q.reshape(b, tq, hkv, h // hkv, dh)
+    fa.check_pe(b, pe_rows, pe_stride)
     opts = (scale, causal, window, kv_len, min(block_q, tq), block_kv,
-            int(q_offset), impl)
+            int(q_offset), int(pe_rows), int(pe_stride), impl)
     return _FlashAttention.apply(qg, k, v, opts).reshape(b, tq, h, dh)
 
 

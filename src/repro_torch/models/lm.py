@@ -38,7 +38,7 @@ optional shared expert (``mlp.moe_shapes``); it trains (``mlp.moe_apply``
 differentiates), prefills and decodes.  The encoder-decoder family is
 ``models.encdec``.
 
-At tp > 1 the dense and MoE families train in the head attention layout
+At tp > 1 every family trains, in either attention layout
 (``weights.shard_for_tp``'s stacked parameters): the embedding's
 partial rows are reduce-scattered over the sequence (``_embed_sp``),
 every block runs under sequence parallelism and ``forward``
@@ -46,9 +46,13 @@ returns each PE's sequence shard (tp, b, t/tp, d); ``loss_fn`` returns
 every PE's loss (tp,), and with ``for_grad`` the reference's
 single-seed mask: the loss on TP rank 0, zero elsewhere, so that the
 backward (seeded on every PE) computes each PE's replica-local partial
-gradient once, which the train step completes per spec.  The other
-families, the ctx layout and the contiguous-cache decode raise there
-(ROADMAP A10).
+gradient once, which the train step completes per spec.  The vlm's
+image embeddings (b, img_tokens, d) are the same on every PE: each PE
+projects its copy (``cross_kv``).  The decode runs at tp > 1 too, on
+every PE's copy of the token's hidden state (tp, b, d), each layer's
+state stacked per PE behind the layer axis; the logits are each PE's
+vocab shard and ``decode_step``'s greedy pick merges them
+(``tp_argmax``).
 
 Decode keeps the reference's state layout, each per-layer leaf stacked
 on a leading layer axis: a dense layer's bf16 KV cache (``attention.
@@ -79,27 +83,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
-from repro_torch.parallel.ctx import A10_TP, sp_gather, sp_scatter, tp_of
+from repro_torch.parallel.ctx import sp_gather, sp_scatter, tp_of
 from repro_torch.tree import STACKED, tree_map
 
 from . import rwkv as rk
 from . import ssm as sm
 from .attention import (cross_attention, cross_kv, decode_cross_attention,
                         decode_self_attention, init_cache, self_attention)
-from .common import ninit, norm_apply, norm_init
+from .common import ninit, norm_apply, norm_init, pe_vec
 from .embed import embed_lookup, lm_head_logits, lm_head_loss, tp_argmax
 from .mlp import is_glu, mlp_apply, moe_apply, moe_shapes
 
 ACTS = ("swiglu", "geglu", "relu2", "gelu")
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 _REFUSALS = {"encdec": "the encoder-decoder family is models.encdec's"}
-
-
-def _check_decode_tp(ctx) -> None:
-    """The contiguous-cache decode runs at tp = 1; raise otherwise."""
-    if ctx is not None and ctx.tp_size > 1:
-        raise NotImplementedError(
-            f"the contiguous-cache decode at tp={ctx.tp_size}: {A10_TP}")
 
 
 def _refuse(cfg, what: str):
@@ -218,14 +215,16 @@ def _cross_block_init(gen, cfg, dtype, device) -> dict:
 
 
 def init(gen: torch.Generator, cfg, *, dtype=torch.float32,
-         device=None) -> dict:
+         device=None, tp: int = 1) -> dict:
     """Parameters of any ported family: ``embed``, ``ln_f``, the family's
-    blocks (module docstring) and, unless tied, ``head``."""
+    blocks (module docstring) and, unless tied, ``head``; the vocab
+    tables padded to a multiple of ``tp`` rows (``padded_vocab``), as the
+    reference's init pads them for its TP size."""
     if cfg.family not in FAMILIES:
         _refuse(cfg, "builds")
     if cfg.family != "ssm" and cfg.act not in ACTS:
         raise NotImplementedError(f"act {cfg.act!r} not ported")
-    v, d = cfg.padded_vocab(1), cfg.d_model
+    v, d = cfg.padded_vocab(tp), cfg.d_model
     params = {"embed": {"table": ninit(gen, (v, d), scale=0.02, dtype=dtype,
                                        device=device)},
               "ln_f": norm_init("rms", d, dtype, device)}
@@ -321,10 +320,23 @@ def _cross_block_apply(p: dict, x: torch.Tensor, img_kv, ctx,
     * xattn(x)``, then ``+ tanh(mgate) * mlp``."""
     h = cross_attention(p["xattn"], norm_apply("rms", p["xln"], x), img_kv,
                         ctx, cfg)
-    x = x + torch.tanh(p["xgate"].to(h.dtype)) * h
+    x = x + _gate(p["xgate"], h, ctx) * h
     m = mlp_apply(p["mlp"], norm_apply("rms", p["ln2"], x).to(
-        ctx.compute_dtype), cfg)
-    return x + torch.tanh(p["mgate"].to(m.dtype)) * m
+        ctx.compute_dtype), cfg, ctx, sp=True)
+    return x + _gate(p["mgate"], m, ctx) * m
+
+
+def _gate(g: torch.Tensor, h: torch.Tensor, ctx) -> torch.Tensor:
+    """``tanh`` of a cross layer's gate (1,) — every PE's copy (tp, 1) at
+    tp > 1 — in h's dtype, broadcasting against h."""
+    return torch.tanh(pe_vec(g, h, tp_of(ctx)).to(h.dtype))
+
+
+def per_pe(x: torch.Tensor, ctx) -> torch.Tensor:
+    """Batch data the same on every PE (the vlm's image embeddings,
+    whisper's frames) as every PE's copy (tp, ...) at tp > 1."""
+    tp = tp_of(ctx)
+    return x.expand((tp,) + tuple(x.shape)) if tp > 1 else x
 
 
 def _run(blocks, lo: int, hi: int, x, fn, ctx, cfg, *extra):
@@ -359,9 +371,9 @@ def _embed_sp(params: dict, ids: torch.Tensor, ctx) -> torch.Tensor:
 
 def forward(params: dict, ids: torch.Tensor, ctx, cfg,
             img_embeds=None) -> torch.Tensor:
-    """ids (b, t) -> final hidden states (b, t, d); at tp > 1 (the dense
-    and MoE families) each PE's sequence shard (tp, b, t/tp, d) (module
-    docstring).  With ``ctx.remat``
+    """ids (b, t) -> final hidden states (b, t, d); at tp > 1 each PE's
+    sequence shard (tp, b, t/tp, d) (module docstring).  With
+    ``ctx.remat``
     each stacked layer runs under ``torch.utils.checkpoint`` — its
     activations are recomputed in the backward, as the reference's
     checkpointed ``_scan`` body — so its forward runs twice per step.
@@ -371,9 +383,6 @@ def forward(params: dict, ids: torch.Tensor, ctx, cfg,
     fam = cfg.family
     if fam not in FAMILIES:
         _refuse(cfg, "runs the forward of")
-    if tp_of(ctx) > 1 and fam not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: the {fam!r} family at "
-                                  f"tp={ctx.tp_size}: {A10_TP}")
     _need_img(cfg, img_embeds)
     x = _embed_sp(params, ids, ctx)
     blocks = params["blocks"]
@@ -386,7 +395,7 @@ def forward(params: dict, ids: torch.Tensor, ctx, cfg,
             x = _run(blocks, g * (k - 1), (g + 1) * (k - 1), x,
                      _dense_block_apply, ctx, cfg)
             cg = layer(params["cross"], g)
-            kv = cross_kv(cg["xattn"], img_embeds, ctx, cfg)
+            kv = cross_kv(cg["xattn"], per_pe(img_embeds, ctx), ctx, cfg)
             x = _cross_block_apply(cg, x, kv, ctx, cfg)
     elif fam == "ssm":
         x = _run(blocks, 0, n_blocks(blocks), x, _rwkv_block_apply, ctx, cfg)
@@ -450,35 +459,39 @@ def init_decode_state(cfg, ctx, batch: int, max_len: int,
     ``"shared_cache"`` (one cache for every application of the shared
     block) and, with a tail, ``"tail_cache"``, for the vlm
     ``"cross_cache"`` (the reference's ng caches, never read); on
-    ``device`` (None: the GPU)."""
+    ``device`` (None: the GPU).  At tp > 1 each layer's state is every
+    PE's, (L, tp, b, ...): its KV heads or its cache rows
+    (``attention.init_cache``), its RWKV or SSD heads."""
     fam = cfg.family
-    _check_decode_tp(ctx)
     device = resolve(device)
+    tp = tp_of(ctx)
+    lead = (tp, batch) if tp > 1 else (batch,)
     if fam in ("dense", "moe"):
-        one = init_cache(cfg, batch, max_len, device=device)
+        one = init_cache(cfg, batch, max_len, device=device, ctx=ctx)
         return {"cache": _zeros_stack(one, cfg.n_layers), "pos": 0}
     if fam == "vlm":
         k = cfg.cross_attn_every
         ng = cfg.n_layers // k
-        one = init_cache(cfg, batch, max_len, device=device)
+        one = init_cache(cfg, batch, max_len, device=device, ctx=ctx)
         return {"cache": _zeros_stack(one, ng * (k - 1)),
                 "cross_cache": _zeros_stack(one, ng), "pos": 0}
     if fam == "ssm":
         d, dh = cfg.d_model, cfg.rwkv_head_dim
         f32 = torch.float32
-        one = {"S": torch.zeros((batch, rk._hp(cfg), dh, dh), dtype=f32,
-                                device=device),
-               "x_prev_tm": torch.zeros((batch, d), dtype=f32,
+        one = {"S": torch.zeros(lead + (rk._hp(cfg) // tp, dh, dh),
+                                dtype=f32, device=device),
+               "x_prev_tm": torch.zeros(lead + (d,), dtype=f32,
                                         device=device),
-               "x_prev_cm": torch.zeros((batch, d), dtype=f32,
+               "x_prev_cm": torch.zeros(lead + (d,), dtype=f32,
                                         device=device)}
         return {"cache": _zeros_stack(one, cfg.n_layers), "pos": 0}
     if fam == "hybrid":
         k = cfg.shared_attn_every
         ng, rem = divmod(cfg.n_layers, k)
-        one = sm.mamba_init_state(cfg, batch, device=device)
+        one = sm.mamba_init_state(cfg, batch, device=device, ctx=ctx)
         st = {"cache": _zeros_stack(one, ng * k),
-              "shared_cache": init_cache(cfg, batch, max_len, device=device),
+              "shared_cache": init_cache(cfg, batch, max_len, device=device,
+                                         ctx=ctx),
               "pos": 0}
         if rem:
             st["tail_cache"] = _zeros_stack(one, rem)
@@ -530,26 +543,30 @@ def _decode_mamba_group(blocks, cache: dict, lo: int, hi: int, x, ctx, cfg):
 def _decode_cross_block(p: dict, x: torch.Tensor, kv, ctx, cfg):
     h = decode_cross_attention(p["xattn"], norm_apply("rms", p["xln"], x),
                                kv, ctx, cfg)
-    x = x + torch.tanh(p["xgate"].to(h.dtype)) * h
+    x = x + _gate(p["xgate"], h, ctx) * h
     m = _decode_mlp(p["mlp"], norm_apply("rms", p["ln2"], x), cfg, ctx)
-    return x + torch.tanh(p["mgate"].to(m.dtype)) * m
+    return x + _gate(p["mgate"], m, ctx) * m
 
 
 def decode_logits(params: dict, token: torch.Tensor, state: dict, ctx,
                   cfg, img_kv=None):
-    """One serve step: token (b,) -> (logits (b, V) in the compute dtype,
+    """One serve step: token (b,) (or ``decode_step``'s (tp, b)) -> (logits
+    (b, V) in the compute dtype,
     state), the state updated in place (``pos`` advanced).  The step of
     ``decode_step`` before its greedy pick.  The vlm takes ``img_kv``:
     (k, v), each (ng, b, S, H_kv, dh), group g's ``cross_kv`` of the
-    image embeddings."""
+    image embeddings (at tp > 1 every PE's, (ng, tp, b, S, kvpr, dh)).
+    At tp > 1 the logits are each PE's vocab shard, (tp, b, V/tp)."""
     fam = cfg.family
     if fam not in FAMILIES:
         _refuse(cfg, "decodes")
-    _check_decode_tp(ctx)
     if fam == "vlm" and img_kv is None:
         raise ValueError("vlm decode_step requires img_kv (precomputed "
                          "per-cross-layer image KV)")
-    x = embed_lookup(params["embed"], token[:, None], ctx.compute_dtype)[:, 0]
+    if token.dim() == 2:              # every PE's pick: the same on each
+        token = token[0]
+    x = embed_lookup(params["embed"], token[:, None], ctx.compute_dtype,
+                     ctx)[..., 0, :]
     pos = state["pos"]
     cache = state["cache"]
     if fam in ("dense", "moe"):
@@ -589,7 +606,7 @@ def decode_logits(params: dict, token: torch.Tensor, state: dict, ctx,
                                     n_blocks(params["tail"]), x, ctx, cfg)
     x = norm_apply("rms", params["ln_f"], x)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    logits = lm_head_logits(head, x.to(ctx.compute_dtype))
+    logits = lm_head_logits(head, x.to(ctx.compute_dtype), ctx)
     state["pos"] = pos + 1
     return logits, state
 
@@ -597,9 +614,10 @@ def decode_logits(params: dict, token: torch.Tensor, state: dict, ctx,
 def decode_step(params: dict, token: torch.Tensor, state: dict, ctx, cfg,
                 img_kv=None):
     """token (b,) -> (next token (b,) int32, greedy, ties to the lowest
-    index; the state, updated in place)."""
+    index; the state, updated in place).  At tp > 1 every PE's pick (tp,
+    b), the same on every PE (``tp_argmax`` merges the vocab shards)."""
     logits, state = decode_logits(params, token, state, ctx, cfg, img_kv)
-    return tp_argmax(logits), state
+    return tp_argmax(logits, ctx), state
 
 
 def prefill(params: dict, ids: torch.Tensor, ctx, cfg,

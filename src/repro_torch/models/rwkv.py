@@ -2,7 +2,7 @@
 recurrence [arXiv:2404.05892], chunked for training, O(1) state for
 decode.
 
-The counterpart of ``repro.models.rwkv`` at tp = 1: ``timemix_init`` /
+The counterpart of ``repro.models.rwkv``: ``timemix_init`` /
 ``_apply`` / ``_decode``, ``chanmix_init`` / ``_apply`` / ``_decode``,
 ``_ddlerp`` (the data-dependent token shift), ``_group_norm`` (eps 64e-5
 over the padded head count) and ``_wkv_chunked``.  Heads are padded
@@ -19,13 +19,27 @@ per-channel decays are taken in log space about the chunk's midpoint,
 and the log-log decay is clamped at ``W_RAW_MAX = 1.2`` (a step's decay
 stays >= e^-3.3), so the half-chunk exponents stay in f32 range.  The
 sequence is zero-padded up to a multiple of 16 and cut back after.
+
+At tp > 1 (the stacked layout of ``weights.shard_for_tp``) the padded
+heads split over the PEs, ``hl = heads / tp`` each (rwkv6-3b at TP 4: 12,
+the 8 ghost heads on PE 3): the receptance, key, value, gate and decay
+projections column-parallel per head, ``wo`` and the channel mix's
+``wv`` row-parallel, the token-shift mixes and the LoRAs replicated.
+The time mix gathers the sequence (``sp_gather``), runs the chunked WKV
+over its own heads and reduce-scatters its partial output
+(``sp_scatter``); the channel mix shifts on the gathered sequence,
+reduce-scatters ``k @ wv`` and takes its receptance on its own shard of
+the sequence (rows ``rank * t/tp ..``, ``wr`` replicated).  The decodes
+end in a psum, as the reference's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import ninit
+from repro_torch.parallel.ctx import sp_gather, sp_scatter, tp_of
+
+from .common import ninit, pe_mm, pe_vec
 
 LORA_R = 32
 DECAY_LORA_R = 64
@@ -66,37 +80,53 @@ def timemix_init(gen: torch.Generator, cfg, dtype=torch.float32,
     }
 
 
-def _ddlerp(p: dict, xf: torch.Tensor, cd):
+def _shift(xf: torch.Tensor) -> torch.Tensor:
+    """The token shift: each row's previous row along the sequence (dim
+    -2), zeros before the first."""
+    return F.pad(xf, (0, 0, 1, 0))[..., :-1, :]
+
+
+def _mix(p: dict, xf: torch.Tensor, xprev: torch.Tensor, cd, tp: int):
+    """RWKV6's data-dependent token-shift mixing of xf (..., t, d) against
+    ``xprev`` -> the 5 mixed streams (r, k, v, g, w) and the shift
+    ``dx``; at tp > 1 with every PE's replicated weights."""
+    dx = xprev - xf
+    xxx = xf + dx * pe_vec(p["mu_x"], xf, tp).to(cd)
+    z = torch.tanh(pe_mm(xxx, p["lora_w1"], tp))
+    z = z.reshape(xf.shape[:-1] + (5, LORA_R))
+    w2 = p["lora_w2"].to(cd)
+    deltas = (torch.einsum("pbtfr,pfrd->pbtfd", z, w2) if tp > 1 else
+              torch.einsum("btfr,frd->btfd", z, w2))
+    mixed = xf[..., None, :] + dx[..., None, :] * (
+        pe_vec(p["mu5"], xf[..., None, :], tp, 2).to(cd) + deltas)
+    return [mixed[..., i, :] for i in range(5)], dx
+
+
+def _ddlerp(p: dict, xf: torch.Tensor, cd, tp: int = 1):
     """RWKV6's data-dependent token-shift mixing -> the 5 mixed streams
     (r, k, v, g, w) and the shift ``dx``."""
-    xprev = F.pad(xf, (0, 0, 1, 0))[:, :-1]
-    dx = xprev - xf
-    xxx = xf + dx * p["mu_x"].to(cd)
-    z = torch.tanh(xxx @ p["lora_w1"].to(cd))
-    b, t, _ = xf.shape
-    z = z.reshape(b, t, 5, LORA_R)
-    deltas = torch.einsum("btfr,frd->btfd", z, p["lora_w2"].to(cd))
-    mixed = xf[:, :, None] + dx[:, :, None] * (
-        p["mu5"].to(cd)[None, None] + deltas)
-    return [mixed[:, :, i] for i in range(5)], dx
+    return _mix(p, xf, _shift(xf), cd, tp)
 
 
 def _group_norm(y: torch.Tensor, scale, bias, n_heads: int,
-                eps: float = 64e-5) -> torch.Tensor:
-    """Per-head layer norm of y (b, t, n_heads * dh) in f32, then the
-    per-channel scale and bias; cast back to y's dtype."""
-    b, t, da = y.shape
-    yh = y.reshape(b, t, n_heads, da // n_heads).float()
+                eps: float = 64e-5, tp: int = 1) -> torch.Tensor:
+    """Per-head layer norm of y (..., t, n_heads * dh) in f32, then the
+    per-channel scale and bias (per PE at tp > 1); cast back to y's
+    dtype."""
+    da = y.shape[-1]
+    yh = y.reshape(y.shape[:-1] + (n_heads, da // n_heads)).float()
     mu = yh.mean(-1, keepdim=True)
     var = torch.square(yh - mu).mean(-1, keepdim=True)
     yh = (yh - mu) * torch.rsqrt(var + eps)
-    out = yh.reshape(b, t, da) * scale.float() + bias.float()
+    out = yh.reshape(y.shape) * pe_vec(scale, y, tp).float() + \
+        pe_vec(bias, y, tp).float()
     return out.to(y.dtype)
 
 
 def _wkv_chunked(r, k, v, lw, u, hl: int, dh: int) -> torch.Tensor:
     """The chunked RWKV6 recurrence.  r, k, v, lw (b, t, hl, dh) f32 with
-    lw the log decay (<= 0), t a multiple of CHUNK; u (hl, dh).  Returns
+    lw the log decay (<= 0), t a multiple of CHUNK; u (hl, dh), or per
+    batch row (b, 1, 1, hl, dh).  Returns
     (b, t, hl, dh).  Everything but the carried state is computed for
     all chunks at once; the loop over chunks only reads and advances the
     state (the reference's scan body, term for term)."""
@@ -128,71 +158,85 @@ def _wkv_chunked(r, k, v, lw, u, hl: int, dh: int) -> torch.Tensor:
     return y.reshape(b, t, hl, dh)
 
 
-def _decay_log(p: dict, mw: torch.Tensor, cd) -> torch.Tensor:
+def _decay_log(p: dict, mw: torch.Tensor, cd, tp: int = 1) -> torch.Tensor:
     """The clamped log-log decay w_raw's log decay ``-exp(min(w_raw,
     W_RAW_MAX))``, f32."""
-    w_raw = p["w0"].float() + \
-        torch.tanh(mw @ p["ww1"].to(cd)).float() @ p["ww2"].float()
+    w_raw = pe_vec(p["w0"], mw, tp).float() + pe_mm(
+        torch.tanh(pe_mm(mw, p["ww1"], tp)).float(), p["ww2"].float(), tp)
     return -torch.exp(torch.clamp(w_raw, max=W_RAW_MAX))
 
 
+def _heads(cfg, tp: int) -> int:
+    """The padded heads a PE holds."""
+    return _hp(cfg) // tp
+
+
 def timemix_apply(p: dict, x: torch.Tensor, ctx, cfg) -> torch.Tensor:
-    """x (b, t, d) -> (b, t, d)."""
+    """x (b, t, d) -> (b, t, d); at tp > 1, x (tp, b, t/tp, d) sequence
+    shards -> the same (module docstring)."""
     cd = ctx.compute_dtype
     dh = cfg.rwkv_head_dim
-    hl = _hp(cfg)
-    xf = x.to(cd)
-    b, t, _ = xf.shape
+    tp = tp_of(ctx)
+    hl = _heads(cfg, tp)
+    xf = sp_gather(x, ctx).to(cd)
+    t = xf.shape[-2]
     pad = (-t) % CHUNK
     if pad:
         xf = F.pad(xf, (0, 0, 0, pad))
-    (mr, mk, mv, mg, mw), _ = _ddlerp(p, xf, cd)
-    r = (mr @ p["wr"].to(cd)).float()
-    k = (mk @ p["wk"].to(cd)).float()
-    v = (mv @ p["wv"].to(cd)).float()
-    g = F.silu(mg @ p["wg"].to(cd))
-    lw = _decay_log(p, mw, cd)
-    tt = xf.shape[1]
-    shape4 = (b, tt, hl, dh)
+    (mr, mk, mv, mg, mw), _ = _ddlerp(p, xf, cd, tp)
+    r = pe_mm(mr, p["wr"], tp).float()
+    k = pe_mm(mk, p["wk"], tp).float()
+    v = pe_mm(mv, p["wv"], tp).float()
+    g = F.silu(pe_mm(mg, p["wg"], tp))
+    lw = _decay_log(p, mw, cd, tp)
+    lead = xf.shape[:-1]                               # ([tp,] b, tt)
+    u = p["u"].float().reshape(-1, hl, dh)
+    if tp > 1:                      # each PE's u against its batch rows
+        u = u.repeat_interleave(lead[1], 0)[:, None, None]
+    else:
+        u = u[0]
+    shape4 = (-1, lead[-1], hl, dh)
     y = _wkv_chunked(r.reshape(shape4), k.reshape(shape4),
-                     v.reshape(shape4), lw.reshape(shape4),
-                     p["u"].float().reshape(hl, dh), hl, dh)
-    y = y.reshape(b, tt, hl * dh).to(cd)
-    y = _group_norm(y, p["gn_scale"], p["gn_bias"], hl)
-    out = (y * g) @ p["wo"].to(cd)
-    return out[:, :t] if pad else out
+                     v.reshape(shape4), lw.reshape(shape4), u, hl, dh)
+    y = y.reshape(lead + (hl * dh,)).to(cd)
+    y = _group_norm(y, p["gn_scale"], p["gn_bias"], hl, tp=tp)
+    out = pe_mm(y * g, p["wo"], tp)
+    if pad:
+        out = out[..., :t, :]
+    return sp_scatter(out, ctx)
 
 
 def timemix_decode(p: dict, x: torch.Tensor, state: dict, ctx, cfg):
     """One token: x (b, d); state ``{"S": (b, hl, dh, dh) f32, "x_prev":
-    (b, d)}``.  Returns ``(out (b, d), {"S": S_new, "x_prev": x})``."""
+    (b, d)}``.  Returns ``(out (b, d), {"S": S_new, "x_prev": x})``.  At
+    tp > 1 x (tp, b, d), every PE's copy, S (tp, b, hl, dh, dh) its
+    heads', and the output is psummed."""
     cd = ctx.compute_dtype
     dh = cfg.rwkv_head_dim
-    hl = _hp(cfg)
-    xf = x.to(cd)[:, None]                           # (b, 1, d)
-    xprev = state["x_prev"].to(cd)[:, None]
-    dx = xprev - xf
-    xxx = xf + dx * p["mu_x"].to(cd)
-    z = torch.tanh(xxx @ p["lora_w1"].to(cd)).reshape(-1, 1, 5, LORA_R)
-    deltas = torch.einsum("btfr,frd->btfd", z, p["lora_w2"].to(cd))
-    mixed = xf[:, :, None] + dx[:, :, None] * (
-        p["mu5"].to(cd)[None, None] + deltas)
-    mr, mk, mv, mg, mw = (mixed[:, 0, i] for i in range(5))
-    b = x.shape[0]
-    r = (mr @ p["wr"].to(cd)).float().reshape(b, hl, dh)
-    k = (mk @ p["wk"].to(cd)).float().reshape(b, hl, dh)
-    v = (mv @ p["wv"].to(cd)).float().reshape(b, hl, dh)
-    g = F.silu(mg @ p["wg"].to(cd))
-    w = torch.exp(_decay_log(p, mw, cd)).reshape(b, hl, dh)
-    u = p["u"].float().reshape(hl, dh)
+    tp = tp_of(ctx)
+    hl = _heads(cfg, tp)
+    xf = x.to(cd)[..., None, :]                      # (.., b, 1, d)
+    mixed, _ = _mix(p, xf, state["x_prev"].to(cd)[..., None, :], cd, tp)
+    mr, mk, mv, mg, mw = (m[..., 0, :] for m in mixed)
+    heads = x.shape[:-1] + (hl, dh)
+    r = pe_mm(mr, p["wr"], tp).float().reshape(heads)
+    k = pe_mm(mk, p["wk"], tp).float().reshape(heads)
+    v = pe_mm(mv, p["wv"], tp).float().reshape(heads)
+    g = F.silu(pe_mm(mg, p["wg"], tp))
+    w = torch.exp(_decay_log(p, mw, cd, tp)).reshape(heads)
+    u = pe_vec(p["u"].float().reshape(-1, hl, dh), k, tp, 2)
+    if tp == 1:
+        u = u[0]
     S = state["S"]
-    att = S + u[None, :, :, None] * k[..., None] * v[:, :, None, :]
-    y = torch.einsum("bhc,bhce->bhe", r, att).reshape(b, hl * dh)
-    S_new = S * w[..., None] + k[..., None] * v[:, :, None, :]
-    y = _group_norm(y[:, None].to(cd), p["gn_scale"], p["gn_bias"],
-                    hl)[:, 0]
-    out = (y * g) @ p["wo"].to(cd)
-    return out, {"S": S_new, "x_prev": x}
+    att = S + u[..., None] * k[..., None] * v[..., None, :]
+    y = torch.einsum("...hc,...hce->...he", r, att).reshape(
+        x.shape[:-1] + (hl * dh,))
+    S_new = S * w[..., None] + k[..., None] * v[..., None, :]
+    y = _group_norm(y[..., None, :].to(cd), p["gn_scale"], p["gn_bias"],
+                    hl, tp=tp)[..., 0, :]
+    out = pe_mm(y * g, p["wo"], tp)
+    return (ctx.tp_comm.psum(out) if tp > 1 else out), \
+        {"S": S_new, "x_prev": x}
 
 
 # ----------------------------------------------------------------------
@@ -210,23 +254,47 @@ def chanmix_init(gen: torch.Generator, cfg, dtype=torch.float32,
             "wk": nm((d, ff)), "wv": nm((ff, d)), "wr": nm((d, d))}
 
 
-def _chanmix(p: dict, xf: torch.Tensor, xprev: torch.Tensor, cd):
+def _chanmix(p: dict, xf: torch.Tensor, xprev: torch.Tensor, cd,
+             tp: int = 1, reduce=None, mine=None):
+    """The channel mix of xf against ``xprev``; at tp > 1 ``reduce``
+    completes the row-parallel ``k @ wv`` (psum, or sp_scatter) and
+    ``mine`` takes each PE's rows of the receptance's input."""
     dx = xprev - xf
-    mk = xf + dx * p["mu_k"].to(cd)
-    mr = xf + dx * p["mu_r"].to(cd)
-    k = torch.square(F.relu(mk @ p["wk"].to(cd)))
-    kv = k @ p["wv"].to(cd)
-    return torch.sigmoid(mr @ p["wr"].to(cd)) * kv
+    mk = xf + dx * pe_vec(p["mu_k"], xf, tp).to(cd)
+    mr = xf + dx * pe_vec(p["mu_r"], xf, tp).to(cd)
+    k = torch.square(F.relu(pe_mm(mk, p["wk"], tp)))
+    kv = pe_mm(k, p["wv"], tp)
+    if tp > 1:
+        kv, mr = reduce(kv), mine(mr)
+    return torch.sigmoid(pe_mm(mr, p["wr"], tp)) * kv
+
+
+def _own_rows(x: torch.Tensor, tl: int) -> torch.Tensor:
+    """Each PE's rows ``rank * tl ..`` of its gathered x (tp, b, t, d):
+    (tp, b, tl, d)."""
+    tp = x.shape[0]
+    pe = torch.arange(tp, device=x.device)
+    return x.unflatten(2, (tp, tl))[pe, :, pe]
 
 
 def chanmix_apply(p: dict, x: torch.Tensor, ctx, cfg) -> torch.Tensor:
-    """x (b, t, d) -> (b, t, d): the token-shifted relu^2 channel mix."""
+    """x (b, t, d) -> (b, t, d): the token-shifted relu^2 channel mix; at
+    tp > 1 x (tp, b, t/tp, d) sequence shards -> the same (module
+    docstring)."""
     cd = ctx.compute_dtype
-    xf = x.to(cd)
-    return _chanmix(p, xf, F.pad(xf, (0, 0, 1, 0))[:, :-1], cd)
+    tp = tp_of(ctx)
+    xf = sp_gather(x, ctx).to(cd)
+    tl = x.shape[-2]
+    return _chanmix(p, xf, _shift(xf), cd, tp,
+                    reduce=lambda kv: sp_scatter(kv, ctx),
+                    mine=lambda mr: _own_rows(mr, tl) if ctx.sp else mr)
 
 
 def chanmix_decode(p: dict, x: torch.Tensor, state: dict, ctx, cfg):
-    """One token: x (b, d), state ``{"x_prev": (b, d)}``."""
+    """One token: x (b, d), state ``{"x_prev": (b, d)}``; at tp > 1 x (tp,
+    b, d), every PE's copy, ``k @ wv`` psummed."""
     cd = ctx.compute_dtype
-    return _chanmix(p, x.to(cd), state["x_prev"].to(cd), cd), {"x_prev": x}
+    tp = tp_of(ctx)
+    return _chanmix(p, x.to(cd), state["x_prev"].to(cd), cd, tp,
+                    reduce=ctx.tp_comm.psum if tp > 1 else None,
+                    mine=lambda mr: mr), {"x_prev": x}

@@ -22,17 +22,19 @@ activations ``(tp, ...)`` and weights stacked once ``(tp, ...)``
 communicator is the identity and the layers take unstacked tensors,
 as before; ``tp_of`` is the one test of which layout a layer takes.
 
-The trainer runs at tp > 1 too, for the dense and MoE families in the
-head attention layout, on the same stacked parameters as serving
+The trainer runs at tp > 1 too, for every family and both attention
+layouts, on the same stacked parameters as serving
 (``weights.shard_for_tp``: every leaf stacked per PE, a replicated leaf
 one copy a PE, so that each PE's gradient is its own row), with the
 activations sequence-sharded between the layers, as the reference's
 launcher sets ``sp = tp > 1``.  ``sp_gather`` and ``sp_scatter`` are the
 reference's Megatron boundary operators; the layers call them only in
 training (``mlp_apply`` / ``moe_apply``'s ``sp``), and the collectives
-they call differentiate by their transposes (``comm.autograd``).
-Serving reduces with a psum, as the reference's serving step with SP
-off.
+they call differentiate by their transposes (``comm.autograd``).  The
+field ``sp`` is the reference's: with it off (whisper's encoder, whose
+frames stay whole on every PE) ``sp_gather`` is the identity and
+``sp_scatter`` a psum.  Serving and the contiguous-cache decode reduce
+with a psum, as the reference's serving step with SP off.
 
 ``moe_dispatch`` picks the MoE layer's route between the TP ranks, as
 the reference's field of the same name: ``"einsum"`` (every rank routes
@@ -56,12 +58,6 @@ import torch
 from repro_torch.comm import Communicator, DispatchTable, make_communicator
 
 
-# what stays refused at tp > 1, and where it arrives
-A10_TP = ("the ctx attention layout, the rwkv6, zamba2, whisper and vlm "
-          "families and the contiguous-cache decode at tp > 1 arrive with "
-          "ROADMAP A10's next slice")
-
-
 def tp_of(ctx) -> int:
     """The TP size a layer runs at (1 without a ctx): above 1 it takes
     the stacked ``(tp, ...)`` layout, at 1 unstacked tensors."""
@@ -77,6 +73,7 @@ class ParallelCtx:
     dispatch: DispatchTable = DispatchTable()
     tp_comm: Optional[Communicator] = None   # built from the fields above
     dp_comm: Optional[Communicator] = None   # when not given explicitly
+    sp: bool = True                     # sequence-parallel activations
     remat: bool = True                  # per-layer activation checkpoint
     attn_impl: str = "kernel"           # | "ref" (counterpart of use_pallas)
     ce_mode: str = "vocab_parallel"     # | "gathered" (naive full logits)
@@ -145,8 +142,8 @@ def sp_gather(x: torch.Tensor, ctx, axis: int = 1) -> torch.Tensor:
     """Sequence-parallel gather of stacked (tp, b, t/tp, d) shards ->
     (tp, b, t, d) (``axis`` names the shard's sequence axis): the
     Megatron 'g' operator, a tiled ``all_gather``; the identity at
-    tp == 1."""
-    if tp_of(ctx) == 1:
+    tp == 1 or with ``ctx.sp`` off (every PE holds the whole sequence)."""
+    if tp_of(ctx) == 1 or not ctx.sp:
         return x
     return ctx.tp_comm.all_gather(x, axis=axis, tiled=True)
 
@@ -154,7 +151,10 @@ def sp_gather(x: torch.Tensor, ctx, axis: int = 1) -> torch.Tensor:
 def sp_scatter(x: torch.Tensor, ctx, axis: int = 1) -> torch.Tensor:
     """Sequence-parallel reduce-scatter of stacked partial sums (tp, b, t,
     d) -> reduced (tp, b, t/tp, d): the Megatron 'g-bar' operator, a
-    ``psum_scatter``; the identity at tp == 1."""
+    ``psum_scatter``; the identity at tp == 1; with ``ctx.sp`` off a
+    full reduction, ``psum``, as the reference's."""
     if tp_of(ctx) == 1:
         return x
+    if not ctx.sp:
+        return ctx.tp_comm.psum(x)
     return ctx.tp_comm.psum_scatter(x, axis=axis)

@@ -21,9 +21,11 @@ one ``quiet()``, in place.  Under the reference's ``jax.grad`` every
 cotangent exists before the first issue, and here the backward has
 ended too: the overlap is a schedule freedom, bit-identical to the
 blocking path.  At
-dp = 1 nothing is reduced, as in the reference.  The trainer runs at
-tp = 1 (tensor-parallel training, and with it the spec-driven TP
-combine, is ROADMAP A10).
+dp = 1 nothing is reduced, as in the reference.  At tp > 1
+``tp_complete`` first sums every replicated leaf's per-PE partial
+gradient over TP (the reference's ``tp_fix``): the norms, the router,
+the gates, and in the ctx attention layout every attention weight, each
+PE's gradient covering only its own tokens or heads.
 """
 from __future__ import annotations
 

@@ -14,8 +14,8 @@ clipped by its own norm and reduce-scattered inside ``adamw_update``,
 and the ``grad_norm`` shown is replica 0's.  The displayed loss is
 ``dp_comm.pmean`` of the replicas' losses (row 0).
 
-At ``ctx.tp_size`` > 1 (the dense and MoE families in the head layout;
-the others and the ctx layout raise, ROADMAP A10) the parameters take
+At ``ctx.tp_size`` > 1 (every family, either attention layout) the
+parameters take
 the TP layout (``weights.shard_for_tp``: every leaf stacked per PE),
 each replica is one TP-stacked forward and backward of the
 single-seed loss, the replicated leaves' rows are completed through
@@ -68,14 +68,14 @@ def init_train_state(gen: torch.Generator, cfg, ctx, model_api,
                      opt_cfg: AdamWConfig, device=None) -> dict:
     """Parameters drawn from ``gen`` on ``device`` (None: the GPU) in
     ``ctx.param_dtype``, and a fresh optimizer state."""
-    params = model_api.init(gen, cfg, dtype=ctx.param_dtype,
+    params = model_api.init(gen, cfg, dtype=ctx.param_dtype, tp=ctx.tp_size,
                             device=resolve(device))
     return train_state_from(params, ctx, opt_cfg, cfg)
 
 
 def _specs(ctx, cfg):
-    """The TP specs a tp > 1 step completes by (``registry.tp_specs``,
-    which raises for what trains at tp = 1 only); None at tp = 1."""
+    """The TP specs a tp > 1 step completes by (``registry.tp_specs``);
+    None at tp = 1."""
     if ctx.tp_size == 1:
         return None
     if cfg is None:

@@ -26,6 +26,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.tree import STACKED
+
 _TOP_KEYS = {"embed", "head", "ln_f", "blocks", "tail", "shared", "cross",
              "pos_dec", "enc_blocks", "ln_enc", "dec_blocks"}
 _MLP_KEYS = {"wu", "wg", "wd", "router", "shared"}
@@ -85,13 +87,14 @@ def is_tp_sharded(params: Mapping) -> bool:
 def map_tp(fn, params: Mapping, spec: Mapping, block: bool = False):
     """``fn(leaf, axis, block)`` over a parameter tree in the reference's
     stacked layout and its ``registry.tp_specs`` tree; ``block`` is True
-    under ``blocks`` (leaves with a leading layer axis)."""
+    under a stacked group (``tree.STACKED``: leaves with a leading layer
+    axis)."""
     if not isinstance(params, Mapping):
         return fn(params, spec, block)
     if set(params) != set(spec):
         raise ValueError(f"parameter keys {sorted(params)} differ from the "
                          f"TP spec's {sorted(spec)}")
-    return {k: map_tp(fn, v, spec[k], block or k == "blocks")
+    return {k: map_tp(fn, v, spec[k], block or k in STACKED)
             for k, v in params.items()}
 
 
@@ -124,46 +127,60 @@ def unshard_leaf(w: torch.Tensor, axis, block: bool) -> torch.Tensor:
     return torch.cat(w.unbind(lead), dim=axis + lead)
 
 
+def _check_split(cfg, tp: int) -> None:
+    """Raise where a width the reference splits over TP does not divide
+    by ``tp``: the MLP's (or the experts', ``_check_moe_split``), the
+    RWKV padded heads, the SSD heads of ``d_inner``."""
+    widths = []
+    if cfg.family == "ssm":
+        widths.append(("padded RWKV heads", cfg.rwkv_padded_heads
+                       or cfg.n_heads))
+    if cfg.family == "hybrid":
+        widths.append(("SSD heads", cfg.ssm_expand * cfg.d_model // 64))
+    if cfg.moe:
+        _check_moe_split(cfg, tp)
+    else:
+        widths.append(("d_ff", cfg.d_ff))
+    for what, n in widths:
+        if n % tp:
+            raise ValueError(f"{cfg.name}: {n} {what} do not divide by "
+                             f"tp={tp}")
+
+
 def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
-    """Global dense- or MoE-LM parameters (the reference's stacked layout)
+    """Global parameters of any family (the reference's stacked layout)
     -> the TP layout, for serving and training alike: EVERY leaf stacked
-    per PE, ``(tp, ...)``, behind the layer axis of a block leaf, ``(L,
-    tp, ...)``.  A sharded leaf (``registry.tp_specs``: the vocab tables
-    and ``wo`` / ``wd`` by rows, ``wq``, ``wu`` / ``wg`` and ``wk`` /
-    ``wv`` when ``n_kv % tp == 0`` by columns, the experts on their own
-    axis, rank ``t`` owning experts ``t E/tp ..``) gives each PE its
-    chunk, as the reference's PartitionSpec does; a replicated one (the
-    norms, the router, ``wk`` / ``wv`` when ``n_kv % tp != 0``) gives
-    each PE its own copy, so that in training each PE's gradient lands
-    in its own row and the per-PE clip can part the copies, as the
-    reference's.  A replicated ``wk`` / ``wv`` stays whole: each PE
-    slices the KV head its query group reads in the forward
+    per PE, ``(tp, ...)``, behind the layer axis of a stacked group's
+    leaf, ``(L, tp, ...)``.  A sharded leaf (``registry.tp_specs``: the
+    vocab tables and the row-parallel matrices by rows, the
+    column-parallel ones and the per-head vectors by columns, the
+    experts on their own axis, rank ``t`` owning experts ``t E/tp ..``)
+    gives each PE its chunk, as the reference's PartitionSpec does; a
+    replicated one (the norms, the router, ``wk`` / ``wv`` when ``n_kv %
+    tp != 0``, every attention leaf of the ctx layout, the token-shift
+    mixes, B / C, the gates, ``pos_dec``) gives each PE its own copy, so
+    that in training each PE's gradient lands in its own row and the
+    per-PE clip can part the copies, as the reference's.  A replicated
+    ``wk`` / ``wv`` of the head layout stays whole: each PE slices the
+    KV head its query group reads in the forward
     (``attention.project_qkv``).  Row and expert splits are views of the
     global tensors, the rest new storage (the caller drops the global
-    dict, so a copy replaces its source).  Raises when the vocab, heads,
-    d_ff, the padded experts or the shared expert's width do not divide
-    by ``tp``, when the padding the reference draws at ``tp`` is not
-    the tp = 1 tensors', or for the ctx attention layout and the other
-    families (``tp_specs``).  Parameters already stacked, or ``tp ==
-    1``, come back as given (so engines that share one dict keep sharing
-    it)."""
+    dict, so a copy replaces its source).  Raises when the vocab, d_ff,
+    the RWKV or SSD heads, the padded experts or the shared expert's
+    width do not divide by ``tp``, or when the padding the reference
+    draws at ``tp`` is not the tp = 1 tensors'.  Parameters already
+    stacked, or ``tp == 1``, come back as given (so engines that share
+    one dict keep sharing it)."""
     from repro_torch.models.registry import tp_specs
     tp = int(tp)
     if tp == 1 or is_tp_sharded(params):
         return params
-    if cfg.n_heads % tp:
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} heads do not divide by "
-                         f"tp={tp} (the head layout needs them to)")
     for name in ("embed", "head"):
         if name in params and params[name]["table"].shape[0] % tp:
             raise ValueError(
                 f"{cfg.name}: the {name} table's {params[name]['table'].shape[0]}"
                 f" rows (vocab) do not divide by tp={tp}")
-    if cfg.moe:
-        _check_moe_split(cfg, tp)
-    elif cfg.d_ff % tp:
-        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not divide by "
-                         f"tp={tp}")
+    _check_split(cfg, tp)
     return map_tp(lambda w, a, blk: shard_leaf(w, a, blk, tp), params,
                   tp_specs(cfg, tp))
 

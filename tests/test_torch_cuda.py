@@ -1415,3 +1415,68 @@ def test_cuda_moe_and_tp_training_kernel_equals_plain(cuda_device, arch, tp,
     assert fa.LAUNCHES["flash_attention"] == \
         tconfigs.get_smoke(arch).n_layers * 2 * 3
     np.testing.assert_allclose(kernel, plain, rtol=1e-5)
+
+
+# the stacked TP layout's per-PE query offsets: (seed, PEs, rows a PE, H,
+# H_kv, rows of queries a PE, D) and options; batch row i's queries at
+# q_offset + (i // rows) * (queries a PE), against the gathered K/V
+PE_FLASH_CASES = {
+    "ctx_tp4_d128_g3": ((40, 4, 2, 6, 2, 64, 128), dict(causal=True)),
+    "ctx_tp16_ragged_28_d64": ((41, 16, 1, 8, 8, 28, 64), dict(causal=True)),
+    "ctx_tp4_window_50_d112": ((42, 4, 2, 8, 8, 72, 112),
+                               dict(causal=True, window=50)),
+    "ctx_tp8_q_offset_d64": ((43, 8, 1, 4, 2, 40, 64),
+                             dict(causal=True, q_offset=7)),
+}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(PE_FLASH_CASES))
+def test_cuda_flash_kernel_per_pe_offsets(cuda_device, case, dt):
+    """ONE launch over every PE's rows, each at its PE's causal offset:
+    equal to the plain version (output and log-sum-exp) and, bit for
+    bit, to one launch per PE at that PE's offset."""
+    (seed, tp, rows, h, hkv, t, d), opts = PE_FLASH_CASES[case]
+    q, k, v = (_to_torch(a, dt).to(cuda_device)
+               for a in _flash_case(seed, tp * rows, h, hkv, t, tp * t, d))
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)    # (b, t, h, d) store
+    kw = dict(opts, pe_rows=rows, pe_stride=t)
+    n = fa.LAUNCHES["flash_attention"]
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES["flash_attention"] == n + 1
+    want, want_lse = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _close(out.cpu(), want.cpu().float().numpy(), dt, case)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=TOL[dt], rtol=TOL[dt], err_msg=case)
+    for r in range(tp):
+        sl = slice(r * rows, (r + 1) * rows)
+        o_r, l_r = fa.flash_attention(
+            q[sl], k[sl], v[sl], **dict(opts, q_offset=opts.get(
+                "q_offset", 0) + r * t))
+        assert torch.equal(o_r, out[sl]) and torch.equal(l_r, lse[sl]), r
+
+
+TP_FAMILY_LAUNCHES = {"minitron-4b": 2 * 2 * 3, "zamba2-7b": 2 * 3,
+                      "rwkv6-3b": 0}
+
+
+@pytest.mark.parametrize("arch", sorted(TP_FAMILY_LAUNCHES))
+def test_cuda_tp_families_training_kernel_equals_plain(cuda_device, arch,
+                                                       monkeypatch):
+    """TP 4 training of the families A10's last slice brought (minitron's
+    6 heads: the ctx layout; zamba2's shared block; rwkv6 without
+    attention): three smoke steps with the kernel forward equal the
+    plain forward's (rtol 1e-5); the kernel launches once a layer (an
+    application of the shared block) a step for every PE together."""
+    plain = _tp_losses(arch, 4, "einsum", "ref", cuda_device)
+
+    def trap(*a, **k):
+        raise AssertionError("the plain flash forward ran on the CUDA path")
+
+    monkeypatch.setattr(fa, "flash_attention_ref", trap)
+    monkeypatch.setattr(mflash, "_chunk_fwd", trap)
+    fa.reset_launches()
+    kernel = _tp_losses(arch, 4, "einsum", "kernel", cuda_device)
+    assert fa.LAUNCHES["flash_attention"] == TP_FAMILY_LAUNCHES[arch]
+    np.testing.assert_allclose(kernel, plain, rtol=1e-5)

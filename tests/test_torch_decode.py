@@ -23,8 +23,9 @@ on the CPU, in f32 (the caches bf16, as the reference keeps them).
   * the port's ``ServeEngine`` streams equal the port's ``decode_step``
     streams (``tests/test_serve.py::test_engine_streams_match_contiguous
     _decode``'s contract), no tolerance;
-  * tp > 1 decode raises, citing A10 (the vlm decodes at tp = 1 since
-    the cross-attention slice; ``test_torch_vlm.py``).
+  * the decode runs at tp > 1 in both attention layouts and equals tp
+    = 1's stream (the full bar against the reference's mesh is
+    ``test_torch_tp_ctx.py`` / ``test_torch_tp_families.py``).
 
 The reference's decode step is jitted once per arch (module fixture).
 """
@@ -286,21 +287,38 @@ def test_engine_streams_match_contiguous_decode():
         assert r.out == contiguous(r.prompt, 5), f"req {r.rid}"
 
 
-def test_tp_decode_and_later_families_raise():
-    cfg = configs.get_smoke("qwen3-8b")
-    tp2 = ParallelCtx(tp_size=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        lm.init_decode_state(cfg, tp2, 1, 8, device="cpu")
-    params = lm.init(torch.Generator().manual_seed(0), cfg)
-    state = lm.init_decode_state(cfg, CTX, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        lm.decode_step(params, torch.zeros(1, dtype=torch.long), state, tp2,
-                       cfg)
-    vlm = configs.get_smoke("llama-3.2-vision-90b")    # decodes since
-    st = lm.init_decode_state(vlm, CTX, 1, 8, device="cpu")  # the vlm slice
+def test_tp_decode_runs_and_equals_tp1():
+    """The contiguous-cache decode at tp > 1, refused (A10) before: the
+    state stacked per PE (qwen3-8b at tp 2: each PE's KV head;
+    minitron-4b's 6 heads at tp 4: the ctx layout's sequence-sharded
+    cache, 2 rows a PE), every PE's pick equal and the stream equal to
+    tp = 1's; the vlm's state builds; posh-micro still raises, citing
+    A12; with no device given the state goes to the GPU."""
+    from repro_torch.weights import shard_for_tp
+
+    for arch, tp, shape in (("qwen3-8b", 2, (2, 1, 8, 1, 16)),
+                            ("minitron-4b", 4, (4, 1, 2, 2, 16))):
+        cfg = configs.get_smoke(arch)
+        ctx = CTX.with_(tp_size=tp)
+        assert cfg.attn_layout(tp) == ("ctx" if tp == 4 else "head")
+        params = lm.init(torch.Generator().manual_seed(0), cfg)
+        st1 = lm.init_decode_state(cfg, CTX, 1, 8, device="cpu")
+        st2 = lm.init_decode_state(cfg, ctx, 1, 8, device="cpu")
+        assert tuple(st2["cache"]["k"].shape[1:]) == shape
+        p2 = shard_for_tp(params, cfg, tp)
+        t1 = t2 = torch.tensor([7])
+        with torch.no_grad():
+            for _ in range(6):
+                t1, st1 = lm.decode_step(params, t1, st1, CTX, cfg)
+                t2, st2 = lm.decode_step(p2, t2, st2, ctx, cfg)
+                assert t2.shape == (tp, 1)
+                assert torch.equal(t2, t2[:1].expand(tp, 1))
+                assert torch.equal(t2[0], t1)
+    vlm = configs.get_smoke("llama-3.2-vision-90b")
+    st = lm.init_decode_state(vlm, CTX.with_(tp_size=2), 1, 8, device="cpu")
     assert set(st) == {"cache", "cross_cache", "pos"}
-    with pytest.raises(NotImplementedError, match="A10"):
-        lm.init_decode_state(vlm, tp2, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        configs.get("posh-micro")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            lm.init_decode_state(cfg, CTX, 1, 8)
+            lm.init_decode_state(configs.get_smoke("qwen3-8b"), CTX, 1, 8)

@@ -31,7 +31,7 @@ through both packages, all in f32:
   * the trees: ``from_jax`` on both new trees, ``state_to_tree`` of a
     zamba2 state with the reference train state's keys and shapes, and
     a DP 2 step on zamba2 equal to dp = 1 (rtol 1e-5, PR 24's rule);
-  * the refusals still standing (MoE training and prefill) cite A10;
+  * the families refused at tp > 1 before run there, equal to tp = 1;
     whisper-base and llama-3.2-vision-90b build since the
     cross-attention slice (``test_torch_encdec.py``, ``test_torch_vlm.py``).
 
@@ -590,11 +590,14 @@ def test_zamba2_zero1_over_the_hybrid_tree():
 # ======================================================================
 # refusals still standing, and the depth cut
 # ======================================================================
-def test_remaining_refusals_cite_a10():
-    """whisper-base and the vlm build now (their configs and registry
-    entries; posh-micro still raises, citing A12); MoE trains and
-    prefills since A10's MoE/TP slice (``test_torch_moe_train.py``),
-    while these families at tp > 1 still raise, citing A10."""
+def test_formerly_refused_families_run_at_tp_gt_1():
+    """whisper-base and the vlm build (their configs and registry
+    entries); MoE trains and prefills; every family's loss runs at tp =
+    2 on the stacked layout and equals tp = 1's (1e-5: the same sums in
+    another order), where it raised citing A10 before; posh-micro still
+    raises, citing A12."""
+    from repro_torch.weights import shard_for_tp
+
     for arch in ("whisper-base", "llama-3.2-vision-90b"):
         cfg = configs.get_smoke(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
@@ -613,8 +616,11 @@ def test_remaining_refusals_cite_a10():
     for arch in TRAINED:
         cfg = configs.get_smoke(arch)
         p = lm.init(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="A10"):
-            lm.loss_fn(p, _batch(cfg), tp2, cfg)
+        with torch.no_grad():
+            want = lm.loss_fn(p, _batch(cfg), CTX, cfg)
+            got = lm.loss_fn(shard_for_tp(p, cfg, 2), _batch(cfg), tp2, cfg)
+        assert got.shape == (2,)
+        torch.testing.assert_close(got, want.expand(2), rtol=1e-5, atol=0)
 
 
 def test_hybrid_depth_cut_keeps_whole_groups(tmp_path):

@@ -10,7 +10,10 @@ models.ssm and the four new configs, and the cross-attention slice:
 models.encdec and the whisper-base and llama-3.2-vision-90b configs,
 and the MoE / tensor-parallel training slice: comm.autograd, the
 sequence-parallel operators in parallel.ctx, registry.tp_specs and the
-training layout in weights), and ``chip_smoke.py``, pulls in no
+training layout in weights, and the slice that completes A10: the ctx
+attention layout, the flash kernel's per-PE query offset and every
+family at tp > 1, in modules that were there), and ``chip_smoke.py``,
+pulls in no
 JAX and nothing of the JAX package ``repro`` — checked by a clean
 subprocess's ``sys.modules`` and by an AST scan of every import
 statement."""
@@ -142,6 +145,32 @@ def test_the_moe_and_tp_training_slice_is_covered():
     from repro_torch.weights import shard_for_tp, unshard
     assert all(callable(f) for f in (tp_specs, sp_gather, sp_scatter,
                                      shard_for_tp, unshard))
+
+
+def test_the_tp_families_slice_is_covered():
+    """A10 is whole: no ``raise`` in the port (nor in ``chip_smoke.py``)
+    cites it, nor is its refusal message left; posh-micro still raises,
+    citing A12; the per-PE flash offset and the ``sp`` switch import
+    without JAX."""
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            src = f.read()
+        assert "A10_TP" not in src, path
+        for node in ast.walk(ast.parse(src, filename=path)):
+            if isinstance(node, ast.Raise):
+                texts = [c.value for c in ast.walk(node)
+                         if isinstance(c, ast.Constant)
+                         and isinstance(c.value, str)]
+                assert not any("A10" in t for t in texts), \
+                    f"{path}:{node.lineno}"
+    from repro_torch import configs
+    with pytest.raises(NotImplementedError, match="A12"):
+        configs.get("posh-micro")
+    from repro_torch.kernels.flash_attention import query_positions
+    from repro_torch.parallel import ParallelCtx
+    assert query_positions(0, 2, "cpu", 4, 2, 8).tolist() == \
+        [[0, 1], [0, 1], [8, 9], [8, 9]]
+    assert ParallelCtx().sp and not ParallelCtx(sp=False).sp
 
 
 @pytest.mark.parametrize("path", _sources(),

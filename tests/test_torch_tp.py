@@ -550,8 +550,9 @@ def test_shard_for_tp_layout_and_refusals(port):
     replicated leaves one copy a PE; the replicated KV projections (n_kv
     2 < tp 4) whole on every PE, each rank projecting with its ``my_kv``
     head's columns; stacked parameters come back as given; a MoE block's
-    experts split on their own axis; a vocab that does not divide and
-    the ctx layout raise."""
+    experts split on their own axis; a vocab or a d_ff that does not
+    divide raises; the ctx layout (heads not dividing tp), refused
+    before, keeps every attention leaf whole on every PE."""
     import dataclasses
 
     from repro_torch import configs
@@ -590,8 +591,12 @@ def test_shard_for_tp_layout_and_refusals(port):
     mp = lm.init(torch.Generator().manual_seed(0), moe)
     assert shard_for_tp(mp, moe, 2)["blocks"]["mlp"]["wu"].shape[:3] == \
         (moe.n_layers, 2, moe.moe.experts_padded(2) // 2)
-    with pytest.raises(ValueError, match="heads"):
-        shard_for_tp(params, dataclasses.replace(cfg, n_heads=6), 4)
+    with pytest.raises(ValueError, match="d_ff"):
+        shard_for_tp(params, dataclasses.replace(cfg, d_ff=cfg.d_ff + 2), 4)
+    ctx6 = shard_for_tp(params, dataclasses.replace(cfg, n_heads=6), 4)
+    for name in ("wq", "wk", "wv", "wo"):
+        got, w = ctx6["blocks"]["attn"][name], params["blocks"]["attn"][name]
+        assert all(torch.equal(got[:, t], w) for t in range(4)), name
 
 
 def test_tp_ctx_and_engine_refusals(port):

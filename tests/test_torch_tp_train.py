@@ -483,8 +483,8 @@ def test_build_trainer_at_tp4_on_the_cpu():
 def test_tp4_prefill_and_loss_equal_tp1(arch):
     """At TP 4 ``prefill`` (every PE's copy of the last position, after
     ``sp_gather``) and the vocab-parallel loss equal tp = 1's (1e-5: the
-    same sums in another order); the gathered CE, ported at tp = 1 only,
-    raises there."""
+    same sums in another order), and so does the gathered CE (the vocab
+    table all-gathered), which raised at tp > 1 before."""
     import dataclasses
 
     from repro_torch import configs
@@ -505,34 +505,49 @@ def test_tp4_prefill_and_loss_equal_tp1(arch):
         got = lm.prefill(p4, ids, ctx4, cfg)
         loss1 = lm.loss_fn(params, batch, _ctx(), cfg)
         loss4 = lm.loss_fn(p4, batch, ctx4, cfg)
-        with pytest.raises(NotImplementedError, match="gathered"):
-            lm.loss_fn(p4, batch, dataclasses.replace(ctx4,
-                                                      ce_mode="gathered"), cfg)
+        gathered = lm.loss_fn(p4, batch, dataclasses.replace(
+            ctx4, ce_mode="gathered"), cfg)
     assert got.shape == (4,) + tuple(want.shape)
     for pe in range(4):
         torch.testing.assert_close(got[pe], want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(loss4, loss1.expand(4), rtol=1e-5, atol=0)
+    torch.testing.assert_close(gathered, loss1.expand(4), rtol=1e-5, atol=0)
 
 
-def test_what_stays_refused_at_tp_gt_1_cites_a10():
+def test_formerly_refused_tp_training_and_decode_run():
     """The ctx layout (heads not dividing tp), the other families and the
-    contiguous-cache decode raise at tp > 1, citing A10."""
+    contiguous-cache decode, which raised at tp > 1 citing A10, build
+    and run: each family's train step at TP 4 takes a step with a finite
+    loss, gemma's 4 heads take the ctx layout's all-replicated attention
+    specs at tp 8, and the decode state builds; posh-micro still raises,
+    citing A12."""
     from repro_torch import configs
+    from repro_torch.data import SyntheticLM
     from repro_torch.models import lm, registry
     from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.step import train_state_from
 
     ctx = _ctx(1, 4)
-    for arch in ("minitron-4b", "rwkv6-3b", "zamba2-7b", "whisper-base",
-                 "llama-3.2-vision-90b"):
+    for arch in ("minitron-4b", "rwkv6-3b", "zamba2-7b"):
         cfg = configs.get_smoke(arch)
-        with pytest.raises(NotImplementedError, match="A10"):
-            make_train_step(cfg, ctx, registry.build(cfg), AdamWConfig())
+        params = lm.init(torch.Generator().manual_seed(0), cfg)
+        state = train_state_from(params, ctx, AdamWConfig(lr=LR), cfg)
+        step = make_train_step(cfg, ctx, registry.build(cfg), AdamWConfig())
+        batch = SyntheticLM(vocab=cfg.vocab, seq_len=cfg.max_seq,
+                            global_batch=2).batch(0, device="cpu")
+        _, m = step(state, batch)
+        assert np.isfinite(float(m["loss"])), arch
+    for arch in ("whisper-base", "llama-3.2-vision-90b"):
+        cfg = configs.get_smoke(arch)
+        make_train_step(cfg, ctx, registry.build(cfg), AdamWConfig())
     gemma = configs.get_smoke("gemma-2b")     # 4 heads: the ctx layout at 8
-    with pytest.raises(NotImplementedError, match="ctx attention.*A10"):
-        registry.tp_specs(gemma, 8)
+    attn = registry.tp_specs(gemma, 8)["blocks"]["attn"]
+    assert set(attn.values()) == {None}
     cfg = configs.get_smoke("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="A10"):
-        lm.init_decode_state(cfg, ctx, 1, 8, device="cpu")
+    st = lm.init_decode_state(cfg, ctx, 1, 8, device="cpu")
+    assert st["cache"]["k"].shape[:2] == (cfg.n_layers, 4)
+    with pytest.raises(NotImplementedError, match="A12"):
+        configs.get("posh-micro")
 
 
 def test_collectives_differentiate_by_their_transposes():

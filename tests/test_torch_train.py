@@ -320,8 +320,9 @@ def test_later_slices_raise_not_implemented():
     trajectory without them (the reference reduces only at dp > 1).
     Tensor-parallel training of the dense and MoE families arrived with
     A10's MoE/TP slice: a tp = 2 step builds and the TP completion needs
-    its specs; MoE trains (its loss runs and is finite).  What still
-    refuses at tp > 1 is ``test_torch_tp_train.py``'s (A10)."""
+    its specs; MoE trains (its loss runs and is finite).  Every other
+    family at tp > 1 is ``test_torch_tp_ctx.py``'s and
+    ``test_torch_tp_families.py``'s."""
     ctx = ParallelCtx(dp_size=2)
     assert ctx.dp_comm.size == 2 and ctx.dp_rank("cpu").tolist() == [0, 1]
     one = ctx.with_(dp_size=1)

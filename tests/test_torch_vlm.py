@@ -20,7 +20,8 @@ inside the gradients' 1e-6 floor by a factor of 20 only; at 1.0 it is
   * ``cross_kv``, ``cross_attention`` (T 20 != S 12, blocks of 8: ragged
     on both axes) and ``decode_cross_attention`` at the vlm's (GQA 4 /
     2) and whisper's (4 / 4) smoke layouts within 1e-5 x the largest
-    output; at tp > 1 they raise, citing A10;
+    output; at tp 2 (the head layout on the stacked PEs) each PE's KV
+    heads and output shard equal tp = 1's;
   * ``loss_fn`` and its per-leaf gradients within 1e-5 (loss) and 1e-4 /
     1e-6, the gates' gradients among them;
   * ``prefill`` within 1e-5 x the largest output;
@@ -237,9 +238,26 @@ def test_cross_attention_functions_match_reference(arch):
     # sequence form's row
     _close(attention.decode_cross_attention(tp, _t(x[:, 3]), kv, ctx, cfg),
            got[:, 3].numpy())
-    tp2 = ParallelCtx(tp_size=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        attention.cross_kv(tp, _t(enc), tp2, cfg)
+    # at tp 2 (refused before, A10) on the stacked layout, every PE with
+    # its copy of the encoder output: each PE's KV heads of the tp = 1
+    # projection, the sequence shards of the tp = 1 output
+    from repro_torch import configs as tconfigs
+    from repro_torch.models.registry import tp_specs
+    from repro_torch.weights import shard_leaf
+
+    tcfg = tconfigs.get_smoke(arch)
+    ctx2 = ctx.with_(tp_size=2)
+    group = "cross" if tcfg.family == "vlm" else "dec_blocks"
+    spec = tp_specs(tcfg, 2)[group]["xattn"]
+    p2 = {k: shard_leaf(v, spec[k], False, 2) for k, v in tp.items()}
+    kv2 = attention.cross_kv(p2, _t(enc).expand(2, -1, -1, -1), ctx2, cfg)
+    for a, b in zip(kv2, kv):
+        assert a.shape == (2, 2, 12, hkv // 2, dh)
+        torch.testing.assert_close(a, torch.stack(b.chunk(2, dim=2)),
+                                   rtol=1e-5, atol=1e-6)
+    shards = torch.stack(_t(x).chunk(2, dim=1))
+    out2 = attention.cross_attention(p2, shards, kv2, ctx2, cfg)
+    _close(torch.cat(list(out2), dim=1), got.numpy())
 
 
 # ======================================================================
