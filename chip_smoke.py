@@ -124,7 +124,8 @@ caught):
                and the combine kernel, which no collective calls, must
                show none; the copy launches by staged payload (bytes,
                dtype, variant) must add up to the count.  One line per
-               op: us/call and GB/s; then 10 psums per backend at 64 KiB
+               op: us/call and GB/s over ``COMM_REPS`` timed calls a
+               cell after 2 warm-ups; then 10 psums per backend at 64 KiB
                and 64 MiB per PE under the profiler (device busy share,
                kernels by kind).
                ``--comm-out FILE`` writes the bench dict there;
@@ -389,6 +390,29 @@ caught):
                kernel launches 0 times: posh and xla move the stacked
                team's collectives with tensor operations.
 
+ 17. posh-micro, checker, dry run — the tooling slice.  (a) posh-micro
+               at its full config, the paper's Tables 1-2 experiment
+               (``examples/torch/shmem_pingpong.py``'s sweep) on the
+               stacked 8-PE team: 10 sizes (16 .. 4 Mi elements a PE) x
+               f32 / bf16 / int32 x put, get, 8 put_nbi + one quiet and
+               a local copy, then the K = 8 x 16384 pipeline (nbi vs
+               blocking), each under the default stager and the copy
+               kernel's, 3 warm-ups + 20 repeats a cell; gated: every
+               output == its input rolled by the round's pairs bit for
+               bit, the copy stager's == the default's, the copy
+               kernel's launches == the staged rounds of every call; it
+               prints the table (us a call, per-PE GB/s, put / get over
+               the copy) with the card.  (b) the port's shmemcheck armed
+               over a smoke disagg 1 + 1 amo run with a hot-swap flip on
+               CUDA tensors: 0 findings, signal and atomic words seen, one
+               flip, a handoff; a deliberately racy put pair gives one
+               ww-race.  (c) ``launch.dryrun`` of phase 6's step on the
+               meta device, in a process of its own started after
+               phase 5 (it sees no card; ~30 s beside phase 6's start): its
+               FLOPs, bytes and predicted peak beside phase 6's measured
+               ``max_memory_allocated``; gated: the peak within 20%, the
+               flash kernel's meta calls == phase 6's launches.
+
 Phase 3 also holds the flash-attention kernel against its plain version
 in f32 (1e-4) and bf16 (2e-2), on the output and the log-sum-exp, at the
 training path's full width (B=1, H=8, H_kv=1, T=S=4096, D=256, causal),
@@ -419,7 +443,9 @@ and ``xattn_shapes`` likewise from phase 14's; ``launches_train_moe`` /
 ``launches_tp_families`` from phase 16's TP runs, with
 ``tp_families_shapes`` the timing at its layouts and
 ``max_abs_err_tp_families`` the kernel's errors there; on the copy
-kernel, phase 16's launches, 0).
+kernel, phase 16's launches, 0; ``launches_posh_micro`` on the copy
+kernel from phase 17's sweep, with ``checker`` (b)'s result, and
+``dryrun_phase6`` on the flash kernel, (c)'s prediction beside phase 6).
 ``max_abs_err_tp`` / ``max_abs_err_moe_tp``
 on the paged kernels is their largest |kernel - plain| on phase 10's /
 11's captured TP inputs, and ``moe_tp_layouts`` their timing at phase
@@ -432,6 +458,7 @@ non-zero and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -441,6 +468,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -485,15 +513,14 @@ DECODE_TOL = {**TOL, torch.float32: 1e-5}
 # max |kernel - plain| is also held to this share of max |plain|, so a
 # merge that loses one of a sequence's 32 partitions fails
 SCALE_TOL = 2e-2
-HBM_BYTES_S = 3.35e12                              # H100 SXM data sheet
 # the comm path: 8 PEs; the ring chunk of a 64 MiB-per-PE psum, 8 x 8 MiB
 # of f32 (the path also stages larger payloads, to 8 x 64 MiB, each timed
 # in the path's sum); and two smaller staged payloads of the path, 8 x 64
 # KiB and 8 x 1 MiB
 N_PE = 8
+COMM_REPS = 4      # timed calls a comm cell, after 1 checked + 2 warm-up
 STAGED = (N_PE, 2 << 20)
 STAGED_SMALL = [(N_PE, 16 << 10), (N_PE, 256 << 10)]
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # the training path's attention: gemma-2b, one sequence of 4096 tokens
 FLASH_FULL = dict(b=1, h=8, hkv=1, t=4096, s=4096, d=256)
@@ -2388,7 +2415,8 @@ def moe_decode_profile(eng, cfg, trace) -> dict:
     prefilled first), and the decode step's device time beside its
     weight-read bound: every weight but the embedding table is read once
     a step (the expert products run over every expert, empty or not, and
-    the head reads its whole table), at 3.35 TB/s."""
+    the head reads its whole table), at the data sheet's HBM rate."""
+    from repro_torch.launch import roofline
     from repro_torch.serve import TrafficConfig, make_requests
     from repro_torch.train.tree import leaves
 
@@ -2404,7 +2432,7 @@ def moe_decode_profile(eng, cfg, trace) -> dict:
     if not n or win["steps"]["prefill"]:
         fail(f"serve moe profile: steps {win['steps']} are not decode only")
     step_ms = win["device_busy_ms"] / n
-    bound_ms = step_bytes / HBM_BYTES_S * 1e3
+    bound_ms = step_bytes / roofline.HBM_BW * 1e3
     out = {"decode_only_ticks": win, "decode_step_device_ms": step_ms,
            "weight_bytes_per_step": step_bytes,
            "weight_read_bound_ms": bound_ms,
@@ -2746,7 +2774,7 @@ def comm_phase(sc, rc, dev, out_path=None) -> dict:
     from repro_torch.launch import comm_bench as cb
 
     t0 = time.monotonic()
-    reps = 10
+    reps = COMM_REPS
     results = cb.schedule_rows(dev, cb.SIZES, reps, quiet=True)
     sc.reset_launches()
     rc.reset_launches()
@@ -6357,6 +6385,189 @@ def t16_stage(fa, sc, dev) -> tuple:
 
 
 # ----------------------------------------------------------------------
+# phase 17: the paper's sweep, the checker on the card, the dry run
+# ----------------------------------------------------------------------
+PINGPONG = os.path.join(ROOT, "examples", "torch", "shmem_pingpong.py")
+DRYRUN_PEAK_TOL = 0.20          # |predicted - measured| / measured
+DRYRUN_TIMEOUT_S = 600
+
+
+def pingpong_module():
+    """``examples/torch/shmem_pingpong.py``, imported from its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("shmem_pingpong", PINGPONG)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def posh_micro_stage(sc, dev, card: str) -> int:
+    """(a) posh-micro at its full config on the stacked 8-PE team: every
+    size x dtype through put, get, put_nbi + quiet and the local copy,
+    then the K = 8 pipeline (nbi vs blocking), each under the default
+    stager and the copy kernel's.  Gates: every output is its input
+    rolled by the round's pairs, bit for bit; the copy stager's output
+    == the default's; the copy kernel's launches == the staged rounds
+    (``staged_rounds``) of every call.  Returns those launches."""
+    from repro_torch import configs
+
+    pp = pingpong_module()
+    cfg = configs.get("posh-micro")
+    torch.cuda.synchronize()
+    sc.reset_launches()
+    t0 = time.monotonic()
+    rows = pp.sweep(cfg, dev)
+    secs = time.monotonic() - t0
+    launches = sc.LAUNCHES["copy_blocked"]
+    bad = pp.failures(rows)
+    if bad:
+        fail(f"posh-micro: {len(bad)} cells disagree, first {bad[0]}")
+    want = sum(r["expected_launches"] for r in rows)
+    if launches != want or not launches:
+        fail(f"posh-micro: copy launches {launches} != staged rounds {want}")
+    print(f"posh-micro (the paper's Tables 1-2; {card}): {len(rows)} cells, "
+          f"{len(cfg.buffer_sizes)} sizes {cfg.buffer_sizes[0]}.."
+          f"{cfg.buffer_sizes[-1]} elements a PE x {cfg.dtypes} x "
+          f"{pp.SWEEP_OPS} + the K = {pp.K} pipeline, {cfg.warmup} warm-ups "
+          f"+ {cfg.repeats} repeats a cell, each under both stagers; every "
+          f"output == its input rolled bit for bit, copy stager == default, "
+          f"copy launches {launches} == staged rounds; {secs:.1f} s",
+          flush=True)
+    for stager in pp.STAGERS:
+        print(pp.table(rows, stager), flush=True)
+    return launches
+
+
+def checker_stage(dev) -> dict:
+    """(b) the port's shmemcheck armed on the card over a disaggregated
+    1 + 1 handoff (put-with-signal tickets, AMO router and pools) with a
+    hot-swap flip (signal batches, a cswap flip) on the smoke config, f32
+    CUDA tensors.  Gates: 0 findings, the checker saw signal and atomic
+    words, one flip, a handoff; then a deliberately racy put pair gives
+    exactly one ww-race."""
+    from repro_torch.analysis import shmemcheck
+    from repro_torch.core import CommQueue, LocalTransport, SymmetricHeap
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import lm
+    from repro_torch.serve import Request
+
+    t0 = time.monotonic()
+    chk = shmemcheck.enable()
+    chk.reset()
+    try:
+        eng, cfg = build_engine("qwen3-8b", config="smoke", dtype="f32",
+                                device=dev, page_tokens=4, n_pages=32,
+                                max_batch=3, prefill_chunk=3, disagg="1+1",
+                                router="amo", seed=0)
+        gen = torch.Generator(device=dev).manual_seed(SWAP_SEED)
+        eng.begin_hot_swap(lm.init(gen, cfg, dtype=torch.float32, device=dev))
+        prompts = [list(range(3, 9)), list(range(4, 10)), [7, 3, 99, 12]]
+        eng.run([Request(rid=i, prompt=p, max_new=5)
+                 for i, p in enumerate(prompts)], clock="tick")
+        torch.cuda.synchronize()
+        m, seen, found = eng.metrics(), chk.observed(), chk.report()
+        if found:
+            fail("checker: " + "; ".join(str(f) for f in found[:5]))
+        if not (seen["signal_words"] and seen["atomic_words"]):
+            fail(f"checker: armed but saw {seen}")
+        if m["swap"]["flips"] != 1 or not m["handoff"]["handoff_tickets"]:
+            fail(f"checker: swap {m['swap']}, handoff {m['handoff']}")
+        chk.reset()
+        heap = SymmetricHeap(("pe",))
+        h = heap.alloc("buf", (8,), torch.float32)
+        q = CommQueue("pe", heap.zeros_state(N_PE, device=dev),
+                      transport=LocalTransport(N_PE))
+        for value, offset in ((1.0, 0), (2.0, 2)):     # overlapping rows
+            q.put_nbi(h, torch.full((N_PE, 3), value, device=dev), [(0, 1)],
+                      offset=offset)
+        q.quiet()
+        rules = [f.rule for f in chk.report()]
+        if rules != ["ww-race"]:
+            fail(f"checker: the racy put pair gave {rules}, want one "
+                 f"ww-race")
+    finally:
+        shmemcheck.disable()
+    out = {"findings": 0, "seen": seen, "swap_flips": m["swap"]["flips"],
+           "handoff_tickets": m["handoff"]["handoff_tickets"],
+           "racy_pair": rules}
+    print(f"checker on the card (disagg 1+1 amo + hot-swap flip, smoke f32): "
+          f"0 findings, saw {seen}, swap {m['swap']}, handoff tickets "
+          f"{m['handoff']['handoff_tickets']}; racy put pair -> {rules}; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def dryrun_start():
+    """(c)'s dry run of phase 6's exact step (gemma-2b f32, one PE, the
+    global batch in its microbatches, remat, posh, ZeRO 0) on the meta
+    device, in a process of its own that sees no card, started after
+    phase 5: ~30 s of host Python beside the start of phase 6 (whose
+    step it leaves as it was), done long before phase 17 reads it; the
+    serving and comm phases' host-bound timings run without it."""
+    code = (
+        "import json, torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.core.teams import Team\n"
+        "from repro_torch.launch import dryrun\n"
+        f"arch = {TRAIN['arch']!r}\n"
+        "r = dryrun.lower_cell(arch, 'train_4k', "
+        "team=Team(('data', 'model'), (1, 1)), backend='posh', zero=0, "
+        f"microbatches={TRAIN['microbatches']}, "
+        f"global_batch={TRAIN['global_batch']}, "
+        "seq=configs.get(arch).max_seq, param_dtype=torch.float32, "
+        "compute_dtype=torch.float32, verbose=False)\n"
+        "print('DRYRUN ' + json.dumps(r))\n")
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    log = tempfile.TemporaryFile(mode="w+")    # no pipe to fill meanwhile
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=log, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, log, time.monotonic()
+
+
+def dryrun_stage(proc, log, t_start: float, base: dict, flash: int) -> dict:
+    """(c) the dry run's FLOPs, bytes and predicted peak beside phase 6's
+    measured step (``torch.cuda.max_memory_allocated``, no extra card
+    run).  Gates: the predicted peak within 20% of the measured one; the
+    flash kernel's meta calls == phase 6's ``flash`` launches."""
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"dryrun: no result in {DRYRUN_TIMEOUT_S} s")
+    log.seek(0)
+    out = log.read()
+    line = next((ln for ln in out.splitlines() if ln.startswith("DRYRUN ")),
+                None)
+    if proc.returncode != 0 or line is None:
+        fail(f"dryrun: rc {proc.returncode}: {out[-2000:]}")
+    r = json.loads(line[len("DRYRUN "):])
+    pred = r["peak_gib_card"] * 2**30 / 1e9
+    meas = base["max_memory_allocated_gb"]
+    rel = (pred - meas) / meas
+    print(f"dryrun (meta, phase 6's step: {TRAIN['arch']} f32, 1 PE, "
+          f"{TRAIN['global_batch']} x seq in {TRAIN['microbatches']} "
+          f"microbatches, remat): {r['t_run_s']} s in its own process "
+          f"(done {time.monotonic() - t_start:.1f} s after its start); FLOPs "
+          f"{r['flops_dev']:.4e} (matmul {r['matmul_flops']:.4e} + flash "
+          f"kernel {r['kernel_flops']:.4e} over {r['flash_calls']} calls), "
+          f"bytes {r['bytes_dev']:.4e}; H100 data-sheet terms compute "
+          f"{r['compute_ms']:.1f} ms, memory {r['memory_ms']:.1f} ms; "
+          f"measured step {base['seconds']:.2f} s; predicted peak "
+          f"{pred:.2f} GB vs measured {meas:.2f} GB ({100 * rel:+.1f}%)",
+          flush=True)
+    if abs(rel) > DRYRUN_PEAK_TOL:
+        fail(f"dryrun: predicted peak {pred:.2f} GB is {100 * rel:+.1f}% off "
+             f"phase 6's {meas:.2f} GB (bound {DRYRUN_PEAK_TOL:.0%})")
+    if r["flash_calls"] != flash:
+        fail(f"dryrun: {r['flash_calls']} flash calls, phase 6 launched "
+             f"{flash}")
+    return {"predicted_peak_gb": pred, "measured_peak_gb": meas,
+            "rel": rel, "flops": r["flops_dev"], "bytes": r["bytes_dev"],
+            "flash_calls": r["flash_calls"], "t_run_s": r["t_run_s"]}
+
+
+# ----------------------------------------------------------------------
 # phase 7: timing
 # ----------------------------------------------------------------------
 def time_ms(fn, dev, iters=20) -> float:
@@ -6566,8 +6777,10 @@ def decode_long_timing(pa, dev, dt) -> dict:
 
 def bound_of(nbytes: int, flops: int, dtype) -> tuple:
     """(bound ms, "bytes" | "operations"): the larger of bytes over the
-    memory rate and operations over the dtype's peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    memory rate and operations over the dtype's peak (the H100 SXM
+    data-sheet rates of ``launch.roofline``)."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -6846,6 +7059,7 @@ def main(argv=None) -> int:
     phase_done("4 serve")
     comm_launches, comm_payloads = comm_phase(sc, rc, dev, args.comm_out)
     phase_done("5 comm")
+    dry = dryrun_start()
     flash_launches, train_base = train_full(fa, dev)
     train_smoke_parity(dev)
     phase_done("6 train")
@@ -6875,6 +7089,10 @@ def main(argv=None) -> int:
     phase_done("15 tp train")
     launches_t16, copies_t16, rows_t16 = t16_stage(fa, sc, dev)
     phase_done("16 tp families")
+    copies_pm = posh_micro_stage(sc, dev, card)
+    checker = checker_stage(dev)
+    dry = dryrun_stage(*dry, train_base, flash_launches)
+    phase_done("17 posh-micro, checker, dry run")
     for row in kernels:
         if row["name"].startswith("paged_"):
             row["launches_swap"] = launches_swap[(row["name"], "bf16")]
@@ -6903,11 +7121,14 @@ def main(argv=None) -> int:
             row["max_abs_err_tp_families"] = max(
                 r["max_abs_err"] for r in rows_t16.values())
             row["tp_families_shapes"] = rows_t16
+            row["dryrun_phase6"] = dry
         elif row["name"] == "copy_blocked":
             row["launches_tp"] = copies_tp
             row["launches_moe_tp"] = copies_mtp
             row["launches_dp"] = copies_dp
             row["launches_tp_families"] = copies_t16
+            row["launches_posh_micro"] = copies_pm
+            row["checker"] = checker
 
     print(f"total: {time.monotonic() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,8 +5,8 @@ returns a reduced same-family config for CPU tests.  Every arch of the
 reference is here (dense: gemma-2b, qwen3-8b, minitron-4b,
 h2o-danube-3-4b; moe: qwen3-moe-30b-a3b, qwen2-moe-a2.7b; ssm:
 rwkv6-3b; hybrid: zamba2-7b; encdec: whisper-base; vlm:
-llama-3.2-vision-90b) but posh-micro, which raises, naming the slice it
-arrives with.
+llama-3.2-vision-90b) and the paper's own sweep, posh-micro (family
+``micro``: buffer sizes, dtypes and repeats, not a model).
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import importlib
 
 ARCHS = ("minitron_4b", "gemma_2b", "qwen3_8b", "h2o_danube3_4b",
          "whisper_base", "rwkv6_3b", "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b",
-         "llama32_vision_90b", "zamba2_7b")
+         "llama32_vision_90b", "zamba2_7b", "posh_micro")
 
 _ALIASES = {"minitron-4b": "minitron_4b", "gemma-2b": "gemma_2b",
             "qwen3-8b": "qwen3_8b", "h2o-danube-3-4b": "h2o_danube3_4b",
@@ -22,20 +22,11 @@ _ALIASES = {"minitron-4b": "minitron_4b", "gemma-2b": "gemma_2b",
             "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
             "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
             "llama-3.2-vision-90b": "llama32_vision_90b",
-            "zamba2-7b": "zamba2_7b"}
-
-# the reference's other config, and the slice that brings it
-_LATER = {"posh_micro": "the analysis and tooling slice (ROADMAP A12)"}
-_LATER_ALIASES = {"posh-micro": "posh_micro"}
+            "zamba2-7b": "zamba2_7b", "posh-micro": "posh_micro"}
 
 
 def canon(name: str) -> str:
     key = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
-    key = _LATER_ALIASES.get(name, key)
-    if key in _LATER:
-        raise NotImplementedError(
-            f"repro_torch has no config for {name!r} yet: it arrives with "
-            f"{_LATER[key]}")
     if key not in ARCHS:
         raise NotImplementedError(
             f"repro_torch has no config for {name!r} (ported: "

@@ -33,6 +33,10 @@ import torch
 TeamAxes = Union[str, Sequence[str]]
 HeapState = dict  # name -> (n_pe, *shape) tensor
 
+# repro_torch.analysis.shmemcheck hook slot (see core.ordering): None
+# when the checker is off.
+_checker = None
+
 
 def torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype or anything numpy understands."""
@@ -118,6 +122,8 @@ class SymmetricHeap:
                 j = bisect.bisect_left(self._sorted_offsets, start)
                 self._sorted_offsets.insert(j, start)
                 self._sorted_handles.insert(j, h)
+                if _checker is not None:
+                    _checker.on_alloc(self, h)
                 return h
         raise MemoryError(
             f"symmetric heap exhausted: need {need}B aligned {align} "
@@ -131,6 +137,8 @@ class SymmetricHeap:
         """``shfree`` — symmetric deallocation with coalescing."""
         name = handle_or_name.name if isinstance(handle_or_name, SymHandle) \
             else handle_or_name
+        if _checker is not None:
+            _checker.on_free(self, name, self.registry.get(name))
         h = self.registry.pop(name, None)
         if h is None:
             raise KeyError(f"no symmetric object named '{name}'")
@@ -219,6 +227,8 @@ class SymmetricHeap:
                 j = bisect.bisect_left(self._sorted_offsets, h.offset)
                 self._sorted_offsets.insert(j, h.offset)
                 self._sorted_handles.insert(j, h)
+                if _checker is not None:
+                    _checker.on_alloc(self, h)
                 return
         raise AssertionError(
             f"extent of '{h.name}' not free during realloc restore")
@@ -234,6 +244,8 @@ class SymmetricHeap:
         j = bisect.bisect_left(self._sorted_offsets, offset)
         self._sorted_offsets.insert(j, offset)
         self._sorted_handles.insert(j, h)
+        if _checker is not None:
+            _checker.on_realloc(self, old, h)
         return h
 
     def _carve(self, i: int, pad: int, need: int, name: str) -> None:

@@ -47,6 +47,12 @@ from .teams import TeamAxes
 
 Pairs = Sequence[tuple[int, int]]
 
+# repro_torch.analysis.shmemcheck hook slot.  None when the checker is
+# off: an instrumented call site then costs one global load plus an
+# is-None test (the analogue of building POSH without _SAFE, §4.7).
+# ``shmemcheck.enable()`` installs a checker here and in core.heap.
+_checker = None
+
 
 def _snapshot(data) -> torch.Tensor:
     """An owned copy of a payload, taken at issue (local completion)."""
@@ -433,6 +439,8 @@ class CommQueue:
         self._puts.append(op)
         self._stats["puts"] += 1
         self._track_pending()
+        if _checker is not None:
+            _checker.on_put_nbi(self, handle, data, pairs, offset, op.seq)
         return op.seq
 
     def put_signal_nbi(self, handle: SymHandle, data, pairs: Pairs,
@@ -464,6 +472,10 @@ class CommQueue:
         key = (sig_handle.name, int(sig_offset))
         self._sig_guards.setdefault(key, []).extend((payload.seq, sig.seq))
         self._track_pending()
+        if _checker is not None:
+            _checker.on_put_signal(self, handle, data, pairs, offset,
+                                   payload.seq, sig_handle, int(sig_offset),
+                                   sig.seq)
         return payload.seq
 
     def amo_nbi(self, handle: SymHandle, op: str, pairs: Pairs, *,
@@ -503,6 +515,8 @@ class CommQueue:
         self._amo_guards.setdefault((handle.name, int(offset)),
                                     []).append(amo.seq)
         self._track_pending()
+        if _checker is not None:
+            _checker.on_amo(self, handle, int(offset), pairs, amo.seq, op)
         return res
 
     def get_nbi(self, handle: SymHandle, pairs: Pairs, offset=0,
@@ -532,6 +546,8 @@ class CommQueue:
         self._gets.append(op)
         self._stats["gets"] += 1
         self._track_pending()
+        if _checker is not None:
+            _checker.on_get_nbi(self, handle, pairs, offset, size, op.seq)
         return res
 
     def allreduce_nbi(self, x, deliver: Callable[[Any], Any]) -> NbiValue:
@@ -556,6 +572,8 @@ class CommQueue:
         before this call returns, hence before anything issued later —
         delivery-at-fence is the strongest legal implementation of the
         paper's ordering-only guarantee."""
+        if _checker is not None:
+            _checker.on_fence(self, dst)
         self._stats["fences"] += 1
         if dst is None:
             todo, keep = self._puts, []
@@ -572,6 +590,10 @@ class CommQueue:
         runs nonblocking reductions in issue order.  Returns the heap
         state; afterwards the queue is empty and every NbiValue is
         readable."""
+        if _checker is not None:
+            _checker.on_quiet(self)
+            with _checker.draining(self):
+                return self._quiet_impl()
         return self._quiet_impl()
 
     def _quiet_impl(self) -> HeapState:
@@ -610,6 +632,8 @@ class CommQueue:
         comparison — nothing pending could ever satisfy it — the real
         call would spin forever, so this raises instead.  Returns the
         heap state."""
+        if _checker is not None:
+            _checker.on_signal_wait(self, sig_handle, int(sig_offset))
         self._stats["signal_waits"] += 1
         key = (sig_handle.name, int(sig_offset))
         seqs = set(self._sig_guards.pop(key, ()))
@@ -639,6 +663,8 @@ class CommQueue:
         ``stats()["quiets"]`` stays 0 on an allocator queue).  After
         the call every retired AMO's :class:`NbiValue` is readable.
         Returns the heap state."""
+        if _checker is not None:
+            _checker.on_amo_wait(self, handle, int(offset))
         self._stats["amo_waits"] += 1
         seqs = set(self._amo_guards.pop((handle.name, int(offset)), ()))
         if seqs:
@@ -658,6 +684,9 @@ class CommQueue:
         Counted under ``signal_resets``, never ``signal_puts`` — a
         reset is word housekeeping, not a transfer."""
         pairs = [(int(s), int(d)) for s, d in pairs]
+        if _checker is not None:
+            _checker.on_signal_reset(self, sig_handle, int(sig_offset),
+                                     pairs)
         self._stats["signal_resets"] += 1
         self._state = self.transport.put_signal(
             self._state, sig_handle, value, pairs, self.team,
@@ -787,7 +816,9 @@ class CommQueue:
     def state(self) -> HeapState:
         """The heap state as of the last drain.  Pending (undelivered)
         ops are NOT visible here — that is the point (and reading it
-        with puts in flight is a write-read race)."""
+        with puts in flight is the wr-race shmemcheck flags)."""
+        if _checker is not None:
+            _checker.on_state_read(self)
         return self._state
 
     def pending_ops(self) -> int:

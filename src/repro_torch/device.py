@@ -3,7 +3,9 @@
 The port runs on the card.  ``resolve(None)`` is CUDA, and asking for
 CUDA on a machine without a usable GPU raises — an entry point never
 carries on silently on the CPU.  The CPU is reached only by asking for
-it (``device="cpu"``), which is what the tests do.
+it (``device="cpu"``), which is what the tests do; ``"meta"`` (shapes
+and dtypes, no storage) is what the dry run (``launch.dryrun``) asks
+for.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ def resolve(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "repro_torch runs on a CUDA GPU and none is available; pass "
             "device='cpu' explicitly to run the plain CPU versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

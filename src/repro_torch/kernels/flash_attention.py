@@ -46,7 +46,13 @@ of ``repro.kernels.ref.attention_ref`` in f32, plus the log-sum-exp.
 The wrapper takes it for CPU tensors — only there.  For a CUDA tensor it
 launches the kernel or raises; nothing falls back.  ``LAUNCHES`` counts
 kernel launches (a plain integer), so a run can show that its main path
-went through the kernel.
+went through the kernel.  For a **meta** tensor (the dry run,
+``launch.dryrun``) it checks the call as for the card, returns outputs
+of the kernel's shapes and dtypes, and adds the kernel's work to
+``META``: its operations (``flash_flops``: 4 D a (row, column, head)
+triple the masks leave, the count the bound of ``chip_smoke.py`` uses)
+and its bytes (q, k, v read once, out and lse written once).  Any other
+device raises.
 """
 from __future__ import annotations
 
@@ -67,6 +73,8 @@ VECTOR_BYTES = 16               # the kernels' global -> shared copies
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
 
 LAUNCHES = {"flash_attention": 0}
+# the meta route's tally: calls, operations, bytes
+META = {"calls": 0, "flops": 0, "bytes": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,6 +87,37 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def reset_meta() -> None:
+    for k in META:
+        META[k] = 0
+
+
+def visible_pairs(t: int, offset: int, causal: bool,
+                  window: Optional[int], kv_len: int) -> int:
+    """(row, column) pairs the masks leave for ``t`` query rows from
+    position ``offset`` over ``kv_len`` valid keys: what one head of one
+    batch row computes."""
+    p = offset + torch.arange(t, dtype=torch.int64)
+    hi = torch.clamp(p, max=kv_len - 1) if causal else \
+        torch.full_like(p, kv_len - 1)
+    lo = torch.clamp(p - window + 1, min=0) if window is not None \
+        else torch.zeros_like(p)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def flash_flops(b: int, h: int, t: int, s: int, d: int, *,
+                causal: bool = True, window: Optional[int] = None,
+                q_offset: int = 0, kv_len: Optional[int] = None,
+                pe_rows: int = 1, pe_stride: int = 0) -> int:
+    """The kernel's operations for one call: QK^T and PV, 2 D each, over
+    every visible (row, column, head) triple."""
+    kv_len = s if kv_len is None else min(kv_len, s)
+    offs = [q_offset + (i // pe_rows) * pe_stride for i in range(b)]
+    pairs = sum(offs.count(o) * visible_pairs(t, o, causal, window, kv_len)
+                for o in set(offs))
+    return 4 * d * h * pairs
 
 
 def attention_mask(rows: torch.Tensor, cols: torch.Tensor, causal: bool,
@@ -192,6 +231,12 @@ def _check(q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel runs on CUDA tensors, got "
                          f"{q.device}")
+    _check_layout(q, k, v)
+
+
+def _check_layout(q, k, v):
+    """Everything ``_check`` asks but the device: the meta route's
+    check."""
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -232,7 +277,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    sm_scale=sm_scale, q_offset=q_offset,
                                    kv_len=kv_len, pe_rows=pe_rows,
                                    pe_stride=pe_stride)
-    _check(q, k, v)
+    meta = q.device.type == "meta"        # the dry run's route
+    (_check_layout if meta else _check)(q, k, v)
     check_pe(q.shape[0], pe_rows, pe_stride)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
@@ -242,6 +288,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = s if kv_len is None else kv_len
     out = torch.empty_like(q)             # keeps q's strides (layout)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if meta:
+        META["calls"] += 1
+        META["flops"] += flash_flops(b, h, t, s, d, causal=causal,
+                                     window=window, q_offset=q_offset,
+                                     kv_len=kv_len, pe_rows=pe_rows,
+                                     pe_stride=pe_stride)
+        META["bytes"] += (q.numel() + k.numel() + v.numel() + out.numel()) \
+            * q.element_size() + lse.numel() * 4
+        return out, lse
     if out.numel() == 0:
         return out, lse
     strides = (ctypes.c_longlong * 12)(
@@ -259,3 +314,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err}")
     LAUNCHES["flash_attention"] += 1
     return out, lse
+

@@ -48,7 +48,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import dtype_of, resolve
-from repro_torch.models import lm
+from repro_torch.models import lm, registry
 from repro_torch.serve import (DisaggEngine, DraftModelProposer,
                                SLOConfig, ServeConfig, ServeEngine,
                                SymmetricPagePool, TrafficConfig,
@@ -111,6 +111,7 @@ def build_engine(arch: str = "qwen3-8b", *, config: str = "full",
         raise ValueError(f"config must be 'full' or 'smoke', got {config!r}")
     dev = resolve(device)
     cfg = configs.get(arch) if config == "full" else configs.get_smoke(arch)
+    registry.require_model(cfg)
     dt = dtype_of(dtype)
     scfg = ServeConfig(
         page_tokens=page_tokens, n_pages=n_pages, max_batch=max_batch,

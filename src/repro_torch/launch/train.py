@@ -153,8 +153,9 @@ def build_trainer(arch: str = "gemma-2b", *, smoke: bool = False,
     replica a TP group of ``tp_size`` PEs (``moe_dispatch`` einsum |
     alltoall for a MoE config), with sequence parallelism at
     ``tp_size`` > 1."""
-    cfg = cut_layers(configs.get_smoke(arch) if smoke else configs.get(arch),
-                     n_layers)
+    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    registry.require_model(cfg)
+    cfg = cut_layers(cfg, n_layers)
     if cfg.family in _INPUTS:
         raise ValueError(
             f"{cfg.name} trains on batches with {_INPUTS[cfg.family]!r} "

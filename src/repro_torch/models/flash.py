@@ -7,7 +7,9 @@ custom-VJP ``_flash_chunk``, here a ``torch.autograd.Function``:
     flash kernel (``repro_torch.kernels.flash_attention``) over the whole
     query range — the hardware path the reference's docstring names
     ("used when ctx.use_pallas on hardware").  It returns the output and
-    the rows' log-sum-exp;
+    the rows' log-sum-exp.  On a meta tensor (the dry run) the same call
+    takes the wrapper's meta route: shapes, dtypes and the kernel's
+    operation count, no launch;
   * forward on a CPU tensor, or with ``impl="ref"``: the plain mirror of
     ``_flash_chunk_fwd_impl`` — a Python loop over query chunks of
     ``block_q`` rows, each over the KV prefix a causal chunk can see, in
@@ -97,7 +99,7 @@ def _pe_span(b, pe_rows, pe_stride) -> int:
 def _forward(q, k, v, scale, causal, window, kv_len, block_q, block_kv,
              q_offset, pe_rows, pe_stride, impl):
     b, tq, hkv, g, dh = q.shape
-    if impl == "kernel" and q.device.type == "cuda":
+    if impl == "kernel" and q.device.type in ("cuda", "meta"):
         out, lse = fa.flash_attention(
             q.reshape(b, tq, hkv * g, dh).transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), causal=causal, window=window, sm_scale=scale,

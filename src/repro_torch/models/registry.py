@@ -33,7 +33,21 @@ class ModelAPI:
     init_decode_state: Optional[Callable] = None
 
 
+def require_model(cfg) -> None:
+    """Raise for a config that describes no model: posh-micro (family
+    ``micro``) is the paper's communication sweep — buffer sizes,
+    dtypes, repeats — with no weights to build, train or serve, as in
+    the reference."""
+    if cfg.family == "micro":
+        raise ValueError(
+            f"{cfg.name} is the communication sweep's configuration (buffer "
+            f"sizes, dtypes, repeats), not a model: it has no weights to "
+            f"build, train or serve; examples/torch/shmem_pingpong.py runs "
+            f"its sweep")
+
+
 def build(cfg) -> ModelAPI:
+    require_model(cfg)
     if cfg.family == "encdec":
         return ModelAPI(init=encdec.init, loss_fn=encdec.loss_fn,
                         decode_step=encdec.decode_step,
@@ -118,6 +132,7 @@ def tp_specs(cfg, tp: int) -> dict:
     group's entry (``tree.STACKED``) is one layer's dict (the reference
     stacks it on a layer axis, in front); the hybrid's ``shared`` block
     is one dense block."""
+    require_model(cfg)
     fam = cfg.family
     if fam == "encdec":
         enc = {"ln1": _norm("layer"), "attn": _attn(cfg, tp),

@@ -66,14 +66,36 @@ def grad_rows(params: dict, dp: int) -> dict:
     return ref_tree(params, zeros)
 
 
-def _bind(params: dict, rows: dict, r: int) -> None:
-    """Point every parameter's ``.grad`` at row ``r`` of its buffer."""
+def _pairs(params: dict, rows: dict, r: int):
+    """(parameter, its slot in row ``r`` of the gradient buffers)."""
     for group, buf in zip(ref_groups(params), leaves(rows)):
         if isinstance(group, list):
             for li, p in enumerate(group):
-                p.grad = buf[r, li]
+                yield p, buf[r, li]
         else:
-            group.grad = buf[r]
+            yield group, buf[r]
+
+
+def _bind(params: dict, rows: dict, r: int) -> None:
+    """Point every f32 parameter's ``.grad`` at row ``r`` of its buffer
+    (autograd then accumulates into it in place); a bf16 parameter's
+    gradient is folded in by ``_fold``."""
+    for p, slot in _pairs(params, rows, r):
+        if p.dtype == slot.dtype:
+            p.grad = slot
+
+
+def _fold(params: dict, rows: dict, r: int) -> None:
+    """Add a bf16 parameter's microbatch gradient into its f32 slot of
+    row ``r`` and clear it: bf16 gradients accumulated in f32, as the
+    reference's microbatch scan does.  At one microbatch the reference
+    keeps them bf16 (its TP psum and DP mean round to bf16); the rows
+    here stay f32, the more exact of the two."""
+    with torch.no_grad():
+        for p, slot in _pairs(params, rows, r):
+            if p.dtype != slot.dtype and p.grad is not None:
+                slot.add_(p.grad)
+                p.grad = None
 
 
 def _split(batch: dict, n: int) -> list:
@@ -110,6 +132,7 @@ def replica_grads(loss_fn, params, batch, ctx, cfg, microbatches: int = 1):
             lsum = None
             for mb in _split(block, microbatches):
                 lm = backward(loss_fn, params, mb, ctx, cfg)
+                _fold(params, rows, r)
                 lsum = lm if lsum is None else lsum + lm
             lmask.append(lsum / microbatches if microbatches > 1 else lsum)
     finally:

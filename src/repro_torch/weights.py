@@ -131,6 +131,8 @@ def _check_split(cfg, tp: int) -> None:
     """Raise where a width the reference splits over TP does not divide
     by ``tp``: the MLP's (or the experts', ``_check_moe_split``), the
     RWKV padded heads, the SSD heads of ``d_inner``."""
+    from repro_torch.models.registry import require_model
+    require_model(cfg)
     widths = []
     if cfg.family == "ssm":
         widths.append(("padded RWKV heads", cfg.rwkv_padded_heads
@@ -171,7 +173,8 @@ def shard_for_tp(params: Mapping, cfg, tp: int) -> dict:
     draws at ``tp`` is not the tp = 1 tensors'.  Parameters already
     stacked, or ``tp == 1``, come back as given (so engines that share
     one dict keep sharing it)."""
-    from repro_torch.models.registry import tp_specs
+    from repro_torch.models.registry import require_model, tp_specs
+    require_model(cfg)
     tp = int(tp)
     if tp == 1 or is_tp_sharded(params):
         return params

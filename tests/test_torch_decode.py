@@ -292,8 +292,9 @@ def test_tp_decode_runs_and_equals_tp1():
     state stacked per PE (qwen3-8b at tp 2: each PE's KV head;
     minitron-4b's 6 heads at tp 4: the ctx layout's sequence-sharded
     cache, 2 rows a PE), every PE's pick equal and the stream equal to
-    tp = 1's; the vlm's state builds; posh-micro still raises, citing
-    A12; with no device given the state goes to the GPU."""
+    tp = 1's; the vlm's state builds; posh-micro, which raised citing A12
+    before, is the port's config and no ``raise`` of the port cites an
+    A-label; with no device given the state goes to the GPU."""
     from repro_torch.weights import shard_for_tp
 
     for arch, tp, shape in (("qwen3-8b", 2, (2, 1, 8, 1, 16)),
@@ -317,8 +318,10 @@ def test_tp_decode_runs_and_equals_tp1():
     vlm = configs.get_smoke("llama-3.2-vision-90b")
     st = lm.init_decode_state(vlm, CTX.with_(tp_size=2), 1, 8, device="cpu")
     assert set(st) == {"cache", "cross_cache", "pos"}
-    with pytest.raises(NotImplementedError, match="A12"):
-        configs.get("posh-micro")
+    from repro_torch.configs import posh_micro
+    from test_torch_imports import raises_citing_a_label
+    assert configs.get("posh-micro") == posh_micro.config()
+    assert raises_citing_a_label() == []
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             lm.init_decode_state(configs.get_smoke("qwen3-8b"), CTX, 1, 8)

@@ -594,8 +594,9 @@ def test_formerly_refused_families_run_at_tp_gt_1():
     """whisper-base and the vlm build (their configs and registry
     entries); MoE trains and prefills; every family's loss runs at tp =
     2 on the stacked layout and equals tp = 1's (1e-5: the same sums in
-    another order), where it raised citing A10 before; posh-micro still
-    raises, citing A12."""
+    another order), where it raised citing A10 before; posh-micro, which
+    raised citing A12 before, is the port's config and no ``raise`` of
+    the port cites an A-label."""
     from repro_torch.weights import shard_for_tp
 
     for arch in ("whisper-base", "llama-3.2-vision-90b"):
@@ -604,8 +605,10 @@ def test_formerly_refused_families_run_at_tp_gt_1():
             jconfigs.get_smoke(arch))
         api = registry.build(cfg)
         assert (api.prefill is None) == (cfg.family == "encdec")
-    with pytest.raises(NotImplementedError, match="A12"):
-        configs.get("posh-micro")
+    from repro_torch.configs import posh_micro
+    from test_torch_imports import raises_citing_a_label
+    assert configs.get("posh-micro") == posh_micro.config()
+    assert raises_citing_a_label() == []
     moe = configs.get_smoke("qwen3-moe-30b-a3b")
     api = registry.build(moe)              # builds, decodes, trains
     params = api.init(torch.Generator().manual_seed(0), moe)

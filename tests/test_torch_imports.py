@@ -12,13 +12,16 @@ and the MoE / tensor-parallel training slice: comm.autograd, the
 sequence-parallel operators in parallel.ctx, registry.tp_specs and the
 training layout in weights, and the slice that completes A10: the ctx
 attention layout, the flash kernel's per-PE query offset and every
-family at tp > 1, in modules that were there), and ``chip_smoke.py``,
-pulls in no
-JAX and nothing of the JAX package ``repro`` — checked by a clean
-subprocess's ``sys.modules`` and by an AST scan of every import
+family at tp > 1, in modules that were there, and the tooling slice:
+the analysis package (shmemcheck, the lint, the pytest plugin), the
+launch tooling (mesh, shapes, roofline, the dry run), the posh-micro
+config), ``chip_smoke.py`` and the examples under ``examples/torch/``,
+pulls in no JAX and nothing of the JAX package ``repro`` — checked by a
+clean subprocess's ``sys.modules`` and by an AST scan of every import
 statement."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -26,19 +29,45 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
+EXAMPLES = os.path.join(ROOT, "examples", "torch")
+# a ROADMAP label (A1 .. A12) in an error message
+A_LABEL = re.compile(r"\bA\d{1,2}\b(?!\.\d)")
 
 
-def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+def _package_files():
+    out = []
     for dirpath, _, names in os.walk(PKG):
         out.extend(os.path.join(dirpath, n) for n in sorted(names)
                    if n.endswith(".py"))
     return out
 
 
+def _sources():
+    examples = sorted(os.path.join(EXAMPLES, n) for n in os.listdir(EXAMPLES)
+                      if n.endswith(".py"))
+    return [os.path.join(ROOT, "chip_smoke.py")] + _package_files() \
+        + examples
+
+
+def raises_citing_a_label() -> list:
+    """Every ``raise`` in the port, ``chip_smoke.py`` or the examples whose
+    message cites a ROADMAP label (A1 .. A12): ``path:line``."""
+    out = []
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Raise) and any(
+                    A_LABEL.search(c.value) for c in ast.walk(node)
+                    if isinstance(c, ast.Constant)
+                    and isinstance(c.value, str)):
+                out.append(f"{path}:{node.lineno}")
+    return out
+
+
 def _modules():
     mods = []
-    for path in _sources()[1:]:
+    for path in _package_files():
         rel = os.path.relpath(path, os.path.join(ROOT, "src"))[:-3]
         parts = rel.split(os.sep)
         if parts[-1] == "__init__":
@@ -149,8 +178,9 @@ def test_the_moe_and_tp_training_slice_is_covered():
 
 def test_the_tp_families_slice_is_covered():
     """A10 is whole: no ``raise`` in the port (nor in ``chip_smoke.py``)
-    cites it, nor is its refusal message left; posh-micro still raises,
-    citing A12; the per-PE flash offset and the ``sp`` switch import
+    cites it, nor is its refusal message left; posh-micro, which raised
+    citing A12 before, is the port's config and no ``raise`` cites any
+    A-label; the per-PE flash offset and the ``sp`` switch import
     without JAX."""
     for path in _sources():
         with open(path, encoding="utf-8") as f:
@@ -164,13 +194,30 @@ def test_the_tp_families_slice_is_covered():
                 assert not any("A10" in t for t in texts), \
                     f"{path}:{node.lineno}"
     from repro_torch import configs
-    with pytest.raises(NotImplementedError, match="A12"):
-        configs.get("posh-micro")
+    from repro_torch.configs import posh_micro
+    assert configs.get("posh-micro") == posh_micro.config()
+    assert raises_citing_a_label() == []
     from repro_torch.kernels.flash_attention import query_positions
     from repro_torch.parallel import ParallelCtx
     assert query_positions(0, 2, "cpu", 4, 2, 8).tolist() == \
         [[0, 1], [0, 1], [8, 9], [8, 9]]
     assert ParallelCtx().sp and not ParallelCtx(sp=False).sp
+
+
+def test_the_tooling_slice_is_covered():
+    """The analysis package, the launch tooling and the posh-micro config
+    are among the modules imported and scanned above, and the examples
+    under ``examples/torch/`` among the files scanned."""
+    want = {"repro_torch.analysis", "repro_torch.analysis.lint",
+            "repro_torch.analysis.shmemcheck",
+            "repro_torch.analysis.pytest_arm", "repro_torch.launch.mesh",
+            "repro_torch.launch.shapes", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.configs.posh_micro"}
+    assert want <= set(_modules())
+    names = {os.path.basename(p) for p in _sources()
+             if os.path.dirname(p) == EXAMPLES}
+    assert {"quickstart.py", "train_lm.py", "serve_quickstart.py",
+            "serve_decode.py", "shmem_pingpong.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -567,8 +567,10 @@ def test_flash_plain_dtypes_match_pallas(dt):
 
 def test_flash_wrapper_routes_by_device(monkeypatch):
     """CPU tensors take the plain version without building or counting;
-    any other device goes to the kernel path, which raises for a
-    non-CUDA tensor — never the plain version."""
+    meta tensors (the dry run) take the meta route — the kernel's output
+    shapes and operation count, no build, no launch, never the plain
+    version; any other device goes to the kernel path, which raises for
+    a non-CUDA tensor — never the plain version."""
     monkeypatch.setattr(fa.build, "load", lambda *a: pytest.fail(
         "CPU tensors must not build or load the CUDA library"))
     q, k, v = (_to_torch(a) for a in _flash_case(10, 1, 2, 1, 8, 8, 16))
@@ -582,8 +584,22 @@ def test_flash_wrapper_routes_by_device(monkeypatch):
 
     monkeypatch.setattr(fa, "flash_attention_ref", no_plain)
     m = torch.empty(1, 2, 8, 16, device="meta")
+    fa.reset_meta()
+    out, lse = fa.flash_attention(m, m[:, :1], m[:, :1])
+    assert out.is_meta and out.shape == m.shape and lse.shape == (1, 2, 8)
+    assert fa.LAUNCHES == before and fa.META["calls"] == 1
+    elsewhere = torch.Tensor._make_subclass(_OtherDevice, torch.zeros(
+        1, 2, 8, 16))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fa.flash_attention(m, m[:, :1], m[:, :1])
+        fa.flash_attention(elsewhere, elsewhere, elsewhere)
+
+
+class _OtherDevice(torch.Tensor):
+    """A tensor reporting a device with no route of its own."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
 
 
 # (b, t, h, hkv, d), options, block_q, block_kv

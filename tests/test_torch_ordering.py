@@ -135,6 +135,7 @@ GENS = {"put": (gen_sequence, 0), "signal": (gen_signal_sequence, 7000),
         "amo": (gen_amo_sequence, 9000)}
 
 
+@pytest.mark.shmem_racy            # replays deliberately-racy sequences
 @pytest.mark.parametrize("chunk", range(3))
 @pytest.mark.parametrize("kind", sorted(GENS))
 def test_queue_matches_reference_under_every_seed(kind, chunk):
@@ -147,6 +148,7 @@ def test_queue_matches_reference_under_every_seed(kind, chunk):
             _assert_same(got, want, f"{kind} seq {chunk * 10 + i} seed {seed}")
 
 
+@pytest.mark.shmem_racy            # replays deliberately-racy sequences
 @pytest.mark.parametrize("chunk", range(3))
 def test_port_queue_meets_the_maximal_write_oracle(chunk):
     """The property of ``tests/test_ordering.py`` on the port's queue:
@@ -243,6 +245,7 @@ def test_signal_wait_and_amo_validation_match_reference():
         assert q.stats()["signal_resets"] == 1
 
 
+@pytest.mark.shmem_racy            # replays deliberately-racy sequences
 @pytest.mark.parametrize("chunk", range(2))
 def test_permute_transport_equals_local_transport(chunk):
     """The port's stacked PermuteTransport (p2p.heap_put/heap_get rounds)

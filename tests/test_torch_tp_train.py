@@ -519,8 +519,9 @@ def test_formerly_refused_tp_training_and_decode_run():
     contiguous-cache decode, which raised at tp > 1 citing A10, build
     and run: each family's train step at TP 4 takes a step with a finite
     loss, gemma's 4 heads take the ctx layout's all-replicated attention
-    specs at tp 8, and the decode state builds; posh-micro still raises,
-    citing A12."""
+    specs at tp 8, and the decode state builds; posh-micro, which raised
+    citing A12 before, is the port's config and no ``raise`` of the port
+    cites an A-label."""
     from repro_torch import configs
     from repro_torch.data import SyntheticLM
     from repro_torch.models import lm, registry
@@ -546,8 +547,10 @@ def test_formerly_refused_tp_training_and_decode_run():
     cfg = configs.get_smoke("qwen3-8b")
     st = lm.init_decode_state(cfg, ctx, 1, 8, device="cpu")
     assert st["cache"]["k"].shape[:2] == (cfg.n_layers, 4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        configs.get("posh-micro")
+    from repro_torch.configs import posh_micro
+    from test_torch_imports import raises_citing_a_label
+    assert configs.get("posh-micro") == posh_micro.config()
+    assert raises_citing_a_label() == []
 
 
 def test_collectives_differentiate_by_their_transposes():
